@@ -1,0 +1,51 @@
+"""The port stands alone: tpusr_torch and chip_smoke.py import no JAX, no
+flax and nothing of the JAX package, at import time or lazily."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tpusr"}
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            roots.add(node.args[0].value.split(".")[0])
+    return roots
+
+
+def test_every_port_module_imports_without_jax():
+    code = (
+        "import importlib, pkgutil, sys, tpusr_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(tpusr_torch.__path__, "
+        "'tpusr_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) >= 15            # every module was imported
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*(REPO / "tpusr_torch").rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_source_names_no_jax_import(path):
+    roots = _imported_roots(REPO / path)
+    assert not roots & FORBIDDEN, (path, sorted(roots & FORBIDDEN))
