@@ -9,25 +9,42 @@ its own lines:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions, the TF32 flags (off);
-2. build: every CUDA source of the port, compiled with ``nvcc`` in parallel;
+2. build: every CUDA source of the port, one ``nvcc`` per source, in parallel;
 3. K1 (``conv3x3_int8_requant``) against its plain twin at each shape the
    serving path launches it at (13 trunk layers at the batch from 560x560,
    13 per-patch layers at the escalated patches from 96x96): bit-equal;
-4. K2 (``conv3x3_bias_act``) against its plain twin at the EDSR body shapes
-   and the border-band slab shapes: max |err| <= 1e-4 (fp32 sums in another
-   order), with ``F.conv2d`` fp32 timed beside it as the library yardstick;
-5. the slice at full width: EDSR x4 (16 blocks, 64 filters) and VGG16 (2
-   classes) from ``--seed``, the classifier's last bias centered so both
-   classes get votes, the shipped mode (f32 fused SR -> guarded vote_frac
-   int8 cascade) served by ``PipelineServer`` at batch 16 for 20 requests,
-   with the launch counts the path implies, the SR held against a plain
-   chained EDSR, the int8 stage held against the same stage on K1's twin,
-   and the guard-tripped cascade held against ``per_patch_int8``.
+4. K2 (``conv3x3_bias_act``, f32) against its plain twin at the EDSR body
+   shapes and the border-band slab shapes: max |err| <= 1e-4 (fp32 sums in
+   another order), with ``F.conv2d`` fp32 timed beside it as the library
+   yardstick;
+5. K2's bf16 instance against its twin at the same shapes: within 1 bf16
+   ulp (fp32 sums in another order, each rounded once), ``F.conv2d`` bf16
+   as the yardstick;
+6. K4 (``nlm_denoise``) against its twin at 128^2 (the LR size the classic
+   comparison denoises) and 512^2, 1024^2, 2048^2: ``allclose`` at atol
+   1e-5 (box sums and exp weights in another order);
+7. the serving slice at full width: EDSR x4 (16 blocks, 64 filters) and
+   VGG16 (2 classes) from ``--seed``, the classifier's last bias centered so
+   both classes get votes, the shipped mode (f32 fused SR -> guarded
+   vote_frac int8 cascade) served by ``PipelineServer`` at batch 16 for 20
+   requests, with the launch counts the path implies, the SR held against a
+   plain chained EDSR, the int8 stage held against the same stage on K1's
+   twin, and the guard-tripped cascade held against ``per_patch_int8``;
+8. bf16 SR serving: one batch of 16 through ``make_serving_pipeline(
+   sr_mode="bf16", cascade_int8, vote_frac, frac 0.28125, guard 0.6)`` on
+   the same weights, with 46 K2-bf16 launches, its SR against the f32 SR
+   and its classes against the f32-SR cascade;
+9. the classic-SR comparison: ``run_classic_comparison`` on 16 HR 512^2 /
+   LR 128^2 uint8 pairs made from ``--seed``, with the K4 launches it
+   implies, the reference's score pattern, and one pair's SR images held
+   against the same harness run on the CPU (plain twins).
 
-Before the last line it prints one JSON object with a record per kernel
-(times are for the launches of one served batch of 16 on the healthy path;
-``launches`` counts the whole served run) and the ``nvidia-smi`` line; the
-last line is ``{"ok": true, "device": {...}}``. Any failed check exits
+Each path (7, 8, 9) is driven with the launch counts set to 0 just before
+it and read just after. Before the last line it prints one JSON object
+with a record per kernel (times: K1 and K2 for one served batch of 16 on
+the healthy path, K2-bf16 the same on the bf16 path, K4 one launch at
+128^2; ``launches`` counts the kernel's path) and the ``nvidia-smi`` line;
+the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line.
 """
 
@@ -50,9 +67,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12,
+                  # special-function unit (expf): 16 results per clock per
+                  # SM (NVIDIA's CUDA C++ throughput table, compute
+                  # capability 9.0), 132 SMs at the 1.98 GHz boost clock
+                  "sfu": 16 * 132 * 1.98e9}
 K2_ATOL = 1e-4       # fp32 sums of up to 9*64 terms in another order
+K2_BF16_ULPS = 1     # one rounding to bf16 each, beyond the fp32 order gap
+K4_ATOL = 1e-5       # box sums and exp weights in another order than the twin
 SR_ATOL = 1e-4       # fused polyphase tail vs the chained tail, fp32
+BF16_SR_MIN_PSNR = 35.0  # bf16 keeps 8 significant bits: 2^-9 per rounding
+K4_SIZES = (128, 512, 1024, 2048)
+CLASSIC_PAIRS, CLASSIC_HR, CLASSIC_LR = 16, 512, 128
 
 
 class CheckFailed(Exception):
@@ -79,6 +105,7 @@ class Slice:
     requests: int = 20
     frac: float = 0.25
     guard: float = 0.6
+    bf16_frac: float = 0.28125
 
     @property
     def hr(self) -> int:
@@ -143,21 +170,37 @@ def k2_shapes(cfg: Slice) -> list[tuple[str, tuple, bool, int]]:
     return out
 
 
-def bound(ops: float, nbytes: float, kind: str) -> tuple[float, str]:
-    """Least time in ms for ``ops`` operations and ``nbytes`` of traffic."""
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+def bound(ops: float, nbytes: float, kind: str,
+          sfu_ops: float = 0.0) -> tuple[float, str]:
+    """Least time in ms for ``ops`` operations of ``kind``, ``sfu_ops``
+    special-function operations and ``nbytes`` of traffic."""
+    t_ops = max(ops / PEAK_OPS_PER_S[kind], sfu_ops / PEAK_OPS_PER_S["sfu"]) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def conv_work(shape, elem_bytes: int) -> tuple[float, float]:
+def conv_work(shape, elem_bytes: int, n_vecs: int = 2) -> tuple[float, float]:
     """Operations and bytes of one 3x3 conv launch: each input read once,
-    each output written once, two f32 vectors per channel."""
+    each output written once, ``n_vecs`` f32 vectors per channel."""
     n, h, w, cin, cout = shape
     m = n * h * w
     ops = 2.0 * m * 9 * cin * cout
-    nbytes = elem_bytes * (m * cin + 9 * cin * cout + m * cout) + 8 * cout
+    nbytes = elem_bytes * (m * cin + 9 * cin * cout + m * cout) + 4 * n_vecs * cout
     return ops, nbytes
+
+
+def nlm_work(h: int, w: int) -> tuple[float, float, float]:
+    """fp32 operations, expf calls and bytes of one K4 launch on an (h, w)
+    image. For each of the 168 offsets: a difference and a square on the
+    (h+4, w+4) box-extended window, 4 + 4 adds of the separable box sum,
+    and per pixel the 1/25 scale, the subtraction of 2 sigma^2, the max,
+    the scale by 1/h^2, the weighted add to num and the add to den (8); then
+    one division per pixel. The image is read once and the output written
+    once."""
+    n_off = 168
+    ops = n_off * (2.0 * (h + 4) * (w + 4) + 4.0 * h * (w + 4) + 4.0 * h * w
+                   + 8.0 * h * w) + h * w
+    return ops, float(n_off * h * w), 8.0 * h * w + 8.0
 
 
 # ----------------------------------------------------------------- timing
@@ -268,6 +311,48 @@ def phase_k1(cfg: Slice, dev) -> dict:
     return tot
 
 
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in bf16 ulps, across zero (bit patterns on a monotone line)."""
+    def line(x):
+        bits = x.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (line(a) - line(b)).abs()
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The bf16 spacing at |v| (8 significant bits), float32."""
+    _, e = torch.frexp(v.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def check_k2_bf16(x, k, b, relu, y, yp) -> tuple[int, int, float]:
+    """K2-bf16's output ``y`` against its twin's ``yp`` on bf16 ``x``, ``k``.
+
+    The bf16 instance accumulates the same fp32 FMAs in the same k order as
+    the f32 instance, so ``y`` must equal K2-f32 on the same values rounded
+    once to bf16, bit for bit. Against the twin, the two fp32 sums differ
+    by their summation order (K2-f32 against its twin on the same values
+    measures that gap), and each is rounded once: ``|y - yp| <= ulp +
+    |y32 - yp32|``. Where sums cancel to near zero the gap is many bf16
+    ulps wide; everywhere else it is within one ulp. Returns the largest
+    ulp distance, the count of outputs more than one ulp apart and the
+    largest |y - yp|."""
+    from tpusr_torch.core.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
+    y32 = conv3x3_bias_act(x.float(), k.float(), b, relu)
+    yp32 = conv3x3_bias_act_plain(x.float(), k.float(), b, relu)
+    check(torch.equal(y, y32.bfloat16()),
+          f"K2-bf16 != bf16(K2-f32) at {tuple(x.shape)}->{tuple(y.shape)}: "
+          f"{int((y != y32.bfloat16()).sum())} values")
+    d = (y.float() - yp.float()).abs()
+    tol = K2_BF16_ULPS * bf16_ulp(torch.maximum(y.float().abs(), yp.float().abs())) \
+        + (y32 - yp32).abs()
+    ulps = _bf16_ulps(y, yp)
+    check(bool((d <= tol).all()), f"K2-bf16 vs its twin at {tuple(y.shape)}: "
+                                  f"{int((d > tol).sum())} values beyond 1 ulp "
+                                  f"+ the fp32 order gap")
+    return int(ulps.max()), int((ulps > K2_BF16_ULPS).sum()), float(d.max())
+
+
 def phase_k2(cfg: Slice, dev) -> dict:
     from tpusr_torch.core.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
     g = torch.Generator(device=dev).manual_seed(2)
@@ -301,6 +386,97 @@ def phase_k2(cfg: Slice, dev) -> dict:
         tot["t_" + ("ops" if by == "operations" else by)] += mult * bms
         tot["err"] = max(tot["err"], err)
     return tot
+
+
+def phase_k2_bf16(cfg: Slice, dev) -> dict:
+    from tpusr_torch.core.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
+    g = torch.Generator(device=dev).manual_seed(3)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "err": 0.0, "t_ops": 0.0, "t_bytes": 0.0}
+    for where, shape, relu, mult in k2_shapes(cfg):
+        n, h, w, cin, cout = shape
+        x = torch.randn((n, h, w, cin), generator=g, device=dev).bfloat16()
+        k = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+             * math.sqrt(2.0 / (9 * cin))).bfloat16()
+        b = torch.randn(cout, generator=g, device=dev) * 0.1
+        y = conv3x3_bias_act(x, k, b, relu)
+        yp = conv3x3_bias_act_plain(x, k, b, relu)
+        torch.cuda.synchronize()
+        check(y.dtype == torch.bfloat16, f"K2-bf16 returned {y.dtype}")
+        ulps, n_over, err = check_k2_bf16(x, k, b, relu, y, yp)
+        x_nchw, k_oihw = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).contiguous()
+        b16 = b.bfloat16()
+        ms = time_ms(lambda: conv3x3_bias_act(x, k, b, relu))
+        pms = time_ms(lambda: conv3x3_bias_act_plain(x, k, b, relu))
+        lms = time_ms(lambda: F.conv2d(x_nchw, k_oihw, b16, padding=1))
+        ops, nbytes = conv_work(shape, 2, n_vecs=1)
+        bms, by = bound(ops, nbytes, "bf16")
+        print(f"[K2-bf16] {where:20s} {str(shape):27s} relu={int(relu)} "
+              f"== bf16(K2-f32); vs twin max {ulps} ulp, {n_over} of "
+              f"{y.numel()} beyond 1 ulp, all within the fp32 order gap "
+              f"(max|err| {err:.3g})  kernel {ms:.4f} ms  twin "
+              f"{pms:.4f} ms  F.conv2d bf16 {lms:.4f} ms  bound {bms:.4f} ms "
+              f"({by})  x{mult}/batch")
+        tot["ms"] += mult * ms
+        tot["plain_ms"] += mult * pms
+        tot["library_ms"] += mult * lms
+        tot["bound_ms"] += mult * bms
+        tot["t_" + ("ops" if by == "operations" else by)] += mult * bms
+        tot["err"] = max(tot["err"], err)
+    return tot
+
+
+def smooth_images(g: torch.Generator, n: int, size: int, channels: int,
+                  dev) -> torch.Tensor:
+    """(n, size, size, channels) float32 in [0, 255]: bicubic-upsampled
+    coarse noise plus two sharp-edged rectangles and fine noise per image
+    (textured regions and edges, what the classic algorithms are told
+    apart on)."""
+    from tpusr_torch.core.resize import resize
+    coarse = torch.rand((n, size // 16, size // 16, channels), generator=g,
+                        device=dev)
+    img = resize(coarse, (size, size), "bicubic") * 180.0 + 30.0
+    q = size // 8
+    for i in range(n):
+        r, c = (int(v) for v in torch.randint(0, 4 * q, (2,), generator=g,
+                                              device=dev))
+        img[i, r:r + 3 * q, c:c + 2 * q] += 50.0
+        img[i, c:c + 2 * q, r:r + 4 * q] -= 40.0
+    img += torch.randn(img.shape, generator=g, device=dev) * 3.0
+    return img.clamp(0.0, 255.0)
+
+
+def phase_k4(dev) -> dict:
+    from tpusr_torch.classic.algorithms import estimate_sigma
+    from tpusr_torch.core.nlm import nl_means_denoise, nlm_denoise
+    g = torch.Generator(device=dev).manual_seed(4)
+    rec = {}
+    for size in K4_SIZES:
+        x = (smooth_images(g, 1, size, 1, dev)[0, :, :, 0] / 255.0).contiguous()
+        sigma = estimate_sigma(x)
+        h = 1.15 * sigma
+        y = nlm_denoise(x, sigma, h)
+        yp = nl_means_denoise(x, sigma, h)
+        torch.cuda.synchronize()
+        err = float((y - yp).abs().max())
+        check(bool(torch.isfinite(y).all()) and torch.allclose(
+            y, yp, rtol=0, atol=K4_ATOL),
+            f"K4 differs from its twin at {size}^2: max|err| {err} > {K4_ATOL}")
+        ms = time_ms(lambda: nlm_denoise(x, sigma, h))
+        pms = time_ms(lambda: nl_means_denoise(x, sigma, h), max_iters=5)
+        ops, exps, nbytes = nlm_work(size, size)
+        bms, by = bound(ops, nbytes, "fp32", sfu_ops=exps)
+        print(f"[K4] {size}x{size} sigma {float(sigma):.4f} max|err| {err:.3g}"
+              f"  kernel {ms:.4f} ms  twin {pms:.4f} ms  bound {bms:.4f} ms "
+              f"({by}: {ops / 1e9:.2f} GFLOP fp32 at 67 TFLOP/s, "
+              f"{exps / 1e6:.1f} M expf at {PEAK_OPS_PER_S['sfu'] / 1e12:.2f} "
+              f"T/s, {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+        if size == CLASSIC_LR:          # the shape the classic path launches
+            rec = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "err": 0.0,
+                   "t_ops": bms if by == "operations" else 0.0,
+                   "t_bytes": bms if by == "bytes" else 0.0}
+        rec["err"] = max(rec.get("err", 0.0), err)
+    return rec
 
 
 def image_logodds(probs: torch.Tensor) -> torch.Tensor:
@@ -436,7 +612,8 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
     per_batch_k2 = sum(m for *_, m in k2_shapes(cfg))
     n_layers = per_batch_k1 // 2
     want = {"conv3x3_int8_requant": n_batches * per_batch_k1 + trips * n_layers,
-            "conv3x3_bias_act": n_batches * per_batch_k2}
+            "conv3x3_bias_act": n_batches * per_batch_k2,
+            "conv3x3_bias_act_bf16": 0}
     print(f"[slice] served {len(results)} requests in {n_batches} batches in "
           f"{served_s:.3f} s; guard trips {trips}; launches {launches} "
           f"(expected {want})")
@@ -528,12 +705,162 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
           f"stages (device ms) "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f"; peak memory {peak_gb:.1f} GB")
+    return launches, {"edsr": edsr, "vgg": vgg, "calib": calib, "batch": batch,
+                      "sr_f32": sr, "pipe": pipe}
+
+
+def phase_bf16(cfg: Slice, dev, state: dict, sync, card: str) -> dict:
+    """One batch of 16 through the bf16 SR serving mode on the slice's
+    weights and calibration patches."""
+    from tpusr_torch.core import conv3x3
+    from tpusr_torch.pipeline import make_serving_pipeline
+    from tpusr_torch.pipeline.cascade import make_cascade_votes
+
+    def build(frac, guard, sr_mode="bf16"):
+        return make_serving_pipeline(
+            state["edsr"], state["vgg"], (cfg.lr, cfg.lr), cfg.scale,
+            patch=cfg.patch, stride=cfg.stride, sr_mode=sr_mode,
+            clf_mode="cascade_int8", calib_patches=state["calib"],
+            cascade_escalate_frac=frac, cascade_escalate_score="vote_frac",
+            cascade_guard_threshold=guard, device=dev)
+
+    pipe = build(cfg.bf16_frac, cfg.guard)
+    batch = state["batch"]
+    votes = pipe.cascade_votes
+    # ---- the main path: one full batch through the bf16 serving mode ----
+    conv3x3.reset_launch_counts()
+    sr, cls, conf = pipe(batch, n_valid=cfg.batch)
+    sync()
+    launches = dict(conv3x3.LAUNCHES)
+    trips = votes.guard_trips
+    per_batch_k2 = sum(m for *_, m in k2_shapes(cfg))
+    n_layers = len(k1_shapes(cfg)) // 2
+    want = {"conv3x3_int8_requant": (2 + trips) * n_layers,
+            "conv3x3_bias_act": 0, "conv3x3_bias_act_bf16": per_batch_k2}
+    print(f"[bf16] sr_mode=bf16 cascade_int8 vote_frac frac {cfg.bf16_frac} "
+          f"guard {cfg.guard}: one batch of {cfg.batch}; guard trips {trips}; "
+          f"launches {launches} (expected {want})")
+    check(launches == want, f"bf16 launch counts {launches} != {want}")
+    check(votes.last_escalated.numel()
+          == math.ceil(cfg.batch * cfg.bf16_frac - 1e-9), "bf16 escalation count")
+    check(sr.dtype == torch.float32 and tuple(sr.shape)
+          == (cfg.batch, cfg.hr, cfg.hr, 3), f"bf16 SR {sr.dtype} {tuple(sr.shape)}")
+    check(bool(torch.isfinite(sr).all()) and float(sr.min()) >= 0.0
+          and float(sr.max()) <= 1.0, "bf16 SR not finite in [0, 1]")
+    check(bool(((conf >= 0) & (conf <= 1)).all()), "confidence out of [0, 1]")
+
+    # the bf16 SR against the f32 SR on the same LR batch, and the classes
+    # against the f32-SR cascade with the same settings
+    sr32 = state["sr_f32"]
+    mse = float(((sr - sr32) ** 2).mean())
+    psnr = 10.0 * math.log10(1.0 / max(mse, 1e-30))
+    check(psnr >= BF16_SR_MIN_PSNR, f"bf16 SR vs f32 SR PSNR {psnr:.2f} dB "
+                                    f"< {BF16_SR_MIN_PSNR}")
+    _, cls32, _ = build(cfg.bf16_frac, cfg.guard, "f32")(batch, n_valid=cfg.batch)
+    n_diff = int((cls != cls32).sum())
+    unguarded = build(cfg.bf16_frac, None)
+    with torch.inference_mode():
+        guarded_ms = min(host_ms(lambda: pipe(batch, n_valid=cfg.batch), sync)
+                         for _ in range(3))
+        silent_ms = min(host_ms(lambda: unguarded(batch, n_valid=cfg.batch), sync)
+                        for _ in range(3))
+        sr_ms = time_ms(lambda: pipe.sr_apply(batch), max_iters=5)
+    print(f"[bf16] SR PSNR against the f32 SR {psnr:.2f} dB (min "
+          f"{BF16_SR_MIN_PSNR}); classes {cls.tolist()}, {n_diff} of "
+          f"{cfg.batch} differ from the f32-SR cascade {cls32.tolist()}")
+    print(f"[bf16] {card}, batch {cfg.batch} (host clock, best of 3): guard on "
+          f"{guarded_ms:.2f} ms per batch, {cfg.batch / guarded_ms * 1e3:.1f} "
+          f"img/s (tripped {trips} of 1); guard off {silent_ms:.2f} ms, "
+          f"{cfg.batch / silent_ms * 1e3:.1f} img/s; bf16 SR stage "
+          f"{sr_ms:.2f} ms (device)")
     return launches
 
 
-def kernel_record(name, replaces, launches, tot, library) -> dict:
+def phase_classic(dev, seed: int, sync, card: str) -> int:
+    """The classic-SR comparison on the card over 16 pairs; returns the K4
+    launches it made."""
+    from tpusr_torch.classic.harness import (CLASSIC_ALGORITHMS, pair_metrics,
+                                             run_classic_comparison, sr_images)
+    from tpusr_torch.core import nlm
+    from tpusr_torch.core.resize import resize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hr = torch.round(smooth_images(g, CLASSIC_PAIRS, CLASSIC_HR, 3, dev))
+    lr = torch.round(resize(hr, (CLASSIC_LR, CLASSIC_LR), "area")).clamp(0, 255)
+    hr_u8 = hr.to(torch.uint8).cpu().numpy()
+    lr_u8 = lr.to(torch.uint8).cpu().numpy()
+    del hr, lr
+    repeats = 1
+
+    # ---- the main path: the comparison over 16 pairs on the card ----
+    nlm.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, ranked, _, stats = run_classic_comparison(
+        list(hr_u8), list(lr_u8), time_repeats=repeats, device=dev)
+    sync()
+    wall_s = time.perf_counter() - t0
+    launches = nlm.LAUNCHES["nlm_denoise"]
+    # per pair: the scored run, the warm-up and the timed repeats; once per
+    # shape: the memory measurement
+    want = CLASSIC_PAIRS * (2 + repeats) + 1
+    print(f"[classic] {CLASSIC_PAIRS} pairs HR {CLASSIC_HR}^2 / LR "
+          f"{CLASSIC_LR}^2 in {wall_s:.1f} s; K4 launches {launches} "
+          f"(expected {want})")
+    check(launches == want, f"K4 launches {launches} != {want}")
+    check(set(summary) == set(CLASSIC_ALGORITHMS), f"algorithms {set(summary)}")
+    for alg in CLASSIC_ALGORITHMS:
+        check(all(math.isfinite(v) for v in stats["psnr"][alg]),
+              f"{alg}: PSNR not finite")
+        check(all(t > 0 for t in stats["time"][alg]), f"{alg}: time")
+        check(all(m > 0 for m in stats["memory"][alg]), f"{alg}: memory")
+    # the reference's quirk: NLM's [0, 1] output scored against [0, 255]
+    check(summary["nlm"]["psnr_mean"] < 10.0,
+          f"NLM PSNR {summary['nlm']['psnr_mean']} >= 10")
+    check(summary["bicubic"]["psnr_mean"] > 20.0,
+          f"bicubic PSNR {summary['bicubic']['psnr_mean']} <= 20")
+
+    # one pair on the card against the same harness on the CPU (plain twins)
+    cpu = torch.device("cpu")
+    hr0, lr0 = (torch.as_tensor(a.astype(np.float32)) for a in (hr_u8[0], lr_u8[0]))
+    with torch.inference_mode():
+        on_card = sr_images(hr0.to(dev), lr0.to(dev))
+        on_cpu = sr_images(hr0, lr0)
+    worst = {}
+    for alg in CLASSIC_ALGORITHMS:
+        a, b = on_card[alg].cpu(), on_cpu[alg]
+        d = (a - b).abs()
+        if alg == "nlm":     # a float image: K4 and the lanczos matmul
+            check(float(d.max()) <= 1e-4, f"nlm on the card vs the CPU: "
+                                          f"{float(d.max())}")
+            worst[alg] = f"{float(d.max()):.2g}"
+        else:                # stored uint8 values: a level at most, <= 0.1%
+            n = int((d > 0).sum())
+            check(float(d.max()) <= 1.0 and n <= 0.001 * d.numel(),
+                  f"{alg} on the card vs the CPU: {n} values differ, max "
+                  f"{float(d.max())}")
+            worst[alg] = n
+    metrics = pair_metrics(hr0, on_cpu)
+    psnr_cpu = {a: float(metrics[a]["psnr"]) for a in CLASSIC_ALGORITHMS}
+    print(f"[classic] pair 0 on the card vs the CPU: values one level apart "
+          f"{worst}; PSNR card "
+          + ", ".join(f"{a} {stats['psnr'][a][0]:.3f}" for a in CLASSIC_ALGORITHMS)
+          + "; CPU " + ", ".join(f"{a} {psnr_cpu[a]:.3f}" for a in CLASSIC_ALGORITHMS))
+    for alg in CLASSIC_ALGORITHMS:
+        check(abs(stats["psnr"][alg][0] - psnr_cpu[alg]) <= 1e-3
+              * abs(psnr_cpu[alg]) + 1e-3, f"{alg}: PSNR card vs CPU")
+    print(f"[classic] {card}: ranking "
+          + ", ".join(f"{a} {s:.4f}" for a, s in ranked))
+    print("[classic] per algorithm (mean over pairs): "
+          + "; ".join(f"{a} {summary[a]['time_mean'] * 1e3:.3f} ms "
+                      f"{summary[a]['memory_mean'] / 1e6:.1f} MB "
+                      f"PSNR {summary[a]['psnr_mean']:.2f} SSIM "
+                      f"{summary[a]['ssim_mean']:.4f}" for a in CLASSIC_ALGORITHMS))
+    return launches
+
+
+def kernel_record(name, source, replaces, launches, tot, library) -> dict:
     return {"name": name, "route": "cuda",
-            "source": "tpusr_torch/csrc/conv3x3.cu", "replaces": replaces,
+            "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": tot["err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
@@ -565,16 +892,30 @@ def main() -> int:
         phase_build()
         k1 = phase_k1(cfg, dev)
         k2 = phase_k2(cfg, dev)
-        launches = phase_slice(cfg, dev, args.seed, torch.cuda.synchronize,
-                               card)
+        k2b = phase_k2_bf16(cfg, dev)
+        k4 = phase_k4(dev)
+        sync = torch.cuda.synchronize
+        launches, state = phase_slice(cfg, dev, args.seed, sync, card)
+        bf16_launches = phase_bf16(cfg, dev, state, sync, card)
+        del state
+        torch.cuda.empty_cache()
+        k4_launches = phase_classic(dev, args.seed, sync, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": [
-        kernel_record("conv3x3_int8_requant", "tpusr/core/pallas_conv.py:78",
+        kernel_record("conv3x3_int8_requant", "conv3x3.cu",
+                      "tpusr/core/pallas_conv.py:78",
                       launches["conv3x3_int8_requant"], k1, None),
-        kernel_record("conv3x3_bias_act", "tpusr/core/pallas_conv.py:123",
+        kernel_record("conv3x3_bias_act", "conv3x3.cu",
+                      "tpusr/core/pallas_conv.py:123",
                       launches["conv3x3_bias_act"], k2, k2["library_ms"]),
+        kernel_record("conv3x3_bias_act_bf16", "conv3x3.cu",
+                      "tpusr/core/pallas_conv.py:123",
+                      bf16_launches["conv3x3_bias_act_bf16"], k2b,
+                      k2b["library_ms"]),
+        kernel_record("nlm_denoise", "nlm.cu", "tpusr/core/pallas_nlm.py:81",
+                      k4_launches, k4, None),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (tpusr_torch/csrc/conv3x3.cu) against their plain
-twins on the card, at edge shapes the serving path does not reach: Cin and
-Cout off the 16-byte vector paths, odd spatial sizes, a single pixel.
+"""The port's CUDA kernels (tpusr_torch/csrc/conv3x3.cu, nlm.cu) against
+their plain twins on the card, at edge shapes the main paths do not reach:
+Cin and Cout off the 16-byte vector paths, odd spatial sizes, a single
+pixel; for K4 a tiny image, a single row and a size off the 16-pixel tile.
 
 These tests need an NVIDIA card with sm_90a and ``nvcc``; without a card
 they skip. ``tests/conftest.py`` imports JAX and hides CUDA devices, so on
@@ -11,10 +12,12 @@ the card run them without it:
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from tpusr_torch.core import conv3x3 as k
+from tpusr_torch.core import nlm
 from tpusr_torch.device import fp32_math
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +85,64 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         k.conv3x3_int8_requant(x, kern.to(torch.int8), b, b)
     assert k.LAUNCHES == before
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", K2_SHAPES + [(2, 6, 6, 64, 64)])
+def test_k2_bf16_kernel_matches_twin(cuda, shape, relu):
+    """K2-bf16 runs K2-f32's fp32 FMAs in K2-f32's order on the bf16 values,
+    so it is K2-f32 rounded once, bit for bit; against the twin it is
+    within one bf16 ulp beyond the fp32 summation-order gap (chip_smoke.py
+    ``check_k2_bf16``)."""
+    from chip_smoke import check_k2_bf16
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + relu + 7)
+    x = torch.randn((n, h, w, cin), generator=g, device=cuda).bfloat16()
+    kern = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+            / math.sqrt(9 * cin)).bfloat16()
+    b = torch.randn(cout, generator=g, device=cuda) * 0.1
+    before = k.LAUNCHES["conv3x3_bias_act_bf16"]
+    y = k.conv3x3_bias_act(x, kern, b, relu)
+    assert k.LAUNCHES["conv3x3_bias_act_bf16"] == before + 1
+    assert y.dtype == torch.bfloat16
+    fp32_math()
+    yp = k.conv3x3_bias_act_plain(x, kern, b, relu)
+    torch.cuda.synchronize()
+    check_k2_bf16(x, kern, b, relu, y, yp)      # raises CheckFailed
+
+
+@pytest.mark.parametrize("hw", [(9, 9), (1, 2048), (513, 511), (16, 33)])
+def test_k4_kernel_matches_twin(cuda, hw):
+    rng = np.random.default_rng(sum(hw))
+    img = np.clip(0.5 + rng.normal(0, 0.1, hw), 0, 1).astype(np.float32)
+    x = torch.from_numpy(img).to(cuda)
+    sigma = torch.tensor(0.1, device=cuda)
+    before = nlm.LAUNCHES["nlm_denoise"]
+    y = nlm.nlm_denoise(x, sigma, 1.15 * sigma)
+    assert nlm.LAUNCHES["nlm_denoise"] == before + 1
+    fp32_math()
+    yp = nlm.nl_means_denoise(x, sigma, 1.15 * sigma)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    # exp weights and box sums in another order than the twin's convs
+    assert float((y - yp).abs().max()) <= 1e-5
+
+
+def test_k4_and_k2_bf16_refuse_what_they_do_not_take(cuda):
+    before = (dict(k.LAUNCHES), dict(nlm.LAUNCHES))
+    img = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        nlm.nlm_denoise(img[None], 0.1, 0.1)
+    with pytest.raises(TypeError):
+        nlm.nlm_denoise(img.double(), 0.1, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        nlm.nlm_denoise(torch.zeros((8, 16), device=cuda)[:, ::2], 0.1, 0.1)
+    x = torch.zeros((1, 4, 4, 8), device=cuda, dtype=torch.bfloat16)
+    kern = torch.zeros((3, 3, 8, 4), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        k.conv3x3_bias_act(x, kern.float(), torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError):
+        k.conv3x3_bias_act(x, kern, torch.zeros(4, device=cuda).bfloat16())
+    with pytest.raises(ValueError):
+        k.conv3x3_bias_act(x[0], kern, torch.zeros(4, device=cuda))
+    assert (dict(k.LAUNCHES), dict(nlm.LAUNCHES)) == before

@@ -36,11 +36,16 @@ def test_every_port_module_imports_without_jax():
         "for m in mods: importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 15            # every module was imported
+    mods = set(out.stdout.split())
+    # every module was imported, the classic-SR subpackages included
+    assert len(mods) >= 27, sorted(mods)
+    assert {"tpusr_torch.classic.algorithms", "tpusr_torch.classic.harness",
+            "tpusr_torch.metrics.image", "tpusr_torch.metrics.stats",
+            "tpusr_torch.core.nlm", "tpusr_torch.core.resize"} <= mods
 
 
 @pytest.mark.parametrize("path", sorted(

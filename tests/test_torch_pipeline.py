@@ -159,8 +159,7 @@ def test_per_patch_f32_matches_jax():
 
 def test_unported_modes_raise_naming_the_roadmap(slice_inputs):
     sv, cv, _, calib = slice_inputs
-    for kw in ({"sr_mode": "bf16"}, {"sr_mode": "int8"},
-               {"clf_mode": "shared_trunk_f32"}):
+    for kw in ({"sr_mode": "int8"}, {"clf_mode": "shared_trunk_f32"}):
         args = {"sr_mode": "f32", "clf_mode": "cascade_int8", **kw}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_serving_pipeline(

@@ -1,7 +1,9 @@
 """Report how far the port's serving slice drifts from the JAX package end to
 end, and how far JAX drifts from itself, on the inputs of
 tests/test_torch_pipeline.py (EDSR x4 2 blocks 8 filters, narrow VGG16, 8 LR
-images of 16x16, patch 32, stride 16). Prints the counts that ROADMAP.md
+images of 16x16, patch 32, stride 16), in f32 and bf16 SR; and how many
+stored SR pixels of the classic comparison differ by a grey level on the
+pairs of tests/test_torch_classic.py. Prints the counts that ROADMAP.md
 (queue 3) and PERF.md record. Not a test: it asserts nothing.
 
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py
@@ -18,8 +20,14 @@ import numpy as np  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import test_torch_bf16 as B  # noqa: E402
+import test_torch_classic as C  # noqa: E402
 import test_torch_pipeline as T  # noqa: E402
+import torch  # noqa: E402
 from tpusr.models import quant as jq  # noqa: E402
+from tpusr_torch.bridge import edsr_from_flax, vgg16_from_flax  # noqa: E402
+from tpusr_torch.classic.harness import CLASSIC_ALGORITHMS, sr_images  # noqa: E402
+from tpusr_torch.pipeline import make_serving_pipeline  # noqa: E402
 
 MODES = ("cascade_int8", "per_patch_int8", "shared_trunk_int8")
 
@@ -67,6 +75,52 @@ def main():
     b5_jit = np.asarray(jax.jit(trunk)(sr_op))
     print(f"JAX int8 trunk on the same SR, jit vs op by op: "
           f"{int((b5_jit != b5_op).sum())} of {b5_op.size} values differ")
+
+
+    bf16_report(sv, cv, lr, calib)
+    classic_report()
+
+
+def bf16_report(sv, cv, lr, calib):
+    """sr_mode='bf16' cascade: the port against JAX's bf16 pipeline, and
+    JAX's bf16 pipeline against its own f32 pipeline, with the per-patch
+    class-1 votes (of 16) behind each image's class."""
+    for guard in (0.6, None):
+        kw = dict(patch=T.PATCH, stride=T.STRIDE, clf_mode="cascade_int8",
+                  calib_patches=calib,
+                  **{**T.CASCADE, "cascade_guard_threshold": guard})
+        pipe = make_serving_pipeline(
+            edsr_from_flax(sv, T.SCALE, device="cpu"),
+            vgg16_from_flax(cv, device="cpu"), (T.LR, T.LR), T.SCALE,
+            sr_mode="bf16", device="cpu", **kw)
+        sr_t, cls_t, _ = pipe(lr)
+        out = {m: T.jax_make_pipeline(sv, cv, (T.LR, T.LR), T.SCALE, sr_mode=m,
+                                      **kw)(lr) for m in ("bf16", "f32")}
+        sr_j, cls_j = np.asarray(out["bf16"][0]), np.asarray(out["bf16"][1])
+        cls_f = np.asarray(out["f32"][1])
+        print(f"bf16 cascade guard={guard}: port vs JAX bf16: SR PSNR "
+              f"{B._psnr(sr_t.numpy(), sr_j):.2f} dB, class flips "
+              f"{np.flatnonzero(cls_t.numpy() != cls_j).tolist()} of 8, guard "
+              f"trips port {pipe.cascade_votes.guard_trips}; JAX bf16 vs JAX "
+              f"f32 class flips {np.flatnonzero(cls_j != cls_f).tolist()}; "
+              f"class-1 per-patch votes port "
+              f"{B._per_patch_class1_votes(pipe, sr_t)}, JAX bf16 SR "
+              f"{B._per_patch_class1_votes(pipe, torch.from_numpy(sr_j.copy()))}")
+
+
+def classic_report():
+    """Stored SR values one grey level apart, port against JAX, per pair of
+    the classic tests."""
+    for seed in (3, 5, 6):
+        hr, lr = C.synthetic_pair(seed)
+        port = sr_images(torch.from_numpy(hr.astype(np.float32)),
+                         torch.from_numpy(lr.astype(np.float32)))
+        ref = C._jax_sr_images(hr, lr)
+        counts = {a: int((port[a].numpy() != ref[a]).sum())
+                  for a in CLASSIC_ALGORITHMS if a != "nlm"}
+        nlm = float(np.abs(port["nlm"].numpy() - ref["nlm"]).max())
+        print(f"classic pair seed {seed} (HR {C.HR}^2, LR {C.LR}^2): stored "
+              f"values one level apart {counts}; NLM max|d| {nlm:.3g}")
 
 
 if __name__ == "__main__":

@@ -35,6 +35,11 @@ SIGNATURES = {
                                         _P],
         "conv3x3_bias_act_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                         _P],
+        "conv3x3_bias_act_bf16_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _P],
+    },
+    "nlm": {
+        "nlm_denoise_launch": [_P, _P, _P, _I, _I, _P],
     },
 }
 

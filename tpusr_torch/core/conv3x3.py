@@ -4,9 +4,11 @@
   ``tpusr/core/pallas_conv.py::conv3x3_int8_requant``: int8 x int8 -> int32,
   then ``clip(acc * rescale + bias_over_out, 0, 127)`` and a truncating int8
   cast. It runs every conv of the int8 VGG16 backbone.
-- ``conv3x3_bias_act`` (K2) replaces ``pallas_conv.py::conv3x3_bias_act`` for
-  float32: fp32 accumulation, + bias, optional ReLU. It runs every 3x3 conv of
-  the f32 EDSR forward.
+- ``conv3x3_bias_act`` (K2) replaces ``pallas_conv.py::conv3x3_bias_act``:
+  float32 or bfloat16 x and kernel, float32 bias, fp32 accumulation, + bias
+  and optional ReLU in fp32, one cast to x's dtype. It runs every 3x3 conv of
+  the EDSR forward, f32 and bf16; each dtype is its own kernel instance with
+  its own launch count.
 
 Both take the JAX package's layouts: x (N, H, W, Cin) NHWC and kernels
 (3, 3, Cin, Cout) HWIO. Each wrapper launches the hand-written CUDA kernel of
@@ -25,7 +27,8 @@ import torch.nn.functional as F
 from tpusr_torch.bridge import hwio_to_oihw
 from tpusr_torch.core import _build
 
-LAUNCHES = {"conv3x3_int8_requant": 0, "conv3x3_bias_act": 0}
+LAUNCHES = {"conv3x3_int8_requant": 0, "conv3x3_bias_act": 0,
+            "conv3x3_bias_act_bf16": 0}
 _launch_lock = threading.Lock()   # a server's worker thread launches too
 
 
@@ -116,32 +119,48 @@ def conv3x3_int8_requant(x, w_q, rescale, bias_over_out):
 
 
 def conv3x3_bias_act_plain(x, kernel, bias, relu: bool = False):
-    """The plain twin of K2: ``F.conv2d`` in x's float dtype + bias (+ ReLU).
-    The caller turns TF32 off (``tpusr_torch.device``)."""
+    """The plain twin of K2: ``F.conv2d`` + bias (+ ReLU) in x's float dtype,
+    except that bf16 x and kernel are convolved in fp32 (on their exact
+    values), with bias and ReLU in fp32 and one cast back to bf16, as K2's
+    bf16 contract has it. The caller turns TF32 off
+    (``tpusr_torch.device``)."""
+    out_dtype = x.dtype
+    if out_dtype == torch.bfloat16:
+        x, kernel = x.float(), kernel.float()
     y = _nhwc(F.conv2d(_nchw(x), hwio_to_oihw(kernel), padding=1)) + bias
-    return torch.relu(y) if relu else y
+    y = torch.relu(y) if relu else y
+    return y.to(out_dtype)
+
+
+_K2_INSTANCES = {torch.float32: ("conv3x3_bias_act", "f32"),
+                 torch.bfloat16: ("conv3x3_bias_act_bf16", "bf16")}
 
 
 def conv3x3_bias_act(x, kernel, bias, relu: bool = False):
-    """3x3 SAME float32 conv + bias (+ ReLU) (K2).
+    """3x3 SAME float conv + bias (+ ReLU) (K2).
 
-    x: (N, H, W, Cin) float32; kernel: (3, 3, Cin, Cout) float32; bias:
-    (Cout,) float32. Accumulates in fp32 with plain FMAs; returns float32.
+    x: (N, H, W, Cin) float32 or bfloat16; kernel: (3, 3, Cin, Cout) of x's
+    dtype; bias: (Cout,) float32. Accumulates in fp32 with plain FMAs, adds
+    the bias (and takes the ReLU) in fp32 and returns x's dtype, rounded
+    once.
     """
-    name = "conv3x3_bias_act"
-    cout = _check_args(name, x, kernel, (bias,), torch.float32, torch.float32)
+    # any other dtype is refused by _check_args as not float32
+    dtype = x.dtype if x.dtype in _K2_INSTANCES else torch.float32
+    name, tag = _K2_INSTANCES[dtype]
+    cout = _check_args(name, x, kernel, (bias,), dtype, dtype)
     if x.device.type == "cpu":
         return conv3x3_bias_act_plain(x, kernel, bias, relu)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     _check_cuda(name, x, kernel, bias)
     n, h, w, cin = x.shape
-    y = torch.empty((n, h, w, cout), dtype=torch.float32, device=x.device)
+    y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     lib = _build.load("conv3x3")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check("conv3x3", lib.conv3x3_bias_act_f32_launch(
+    launch = getattr(lib, f"conv3x3_bias_act_{tag}_launch")
+    _build.check("conv3x3", launch(
         x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
         n, h, w, cin, cout, int(relu), stream))
     _count_launch(name)

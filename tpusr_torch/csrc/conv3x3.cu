@@ -1,6 +1,6 @@
 // 3x3 SAME convolution as an implicit GEMM with a fused epilogue, for sm_90a.
 //
-// One templated body, two entry points:
+// One templated body, three entry points:
 //
 //   conv3x3_int8_requant_launch  replaces the Pallas kernel
 //       tpusr/core/pallas_conv.py::conv3x3_int8_requant (body
@@ -12,6 +12,11 @@
 //       tpusr/core/pallas_conv.py::conv3x3_bias_act (epilogue
 //       _bias_relu_epilogue) for float32: fp32 FMAs (no TF32), + bias,
 //       optional ReLU.
+//   conv3x3_bias_act_bf16_launch  replaces the same Pallas kernel for
+//       bfloat16, with its contract (pallas_conv.py:139-143): bf16 x and
+//       kernel, f32 bias, fp32 accumulation, + bias and ReLU in fp32, one
+//       round-to-nearest-even cast to bf16 at the store. The products run
+//       as fp32 FMAs on the exact fp32 values of the bf16 operands.
 //
 // Layouts are the JAX package's: x (N, H, W, Cin) NHWC, weights
 // (3, 3, Cin, Cout) HWIO, which is already the (K = 9*Cin, Cout) GEMM
@@ -19,13 +24,15 @@
 // output pixel (n, oh, ow).
 //
 // What bounds it on this card: at the VGG16 and EDSR widths (Cin, Cout >= 64)
-// both kernels are compute-bound (arithmetic intensity > 100 op/byte). The
+// every instance is compute-bound (arithmetic intensity > 100 op/byte). The
 // Pallas kernel ran the GEMM on the MXU; this first Hopper port runs it on the
-// CUDA cores (__dp4a for int8, FFMA for fp32), so it sits well below the
-// tensor-core roofline. The design keeps every byte that is not an input or
-// output out of device memory: the im2col tile is gathered into shared
-// memory per block (the Pallas version padded the whole input in HBM first;
-// here SAME padding is a bounds check), and the int32/fp32 accumulators
+// CUDA cores (__dp4a for int8, FFMA for fp32 and for bf16 widened to fp32),
+// so it sits well below the tensor-core roofline, the bf16 instance furthest
+// (its bound is the 989 TFLOP/s bf16 tensor-core rate). The design keeps
+// every byte that is not an input or output out of device memory: the
+// im2col tile is gathered into shared memory per block (the Pallas version
+// padded the whole input in HBM first; here SAME padding is a bounds
+// check), and the int32/fp32 accumulators
 // never leave registers -- the requant or bias/ReLU epilogue runs before the
 // one store. Tensor cores (wgmma, TMA) are later work.
 //
@@ -34,8 +41,11 @@
 // chunks of BK elements. A fast path loads 16-byte vectors when a chunk lies
 // inside one tap (Cin % BK == 0) and when Cout % 4 == 0; a generic
 // element-wise path covers the rest (Cin = 3 for the first layer, Cout = 3
-// for the EDSR tail).
+// for the EDSR tail). A shared-memory word holds PACK consecutive k of one
+// pixel or channel: 4 int8 for __dp4a, 2 bf16, or 1 fp32, so every path
+// moves 16 words per K chunk.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +67,20 @@ struct Int8Path {
   }
 };
 
+struct Bf16Path {
+  using T = uint16_t;    // the bits of one bf16 in HBM
+  using Word = unsigned; // 2 consecutive k: the lower k in the low half
+  using Acc = float;
+  static constexpr int PACK = 2;
+  static constexpr int BK = 32;
+  // a bf16 is the upper half of the fp32 with the same value
+  __device__ static __forceinline__ Acc mac(Word a, Word b, Acc c) {
+    c = __fmaf_rn(__uint_as_float(a << 16), __uint_as_float(b << 16), c);
+    return __fmaf_rn(__uint_as_float(a & 0xffff0000u),
+                     __uint_as_float(b & 0xffff0000u), c);
+  }
+};
+
 struct F32Path {
   using T = float;
   using Word = float;
@@ -73,6 +97,10 @@ template <class Word>
 __device__ __forceinline__ Word from_bits(unsigned u);
 template <>
 __device__ __forceinline__ int from_bits<int>(unsigned u) { return (int)u; }
+template <>
+__device__ __forceinline__ unsigned from_bits<unsigned>(unsigned u) {
+  return u;
+}
 template <>
 __device__ __forceinline__ float from_bits<float>(unsigned u) {
   return __uint_as_float(u);
@@ -97,6 +125,8 @@ __device__ __forceinline__ typename P::Word pack_elems(const typename P::T* e) {
     return (int)((uint32_t)(uint8_t)e[0] | ((uint32_t)(uint8_t)e[1] << 8) |
                  ((uint32_t)(uint8_t)e[2] << 16) |
                  ((uint32_t)(uint8_t)e[3] << 24));
+  } else if constexpr (P::PACK == 2) {
+    return (unsigned)e[0] | ((unsigned)e[1] << 16);
   } else {
     return e[0];
   }
@@ -212,6 +242,34 @@ conv3x3_gemm(const typename P::T* __restrict__ x,
           sB[g][c4 * 4 + j] = pack_elems<P>(e);
         }
       }
+    } else if constexpr (P::PACK == 2) {
+      // thread -> 2 rows (k, k+1) x 4 channels, interleaved into one word
+      // per channel
+      const int g = tid / 16, c4 = tid % 16;
+      const int co = n0 + c4 * 4, k = k0 + 2 * g;
+      if (b_vec) {
+        uint2 r0 = make_uint2(0u, 0u), r1 = make_uint2(0u, 0u);
+        if (co < Cout && k < K)
+          r0 = *reinterpret_cast<const uint2*>(w + (long long)k * Cout + co);
+        if (co < Cout && k + 1 < K)
+          r1 = *reinterpret_cast<const uint2*>(w + (long long)(k + 1) * Cout +
+                                               co);
+        sB[g][c4 * 4 + 0] = __byte_perm(r0.x, r1.x, 0x5410);
+        sB[g][c4 * 4 + 1] = __byte_perm(r0.x, r1.x, 0x7632);
+        sB[g][c4 * 4 + 2] = __byte_perm(r0.y, r1.y, 0x5410);
+        sB[g][c4 * 4 + 3] = __byte_perm(r0.y, r1.y, 0x7632);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          T e[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            e[i] = (k + i < K && co + j < Cout)
+                       ? w[(long long)(k + i) * Cout + co + j]
+                       : T(0);
+          sB[g][c4 * 4 + j] = pack_elems<P>(e);
+        }
+      }
     } else {
       // thread -> one row (k) x 4 channels
       const int row = tid / 16, c4 = tid % 16;
@@ -302,6 +360,21 @@ struct BiasActEpi {
   }
 };
 
+struct BiasActBf16Epi {
+  using Out = uint16_t;
+  __device__ static __forceinline__ Out apply(float acc, float, float b,
+                                              int relu) {
+    float v = __fadd_rn(acc, b);
+    if (relu) v = fmaxf(v, 0.f);
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  __device__ static __forceinline__ void store4(Out* dst, const Out* o) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2((unsigned)o[0] | ((unsigned)o[1] << 16),
+                   (unsigned)o[2] | ((unsigned)o[3] << 16));
+  }
+};
+
 dim3 grid_for(int N, int H, int W, int Cout) {
   const long long M = (long long)N * H * W;
   return dim3((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
@@ -329,6 +402,17 @@ extern "C" int conv3x3_bias_act_f32_launch(const void* x, const void* w,
       <<<grid_for(N, H, W, Cout), NT, 0, (cudaStream_t)stream>>>(
           (const float*)x, (const float*)w, nullptr, (const float*)bias,
           (float*)y, N, H, W, Cin, Cout, relu);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int conv3x3_bias_act_bf16_launch(const void* x, const void* w,
+                                            const void* bias, void* y, int N,
+                                            int H, int W, int Cin, int Cout,
+                                            int relu, void* stream) {
+  conv3x3_gemm<Bf16Path, BiasActBf16Epi>
+      <<<grid_for(N, H, W, Cout), NT, 0, (cudaStream_t)stream>>>(
+          (const uint16_t*)x, (const uint16_t*)w, nullptr, (const float*)bias,
+          (uint16_t*)y, N, H, W, Cin, Cout, relu);
   return (int)cudaGetLastError();
 }
 

@@ -77,15 +77,29 @@ class EDSR(nn.Module):
             "up0", "up1", "tail")
         return {n: getattr(self, n) for n in names}
 
-    def body_out(self, x: torch.Tensor) -> torch.Tensor:
-        """Head, residual blocks, body conv and the global skip."""
-        head = self.head(x)
-        y = head
+    def conv_params(self, dtype=torch.float32) -> dict:
+        """Conv name (``head``, ``res{i}.conv1``, ...) -> (kernel in
+        ``dtype``, bias rounded to ``dtype`` and held in float32, as K2
+        takes it). For float32 these are the module's own tensors."""
+        return {name: (m.kernel.to(dtype), m.bias.to(dtype).float())
+                for name, m in self.named_modules() if isinstance(m, Conv3x3)}
+
+    def body_out(self, x: torch.Tensor, params: dict | None = None
+                 ) -> torch.Tensor:
+        """Head, residual blocks, body conv and the global skip, in x's
+        dtype, with ``params`` from ``conv_params`` (by default the
+        module's own float32 weights)."""
+        params = self.conv_params() if params is None else params
+
+        def conv(name, t, relu=False):
+            k, b = params[name]
+            return conv3x3_bias_act(t.contiguous(), k, b, relu)
+
+        head = y = conv("head", x)
         for i in range(self.num_res_blocks):
-            blk = getattr(self, f"res{i}")
-            t = blk.conv2(blk.conv1(y, relu=True))
+            t = conv(f"res{i}.conv2", conv(f"res{i}.conv1", y, relu=True))
             y = y + self.res_scaling * t
-        return self.body(y) + head
+        return conv("body", y) + head
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.body_out(x)

@@ -1,5 +1,5 @@
-"""EDSR fast forward with the composed polyphase tail (port of the f32 path of
-``tpusr/models/edsr_fast.py``).
+"""EDSR fast forward with the composed polyphase tail (port of
+``tpusr/models/edsr_fast.py``), in float32 or bfloat16.
 
 The upsample tail (up conv(s), pixel shuffle(s), final conv) is linear, so it
 collapses into one (k, k, f, s^2*channels) conv on the low-res grid, k = 7
@@ -9,8 +9,14 @@ whose zero paddings differ from the composed conv's. ``pixel_shuffle(fn(x),
 s)`` equals ``EDSR.forward(x)``.
 
 Every 3x3 conv (body, and ``up0``/``up1``/``tail`` on the slabs) runs through
-K2. The composed 7x7 conv is left to ``F.conv2d`` with TF32 off, as the JAX
-package left it to XLA.
+K2, in the forward's dtype. The composed 7x7 conv is left to ``F.conv2d``
+(float32 with TF32 off, or bfloat16), as the JAX package left it to XLA.
+
+In bfloat16 the forward follows the JAX package's bf16 branch: weights and
+biases rounded to bf16, ``W_eff``/``b_eff`` built in float64 from the float32
+weights and then rounded, residual adds in bf16. One difference is by
+design: JAX rounds each conv to bf16 and then adds a bf16 bias (two
+roundings); K2 adds the bias in fp32 and rounds once.
 """
 
 from __future__ import annotations
@@ -84,29 +90,32 @@ def fused_tail_kernel(edsr):
     return w.float(), b_eff.float(), pad
 
 
-def make_fused_sr_apply(edsr):
-    """Bind an ``EDSR`` module into a float32 forward with the fused linear
-    tail.
+def make_fused_sr_apply(edsr, dtype=torch.float32):
+    """Bind an ``EDSR`` module into a forward with the fused linear tail, in
+    ``dtype`` (float32 or bfloat16).
 
     Returns (fn, s), s the model's scale factor: ``fn(x) -> y_poly`` of
-    shape (N, H, W, s^2*channels), clipped to [0, 1], on the module's
-    device; ``pixel_shuffle(y_poly, s)`` equals ``edsr(x)``, borders
-    included.
+    shape (N, H, W, s^2*channels) in ``dtype``, clipped to [0, 1], on the
+    module's device; in float32 ``pixel_shuffle(y_poly, s)`` equals
+    ``edsr(x)``, borders included.
     """
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     s = edsr.scale_factor
     fp32_math()
     dev = edsr.head.kernel.device
     w_eff, b_eff, pad = fused_tail_kernel(edsr)
-    w_eff = hwio_to_oihw(w_eff).contiguous().to(dev)
-    b_eff = b_eff.to(dev)
+    w_eff = hwio_to_oihw(w_eff).contiguous().to(dev, dtype)
+    b_eff = b_eff.to(dev, dtype)
     slab = 2 * pad + 1
-    tail = {n: (c.kernel, c.bias) for n, c in edsr.tail_convs().items()}
+    params = edsr.conv_params(dtype)
+    tail = {n: params[n] for n in edsr.tail_convs()}
 
     def chained_poly(yslab):
         return _interleaved_to_poly(_chained_tail(tail, yslab, s), s)
 
     def fn(x):
-        y = edsr.body_out(x.float().contiguous())
+        y = edsr.body_out(x.to(dtype).contiguous(), params)
         z = F.conv2d(y.permute(0, 3, 1, 2), w_eff, padding=pad)
         z = z.permute(0, 2, 3, 1) + b_eff
         # border-band correction: chained zero-padding semantics

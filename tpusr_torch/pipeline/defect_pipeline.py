@@ -120,7 +120,9 @@ def make_serving_pipeline(edsr, clf, lr_hw: tuple[int, int], scale: int,
     int8 shared-trunk cascade with vote_frac escalation of 25% of each batch
     and the trunk-collapse guard at 0.6.
 
-    sr_mode:  'f32'. ('bf16' and 'int8' are not ported yet.)
+    sr_mode:  'f32' | 'bf16' (the fused-tail SR forward in that dtype; the
+              SR image is cast to float32 after the shuffle). ('int8' is not
+              ported yet.)
     clf_mode: 'per_patch_f32' | 'per_patch_int8' | 'shared_trunk_int8' |
               'cascade_int8'; the int8 modes calibrate on ``calib_patches``.
               ('shared_trunk_f32' is not ported yet.)
@@ -129,21 +131,22 @@ def make_serving_pipeline(edsr, clf, lr_hw: tuple[int, int], scale: int,
     from tpusr_torch.models.edsr_fast import make_fused_sr_apply
 
     dev = resolve_device(device)
-    if sr_mode in ("bf16", "int8"):
+    if sr_mode == "int8":
         raise NotImplementedError(
-            f"sr_mode={sr_mode!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"{'bf16 SR' if sr_mode == 'bf16' else 'int8 SR (edsr_quant)'})")
-    if sr_mode != "f32":
+            "sr_mode='int8' is not ported yet (ROADMAP.md, queue 1: int8 SR "
+            "(edsr_quant))")
+    sr_dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    if sr_mode not in sr_dtypes:
         raise ValueError(f"unknown sr_mode {sr_mode!r}")
     if scale != edsr.scale_factor:
         raise ValueError(f"scale {scale} != the EDSR model's "
                          f"{edsr.scale_factor}")
     edsr = edsr.to(dev)
     clf = clf.to(dev)
-    poly_fn, r = make_fused_sr_apply(edsr)
+    poly_fn, r = make_fused_sr_apply(edsr, sr_dtypes[sr_mode])
 
     def sr_apply(x):
-        return pixel_shuffle(poly_fn(x), r)
+        return pixel_shuffle(poly_fn(x), r).float()
 
     clf_apply = trunk_probs = cascade_votes = pre_quant = qtree = None
     if clf_mode.endswith("int8"):
