@@ -12,40 +12,60 @@ its own lines:
 2. build: every CUDA source of the port, one ``nvcc`` per source, in parallel;
 3. K1 (``conv3x3_int8_requant``) against its plain twin at each shape the
    serving path launches it at (13 trunk layers at the batch from 560x560,
-   13 per-patch layers at the escalated patches from 96x96): bit-equal;
-4. K2 (``conv3x3_bias_act``, f32) against its plain twin at the EDSR body
+   the 11 per-patch layers of blocks 2-5 at the escalated patches from
+   48x48): bit-equal;
+4. K3 (``block1_int8``, fused patch extraction + block 1 + pool) against its
+   plain twin at the escalation's 4 images of 512^2 (400 patches), the guard
+   fallback's 16 (1600 patches) and one 128^2 image (4 patches): 0 differing
+   int8 values, timed beside the block 1 it replaces (patch extraction, two
+   K1 launches and the pool);
+5. K2 (``conv3x3_bias_act``, f32) against its plain twin at the EDSR body
    shapes and the border-band slab shapes: max |err| <= 1e-4 (fp32 sums in
    another order), with ``F.conv2d`` fp32 timed beside it as the library
    yardstick;
-5. K2's bf16 instance against its twin at the same shapes: within 1 bf16
+6. K2's bf16 instance against its twin at the same shapes: within 1 bf16
    ulp (fp32 sums in another order, each rounded once), ``F.conv2d`` bf16
    as the yardstick;
-6. K4 (``nlm_denoise``) against its twin at 128^2 (the LR size the classic
+7. K4 (``nlm_denoise``) against its twin at 128^2 (the LR size the classic
    comparison denoises) and 512^2, 1024^2, 2048^2: ``allclose`` at atol
    1e-5 (box sums and exp weights in another order);
-7. the serving slice at full width: EDSR x4 (16 blocks, 64 filters) and
+8. the serving slice at full width: EDSR x4 (16 blocks, 64 filters) and
    VGG16 (2 classes) from ``--seed``, the classifier's last bias centered so
    both classes get votes, the shipped mode (f32 fused SR -> guarded
    vote_frac int8 cascade) served by ``PipelineServer`` at batch 16 for 20
-   requests, with the launch counts the path implies, the SR held against a
-   plain chained EDSR, the int8 stage held against the same stage on K1's
-   twin, and the guard-tripped cascade held against ``per_patch_int8``;
-8. bf16 SR serving: one batch of 16 through ``make_serving_pipeline(
+   requests, with the launch counts the path implies (a per-patch call
+   launches K3 once and K1 11 times), the SR held against a plain chained
+   EDSR, the int8 stage held against the same stage on K1's and K3's twins,
+   the K3 per-patch probabilities held equal to the all-K1 path, and the
+   guard-tripped cascade held against that all-K1 per-patch path;
+9. bf16 SR serving: one batch of 16 through ``make_serving_pipeline(
    sr_mode="bf16", cascade_int8, vote_frac, frac 0.28125, guard 0.6)`` on
    the same weights, with 46 K2-bf16 launches, its SR against the f32 SR
    and its classes against the f32-SR cascade;
-9. the classic-SR comparison: ``run_classic_comparison`` on 16 HR 512^2 /
+10. int8 SR serving: ``conv3x3_int8_dequant`` against its twin at its
+   shapes (bit-equal) and the ``torch._int_mm`` 7x7 tail against its
+   float64 twin (equal); then one batch of 16 of each of bench.py's int8-SR
+   rows (``int8_sr_per_patch_int8``, ``int8_sr_shared_trunk_int8``,
+   ``int8_sr_noborder_shared_trunk_int8``) with their launch counts, the SR
+   held bit for bit against the same SR on the dequant conv's twin, and
+   its PSNR against the f32 SR;
+11. the f32 modes: one batch of ``shared_trunk_f32`` (its patch
+   probabilities against a float64 run of the same trunk), one of
+   ``per_patch_f32`` with ``classify_chunks=4`` against ``classify_chunks
+   =1``, and one call of ``tpusr_torch.entry.entry()``;
+12. the classic-SR comparison: ``run_classic_comparison`` on 16 HR 512^2 /
    LR 128^2 uint8 pairs made from ``--seed``, with the K4 launches it
    implies, the reference's score pattern, and one pair's SR images held
    against the same harness run on the CPU (plain twins).
 
-Each path (7, 8, 9) is driven with the launch counts set to 0 just before
-it and read just after. Before the last line it prints one JSON object
-with a record per kernel (times: K1 and K2 for one served batch of 16 on
-the healthy path, K2-bf16 the same on the bf16 path, K4 one launch at
-128^2; ``launches`` counts the kernel's path) and the ``nvidia-smi`` line;
-the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
-non-zero before that line.
+Each path (8-12) is driven with the launch counts set to 0 just before it
+and read just after. Before the last line it prints one JSON object with a
+record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
+path without the guard fallback, K2-bf16 the same on the bf16 path, the
+dequant conv for one int8-SR batch, K4 one launch at 128^2; ``launches``
+counts the kernel's path) and the ``nvidia-smi`` line; the last line is
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
+that line.
 """
 
 from __future__ import annotations
@@ -77,6 +97,12 @@ K2_BF16_ULPS = 1     # one rounding to bf16 each, beyond the fp32 order gap
 K4_ATOL = 1e-5       # box sums and exp weights in another order than the twin
 SR_ATOL = 1e-4       # fused polyphase tail vs the chained tail, fp32
 BF16_SR_MIN_PSNR = 35.0  # bf16 keeps 8 significant bits: 2^-9 per rounding
+TRUNK_F32_ATOL = 1e-4    # f32 trunk probs against a float64 run of it
+INT8_SR_MIN_PSNR = 25.0  # interior int8 SR against the f32 SR, random weights
+# bench.py's int8-SR rows (MODES): (sr_border_correction, clf_mode)
+INT8_SR_ROWS = {"int8_sr_per_patch_int8": (True, "per_patch_int8"),
+                "int8_sr_shared_trunk_int8": (True, "shared_trunk_int8"),
+                "int8_sr_noborder_shared_trunk_int8": (False, "shared_trunk_int8")}
 K4_SIZES = (128, 512, 1024, 2048)
 CLASSIC_PAIRS, CLASSIC_HR, CLASSIC_LR = 16, 512, 128
 
@@ -125,12 +151,17 @@ class Slice:
 
 # ----------------------------------------------------------------- shapes
 
-def vgg_conv_shapes(n: int, hw: int, widths) -> list[tuple]:
-    """(N, H, W, Cin, Cout) of the 13 int8 VGG16 convs from an (n, hw, hw)
-    input: pools after blocks 1-4 halve the grid."""
+def vgg_conv_shapes(n: int, hw: int, widths, first_block: int = 1
+                    ) -> list[tuple]:
+    """(N, H, W, Cin, Cout) of the int8 VGG16 convs from block
+    ``first_block`` on, for an (n, hw, hw) input to that block: pools after
+    blocks 1-4 halve the grid."""
     from tpusr_torch.models.vgg import VGG16_CFG
-    shapes, cin = [], 3
+    shapes = []
+    cin = 3 if first_block == 1 else widths[first_block - 2]
     for (block, n_convs, _f), wd in zip(VGG16_CFG, widths):
+        if block < first_block:
+            continue
         for _ in range(n_convs):
             shapes.append((n, hw, hw, cin, wd))
             cin = wd
@@ -141,15 +172,39 @@ def vgg_conv_shapes(n: int, hw: int, widths) -> list[tuple]:
 
 def k1_shapes(cfg: Slice) -> list[tuple[str, tuple, int]]:
     """(where, shape, launches per served batch) for K1: the shared trunk on
-    the reflect-padded batch, then the per-patch path on the escalated
-    images' patches."""
+    the reflect-padded batch, then blocks 2-5 of the per-patch path on the
+    escalated images' patches (block 1 is K3's)."""
     from tpusr_torch.core.pad import pad_amounts
     padded = cfg.hr + pad_amounts(cfg.hr, cfg.hr, cfg.patch, cfg.stride)[0]
     trunk = vgg_conv_shapes(cfg.batch, padded, cfg.widths)
-    patches = vgg_conv_shapes(cfg.escalated() * cfg.n_patches(), cfg.patch,
-                              cfg.widths)
+    patches = vgg_conv_shapes(cfg.escalated() * cfg.n_patches(),
+                              cfg.patch // 2, cfg.widths, first_block=2)
     return ([("trunk", s, 1) for s in trunk]
             + [("escalation", s, 1) for s in patches])
+
+
+def n_per_patch_k1(cfg: Slice) -> int:
+    """K1 launches of one per-patch call (blocks 2-5)."""
+    return sum(1 for where, *_ in k1_shapes(cfg) if where == "escalation")
+
+
+def reset_counts() -> None:
+    from tpusr_torch.core import conv3x3
+    from tpusr_torch.models import block1
+    conv3x3.reset_launch_counts()
+    block1.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """The launch counts of every kernel on the serving paths."""
+    from tpusr_torch.core import conv3x3
+    from tpusr_torch.models import block1
+    return {**conv3x3.LAUNCHES, **block1.LAUNCHES}
+
+
+def launches_want(**counts) -> dict:
+    """Expected launch counts: the given kernels, every other one 0."""
+    return {**{k: 0 for k in read_counts()}, **counts}
 
 
 def k2_shapes(cfg: Slice) -> list[tuple[str, tuple, bool, int]]:
@@ -168,6 +223,14 @@ def k2_shapes(cfg: Slice) -> list[tuple[str, tuple, bool, int]]:
         out.append((f"{name} top/bottom", (n, rows, cols, cin, cout), False, 2))
         out.append((f"{name} left/right", (n, cols, rows, cin, cout), False, 2))
     return out
+
+
+def dequant_shapes(cfg: Slice) -> list[tuple[str, tuple, int]]:
+    """(where, shape, launches per batch) of ``conv3x3_int8_dequant`` in the
+    int8 SR forward: the head, and the residual-block and body convs."""
+    n, h, f = cfg.batch, cfg.lr, cfg.filters
+    return [("head", (n, h, h, 3, f), 1),
+            ("res+body", (n, h, h, f, f), 2 * cfg.blocks + 1)]
 
 
 def bound(ops: float, nbytes: float, kind: str,
@@ -278,6 +341,18 @@ def _int8_operands(shape, g, dev):
     return x, wq, rs, b
 
 
+def block1_operands(g, dev, n: int, h: int, w: int):
+    """A block-1 int8 tree (b1c1 3 -> 64, b1c2 64 -> 64) with K1's spread of
+    rescales and biases, and (n, h, w, 3) int8 images."""
+    q = {"layers": {}}
+    for name, cin in (("block1_conv1", 3), ("block1_conv2", 64)):
+        _, wq, rs, b = _int8_operands((1, 1, 1, cin, 64), g, dev)
+        q["layers"][name] = {"kernel_q": wq, "rescale": rs, "bias_over_out": b}
+    images = torch.randint(-127, 128, (n, h, w, 3), generator=g, device=dev,
+                           dtype=torch.int8)
+    return q, images
+
+
 def phase_k1(cfg: Slice, dev) -> dict:
     from tpusr_torch.core.conv3x3 import (conv3x3_int8_requant,
                                           conv3x3_int8_requant_plain)
@@ -351,6 +426,76 @@ def check_k2_bf16(x, k, b, relu, y, yp) -> tuple[int, int, float]:
                                   f"{int((d > tol).sum())} values beyond 1 ulp "
                                   f"+ the fp32 order gap")
     return int(ulps.max()), int((ulps > K2_BF16_ULPS).sum()), float(d.max())
+
+
+def block1_work(n: int, h: int, w: int, patch: int, n_patches: int
+                ) -> tuple[float, float]:
+    """int8 operations and bytes of one K3 launch: both convs' MACs on every
+    patch pixel (27 and 576 per output channel), the images read once, the
+    weights and the four per-channel vectors read once, the pooled output
+    written once."""
+    ops = 2.0 * n_patches * patch * patch * 64 * (27 + 576)
+    nbytes = (n * h * w * 3 + 9 * 64 * (3 + 64) + 4 * 4 * 64
+              + n_patches * (patch // 2) ** 2 * 64)
+    return ops, float(nbytes)
+
+
+def phase_k3(cfg: Slice, dev) -> dict:
+    """K3 against its plain twin at the per-patch path's shapes; the current
+    block 1 (patch extraction, two K1 launches, the pool) timed beside it.
+    Returns the record of the escalation's shape, the served batch's K3
+    launch on the path without the guard fallback."""
+    from tpusr_torch.core.conv3x3 import conv3x3_int8_requant
+    from tpusr_torch.models.block1 import (block1_int8, block1_plain,
+                                           extract_patches_reference,
+                                           grid_counts, max_pool2x2)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rec = {}
+    for where, n, hw in (("escalation", cfg.escalated(), cfg.hr),
+                         ("guard fallback", cfg.batch, cfg.hr),
+                         ("one 128^2 image", 1, 128)):
+        q, images = block1_operands(g, dev, n, hw, hw)
+        l1, l2 = (q["layers"][k] for k in ("block1_conv1", "block1_conv2"))
+
+        def plain():   # 4 images at a time: float64 activations are large
+            return torch.cat([block1_plain(q, images[i:i + 4], cfg.patch,
+                                           cfg.stride)
+                              for i in range(0, n, 4)])
+
+        def k1_block1():
+            x = extract_patches_reference(images, cfg.patch, cfg.stride)
+            for layer in (l1, l2):
+                x = conv3x3_int8_requant(x, layer["kernel_q"], layer["rescale"],
+                                         layer["bias_over_out"])
+            return max_pool2x2(x)
+
+        y = block1_int8(q, images, cfg.patch, cfg.stride)
+        yp = plain()
+        torch.cuda.synchronize()
+        n_diff = int((y != yp).sum())
+        check(y.shape == yp.shape and n_diff == 0,
+              f"K3 differs from its twin at {where}: {n_diff} values")
+        check(torch.equal(k1_block1(), y), f"K3 != patches + 2 K1 + pool at "
+                                           f"{where}")
+        spread = int(torch.unique(y).numel())
+        ms = time_ms(lambda: block1_int8(q, images, cfg.patch, cfg.stride))
+        pms = time_ms(plain, min_total_ms=10.0, max_iters=3)
+        k1ms = time_ms(k1_block1, max_iters=10)
+        n_h, n_w = grid_counts(hw, hw, cfg.patch, cfg.stride)
+        ops, nbytes = block1_work(n, hw, hw, cfg.patch, n * n_h * n_w)
+        bms, by = bound(ops, nbytes, "int8")
+        print(f"[K3] {where:16s} {n} x {hw}^2 -> {tuple(y.shape)}: 0 of "
+              f"{y.numel()} int8 values differ ({spread} levels)  kernel "
+              f"{ms:.4f} ms  twin {pms:.4f} ms  bound {bms:.4f} ms ({by}: "
+              f"{ops / 1e9:.1f} G int8 ops)  current block 1 (patches + 2 K1 "
+              f"+ pool) {k1ms:.4f} ms")
+        if where == "escalation":
+            rec = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "err": 0.0,
+                   "t_ops": bms if by == "operations" else 0.0,
+                   "t_bytes": bms if by == "bytes" else 0.0}
+        del q, images, y, yp
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_k2(cfg: Slice, dev) -> dict:
@@ -517,27 +662,32 @@ def plain_edsr(edsr, x: torch.Tensor) -> torch.Tensor:
     return c(edsr.tail, y).clamp(0.0, 1.0)
 
 
-class k1_on_plain_twin:
-    """Route the int8 backbone's convs to K1's plain twin (on the same
-    device) for the duration of a reference computation."""
+class on_plain_twins:
+    """Route the int8 classifier's kernels (K1 in the backbone, K3 for block
+    1) to their plain twins on the same device for the duration of a
+    reference computation."""
 
     def __enter__(self):
         from tpusr_torch.core import conv3x3
-        from tpusr_torch.models import quant
-        self._quant, self._orig = quant, quant.conv3x3_int8_requant
+        from tpusr_torch.models import block1, quant
+        self._quant = quant
+        self._orig = (quant.conv3x3_int8_requant, quant.block1_int8)
         quant.conv3x3_int8_requant = conv3x3.conv3x3_int8_requant_plain
+        quant.block1_int8 = block1.block1_plain
 
     def __exit__(self, *exc):
-        self._quant.conv3x3_int8_requant = self._orig
+        (self._quant.conv3x3_int8_requant,
+         self._quant.block1_int8) = self._orig
 
 
 def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
-    from tpusr_torch.core import conv3x3
     from tpusr_torch.core.patches import patchify
     from tpusr_torch.models import EDSR, VGG16Classifier
+    from tpusr_torch.models.block1 import extract_patches_reference
     from tpusr_torch.models.edsr_fast import make_fused_sr_apply
     from tpusr_torch.models.layers import pixel_shuffle
-    from tpusr_torch.models.quant import quantized_vgg16_apply
+    from tpusr_torch.models.quant import (per_patch_int8_probs,
+                                          quantized_vgg16_apply)
     from tpusr_torch.models.vgg_trunk import shared_trunk_probs_int8
     from tpusr_torch.pipeline import (FusedSRClassifyPipeline, PipelineServer,
                                       make_serving_pipeline)
@@ -558,12 +708,13 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
         return rng.random((n, cfg.lr, cfg.lr, 3), dtype=np.float32) * gain
 
     requests, calib_lr = lr_images(cfg.requests), lr_images(4)
+    calib_lr = torch.as_tensor(calib_lr, device=dev)
 
     # calibration patches as the serve command takes them: the first 64
     # patches of the f32 SR of 4 calibration images
     fn, r = make_fused_sr_apply(edsr)
     with torch.inference_mode():
-        sr_cal = pixel_shuffle(fn(torch.as_tensor(calib_lr, device=dev)), r)
+        sr_cal = pixel_shuffle(fn(calib_lr), r)
         calib = patchify(sr_cal, cfg.patch, cfg.stride)
         calib = calib.reshape((-1,) + calib.shape[2:])[:64]
 
@@ -595,25 +746,28 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
 
     # ---- the main path: 20 requests through the server at batch 16 ----
     votes = pipe.cascade_votes
-    conv3x3.reset_launch_counts()
     votes.guard_trips = 0
     server = PipelineServer(pipe, batch_size=cfg.batch, max_wait_ms=50.0)
     futures = [server.submit(im) for im in requests]
+    reset_counts()
     t0 = time.perf_counter()
     with server:
         results = [f.result(timeout=600) for f in futures]
     served_s = time.perf_counter() - t0
-    launches = dict(conv3x3.LAUNCHES)
+    launches = read_counts()
     trips = votes.guard_trips
     last_escalated = votes.last_escalated.cpu()
 
+    # per batch: the trunk (13 K1) and the escalation (K3 + 11 K1); per
+    # guard trip: the fallback (K3 + 11 K1)
     n_batches = math.ceil(cfg.requests / cfg.batch)
     per_batch_k1 = len(k1_shapes(cfg))
     per_batch_k2 = sum(m for *_, m in k2_shapes(cfg))
-    n_layers = per_batch_k1 // 2
-    want = {"conv3x3_int8_requant": n_batches * per_batch_k1 + trips * n_layers,
-            "conv3x3_bias_act": n_batches * per_batch_k2,
-            "conv3x3_bias_act_bf16": 0}
+    want = launches_want(
+        conv3x3_int8_requant=n_batches * per_batch_k1
+        + trips * n_per_patch_k1(cfg),
+        conv3x3_bias_act=n_batches * per_batch_k2,
+        block1_int8=n_batches + trips)
     print(f"[slice] served {len(results)} requests in {n_batches} batches in "
           f"{served_s:.3f} s; guard trips {trips}; launches {launches} "
           f"(expected {want})")
@@ -646,6 +800,13 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
         return make_cascade_votes(pipe.qtree, cfg.patch, cfg.stride, cfg.frac,
                                   "vote_frac", guard)
 
+    def all_k1_probs(srq):
+        """The per-patch path with block 1 on K1: extracted patches through
+        quantized_vgg16_apply."""
+        flat = extract_patches_reference(srq, cfg.patch, cfg.stride)
+        return quantized_vgg16_apply(pipe.qtree, flat).reshape(
+            srq.shape[0], cfg.n_patches(), -1)
+
     # ---- correctness of the served results against references ----
     batch = torch.as_tensor(requests[:cfg.batch], device=dev)
     with torch.inference_mode():
@@ -659,22 +820,26 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
         sr_err = float((sr[:2] - plain_edsr(edsr, batch[:2])).abs().max())
         check(sr_err <= SR_ATOL, f"SR vs plain chained EDSR: {sr_err}")
         srq = pipe.pre_quant(sr)
-        with k1_on_plain_twin():
+        with on_plain_twins():
             cls_p, conf_p = votes(srq, cfg.batch)
         check(torch.equal(cls_p, cls_b)
               and torch.allclose(conf_p, conf_b, rtol=0, atol=1e-6),
-              "cascade on K1's twin differs from the served cascade")
+              "cascade on K1's and K3's twins differs from the served cascade")
+        probs_k3 = per_patch_int8_probs(pipe.qtree, srq, cfg.patch, cfg.stride)
+        check(torch.equal(probs_k3, all_k1_probs(srq)),
+              "per_patch_int8_probs (K3 + 11 K1) != patches + 13 K1")
         tripped = variant(cascade_votes=cascade(0.0))    # always trips
-        per_patch = variant(
-            clf_apply=lambda p: quantized_vgg16_apply(pipe.qtree, p))
+        per_patch = variant(trunk_probs=all_k1_probs)
         _, cls_g, conf_g = tripped(batch)
         _, cls_pp, conf_pp = per_patch(batch)
         check(tripped.cascade_votes.guard_trips == 1, "guard 0.0 did not trip")
         check(torch.equal(cls_g, cls_pp) and torch.equal(conf_g, conf_pp),
-              "guard-tripped cascade differs from per_patch_int8")
+              "guard-tripped cascade differs from the all-K1 per-patch path")
     print(f"[slice] SR vs plain chained EDSR max|err| {sr_err:.3g} (atol "
-          f"{SR_ATOL}); cascade on K1's twin equal; guard-tripped cascade "
-          f"== per_patch_int8 (classes {cls_pp.tolist()})")
+          f"{SR_ATOL}); cascade on K1's and K3's twins equal; per-patch probs "
+          f"K3 + 11 K1 == patches + 13 K1 on {cfg.batch} images (torch.equal);"
+          f" guard-tripped cascade == the all-K1 per-patch path (classes "
+          f"{cls_pp.tolist()})")
 
     # ---- steady-state time per batch and per stage ----
     # the served mode, and the same cascade with the guard off: the time of
@@ -705,16 +870,15 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
           f"stages (device ms) "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f"; peak memory {peak_gb:.1f} GB")
-    return launches, {"edsr": edsr, "vgg": vgg, "calib": calib, "batch": batch,
-                      "sr_f32": sr, "pipe": pipe}
+    return launches, {"edsr": edsr, "vgg": vgg, "calib": calib,
+                      "calib_lr": calib_lr, "batch": batch, "sr_f32": sr,
+                      "pipe": pipe}
 
 
 def phase_bf16(cfg: Slice, dev, state: dict, sync, card: str) -> dict:
     """One batch of 16 through the bf16 SR serving mode on the slice's
     weights and calibration patches."""
-    from tpusr_torch.core import conv3x3
     from tpusr_torch.pipeline import make_serving_pipeline
-    from tpusr_torch.pipeline.cascade import make_cascade_votes
 
     def build(frac, guard, sr_mode="bf16"):
         return make_serving_pipeline(
@@ -728,15 +892,15 @@ def phase_bf16(cfg: Slice, dev, state: dict, sync, card: str) -> dict:
     batch = state["batch"]
     votes = pipe.cascade_votes
     # ---- the main path: one full batch through the bf16 serving mode ----
-    conv3x3.reset_launch_counts()
+    reset_counts()
     sr, cls, conf = pipe(batch, n_valid=cfg.batch)
     sync()
-    launches = dict(conv3x3.LAUNCHES)
+    launches = read_counts()
     trips = votes.guard_trips
     per_batch_k2 = sum(m for *_, m in k2_shapes(cfg))
-    n_layers = len(k1_shapes(cfg)) // 2
-    want = {"conv3x3_int8_requant": (2 + trips) * n_layers,
-            "conv3x3_bias_act": 0, "conv3x3_bias_act_bf16": per_batch_k2}
+    want = launches_want(
+        conv3x3_int8_requant=len(k1_shapes(cfg)) + trips * n_per_patch_k1(cfg),
+        conv3x3_bias_act_bf16=per_batch_k2, block1_int8=1 + trips)
     print(f"[bf16] sr_mode=bf16 cascade_int8 vote_frac frac {cfg.bf16_frac} "
           f"guard {cfg.guard}: one batch of {cfg.batch}; guard trips {trips}; "
           f"launches {launches} (expected {want})")
@@ -774,6 +938,206 @@ def phase_bf16(cfg: Slice, dev, state: dict, sync, card: str) -> dict:
           f"{cfg.batch / silent_ms * 1e3:.1f} img/s; bf16 SR stage "
           f"{sr_ms:.2f} ms (device)")
     return launches
+
+
+class dequant_on_plain_twin:
+    """Route the int8 EDSR's 3x3 convs to the dequant conv's plain twin (on
+    the same device) for the duration of a reference computation."""
+
+    def __enter__(self):
+        from tpusr_torch.core import conv3x3
+        from tpusr_torch.models import edsr_quant
+        self._mod, self._orig = edsr_quant, edsr_quant.conv3x3_int8_dequant
+        edsr_quant.conv3x3_int8_dequant = conv3x3.conv3x3_int8_dequant_plain
+
+    def __exit__(self, *exc):
+        self._mod.conv3x3_int8_dequant = self._orig
+
+
+def psnr_db(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return 10.0 * math.log10(1.0 / max(mse, 1e-30))
+
+
+def phase_int8_sr(cfg: Slice, dev, state: dict, sync, card: str):
+    """The dequant conv and the int8 tail against their twins, then one batch
+    of 16 of each int8-SR row of bench.py. Returns the dequant conv's
+    launches over the three rows and its record (one batch's launches)."""
+    from tpusr_torch.core.conv3x3 import (conv3x3_int8_dequant,
+                                          conv3x3_int8_dequant_plain)
+    from tpusr_torch.models.edsr_quant import (tail_conv_int8,
+                                               tail_conv_int8_plain)
+    from tpusr_torch.pipeline import make_serving_pipeline
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+           "t_ops": 0.0, "t_bytes": 0.0}
+    for where, shape, mult in dequant_shapes(cfg):
+        x, wq, rs, b = _int8_operands(shape, g, dev)
+        y = conv3x3_int8_dequant(x, wq, rs, b)
+        yp = conv3x3_int8_dequant_plain(x, wq, rs, b)
+        torch.cuda.synchronize()
+        n_diff = int((y.view(torch.int16) != yp.view(torch.int16)).sum())
+        check(n_diff == 0, f"dequant conv differs from its twin at {shape}: "
+                           f"{n_diff} values")
+        ms = time_ms(lambda: conv3x3_int8_dequant(x, wq, rs, b))
+        pms = time_ms(lambda: conv3x3_int8_dequant_plain(x, wq, rs, b),
+                      min_total_ms=10.0, max_iters=5)
+        n, h, w, cin, cout = shape
+        ops = 2.0 * n * h * w * 9 * cin * cout
+        nbytes = n * h * w * (cin + 2 * cout) + 9 * cin * cout + 8 * cout
+        bms, by = bound(ops, nbytes, "int8")
+        print(f"[int8-sr] dequant conv {where:8s} {str(shape):26s} bit-equal "
+              f"to its twin (bf16)  kernel {ms:.4f} ms  twin {pms:.4f} ms  "
+              f"bound {bms:.4f} ms ({by})  x{mult}/batch")
+        tot["ms"] += mult * ms
+        tot["plain_ms"] += mult * pms
+        tot["bound_ms"] += mult * bms
+        tot["t_" + ("ops" if by == "operations" else by)] += mult * bms
+        del x, wq, y, yp
+    n, h, f = cfg.batch, cfg.lr, cfg.filters
+    x8 = torch.randint(-127, 128, (n, h, h, f), generator=g, device=dev,
+                       dtype=torch.int8)
+    kq = torch.randint(-127, 128, (7, 7, f, 3 * cfg.scale ** 2), generator=g,
+                       device=dev, dtype=torch.int8)
+    check(torch.equal(tail_conv_int8(x8, kq), tail_conv_int8_plain(x8, kq)),
+          "int8 7x7 tail (torch._int_mm) != its float64 twin")
+    tail_ms = time_ms(lambda: tail_conv_int8(x8, kq), max_iters=10)
+    tail_pms = time_ms(lambda: tail_conv_int8_plain(x8, kq), max_iters=5)
+    print(f"[int8-sr] 7x7 tail {tuple(x8.shape)} -> {tuple(kq.shape[-1:])} "
+          f"channels: torch._int_mm over the im2col equals its float64 twin; "
+          f"{tail_ms:.4f} ms, twin {tail_pms:.4f} ms")
+    del x8, kq
+
+    batch, sr32 = state["batch"], state["sr_f32"]
+    per_batch_k1 = len(k1_shapes(cfg))
+    band = 4 * 3          # pad 3 cells of the composed tail, x4
+    interior = (slice(None), slice(band, -band), slice(band, -band))
+    dequant_launches = 0
+    for row, (border, clf_mode) in INT8_SR_ROWS.items():
+        pipe = make_serving_pipeline(
+            state["edsr"], state["vgg"], (cfg.lr, cfg.lr), cfg.scale,
+            patch=cfg.patch, stride=cfg.stride, sr_mode="int8",
+            clf_mode=clf_mode, calib_lr=state["calib_lr"],
+            calib_patches=state["calib"], sr_border_correction=border,
+            device=dev)
+        # ---- the main path: one batch of this row ----
+        reset_counts()
+        sr, cls, conf = pipe(batch)
+        sync()
+        launches = read_counts()
+        per_patch = clf_mode == "per_patch_int8"
+        want = launches_want(
+            conv3x3_int8_dequant=2 * cfg.blocks + 2,
+            conv3x3_bias_act_bf16=12 if border else 0,
+            conv3x3_int8_requant=(n_per_patch_k1(cfg) if per_patch
+                                  else per_batch_k1 - n_per_patch_k1(cfg)),
+            block1_int8=1 if per_patch else 0)
+        check(launches == want, f"{row} launch counts {launches} != {want}")
+        dequant_launches += launches["conv3x3_int8_dequant"]
+        check(sr.dtype == torch.float32 and tuple(sr.shape)
+              == (cfg.batch, cfg.hr, cfg.hr, 3), f"{row} SR {tuple(sr.shape)}")
+        check(bool(torch.isfinite(sr).all()) and float(sr.min()) >= 0.0
+              and float(sr.max()) <= 1.0, f"{row} SR not finite in [0, 1]")
+        check(bool(((conf >= 0) & (conf <= 1)).all()), f"{row} confidence")
+        with torch.inference_mode(), dequant_on_plain_twin():
+            sr_twin = pipe.sr_apply(batch[:2])
+        check(torch.equal(sr[:2], sr_twin),
+              f"{row} SR differs from the same SR on the dequant conv's twin")
+        p_all, p_in = psnr_db(sr, sr32), psnr_db(sr[interior], sr32[interior])
+        check(p_in >= INT8_SR_MIN_PSNR, f"{row} interior SR PSNR {p_in:.2f} dB "
+                                        f"< {INT8_SR_MIN_PSNR}")
+        with torch.inference_mode():
+            batch_ms = min(host_ms(lambda: pipe(batch), sync) for _ in range(3))
+            sr_ms = time_ms(lambda: pipe.sr_apply(batch), max_iters=5)
+        print(f"[int8-sr] {row}: launches {launches}; SR == SR on the dequant "
+              f"twin (2 images); PSNR against the f32 SR {p_all:.2f} dB, "
+              f"interior {p_in:.2f} dB (min {INT8_SR_MIN_PSNR}); classes "
+              f"{cls.tolist()}")
+        print(f"[int8-sr] {row}: {card}, batch {cfg.batch} (host clock, best "
+              f"of 3) {batch_ms:.2f} ms per batch, "
+              f"{cfg.batch / batch_ms * 1e3:.1f} img/s; int8 SR stage "
+              f"{sr_ms:.2f} ms (device)")
+        del pipe, sr
+    torch.cuda.empty_cache()
+    return dequant_launches, tot
+
+
+def phase_f32_modes(cfg: Slice, dev, state: dict, sync, card: str) -> None:
+    """shared_trunk_f32, classify_chunks and entry() on the card."""
+    import copy
+
+    from tpusr_torch.entry import entry
+    from tpusr_torch.models.vgg_trunk import shared_trunk_probs_f32
+    from tpusr_torch.pipeline import (FusedSRClassifyPipeline,
+                                      make_serving_pipeline)
+
+    edsr, vgg, batch = state["edsr"], state["vgg"], state["batch"]
+    per_batch_k2 = sum(m for *_, m in k2_shapes(cfg))
+
+    def build(clf_mode):
+        return make_serving_pipeline(
+            edsr, vgg, (cfg.lr, cfg.lr), cfg.scale, patch=cfg.patch,
+            stride=cfg.stride, sr_mode="f32", clf_mode=clf_mode, device=dev)
+
+    # ---- shared_trunk_f32: one batch ----
+    pipe = build("shared_trunk_f32")
+    reset_counts()
+    sr, cls, conf = pipe(batch)
+    sync()
+    launches = read_counts()
+    want = launches_want(conv3x3_bias_act=per_batch_k2)
+    check(launches == want, f"shared_trunk_f32 launches {launches} != {want}")
+    check(bool(((conf >= 0) & (conf <= 1)).all()), "trunk f32 confidence")
+    vgg64 = copy.deepcopy(vgg).double()
+    with torch.inference_mode():
+        probs = shared_trunk_probs_f32(vgg, sr[:2], cfg.patch, cfg.stride)
+        probs64 = shared_trunk_probs_f32(vgg64, sr[:2], cfg.patch, cfg.stride)
+        trunk_ms = min(host_ms(lambda: pipe(batch), sync) for _ in range(3))
+    del vgg64
+    err = float((probs.double() - probs64).abs().max())
+    check(probs.shape == (2, cfg.n_patches(), 2) and err <= TRUNK_F32_ATOL,
+          f"shared_trunk_f32 probs against float64: {err} > {TRUNK_F32_ATOL}")
+    print(f"[f32-modes] shared_trunk_f32: launches {launches}; patch probs "
+          f"against the float64 trunk max|err| {err:.3g} (atol "
+          f"{TRUNK_F32_ATOL}); classes {cls.tolist()}; {card}, batch "
+          f"{cfg.batch} {trunk_ms:.2f} ms per batch (host clock, best of 3)")
+
+    # ---- per_patch_f32 with classify_chunks 4 against 1 ----
+    pp = build("per_patch_f32")
+    chunked = FusedSRClassifyPipeline(
+        pp.sr_apply, clf_apply=pp.clf_apply, lr_hw=(cfg.lr, cfg.lr),
+        scale=cfg.scale, patch=cfg.patch, stride=cfg.stride,
+        classify_chunks=4, device=dev)
+    _, cls1, conf1 = pp(batch)
+    _, cls4, conf4 = chunked(batch)
+    # cuDNN may pick another algorithm for 400 patches than for 1600
+    d = float((conf1 - conf4).abs().max())
+    check(torch.equal(cls1, cls4) and d <= 1e-6,
+          f"classify_chunks=4 differs from 1: max|d conf| {d}")
+    with torch.inference_mode():
+        ms1 = min(host_ms(lambda: pp(batch), sync) for _ in range(2))
+        ms4 = min(host_ms(lambda: chunked(batch), sync) for _ in range(2))
+    print(f"[f32-modes] per_patch_f32: classify_chunks=4 == 1 (classes equal, "
+          f"max|d conf| {d:.3g}); {ms1:.2f} ms and {ms4:.2f} ms per batch of "
+          f"{cfg.batch} (host clock, best of 2)")
+    del pp, chunked
+
+    # ---- entry(): the f32 reference path ----
+    fn, args = entry(device=dev)
+    reset_counts()
+    sr_e, cls_e, conf_e = fn(*args)
+    sync()
+    launches = read_counts()
+    shapes = [tuple(t.shape) for t in (sr_e, cls_e, conf_e)]
+    check(shapes == [(2, 512, 512, 3), (2,), (2,)], f"entry() shapes {shapes}")
+    check(bool(torch.isfinite(sr_e).all()) and float(sr_e.min()) >= 0.0
+          and float(sr_e.max()) <= 1.0, "entry() SR not finite in [0, 1]")
+    want = launches_want(conv3x3_bias_act=2 * 16 + 5)  # chained EDSR x4
+    check(launches == want, f"entry() launches {launches} != {want}")
+    print(f"[f32-modes] entry(): {shapes}, classes {cls_e.tolist()}, "
+          f"confidences {[round(float(c), 6) for c in conf_e]}; launches "
+          f"{launches}")
 
 
 def phase_classic(dev, seed: int, sync, card: str) -> int:
@@ -891,12 +1255,15 @@ def main() -> int:
         card = phase_environment()
         phase_build()
         k1 = phase_k1(cfg, dev)
+        k3 = phase_k3(cfg, dev)
         k2 = phase_k2(cfg, dev)
         k2b = phase_k2_bf16(cfg, dev)
         k4 = phase_k4(dev)
         sync = torch.cuda.synchronize
         launches, state = phase_slice(cfg, dev, args.seed, sync, card)
         bf16_launches = phase_bf16(cfg, dev, state, sync, card)
+        dequant_launches, dq = phase_int8_sr(cfg, dev, state, sync, card)
+        phase_f32_modes(cfg, dev, state, sync, card)
         del state
         torch.cuda.empty_cache()
         k4_launches = phase_classic(dev, args.seed, sync, card)
@@ -916,6 +1283,12 @@ def main() -> int:
                       k2b["library_ms"]),
         kernel_record("nlm_denoise", "nlm.cu", "tpusr/core/pallas_nlm.py:81",
                       k4_launches, k4, None),
+        kernel_record("block1_int8", "block1.cu",
+                      "tpusr/models/pallas_vgg.py:275",
+                      launches["block1_int8"], k3, None),
+        kernel_record("conv3x3_int8_dequant", "conv3x3.cu",
+                      "tpusr/models/edsr_quant.py:117", dequant_launches, dq,
+                      None),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -102,8 +102,10 @@ def _stub(monkeypatch, n, trunk_probs, pp_probs):
     monkeypatch.setattr(tcasc, "quantize_input", lambda q, x: x)
     monkeypatch.setattr(tcasc, "shared_trunk_probs_int8",
                         lambda q, x, p, s: torch.as_tensor(trunk_probs))
-    monkeypatch.setattr(tcasc, "quantized_vgg16_apply",
-                        lambda q, f: pp(tnp, f))
+    # the port's per-patch parent takes whole images (block 1 runs through
+    # K3, which extracts the patches); here each image is its one patch
+    monkeypatch.setattr(tcasc, "per_patch_int8_probs",
+                        lambda q, x, p, s: pp(tnp, x)[:, None])
     return imgs
 
 

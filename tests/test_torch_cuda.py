@@ -1,7 +1,9 @@
-"""The port's CUDA kernels (tpusr_torch/csrc/conv3x3.cu, nlm.cu) against
-their plain twins on the card, at edge shapes the main paths do not reach:
-Cin and Cout off the 16-byte vector paths, odd spatial sizes, a single
-pixel; for K4 a tiny image, a single row and a size off the 16-pixel tile.
+"""The port's CUDA kernels (tpusr_torch/csrc/conv3x3.cu, nlm.cu, block1.cu)
+against their plain twins on the card, at edge shapes the main paths do not
+reach: Cin and Cout off the 16-byte vector paths, odd spatial sizes, a single
+pixel; for K4 a tiny image, a single row and a size off the 16-pixel tile;
+for K3 one image, sizes that need the reflect pad, small patch grids and a
+patch that is not a multiple of the 16-pixel tile.
 
 These tests need an NVIDIA card with sm_90a and ``nvcc``; without a card
 they skip. ``tests/conftest.py`` imports JAX and hides CUDA devices, so on
@@ -19,6 +21,7 @@ import torch
 from tpusr_torch.core import conv3x3 as k
 from tpusr_torch.core import nlm
 from tpusr_torch.device import fp32_math
+from tpusr_torch.models import block1
 
 pytestmark = pytest.mark.cuda
 
@@ -146,3 +149,72 @@ def test_k4_and_k2_bf16_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         k.conv3x3_bias_act(x[0], kern, torch.zeros(4, device=cuda))
     assert (dict(k.LAUNCHES), dict(nlm.LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("cin", [3, 64])
+@pytest.mark.parametrize("hw", [(5, 7), (128, 128), (1, 1)])
+def test_int8_dequant_kernel_bit_exact_with_twin(cuda, cin, hw):
+    from chip_smoke import _int8_operands
+    g = torch.Generator(device=cuda).manual_seed(cin + sum(hw))
+    x, wq, rs, b = _int8_operands((2, *hw, cin, 64), g, cuda)
+    before = k.LAUNCHES["conv3x3_int8_dequant"]
+    y = k.conv3x3_int8_dequant(x, wq, rs, b)
+    assert k.LAUNCHES["conv3x3_int8_dequant"] == before + 1
+    assert y.dtype == torch.bfloat16
+    yp = k.conv3x3_int8_dequant_plain(x, wq, rs, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y.view(torch.int16), yp.view(torch.int16)), \
+        int((y != yp).sum())
+
+
+# (N, H, W, patch, stride): one image at the serving size, sizes that need
+# the reflect pad (bottom and right, one of them repeated), the CPU tests'
+# grid, a patch that is not a multiple of the 16-pixel tile, a tiny image
+K3_CASES = [(1, 128, 128, 96, 48), (2, 130, 170, 96, 48), (3, 64, 64, 32, 16),
+            (2, 37, 45, 32, 16), (1, 50, 70, 40, 24), (2, 9, 9, 16, 8)]
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_kernel_bit_exact_with_twin(cuda, case):
+    from chip_smoke import block1_operands
+    n, h, w, patch, stride = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case))
+    q, images = block1_operands(g, cuda, n, h, w)
+    before = block1.LAUNCHES["block1_int8"]
+    y = block1.block1_int8(q, images, patch, stride)
+    assert block1.LAUNCHES["block1_int8"] == before + 1
+    yp = block1.block1_plain(q, images, patch, stride)
+    torch.cuda.synchronize()
+    n_h, n_w = block1.grid_counts(h, w, patch, stride)
+    assert tuple(y.shape) == (n * n_h * n_w, patch // 2, patch // 2, 64)
+    assert torch.equal(y, yp), int((y != yp).sum())
+    assert int(torch.unique(y).numel()) > 16         # not collapsed
+
+
+def test_k3_takes_an_unaligned_sub_batch_view(cuda):
+    """A classify_chunks split of an odd-sized batch starts off a 16-byte
+    boundary (3 * 37 * 45 bytes per image)."""
+    from chip_smoke import block1_operands
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, images = block1_operands(g, cuda, 3, 37, 45)
+    view = images[1:]
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    y = block1.block1_int8(q, view, 32, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(y, block1.block1_plain(q, view, 32, 16))
+
+
+def test_k3_refuses_what_it_does_not_take(cuda):
+    from chip_smoke import block1_operands
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, images = block1_operands(g, cuda, 1, 32, 32)
+    before = dict(block1.LAUNCHES)
+    with pytest.raises(TypeError):
+        block1.block1_int8(q, images.float(), 32, 16)
+    with pytest.raises(ValueError, match="even"):
+        block1.block1_int8(q, images, 31, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        block1.block1_int8(q, images.transpose(1, 2), 32, 16)
+    with pytest.raises(ValueError, match="one device"):
+        block1.block1_int8(q, images.cpu(), 32, 16)
+    assert block1.LAUNCHES == before

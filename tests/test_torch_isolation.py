@@ -42,10 +42,12 @@ def test_every_port_module_imports_without_jax():
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
     # every module was imported, the classic-SR subpackages included
-    assert len(mods) >= 27, sorted(mods)
+    assert len(mods) >= 30, sorted(mods)
     assert {"tpusr_torch.classic.algorithms", "tpusr_torch.classic.harness",
             "tpusr_torch.metrics.image", "tpusr_torch.metrics.stats",
-            "tpusr_torch.core.nlm", "tpusr_torch.core.resize"} <= mods
+            "tpusr_torch.core.nlm", "tpusr_torch.core.resize",
+            "tpusr_torch.models.block1", "tpusr_torch.models.edsr_quant",
+            "tpusr_torch.entry"} <= mods
 
 
 @pytest.mark.parametrize("path", sorted(

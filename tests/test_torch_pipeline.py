@@ -1,7 +1,10 @@
 """The port's serving slice end to end against the JAX package:
 make_serving_pipeline in the shipped mode (f32 EDSR x4 -> guarded vote_frac
-int8 cascade) and in the per-patch modes it is built from, the
+int8 cascade), in the per-patch and shared-trunk modes, with int8 SR, its
+defaults, classify_chunks, the f32 reference path of ``entry()``, the
 PipelineServer, and the device rule of the entry points."""
+
+import inspect
 
 import numpy as np
 import jax
@@ -18,12 +21,17 @@ from tpusr.models import VGG16Classifier as JaxVGG16
 from tpusr.models import quant as jq
 from tpusr.models.edsr_fast import make_fused_sr_apply as jax_make_fused
 from tpusr.models.layers import pixel_shuffle as jax_pixel_shuffle
+from tpusr.models import EDSR as JaxEDSR
+from tpusr.models.vgg_trunk import shared_trunk_probs_f32 as jax_trunk_f32
 from tpusr.models.vgg_trunk import shared_trunk_probs_int8 as jax_trunk
+from tpusr.pipeline import FusedSRClassifyPipeline as JaxPipeline
 from tpusr.pipeline import make_serving_pipeline as jax_make_pipeline
 from tpusr.pipeline.defect_pipeline import _vote as jax_vote
 from tpusr_torch.bridge import edsr_from_flax, vgg16_from_flax
 from tpusr_torch.core import conv3x3
-from tpusr_torch.models import EDSR, VGG16Classifier
+from tpusr_torch.entry import entry, entry_pipeline
+from tpusr_torch.models import EDSR, VGG16Classifier, block1
+from tpusr_torch.models.vgg_trunk import shared_trunk_probs_f32
 from tpusr_torch.pipeline import (FusedSRClassifyPipeline, PipelineServer,
                                   make_serving_pipeline)
 
@@ -157,16 +165,162 @@ def test_per_patch_f32_matches_jax():
     np.testing.assert_allclose(conf_t, conf_j, atol=1e-6, rtol=0)
 
 
-def test_unported_modes_raise_naming_the_roadmap(slice_inputs):
+def test_factory_defaults_and_refusals_match_jax(slice_inputs):
+    """make_serving_pipeline takes JAX's parameter names and defaults (int8
+    SR, int8 shared trunk, 'conf' cascade score, no guard); ``mesh`` is not
+    ported and ``device`` is the port's own. Missing calibration input and
+    unknown modes raise as JAX's do."""
+    def defaults(fn, skip):
+        return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+                if p.default is not p.empty and k != skip}
+
+    assert defaults(make_serving_pipeline, "device") == defaults(
+        jax_make_pipeline, "mesh")
     sv, cv, _, calib = slice_inputs
-    for kw in ({"sr_mode": "int8"}, {"clf_mode": "shared_trunk_f32"}):
-        args = {"sr_mode": "f32", "clf_mode": "cascade_int8", **kw}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_serving_pipeline(
-                edsr_from_flax(sv, SCALE, device="cpu"),
-                vgg16_from_flax(cv, device="cpu"), (LR, LR), SCALE,
-                patch=PATCH, stride=STRIDE, calib_patches=calib,
-                device="cpu", **args)
+    edsr = edsr_from_flax(sv, SCALE, device="cpu")
+    vgg = vgg16_from_flax(cv, device="cpu")
+    for match, kw in (("calib_lr", dict(sr_mode="int8", clf_mode="per_patch_f32")),
+                      ("calib_patches", dict(sr_mode="f32",
+                                             clf_mode="per_patch_int8")),
+                      ("clf_mode", dict(sr_mode="f32", clf_mode="nope")),
+                      ("sr_mode", dict(sr_mode="nope"))):
+        with pytest.raises(ValueError, match=match):
+            make_serving_pipeline(edsr, vgg, (LR, LR), SCALE, patch=PATCH,
+                                  stride=STRIDE, device="cpu", **kw)
+
+
+def test_shared_trunk_f32_matches_jax(slice_inputs):
+    """f32 convs summed in another order than XLA's: probabilities within
+    1e-5, classes equal."""
+    sv, cv, lr, _ = slice_inputs
+    pipe = _port_pipeline(sv, cv, "shared_trunk_f32", None)
+    sr_t, cls_t, conf_t = (t.numpy() for t in pipe(lr))
+    sr_j, cls_j, conf_j = map(np.asarray,
+                              _jax_pipeline(sv, cv, "shared_trunk_f32", None)(lr))
+    np.testing.assert_allclose(sr_t, sr_j, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(cls_t, cls_j)
+    np.testing.assert_allclose(conf_t, conf_j, atol=1e-5, rtol=0)
+    vgg = vgg16_from_flax(cv, device="cpu")
+    with torch.inference_mode():
+        got = shared_trunk_probs_f32(vgg, torch.from_numpy(sr_j.copy()),
+                                     PATCH, STRIDE).numpy()
+    want = np.asarray(jax_trunk_f32(cv, jnp.asarray(sr_j), PATCH, STRIDE))
+    assert got.shape == want.shape == (8, 16, 2)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("clf_mode", ["per_patch_int8", "per_patch_f32"])
+def test_classify_chunks_equal_unchunked(slice_inputs, clf_mode):
+    sv, cv, lr, calib = slice_inputs
+    pipe = _port_pipeline(sv, cv, clf_mode, calib)
+    stage = ({"per_patch_probs": pipe.per_patch_probs}
+             if clf_mode == "per_patch_int8" else {"clf_apply": pipe.clf_apply})
+
+    def chunked(n):
+        return FusedSRClassifyPipeline(
+            pipe.sr_apply, lr_hw=(LR, LR), scale=SCALE, patch=PATCH,
+            stride=STRIDE, classify_chunks=n, pre_quant=pipe.pre_quant,
+            device="cpu", **stage)
+
+    block1.reset_launch_counts()
+    whole = chunked(1)(lr)
+    for got, want in zip(chunked(4)(lr), whole):
+        assert torch.equal(got, want)
+    for got, want in zip(whole, pipe(lr)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="divisible"):
+        chunked(3)(lr)
+    assert block1.LAUNCHES["block1_int8"] == 0
+
+
+# bench.py's int8-SR frontier rows: (sr_border_correction, clf_mode)
+INT8_SR_ROWS = {"int8_sr_per_patch_int8": (True, "per_patch_int8"),
+                "int8_sr_shared_trunk_int8": (True, "shared_trunk_int8"),
+                "int8_sr_noborder_shared_trunk_int8": (False, "shared_trunk_int8")}
+
+
+@pytest.mark.parametrize("row", sorted(INT8_SR_ROWS))
+def test_int8_sr_modes_match_jax(slice_inputs, row):
+    """sr_mode='int8' end to end, each side calibrating on the same LR batch.
+    SR against JAX's pipeline run op by op (under jit XLA contracts the
+    dequant into FMAs; ROADMAP.md, queue 3): the interior within 1e-6 (the
+    composed tail's W_eff, built in float64 here and in f32 by JAX, moves
+    its rescale and bias by ulps) and the border band within the bf16
+    tolerance of tests/test_torch_edsr_quant.py. Classes and confidences are
+    held exactly to JAX's classify stage on the port's own SR image; the
+    end-to-end class flips against JAX are printed."""
+    from test_torch_edsr_quant import BAND_ATOL
+    sv, cv, lr, calib = slice_inputs
+    border, clf_mode = INT8_SR_ROWS[row]
+    kw = dict(sr_mode="int8", clf_mode=clf_mode, calib_lr=lr[:4],
+              calib_patches=calib, sr_border_correction=border)
+    pipe = make_serving_pipeline(
+        edsr_from_flax(sv, SCALE, device="cpu"), vgg16_from_flax(cv, device="cpu"),
+        (LR, LR), SCALE, patch=PATCH, stride=STRIDE, device="cpu", **kw)
+    sr, cls, conf = (t.numpy() for t in pipe(lr))
+    jpipe = jax_make_pipeline(sv, cv, (LR, LR), SCALE, patch=PATCH,
+                              stride=STRIDE, **kw)
+    with jax.disable_jit():
+        sr_j, cls_j, _ = map(np.asarray, jpipe(lr))
+    pad = 3
+    band = np.ones(sr.shape, bool)
+    band[:, SCALE * pad:-SCALE * pad, SCALE * pad:-SCALE * pad] = False
+    np.testing.assert_allclose(sr[~band], sr_j[~band], atol=1e-6, rtol=0)
+    d = np.abs(sr - sr_j)[band]
+    assert d.max() <= (BAND_ATOL if border else 1e-6)
+    cls_r, conf_r = map(np.asarray, _jax_classify(
+        pipe, torch.from_numpy(sr), cv, clf_mode))
+    np.testing.assert_array_equal(cls, cls_r)
+    np.testing.assert_allclose(conf, conf_r, atol=1e-6, rtol=0)
+    print(f"{row}: SR interior max|d| {np.abs(sr - sr_j)[~band].max():.3g}, "
+          f"band max|d| {d.max():.3g}; class flips against JAX's pipeline "
+          f"{np.flatnonzero(cls != cls_j).tolist()} of 8")
+
+
+def test_entry_pipeline_matches_jax_entry_graph():
+    """``entry()``'s graph (chained EDSR x4, per-patch f32 VGG16, the vote)
+    on JAX-initialised weights through the bridge, at a small LR size,
+    against the same graph built as __graft_entry__.entry() builds it."""
+    rng = np.random.default_rng(8)
+    sr_model = JaxEDSR(scale_factor=SCALE, num_res_blocks=2, num_filters=8)
+    sv = to_numpy(sr_model.init(jax.random.PRNGKey(0),
+                                jnp.zeros((1, LR, LR, 3)))["params"])
+    clf_model = JaxVGG16(num_classes=2)
+    cv = to_numpy(clf_model.init(jax.random.PRNGKey(1),
+                                 jnp.zeros((1, PATCH, PATCH, 3)))["params"])
+    lr = rng.random((2, LR, LR, 3), dtype=np.float32)
+    jpipe = JaxPipeline(
+        sr_apply=lambda x: sr_model.apply({"params": sv}, x),
+        clf_apply=lambda p: clf_model.apply({"params": cv}, p),
+        lr_hw=(LR, LR), scale=SCALE, patch=PATCH, stride=STRIDE)
+    sr_j, cls_j, conf_j = map(np.asarray, jpipe(lr))
+    pipe = entry_pipeline(edsr_from_flax(sv, SCALE, device="cpu"),
+                          vgg16_from_flax(cv, device="cpu"), (LR, LR), PATCH,
+                          STRIDE, device="cpu")
+    sr_t, cls_t, conf_t = (t.numpy() for t in pipe(lr))
+    np.testing.assert_allclose(sr_t, sr_j, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(cls_t, cls_j)
+    np.testing.assert_allclose(conf_t, conf_j, atol=1e-6, rtol=0)
+
+
+def test_entry_builds_the_reference_graph_at_full_size(monkeypatch):
+    """entry() at its real size, built but not run (a full-size forward on
+    the CPU takes minutes): the example batch, the device rule and the
+    seeded weights."""
+    fn, (lr,) = entry(device="cpu")
+    assert tuple(lr.shape) == (2, 128, 128, 3) and lr.dtype == torch.float32
+    np.testing.assert_array_equal(
+        lr.numpy(), np.random.default_rng(0).random((2, 128, 128, 3),
+                                                    dtype=np.float32))
+    pipe = fn.pipeline
+    assert (pipe.patch, pipe.stride, pipe.scale, pipe.n_patches) == (96, 48, 4, 100)
+    assert pipe.sr_apply.num_res_blocks == 16
+    ref = EDSR(scale_factor=4, device="cpu",
+               generator=torch.Generator().manual_seed(0))
+    assert torch.equal(pipe.sr_apply.head.kernel, ref.head.kernel)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
 
 
 def test_server_matches_direct_calls(slice_inputs):
@@ -218,7 +372,8 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
     vgg = VGG16Classifier(widths=(8, 8, 8, 8, 8), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_serving_pipeline(edsr, vgg, (LR, LR), SCALE, patch=PATCH,
-                              stride=STRIDE, clf_mode="per_patch_f32")
+                              stride=STRIDE, sr_mode="f32",
+                              clf_mode="per_patch_f32")
     # and TF32 is off whenever a device is resolved
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32

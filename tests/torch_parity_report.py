@@ -1,7 +1,7 @@
 """Report how far the port's serving slice drifts from the JAX package end to
 end, and how far JAX drifts from itself, on the inputs of
 tests/test_torch_pipeline.py (EDSR x4 2 blocks 8 filters, narrow VGG16, 8 LR
-images of 16x16, patch 32, stride 16), in f32 and bf16 SR; and how many
+images of 16x16, patch 32, stride 16), in f32, bf16 and int8 SR; and how many
 stored SR pixels of the classic comparison differ by a grey level on the
 pairs of tests/test_torch_classic.py. Prints the counts that ROADMAP.md
 (queue 3) and PERF.md record. Not a test: it asserts nothing.
@@ -78,6 +78,7 @@ def main():
 
 
     bf16_report(sv, cv, lr, calib)
+    int8_sr_report(sv, cv, lr, calib)
     classic_report()
 
 
@@ -106,6 +107,35 @@ def bf16_report(sv, cv, lr, calib):
               f"class-1 per-patch votes port "
               f"{B._per_patch_class1_votes(pipe, sr_t)}, JAX bf16 SR "
               f"{B._per_patch_class1_votes(pipe, torch.from_numpy(sr_j.copy()))}")
+
+
+def int8_sr_report(sv, cv, lr, calib):
+    """sr_mode='int8' rows: the port against JAX's pipeline run op by op and
+    jitted, and JAX's jitted SR against its own op-by-op SR (XLA contracts
+    the f32 dequant into FMAs under jit)."""
+    pad = 3 * T.SCALE
+    for row, (border, mode) in sorted(T.INT8_SR_ROWS.items()):
+        kw = dict(patch=T.PATCH, stride=T.STRIDE, sr_mode="int8", clf_mode=mode,
+                  calib_lr=lr[:4], calib_patches=calib,
+                  sr_border_correction=border)
+        pipe = make_serving_pipeline(
+            edsr_from_flax(sv, T.SCALE, device="cpu"),
+            vgg16_from_flax(cv, device="cpu"), (T.LR, T.LR), T.SCALE,
+            device="cpu", **kw)
+        sr_t, cls_t, _ = (t.numpy() for t in pipe(lr))
+        jpipe = T.jax_make_pipeline(sv, cv, (T.LR, T.LR), T.SCALE, **kw)
+        sr_j, cls_j, _ = map(np.asarray, jpipe(lr))
+        with jax.disable_jit():
+            sr_e, cls_e, _ = map(np.asarray, jpipe(lr))
+        inner = (slice(None), slice(pad, -pad), slice(pad, -pad))
+        d_op, d_jit = np.abs(sr_t - sr_e), np.abs(sr_j - sr_e)
+        print(f"{row}: port vs JAX op by op: SR interior max|d| "
+              f"{d_op[inner].max():.3g}, whole max|d| {d_op.max():.3g}, class "
+              f"flips {np.flatnonzero(cls_t != cls_e).tolist()}; port vs JAX "
+              f"jit class flips {np.flatnonzero(cls_t != cls_j).tolist()}; JAX "
+              f"jit vs op by op: SR interior max|d| {d_jit[inner].max():.3g} "
+              f"({int((d_jit[inner] > 0).sum())} of {d_jit[inner].size} "
+              f"differ), class flips {np.flatnonzero(cls_j != cls_e).tolist()}")
 
 
 def classic_report():

@@ -1,4 +1,4 @@
-"""flax param trees -> the port's modules and int8 tree.
+"""flax param trees -> the port's modules and int8 trees.
 
 The one place that converts layouts. A flax tree is a nested dict of arrays
 (anything ``np.asarray`` takes); flax keeps NHWC activations, HWIO conv
@@ -97,3 +97,21 @@ def qtree_from_flax(q: dict, device=None) -> dict:
     return {"act_scales": {k: float(v) for k, v in q["act_scales"].items()},
             "layers": layers, "final_scale": float(q["final_scale"]),
             "head": head}
+
+
+def edsr_qtree_from_flax(q: dict, device=None) -> dict:
+    """A JAX ``quantize_edsr`` tree -> the port's int8 EDSR tree: the same
+    keys, torch tensors on ``device`` (kernel_q int8 HWIO; rescale, bias,
+    rescale_carry and bias_carry float32 vectors; inv_s_in a 0-dim float32),
+    ``pad`` and ``n_res`` as ints and the scales as Python floats."""
+    dev = resolve_device(device)
+    layers = {}
+    for name, p in q["layers"].items():
+        layer = {"kernel_q": _tensor(p["kernel_q"], torch.int8).contiguous()}
+        for key in ("rescale", "bias", "inv_s_in", "rescale_carry",
+                    "bias_carry"):
+            if key in p:
+                layer[key] = _tensor(p[key])
+        layers[name] = {k: v.to(dev) for k, v in layer.items()}
+    return {"layers": layers, "pad": int(q["pad"]), "n_res": int(q["n_res"]),
+            "act_scales": {k: float(v) for k, v in q["act_scales"].items()}}

@@ -30,8 +30,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the entry points, per source file
 SIGNATURES = {
+    "block1": {
+        "block1_int8_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _P],
+    },
     "conv3x3": {
         "conv3x3_int8_requant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _P],
+        "conv3x3_int8_dequant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _P],
         "conv3x3_bias_act_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                         _P],

@@ -1,4 +1,5 @@
-"""3x3 SAME convolutions with fused epilogues: K1 and K2 of the port.
+"""3x3 SAME convolutions with fused epilogues: K1, K2 and the int8 EDSR's
+dequant conv.
 
 - ``conv3x3_int8_requant`` (K1) replaces the Pallas kernel
   ``tpusr/core/pallas_conv.py::conv3x3_int8_requant``: int8 x int8 -> int32,
@@ -9,8 +10,12 @@
   and optional ReLU in fp32, one cast to x's dtype. It runs every 3x3 conv of
   the EDSR forward, f32 and bf16; each dtype is its own kernel instance with
   its own launch count.
+- ``conv3x3_int8_dequant`` has no Pallas counterpart: it replaces the XLA
+  int8 conv + dequant of the int8 EDSR (``tpusr/models/edsr_quant.py::
+  _qconv``): int8 x int8 -> int32, then ``acc * rescale + bias`` in f32 and
+  one cast to bf16. PyTorch has no int8 conv on CUDA.
 
-Both take the JAX package's layouts: x (N, H, W, Cin) NHWC and kernels
+All take the JAX package's layouts: x (N, H, W, Cin) NHWC and kernels
 (3, 3, Cin, Cout) HWIO. Each wrapper launches the hand-written CUDA kernel of
 ``csrc/conv3x3.cu`` for a CUDA tensor and calls its plain PyTorch twin for a
 CPU tensor; there is no other dispatch. ``LAUNCHES`` counts kernel launches,
@@ -28,7 +33,7 @@ from tpusr_torch.bridge import hwio_to_oihw
 from tpusr_torch.core import _build
 
 LAUNCHES = {"conv3x3_int8_requant": 0, "conv3x3_bias_act": 0,
-            "conv3x3_bias_act_bf16": 0}
+            "conv3x3_bias_act_bf16": 0, "conv3x3_int8_dequant": 0}
 _launch_lock = threading.Lock()   # a server's worker thread launches too
 
 
@@ -90,6 +95,28 @@ def conv3x3_int8_requant_plain(x, w_q, rescale, bias_over_out):
     return y.clamp(0.0, 127.0).to(torch.int8)
 
 
+def _int8_gemm_conv(name, plain, x, w_q, rescale, bias, out_dtype):
+    """One int8 instance of the template (K1 or the dequant): its plain twin
+    for a CPU tensor, its kernel for a CUDA tensor."""
+    cout = _check_args(name, x, w_q, (rescale, bias), torch.int8, torch.int8)
+    if x.device.type == "cpu":
+        return plain(x, w_q, rescale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    _check_cuda(name, x, w_q, rescale, bias)
+    n, h, w, cin = x.shape
+    y = torch.empty((n, h, w, cout), dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = _build.load("conv3x3")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check("conv3x3", getattr(lib, f"{name}_launch")(
+        x.data_ptr(), w_q.data_ptr(), rescale.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), n, h, w, cin, cout, stream))
+    _count_launch(name)
+    return y
+
+
 def conv3x3_int8_requant(x, w_q, rescale, bias_over_out):
     """3x3 SAME int8 conv + fused requantization (K1).
 
@@ -97,25 +124,28 @@ def conv3x3_int8_requant(x, w_q, rescale, bias_over_out):
     bias_over_out: (Cout,) float32 (the bias carries quant.py's +0.5 fold).
     Returns (N, H, W, Cout) int8.
     """
-    name = "conv3x3_int8_requant"
-    cout = _check_args(name, x, w_q, (rescale, bias_over_out), torch.int8,
-                       torch.int8)
-    if x.device.type == "cpu":
-        return conv3x3_int8_requant_plain(x, w_q, rescale, bias_over_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    _check_cuda(name, x, w_q, rescale, bias_over_out)
-    n, h, w, cin = x.shape
-    y = torch.empty((n, h, w, cout), dtype=torch.int8, device=x.device)
-    if y.numel() == 0:
-        return y
-    lib = _build.load("conv3x3")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check("conv3x3", lib.conv3x3_int8_requant_launch(
-        x.data_ptr(), w_q.data_ptr(), rescale.data_ptr(),
-        bias_over_out.data_ptr(), y.data_ptr(), n, h, w, cin, cout, stream))
-    _count_launch(name)
-    return y
+    return _int8_gemm_conv("conv3x3_int8_requant", conv3x3_int8_requant_plain,
+                           x, w_q, rescale, bias_over_out, torch.int8)
+
+
+def conv3x3_int8_dequant_plain(x, w_q, rescale, bias):
+    """The plain twin of the dequant conv: an exact int8 conv via float64
+    ``F.conv2d``, then ``acc * rescale + bias`` in float32, one rounding per
+    operation, and one cast to bf16 (edsr_quant.py:141-143)."""
+    acc = F.conv2d(_nchw(x).double(), hwio_to_oihw(w_q).double(), padding=1)
+    y = _nhwc(acc).to(torch.int32).float() * rescale + bias
+    return y.to(torch.bfloat16)
+
+
+def conv3x3_int8_dequant(x, w_q, rescale, bias):
+    """3x3 SAME int8 conv + fused dequantization to bf16.
+
+    x: (N, H, W, Cin) int8; w_q: (3, 3, Cin, Cout) int8; rescale (the input
+    scale times the per-channel weight scale) and bias: (Cout,) float32.
+    Returns (N, H, W, Cout) bfloat16.
+    """
+    return _int8_gemm_conv("conv3x3_int8_dequant", conv3x3_int8_dequant_plain,
+                           x, w_q, rescale, bias, torch.bfloat16)
 
 
 def conv3x3_bias_act_plain(x, kernel, bias, relu: bool = False):

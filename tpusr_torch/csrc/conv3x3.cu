@@ -17,6 +17,11 @@
 //       kernel, f32 bias, fp32 accumulation, + bias and ReLU in fp32, one
 //       round-to-nearest-even cast to bf16 at the store. The products run
 //       as fp32 FMAs on the exact fp32 values of the bf16 operands.
+//   conv3x3_int8_dequant_launch  has no Pallas counterpart: it replaces the
+//       XLA int8 conv of the int8 EDSR (tpusr/models/edsr_quant.py::_qconv
+//       and _dequant), int8 x int8 -> int32 with K1's __dp4a body, then
+//       f32(acc) * rescale[c], + bias[c] (no FMA contraction) and one
+//       round-to-nearest-even cast to bf16.
 //
 // Layouts are the JAX package's: x (N, H, W, Cin) NHWC, weights
 // (3, 3, Cin, Cout) HWIO, which is already the (K = 9*Cin, Cout) GEMM
@@ -348,6 +353,20 @@ struct RequantEpi {
   }
 };
 
+struct DequantBf16Epi {
+  using Out = uint16_t;
+  // edsr_quant.py:141-143: f32(acc) * rescale, then + bias, then to bf16
+  __device__ static __forceinline__ Out apply(int acc, float rs, float b, int) {
+    const float v = __fadd_rn(__fmul_rn(__int2float_rn(acc), rs), b);
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  __device__ static __forceinline__ void store4(Out* dst, const Out* o) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2((unsigned)o[0] | ((unsigned)o[1] << 16),
+                   (unsigned)o[2] | ((unsigned)o[3] << 16));
+  }
+};
+
 struct BiasActEpi {
   using Out = float;
   __device__ static __forceinline__ Out apply(float acc, float, float b,
@@ -391,6 +410,18 @@ extern "C" int conv3x3_int8_requant_launch(const void* x, const void* w,
       <<<grid_for(N, H, W, Cout), NT, 0, (cudaStream_t)stream>>>(
           (const int8_t*)x, (const int8_t*)w, (const float*)rescale,
           (const float*)bias, (int8_t*)y, N, H, W, Cin, Cout, 0);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int conv3x3_int8_dequant_launch(const void* x, const void* w,
+                                           const void* rescale,
+                                           const void* bias, void* y, int N,
+                                           int H, int W, int Cin, int Cout,
+                                           void* stream) {
+  conv3x3_gemm<Int8Path, DequantBf16Epi>
+      <<<grid_for(N, H, W, Cout), NT, 0, (cudaStream_t)stream>>>(
+          (const int8_t*)x, (const int8_t*)w, (const float*)rescale,
+          (const float*)bias, (uint16_t*)y, N, H, W, Cin, Cout, 0);
   return (int)cudaGetLastError();
 }
 

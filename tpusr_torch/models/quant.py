@@ -5,7 +5,9 @@
 - activations: symmetric per-tensor int8 with max-abs scales calibrated on a
   f32 forward;
 - each conv runs int8 x int8 -> int32 with the fused f32 requant to the next
-  layer's grid: K1 (``conv3x3_int8_requant``);
+  layer's grid: K1 (``conv3x3_int8_requant``), except block 1 of the
+  per-patch path on whole images (``per_patch_int8_probs``), which K3
+  (``models/block1.py``) fuses with the patch extraction and the pool;
 - the head (GAP -> Dense 256 -> Dense softmax) stays f32.
 
 The int8 tree mirrors the JAX one key for key (``tpusr_torch.bridge.
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from tpusr_torch.bridge import dense_to_linear, oihw_to_hwio
 from tpusr_torch.core.conv3x3 import conv3x3_int8_requant
+from tpusr_torch.models.block1 import block1_int8, max_pool2x2
 from tpusr_torch.models.vgg import VGG16_CFG
 
 
@@ -95,18 +98,14 @@ def quantize_input(q: dict, images: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int8)
 
 
-def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 stride-2 VALID max pool of (N, H, W, C), any dtype."""
-    n, h, w, c = x.shape
-    x = x[:, : h // 2 * 2, : w // 2 * 2]
-    return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
-
-
-def int8_backbone(q: dict, x: torch.Tensor, pool5: bool = True) -> torch.Tensor:
+def int8_backbone(q: dict, x: torch.Tensor, pool5: bool = True,
+                  first_block: int = 1) -> torch.Tensor:
     """The int8 VGG16 conv trunk shared by the per-patch and shared-trunk
     paths: K1 convs, stride-2 max pools after blocks 1-4, and after block 5
-    only when ``pool5``. Input/output are int8 on ``q``'s grids."""
-    for block, n_convs, _f in VGG16_CFG:
+    only when ``pool5``. ``first_block`` > 1 starts on that block's input
+    (the per-patch path runs block 1 through K3). Input/output are int8 on
+    ``q``'s grids."""
+    for block, n_convs, _f in VGG16_CFG[first_block - 1:]:
         for ci in range(1, n_convs + 1):
             layer = q["layers"][f"block{block}_conv{ci}"]
             x = conv3x3_int8_requant(x.contiguous(), layer["kernel_q"],
@@ -123,10 +122,28 @@ def head_probs(feats: torch.Tensor, head: dict) -> torch.Tensor:
     return torch.softmax(h @ pred["kernel"] + pred["bias"], dim=-1)
 
 
-def quantized_vgg16_apply(q: dict, patches: torch.Tensor) -> torch.Tensor:
-    """int8 backbone + f32 head: (N, H, W, 3) [0, 1] (or int8 from
-    ``quantize_input``) -> (N, classes) probs."""
-    x = patches if patches.dtype == torch.int8 else quantize_input(q, patches)
-    x = int8_backbone(q, x, pool5=True)
+def _pooled_head(q: dict, x: torch.Tensor) -> torch.Tensor:
+    """(M, h, w, C5) int8 pool5 output -> (M, classes) probs."""
     feats = x.float() * q["final_scale"]
     return head_probs(feats.mean(dim=(1, 2)), q["head"])
+
+
+def quantized_vgg16_apply(q: dict, patches: torch.Tensor) -> torch.Tensor:
+    """int8 backbone + f32 head on extracted patches: (N, H, W, 3) [0, 1]
+    (or int8 from ``quantize_input``) -> (N, classes) probs. All 13 convs
+    run through K1."""
+    x = patches if patches.dtype == torch.int8 else quantize_input(q, patches)
+    return _pooled_head(q, int8_backbone(q, x, pool5=True))
+
+
+def per_patch_int8_probs(q: dict, images: torch.Tensor, patch: int = 96,
+                         stride: int = 48) -> torch.Tensor:
+    """The per-patch int8 classifier on whole images: (N, H, W, 3) [0, 1] (or
+    int8 from ``quantize_input``) -> (N, n_patches, classes) probs in
+    row-major patch order. Block 1 runs through K3 (patch extraction
+    included), blocks 2-5 through K1, the head in f32; the values equal
+    ``quantized_vgg16_apply`` on the extracted patches."""
+    x = images if images.dtype == torch.int8 else quantize_input(q, images)
+    pooled = block1_int8(q, x.contiguous(), patch, stride)
+    probs = _pooled_head(q, int8_backbone(q, pooled, pool5=True, first_block=2))
+    return probs.reshape(x.shape[0], -1, probs.shape[-1])

@@ -1,6 +1,6 @@
-"""Shared-trunk patch-vote classification (port of the int8 path of
-``tpusr/models/vgg_trunk.py``): one full-image int8 VGG16 trunk instead of one
-forward per overlapping patch.
+"""Shared-trunk patch-vote classification (port of
+``tpusr/models/vgg_trunk.py``): one full-image VGG16 trunk, int8 or f32,
+instead of one forward per overlapping patch.
 
 With stride 48 and patch 96 the patch offsets align with pool grids 1-4;
 pool5 alternates parity per patch, handled by a stride-1 max pool, a
@@ -14,6 +14,7 @@ dilation-2 mean window and a stride-3 slice:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from tpusr_torch.core.pad import pad_amounts, reflect_pad
 from tpusr_torch.core.patches import patch_grid_size
@@ -74,3 +75,29 @@ def shared_trunk_probs_int8(q: dict, images: torch.Tensor, patch: int = 96,
     feats_s1 = pooled_s1.float() * q["final_scale"]
     feats = _cells_to_patch_feats(feats_s1, patch, stride, n_h, n_w)
     return _head_probs(feats, q["head"])
+
+
+def shared_trunk_probs_f32(model, images: torch.Tensor, patch: int = 96,
+                           stride: int = 48) -> torch.Tensor:
+    """Float shared-trunk patch probabilities from a ``VGG16Classifier``
+    (the f32 variant of ``shared_trunk_probs_int8``). The convs are the
+    model's own ``nn.Conv2d`` (TF32 off), as ``per_patch_f32`` runs them;
+    the JAX package runs these as XLA convs, not Pallas kernels.
+
+    ``images``: (N, H, W, 3) [0, 1], cast to the model's dtype. Returns
+    (N, n_patches, classes) probs in row-major patch order.
+    """
+    n, h, w, _ = images.shape
+    _, _, n_h, n_w = trunk_geometry(h, w, patch, stride)
+    x = reflect_pad(images.to(model.fc1.weight.dtype), patch, stride)
+    x = x.permute(0, 3, 1, 2)
+    for b, n_convs, _wd in model.blocks:
+        for c in range(1, n_convs + 1):
+            x = F.relu(model.vgg16[f"block{b}_conv{c}"](x))
+        if b < 5:
+            x = F.max_pool2d(x, 2, 2)
+    pooled_s1 = F.max_pool2d(x, 2, 1).permute(0, 2, 3, 1)
+    feats = _cells_to_patch_feats(pooled_s1, patch, stride, n_h, n_w)
+    h1 = F.relu(model.fc1(feats))
+    probs = torch.softmax(model.predictions(h1), dim=-1)
+    return probs.reshape(n, n_h * n_w, probs.shape[-1])

@@ -18,9 +18,9 @@ import math
 
 import torch
 
-from tpusr_torch.core.pad import pad_amounts, reflect_pad_hw
-from tpusr_torch.core.patches import patch_grid_size, patchify
-from tpusr_torch.models.quant import quantize_input, quantized_vgg16_apply
+from tpusr_torch.core.pad import pad_amounts
+from tpusr_torch.core.patches import patch_grid_size
+from tpusr_torch.models.quant import per_patch_int8_probs, quantize_input
 from tpusr_torch.models.vgg_trunk import shared_trunk_probs_int8
 from tpusr_torch.pipeline.defect_pipeline import _vote
 
@@ -47,15 +47,10 @@ class CascadeVotes:
         self.guard_trips = 0
 
     def per_patch_probs(self, images: torch.Tensor) -> torch.Tensor:
-        """The exact per-patch int8 path: (N, H, W, 3) int8 images ->
-        (N, n_patches, classes) probs in row-major patch order."""
-        h, w = images.shape[1:3]
-        pad_h, pad_w = pad_amounts(h, w, self.patch, self.stride)
-        patches = patchify(reflect_pad_hw(images, pad_h, pad_w), self.patch,
-                           self.stride)
-        flat = patches.reshape((-1,) + patches.shape[2:])
-        probs = quantized_vgg16_apply(self.qtree, flat)
-        return probs.reshape(patches.shape[0], patches.shape[1], -1)
+        """The exact per-patch int8 path (block 1 through K3): (N, H, W, 3)
+        int8 images -> (N, n_patches, classes) probs in row-major patch
+        order."""
+        return per_patch_int8_probs(self.qtree, images, self.patch, self.stride)
 
     def __call__(self, images: torch.Tensor, n_valid=None):
         q = self.qtree
