@@ -39,6 +39,8 @@ SIGNATURES = {
                                         _P],
         "conv3x3_int8_dequant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _P],
+    },
+    "conv3x3_bias_act": {
         "conv3x3_bias_act_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                         _P],
         "conv3x3_bias_act_bf16_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -8,17 +8,18 @@ dequant conv.
 - ``conv3x3_bias_act`` (K2) replaces ``pallas_conv.py::conv3x3_bias_act``:
   float32 or bfloat16 x and kernel, float32 bias, fp32 accumulation, + bias
   and optional ReLU in fp32, one cast to x's dtype. It runs every 3x3 conv of
-  the EDSR forward, f32 and bf16; each dtype is its own kernel instance with
-  its own launch count.
+  the EDSR forward, f32 and bf16; each dtype is its own kernel with its own
+  launch count (``csrc/conv3x3_bias_act.cu``: bf16 on the tensor cores, f32
+  on an FFMA register-tiled GEMM, picked among their tiles by shape alone).
 - ``conv3x3_int8_dequant`` has no Pallas counterpart: it replaces the XLA
   int8 conv + dequant of the int8 EDSR (``tpusr/models/edsr_quant.py::
   _qconv``): int8 x int8 -> int32, then ``acc * rescale + bias`` in f32 and
   one cast to bf16. PyTorch has no int8 conv on CUDA.
 
 All take the JAX package's layouts: x (N, H, W, Cin) NHWC and kernels
-(3, 3, Cin, Cout) HWIO. Each wrapper launches the hand-written CUDA kernel of
-``csrc/conv3x3.cu`` for a CUDA tensor and calls its plain PyTorch twin for a
-CPU tensor; there is no other dispatch. ``LAUNCHES`` counts kernel launches,
+(3, 3, Cin, Cout) HWIO. Each wrapper launches its hand-written CUDA kernel
+(K1 and the dequant conv in ``csrc/conv3x3.cu``) for a CUDA tensor and calls
+its plain PyTorch twin for a CPU tensor; there is no other dispatch. ``LAUNCHES`` counts kernel launches,
 one per call that reached the kernel.
 """
 
@@ -170,9 +171,10 @@ def conv3x3_bias_act(x, kernel, bias, relu: bool = False):
     """3x3 SAME float conv + bias (+ ReLU) (K2).
 
     x: (N, H, W, Cin) float32 or bfloat16; kernel: (3, 3, Cin, Cout) of x's
-    dtype; bias: (Cout,) float32. Accumulates in fp32 with plain FMAs, adds
+    dtype; bias: (Cout,) float32. Accumulates in fp32 (f32: fp32 FMAs over k
+    in order; bf16: the tensor cores' fp32 sums of the exact products), adds
     the bias (and takes the ReLU) in fp32 and returns x's dtype, rounded
-    once.
+    once. Each output's sum runs in one order whatever the batch around it.
     """
     # any other dtype is refused by _check_args as not float32
     dtype = x.dtype if x.dtype in _K2_INSTANCES else torch.float32
@@ -184,13 +186,16 @@ def conv3x3_bias_act(x, kernel, bias, relu: bool = False):
         raise ValueError(f"{name}: unsupported device {x.device}")
     _check_cuda(name, x, kernel, bias)
     n, h, w, cin = x.shape
+    if max(x.numel(), n * h * w * cout) >= 2 ** 31:
+        raise ValueError(f"{name}: x and the output must hold < 2^31 elements "
+                         f"(the kernel's offsets are 32-bit)")
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib = _build.load("conv3x3")
+    lib = _build.load("conv3x3_bias_act")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     launch = getattr(lib, f"conv3x3_bias_act_{tag}_launch")
-    _build.check("conv3x3", launch(
+    _build.check("conv3x3_bias_act", launch(
         x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
         n, h, w, cin, cout, int(relu), stream))
     _count_launch(name)

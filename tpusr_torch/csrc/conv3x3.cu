@@ -1,6 +1,7 @@
-// 3x3 SAME convolution as an implicit GEMM with a fused epilogue, for sm_90a.
+// 3x3 SAME int8 convolution as an implicit GEMM with a fused epilogue, for
+// sm_90a. K2 (the float conv3x3_bias_act) lives in conv3x3_bias_act.cu.
 //
-// One templated body, three entry points:
+// One templated body, two entry points:
 //
 //   conv3x3_int8_requant_launch  replaces the Pallas kernel
 //       tpusr/core/pallas_conv.py::conv3x3_int8_requant (body
@@ -8,15 +9,6 @@
 //       int8 x int8 -> int32, then clip(acc * rescale[c] + bias[c], 0, 127)
 //       with a truncating int8 cast. Bit-exact with the XLA requant in
 //       tpusr/models/quant.py::int8_backbone.
-//   conv3x3_bias_act_f32_launch  replaces
-//       tpusr/core/pallas_conv.py::conv3x3_bias_act (epilogue
-//       _bias_relu_epilogue) for float32: fp32 FMAs (no TF32), + bias,
-//       optional ReLU.
-//   conv3x3_bias_act_bf16_launch  replaces the same Pallas kernel for
-//       bfloat16, with its contract (pallas_conv.py:139-143): bf16 x and
-//       kernel, f32 bias, fp32 accumulation, + bias and ReLU in fp32, one
-//       round-to-nearest-even cast to bf16 at the store. The products run
-//       as fp32 FMAs on the exact fp32 values of the bf16 operands.
 //   conv3x3_int8_dequant_launch  has no Pallas counterpart: it replaces the
 //       XLA int8 conv of the int8 EDSR (tpusr/models/edsr_quant.py::_qconv
 //       and _dequant), int8 x int8 -> int32 with K1's __dp4a body, then
@@ -29,26 +21,23 @@
 // output pixel (n, oh, ow).
 //
 // What bounds it on this card: at the VGG16 and EDSR widths (Cin, Cout >= 64)
-// every instance is compute-bound (arithmetic intensity > 100 op/byte). The
+// both instances are compute-bound (arithmetic intensity > 100 op/byte). The
 // Pallas kernel ran the GEMM on the MXU; this first Hopper port runs it on the
-// CUDA cores (__dp4a for int8, FFMA for fp32 and for bf16 widened to fp32),
-// so it sits well below the tensor-core roofline, the bf16 instance furthest
-// (its bound is the 989 TFLOP/s bf16 tensor-core rate). The design keeps
-// every byte that is not an input or output out of device memory: the
-// im2col tile is gathered into shared memory per block (the Pallas version
-// padded the whole input in HBM first; here SAME padding is a bounds
-// check), and the int32/fp32 accumulators
-// never leave registers -- the requant or bias/ReLU epilogue runs before the
-// one store. Tensor cores (wgmma, TMA) are later work.
+// CUDA cores (__dp4a), so it sits well below the int8 tensor-core roofline.
+// The design keeps every byte that is not an input or output out of device
+// memory: the im2col tile is gathered into shared memory per block (the
+// Pallas version padded the whole input in HBM first; here SAME padding is a
+// bounds check), and the int32 accumulators never leave registers -- the
+// requant or dequant epilogue runs before the one store. Tensor cores are
+// later work.
 //
 // Tiling: a 256-thread block computes a 64-pixel x 64-channel output tile;
 // each thread owns a 4x4 sub-tile. The K loop walks the 9 taps x Cin in
-// chunks of BK elements. A fast path loads 16-byte vectors when a chunk lies
-// inside one tap (Cin % BK == 0) and when Cout % 4 == 0; a generic
-// element-wise path covers the rest (Cin = 3 for the first layer, Cout = 3
-// for the EDSR tail). A shared-memory word holds PACK consecutive k of one
-// pixel or channel: 4 int8 for __dp4a, 2 bf16, or 1 fp32, so every path
-// moves 16 words per K chunk.
+// chunks of BK = 64 int8. A fast path loads 16-byte vectors when a chunk
+// lies inside one tap (Cin % BK == 0) and when Cout % 4 == 0; a generic
+// element-wise path covers the rest (Cin = 3 for the first layer). A
+// shared-memory word holds 4 consecutive k of one pixel or channel, one
+// __dp4a operand, so every path moves 16 words per K chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,44 +61,11 @@ struct Int8Path {
   }
 };
 
-struct Bf16Path {
-  using T = uint16_t;    // the bits of one bf16 in HBM
-  using Word = unsigned; // 2 consecutive k: the lower k in the low half
-  using Acc = float;
-  static constexpr int PACK = 2;
-  static constexpr int BK = 32;
-  // a bf16 is the upper half of the fp32 with the same value
-  __device__ static __forceinline__ Acc mac(Word a, Word b, Acc c) {
-    c = __fmaf_rn(__uint_as_float(a << 16), __uint_as_float(b << 16), c);
-    return __fmaf_rn(__uint_as_float(a & 0xffff0000u),
-                     __uint_as_float(b & 0xffff0000u), c);
-  }
-};
-
-struct F32Path {
-  using T = float;
-  using Word = float;
-  using Acc = float;
-  static constexpr int PACK = 1;
-  static constexpr int BK = 16;
-  __device__ static __forceinline__ Acc mac(Word a, Word b, Acc c) {
-    return __fmaf_rn(a, b, c);
-  }
-};
-
 // Reinterpret 32 bits as a shared-memory word.
 template <class Word>
 __device__ __forceinline__ Word from_bits(unsigned u);
 template <>
 __device__ __forceinline__ int from_bits<int>(unsigned u) { return (int)u; }
-template <>
-__device__ __forceinline__ unsigned from_bits<unsigned>(unsigned u) {
-  return u;
-}
-template <>
-__device__ __forceinline__ float from_bits<float>(unsigned u) {
-  return __uint_as_float(u);
-}
 
 // Element k of the im2col row of output pixel (n, oh, ow), 0 outside the
 // image (SAME zero padding) and past K.
@@ -126,15 +82,10 @@ __device__ __forceinline__ typename P::T im2col_elem(
 
 template <class P>
 __device__ __forceinline__ typename P::Word pack_elems(const typename P::T* e) {
-  if constexpr (P::PACK == 4) {
-    return (int)((uint32_t)(uint8_t)e[0] | ((uint32_t)(uint8_t)e[1] << 8) |
-                 ((uint32_t)(uint8_t)e[2] << 16) |
-                 ((uint32_t)(uint8_t)e[3] << 24));
-  } else if constexpr (P::PACK == 2) {
-    return (unsigned)e[0] | ((unsigned)e[1] << 16);
-  } else {
-    return e[0];
-  }
+  static_assert(P::PACK == 4, "one dp4a word: 4 int8");
+  return (int)((uint32_t)(uint8_t)e[0] | ((uint32_t)(uint8_t)e[1] << 8) |
+               ((uint32_t)(uint8_t)e[2] << 16) |
+               ((uint32_t)(uint8_t)e[3] << 24));
 }
 
 template <class P, class Epi>
@@ -148,7 +99,7 @@ conv3x3_gemm(const typename P::T* __restrict__ x,
   using Word = typename P::Word;
   using Acc = typename P::Acc;
   constexpr int BK = P::BK;
-  constexpr int BKW = BK / P::PACK;  // 16 words per chunk on both paths
+  constexpr int BKW = BK / P::PACK;  // 16 words per chunk
   static_assert(BKW == 16, "loader mappings assume 16 words per K chunk");
 
   __shared__ __align__(16) Word sA[BKW][BM + APAD];
@@ -247,49 +198,6 @@ conv3x3_gemm(const typename P::T* __restrict__ x,
           sB[g][c4 * 4 + j] = pack_elems<P>(e);
         }
       }
-    } else if constexpr (P::PACK == 2) {
-      // thread -> 2 rows (k, k+1) x 4 channels, interleaved into one word
-      // per channel
-      const int g = tid / 16, c4 = tid % 16;
-      const int co = n0 + c4 * 4, k = k0 + 2 * g;
-      if (b_vec) {
-        uint2 r0 = make_uint2(0u, 0u), r1 = make_uint2(0u, 0u);
-        if (co < Cout && k < K)
-          r0 = *reinterpret_cast<const uint2*>(w + (long long)k * Cout + co);
-        if (co < Cout && k + 1 < K)
-          r1 = *reinterpret_cast<const uint2*>(w + (long long)(k + 1) * Cout +
-                                               co);
-        sB[g][c4 * 4 + 0] = __byte_perm(r0.x, r1.x, 0x5410);
-        sB[g][c4 * 4 + 1] = __byte_perm(r0.x, r1.x, 0x7632);
-        sB[g][c4 * 4 + 2] = __byte_perm(r0.y, r1.y, 0x5410);
-        sB[g][c4 * 4 + 3] = __byte_perm(r0.y, r1.y, 0x7632);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          T e[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            e[i] = (k + i < K && co + j < Cout)
-                       ? w[(long long)(k + i) * Cout + co + j]
-                       : T(0);
-          sB[g][c4 * 4 + j] = pack_elems<P>(e);
-        }
-      }
-    } else {
-      // thread -> one row (k) x 4 channels
-      const int row = tid / 16, c4 = tid % 16;
-      const int k = k0 + row, co = n0 + c4 * 4;
-      if (b_vec) {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k < K && co < Cout)
-          v = *reinterpret_cast<const float4*>(w + (long long)k * Cout + co);
-        *reinterpret_cast<float4*>(&sB[row][c4 * 4]) = v;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          sB[row][c4 * 4 + j] =
-              (k < K && co + j < Cout) ? w[(long long)k * Cout + co + j] : 0.f;
-      }
     }
     __syncthreads();
 
@@ -367,33 +275,6 @@ struct DequantBf16Epi {
   }
 };
 
-struct BiasActEpi {
-  using Out = float;
-  __device__ static __forceinline__ Out apply(float acc, float, float b,
-                                              int relu) {
-    const float v = __fadd_rn(acc, b);
-    return relu ? fmaxf(v, 0.f) : v;
-  }
-  __device__ static __forceinline__ void store4(Out* dst, const Out* o) {
-    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
-  }
-};
-
-struct BiasActBf16Epi {
-  using Out = uint16_t;
-  __device__ static __forceinline__ Out apply(float acc, float, float b,
-                                              int relu) {
-    float v = __fadd_rn(acc, b);
-    if (relu) v = fmaxf(v, 0.f);
-    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  }
-  __device__ static __forceinline__ void store4(Out* dst, const Out* o) {
-    *reinterpret_cast<uint2*>(dst) =
-        make_uint2((unsigned)o[0] | ((unsigned)o[1] << 16),
-                   (unsigned)o[2] | ((unsigned)o[3] << 16));
-  }
-};
-
 dim3 grid_for(int N, int H, int W, int Cout) {
   const long long M = (long long)N * H * W;
   return dim3((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
@@ -422,28 +303,6 @@ extern "C" int conv3x3_int8_dequant_launch(const void* x, const void* w,
       <<<grid_for(N, H, W, Cout), NT, 0, (cudaStream_t)stream>>>(
           (const int8_t*)x, (const int8_t*)w, (const float*)rescale,
           (const float*)bias, (uint16_t*)y, N, H, W, Cin, Cout, 0);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int conv3x3_bias_act_f32_launch(const void* x, const void* w,
-                                           const void* bias, void* y, int N,
-                                           int H, int W, int Cin, int Cout,
-                                           int relu, void* stream) {
-  conv3x3_gemm<F32Path, BiasActEpi>
-      <<<grid_for(N, H, W, Cout), NT, 0, (cudaStream_t)stream>>>(
-          (const float*)x, (const float*)w, nullptr, (const float*)bias,
-          (float*)y, N, H, W, Cin, Cout, relu);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int conv3x3_bias_act_bf16_launch(const void* x, const void* w,
-                                            const void* bias, void* y, int N,
-                                            int H, int W, int Cin, int Cout,
-                                            int relu, void* stream) {
-  conv3x3_gemm<Bf16Path, BiasActBf16Epi>
-      <<<grid_for(N, H, W, Cout), NT, 0, (cudaStream_t)stream>>>(
-          (const uint16_t*)x, (const uint16_t*)w, nullptr, (const float*)bias,
-          (uint16_t*)y, N, H, W, Cin, Cout, relu);
   return (int)cudaGetLastError();
 }
 
