@@ -10,10 +10,14 @@ its own lines:
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions, the TF32 flags (off);
 2. build: every CUDA source of the port, one ``nvcc`` per source, in parallel;
-3. K1 (``conv3x3_int8_requant``) against its plain twin at each shape the
-   serving path launches it at (13 trunk layers at the batch from 560x560,
-   the 11 per-patch layers of blocks 2-5 at the escalated patches from
-   48x48): bit-equal;
+3. K1 (``conv3x3_int8_requant``, int8 tensor cores) against its plain twin
+   at each shape the serving path launches it at (13 trunk layers at the
+   batch from 560x560, the 11 per-patch layers of blocks 2-5 at the
+   escalated patches from 48x48, and the same 11 at the guard fallback's
+   1600 patches, totalled on a line of their own): bit-equal, with the
+   achieved TOP/s and share of the bound per shape, ``torch._int_mm`` on a
+   prebuilt im2col as a yardstick for the GEMM alone (``gemm_library_ms``)
+   and the SM clock and power under load at the deepest trunk shape;
 4. K3 (``block1_int8``, fused patch extraction + block 1 + pool) against its
    plain twin at the escalation's 4 images of 512^2 (400 patches), the guard
    fallback's 16 (1600 patches) and one 128^2 image (4 patches): 0 differing
@@ -46,7 +50,8 @@ its own lines:
    the same weights, with 46 K2-bf16 launches, its SR against the f32 SR
    and its classes against the f32-SR cascade;
 10. int8 SR serving: ``conv3x3_int8_dequant`` against its twin at its
-   shapes (bit-equal) and the ``torch._int_mm`` 7x7 tail against its
+   shapes (bit-equal; TOP/s, share of bound and the ``_int_mm`` GEMM
+   yardstick as for K1) and the ``torch._int_mm`` 7x7 tail against its
    float64 twin (equal); then one batch of 16 of each of bench.py's int8-SR
    rows (``int8_sr_per_patch_int8``, ``int8_sr_shared_trunk_int8``,
    ``int8_sr_noborder_shared_trunk_int8``) with their launch counts, the SR
@@ -188,6 +193,13 @@ def k1_shapes(cfg: Slice) -> list[tuple[str, tuple, int]]:
                               cfg.patch // 2, cfg.widths, first_block=2)
     return ([("trunk", s, 1) for s in trunk]
             + [("escalation", s, 1) for s in patches])
+
+
+def k1_fallback_shapes(cfg: Slice) -> list[tuple]:
+    """K1's shapes on a guard fallback: blocks 2-5 on every image's
+    patches."""
+    return vgg_conv_shapes(cfg.batch * cfg.n_patches(), cfg.patch // 2,
+                           cfg.widths, first_block=2)
 
 
 def n_per_patch_k1(cfg: Slice) -> int:
@@ -384,36 +396,96 @@ def block1_operands(g, dev, n: int, h: int, w: int):
     return q, images
 
 
+def int_mm_yardstick(x, wq, rs, b, y, dequant: bool):
+    """Device ms of ``torch._int_mm`` on a prebuilt im2col of ``x`` (the
+    GEMM alone: not the same function, a yardstick for the kernel's GEMM),
+    or None where _int_mm does not take the shape (K or Cout not a multiple
+    of 8). Its int32 sums, requantized (or dequantized) as the twin does,
+    must equal the kernel's output ``y``."""
+    from tpusr_torch.models.edsr_quant import im2col
+    cin, cout = wq.shape[2], wq.shape[3]
+    if (9 * cin) % 8 or cout % 8:
+        return None
+    cols, wmat = im2col(x, 3), wq.reshape(9 * cin, cout)
+    acc = torch._int_mm(cols, wmat).reshape(*y.shape).float() * rs + b
+    same = (torch.equal(acc.to(torch.bfloat16).view(torch.int16),
+                        y.view(torch.int16)) if dequant else
+            torch.equal(acc.clamp(0.0, 127.0).to(torch.int8), y))
+    check(same, f"torch._int_mm on the im2col differs from the kernel at "
+                f"{tuple(x.shape)} -> {cout}")
+    del acc
+    ms = time_ms(lambda: torch._int_mm(cols, wmat), max_iters=20)
+    del cols
+    return ms
+
+
 def phase_k1(cfg: Slice, dev) -> dict:
+    """K1 against its twin at the served shapes (the record: one batch
+    without the guard fallback) and at the guard fallback's shapes (their
+    own total line)."""
     from tpusr_torch.core.conv3x3 import (conv3x3_int8_requant,
-                                          conv3x3_int8_requant_plain)
+                                          conv3x3_int8_requant_plain,
+                                          pack_int8_kernel)
     g = torch.Generator(device=dev).manual_seed(1)
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0,
-           "t_ops": 0.0, "t_bytes": 0.0}
-    for where, shape, mult in k1_shapes(cfg):
+           "t_ops": 0.0, "t_bytes": 0.0, "gemm_library_ms": 0.0}
+    fb = {"ms": 0.0, "bound_ms": 0.0, "gemm_library_ms": 0.0}
+    shapes = k1_shapes(cfg) + [("fallback", s, 1)
+                               for s in k1_fallback_shapes(cfg)]
+    deepest = 12                          # trunk block 5, its last conv
+    n_gemm = {"served": 0, "fallback": 0}
+    for i, (where, shape, mult) in enumerate(shapes):
+        served = where != "fallback"
         x, wq, rs, b = _int8_operands(shape, g, dev)
-        y = conv3x3_int8_requant(x, wq, rs, b)
+        wp = pack_int8_kernel(wq)
+        y = conv3x3_int8_requant(x, wq, rs, b, wp)
         yp = conv3x3_int8_requant_plain(x, wq, rs, b)
         torch.cuda.synchronize()
         err = int((y.int() - yp.int()).abs().max())
         check(torch.equal(y, yp), f"K1 differs from its twin at {shape}: "
                                   f"{int((y != yp).sum())} values, max {err}")
         spread = int(torch.unique(y).numel())
-        ms = time_ms(lambda: conv3x3_int8_requant(x, wq, rs, b))
-        pms = time_ms(lambda: conv3x3_int8_requant_plain(x, wq, rs, b),
-                      min_total_ms=10.0, max_iters=5)
+        del yp
+        ms = time_ms(lambda: conv3x3_int8_requant(x, wq, rs, b, wp))
+        pms = (time_ms(lambda: conv3x3_int8_requant_plain(x, wq, rs, b),
+                       min_total_ms=10.0, max_iters=5) if served else None)
+        lms = int_mm_yardstick(x, wq, rs, b, y, dequant=False)
         ops, nbytes = conv_work(shape, 1)
         bms, by = bound(ops, nbytes, "int8")
+        extra = ""
+        if i == deepest:
+            mhz, watts = clocks_during(
+                lambda: conv3x3_int8_requant(x, wq, rs, b, wp))
+            extra = f"  under load SM clock {mhz:.0f} MHz, {watts:.0f} W (median)"
         print(f"[K1] {where:10s} {str(shape):28s} equal (max|err| {err}, "
-              f"{spread} levels)  kernel {ms:.4f} ms  twin {pms:.4f} ms  "
-              f"bound {bms:.4f} ms ({by})  x{mult}/batch")
-        tot["ms"] += mult * ms
-        tot["plain_ms"] += mult * pms
-        tot["bound_ms"] += mult * bms
-        tot["t_" + ("ops" if by == "operations" else by)] += mult * bms
+              f"{spread} levels)  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+              f"TOP/s, {100 * bms / ms:.1f}% of bound)  twin "
+              + (f"{pms:.4f} ms" if served else "not timed")
+              + "  _int_mm GEMM " + (f"{lms:.4f} ms" if lms else "n/a (K % 8)")
+              + f"  bound {bms:.4f} ms ({by})  x{mult}/batch{extra}")
+        acc = tot if served else fb
+        acc["ms"] += mult * ms
+        acc["bound_ms"] += mult * bms
+        if lms is not None:
+            acc["gemm_library_ms"] += mult * lms
+            n_gemm["served" if served else "fallback"] += 1
+        if served:
+            tot["plain_ms"] += mult * pms
+            tot["t_" + ("ops" if by == "operations" else by)] += mult * bms
         tot["err"] = max(tot["err"], err)
-        del x, wq, y, yp
+        del x, wq, wp, y
     torch.cuda.empty_cache()
+    n_served = len(k1_shapes(cfg))
+    print(f"[K1] per served batch of {cfg.batch} (no fallback): kernel "
+          f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+          f"({100 * tot['bound_ms'] / tot['ms']:.1f}%), _int_mm GEMM "
+          f"{tot['gemm_library_ms']:.3f} ms over {n_gemm['served']} of "
+          f"{n_served} shapes")
+    print(f"[K1] guard fallback ({cfg.batch * cfg.n_patches()} patches, "
+          f"{len(k1_fallback_shapes(cfg))} shapes, all bit-equal): kernel "
+          f"{fb['ms']:.3f} ms, bound {fb['bound_ms']:.3f} ms "
+          f"({100 * fb['bound_ms'] / fb['ms']:.1f}%), _int_mm GEMM "
+          f"{fb['gemm_library_ms']:.3f} ms over {n_gemm['fallback']} shapes")
     return tot
 
 
@@ -487,7 +559,7 @@ def phase_k3(cfg: Slice, dev) -> dict:
     block 1 (patch extraction, two K1 launches, the pool) timed beside it.
     Returns the record of the escalation's shape, the served batch's K3
     launch on the path without the guard fallback."""
-    from tpusr_torch.core.conv3x3 import conv3x3_int8_requant
+    from tpusr_torch.core.conv3x3 import conv3x3_int8_requant, pack_int8_kernel
     from tpusr_torch.models.block1 import (block1_int8, block1_plain,
                                            extract_patches_reference,
                                            grid_counts, max_pool2x2)
@@ -504,11 +576,13 @@ def phase_k3(cfg: Slice, dev) -> dict:
                                            cfg.stride)
                               for i in range(0, n, 4)])
 
+        packed = [pack_int8_kernel(layer["kernel_q"]) for layer in (l1, l2)]
+
         def k1_block1():
             x = extract_patches_reference(images, cfg.patch, cfg.stride)
-            for layer in (l1, l2):
+            for layer, wp in zip((l1, l2), packed):
                 x = conv3x3_int8_requant(x, layer["kernel_q"], layer["rescale"],
-                                         layer["bias_over_out"])
+                                         layer["bias_over_out"], wp)
             return max_pool2x2(x)
 
         y = block1_int8(q, images, cfg.patch, cfg.stride)
@@ -693,6 +767,13 @@ def plain_edsr(edsr, x: torch.Tensor) -> torch.Tensor:
     return c(edsr.tail, y).clamp(0.0, 1.0)
 
 
+def on_hwio(plain):
+    """A plain int8 twin called as its kernel's wrapper is: the packed
+    weights the paths pass are dropped, the twin reads the HWIO ones."""
+    return lambda x, w_q, rescale, bias, w_packed=None: plain(x, w_q, rescale,
+                                                              bias)
+
+
 class on_plain_twins:
     """Route the int8 classifier's kernels (K1 in the backbone, K3 for block
     1) to their plain twins on the same device for the duration of a
@@ -703,7 +784,7 @@ class on_plain_twins:
         from tpusr_torch.models import block1, quant
         self._quant = quant
         self._orig = (quant.conv3x3_int8_requant, quant.block1_int8)
-        quant.conv3x3_int8_requant = conv3x3.conv3x3_int8_requant_plain
+        quant.conv3x3_int8_requant = on_hwio(conv3x3.conv3x3_int8_requant_plain)
         quant.block1_int8 = block1.block1_plain
 
     def __exit__(self, *exc):
@@ -979,7 +1060,8 @@ class dequant_on_plain_twin:
         from tpusr_torch.core import conv3x3
         from tpusr_torch.models import edsr_quant
         self._mod, self._orig = edsr_quant, edsr_quant.conv3x3_int8_dequant
-        edsr_quant.conv3x3_int8_dequant = conv3x3.conv3x3_int8_dequant_plain
+        edsr_quant.conv3x3_int8_dequant = on_hwio(
+            conv3x3.conv3x3_int8_dequant_plain)
 
     def __exit__(self, *exc):
         self._mod.conv3x3_int8_dequant = self._orig
@@ -995,37 +1077,48 @@ def phase_int8_sr(cfg: Slice, dev, state: dict, sync, card: str):
     of 16 of each int8-SR row of bench.py. Returns the dequant conv's
     launches over the three rows and its record (one batch's launches)."""
     from tpusr_torch.core.conv3x3 import (conv3x3_int8_dequant,
-                                          conv3x3_int8_dequant_plain)
+                                          conv3x3_int8_dequant_plain,
+                                          pack_int8_kernel)
     from tpusr_torch.models.edsr_quant import (tail_conv_int8,
                                                tail_conv_int8_plain)
     from tpusr_torch.pipeline import make_serving_pipeline
 
     g = torch.Generator(device=dev).manual_seed(6)
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-           "t_ops": 0.0, "t_bytes": 0.0}
+           "t_ops": 0.0, "t_bytes": 0.0, "gemm_library_ms": 0.0}
     for where, shape, mult in dequant_shapes(cfg):
         x, wq, rs, b = _int8_operands(shape, g, dev)
-        y = conv3x3_int8_dequant(x, wq, rs, b)
+        wp = pack_int8_kernel(wq)
+        y = conv3x3_int8_dequant(x, wq, rs, b, wp)
         yp = conv3x3_int8_dequant_plain(x, wq, rs, b)
         torch.cuda.synchronize()
         n_diff = int((y.view(torch.int16) != yp.view(torch.int16)).sum())
         check(n_diff == 0, f"dequant conv differs from its twin at {shape}: "
                            f"{n_diff} values")
-        ms = time_ms(lambda: conv3x3_int8_dequant(x, wq, rs, b))
+        ms = time_ms(lambda: conv3x3_int8_dequant(x, wq, rs, b, wp))
         pms = time_ms(lambda: conv3x3_int8_dequant_plain(x, wq, rs, b),
                       min_total_ms=10.0, max_iters=5)
+        lms = int_mm_yardstick(x, wq, rs, b, y, dequant=True)
         n, h, w, cin, cout = shape
         ops = 2.0 * n * h * w * 9 * cin * cout
         nbytes = n * h * w * (cin + 2 * cout) + 9 * cin * cout + 8 * cout
         bms, by = bound(ops, nbytes, "int8")
         print(f"[int8-sr] dequant conv {where:8s} {str(shape):26s} bit-equal "
-              f"to its twin (bf16)  kernel {ms:.4f} ms  twin {pms:.4f} ms  "
-              f"bound {bms:.4f} ms ({by})  x{mult}/batch")
+              f"to its twin (bf16)  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+              f"TOP/s, {100 * bms / ms:.1f}% of bound)  twin {pms:.4f} ms  "
+              "_int_mm GEMM " + (f"{lms:.4f} ms" if lms else "n/a (K % 8)")
+              + f"  bound {bms:.4f} ms ({by})  x{mult}/batch")
         tot["ms"] += mult * ms
         tot["plain_ms"] += mult * pms
         tot["bound_ms"] += mult * bms
+        tot["gemm_library_ms"] += mult * (lms or 0.0)
         tot["t_" + ("ops" if by == "operations" else by)] += mult * bms
-        del x, wq, y, yp
+        del x, wq, wp, y, yp
+    print(f"[int8-sr] dequant conv per batch of {cfg.batch}: kernel "
+          f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+          f"({100 * tot['bound_ms'] / tot['ms']:.1f}%), _int_mm GEMM "
+          f"{tot['gemm_library_ms']:.3f} ms (res+body shapes; the Cin = 3 "
+          f"head has K = 27)")
     n, h, f = cfg.batch, cfg.lr, cfg.filters
     x8 = torch.randint(-127, 128, (n, h, h, f), generator=g, device=dev,
                        dtype=torch.int8)
@@ -1254,13 +1347,16 @@ def phase_classic(dev, seed: int, sync, card: str) -> int:
 
 
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
-    return {"name": name, "route": "cuda",
-            "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches, "max_abs_err": tot["err"],
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"],
-            "bound_by": "operations" if tot["t_ops"] >= tot["t_bytes"] else "bytes",
-            "library_ms": library}
+    rec = {"name": name, "route": "cuda",
+           "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
+           "launches": launches, "max_abs_err": tot["err"],
+           "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+           "bound_ms": tot["bound_ms"],
+           "bound_by": "operations" if tot["t_ops"] >= tot["t_bytes"] else "bytes",
+           "library_ms": library}
+    if "gemm_library_ms" in tot:     # torch._int_mm, the GEMM alone
+        rec["gemm_library_ms"] = tot["gemm_library_ms"]
+    return rec
 
 
 def main() -> int:

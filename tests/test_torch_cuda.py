@@ -1,9 +1,12 @@
 """The port's CUDA kernels (tpusr_torch/csrc/conv3x3.cu, conv3x3_bias_act.cu,
 nlm.cu, block1.cu) against their plain twins on the card, at edge shapes the
 main paths do not reach: Cin and Cout off the 16-byte vector paths, odd
-spatial sizes, a single pixel, and for K2 the serving shapes' edges (Cout =
-256 on several N tiles, the 3-channel tail, the Cin = 3 head) and batch
-invariance; for K4 a tiny image, a single row and a size off the 16-pixel tile;
+spatial sizes, a single pixel; for K1 and the dequant conv (int8 tensor
+cores) M off the 128-pixel tile, Cout 3 to 512, Cin 3 to 512, tiles that
+cross images and the largest |acc| of a 512-channel conv; for K2 the
+serving shapes' edges (Cout = 256 on several N tiles, the 3-channel tail,
+the Cin = 3 head) and batch invariance; for K4 a tiny image, a single row
+and a size off the 16-pixel tile;
 for K3 one image, sizes that need the reflect pad, small patch grids and a
 patch that is not a multiple of the 16-pixel tile.
 
@@ -28,7 +31,15 @@ from tpusr_torch.models import block1
 pytestmark = pytest.mark.cuda
 
 K1_SHAPES = [(3, 5, 7, 16, 8), (2, 9, 9, 64, 3), (1, 7, 5, 3, 64),
-             (2, 6, 6, 200, 12), (1, 1, 1, 128, 6), (4, 3, 11, 4, 130)]
+             (2, 6, 6, 200, 12), (1, 1, 1, 128, 6), (4, 3, 11, 4, 130),
+             # M off the 128-pixel tile with Cin and Cout 512 (4 N tiles)
+             (3, 7, 9, 512, 512),
+             # 6x6 images: every 128-pixel tile crosses images
+             (9, 6, 6, 64, 128),
+             # the gather loader on 128-wide tiles; 200 and 16 on one N tile
+             (2, 13, 11, 3, 512), (2, 10, 10, 200, 64), (1, 5, 5, 16, 64),
+             # serving-like: trunk block 5 at 35^2, patch block 5 at 6^2
+             (2, 35, 35, 512, 512), (40, 6, 6, 512, 512)]
 K2_SHAPES = [(3, 5, 7, 16, 8), (2, 9, 9, 64, 3), (1, 7, 5, 3, 64),
              (2, 6, 6, 20, 12), (1, 1, 1, 64, 6), (2, 4, 13, 32, 130),
              # serving-like: an up0 slab, a tail slab, the head
@@ -55,10 +66,39 @@ def test_k1_kernel_bit_exact_with_twin(cuda, shape):
     b = torch.rand(cout, generator=g, device=cuda) * 20.0 - 9.5
     before = k.LAUNCHES["conv3x3_int8_requant"]
     y = k.conv3x3_int8_requant(x, wq, rs, b)
-    assert k.LAUNCHES["conv3x3_int8_requant"] == before + 1
+    y_packed = k.conv3x3_int8_requant(x, wq, rs, b, k.pack_int8_kernel(wq))
+    assert k.LAUNCHES["conv3x3_int8_requant"] == before + 2
     yp = k.conv3x3_int8_requant_plain(x, wq, rs, b)
     torch.cuda.synchronize()
     assert torch.equal(y, yp), int((y != yp).sum())
+    assert torch.equal(y_packed, y)
+    assert int(torch.unique(y).numel()) > min(16, y.numel() // 8)
+
+
+def _largest_acc_operands(cuda, shape):
+    """x = 127 and w = -127 everywhere: |acc| = 9*Cin*127^2 (74.3M at Cin =
+    512) inside the image, fewer taps on its border; negative rescales
+    spread the requant over [0, 127]."""
+    n, h, w, cin, cout = shape
+    x = torch.full((n, h, w, cin), 127, dtype=torch.int8, device=cuda)
+    wq = torch.full((3, 3, cin, cout), -127, dtype=torch.int8, device=cuda)
+    rs = -(torch.arange(cout, device=cuda, dtype=torch.float32) + 1.0) \
+        * (127.0 / cout / (9 * cin * 127.0 ** 2))
+    b = torch.full((cout,), 0.5, device=cuda)
+    return x, wq, rs, b
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 7, 512, 512), (1, 9, 9, 512, 64)])
+def test_k1_and_dequant_at_the_largest_accumulator(cuda, shape):
+    x, wq, rs, b = _largest_acc_operands(cuda, shape)
+    y = k.conv3x3_int8_requant(x, wq, rs, b)
+    d = k.conv3x3_int8_dequant(x, wq, rs, b)
+    yp = k.conv3x3_int8_requant_plain(x, wq, rs, b)
+    dp = k.conv3x3_int8_dequant_plain(x, wq, rs, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yp), int((y != yp).sum())
+    assert torch.equal(d.view(torch.int16), dp.view(torch.int16))
+    assert int(y.max()) == 127 and float(d.max()) > 126.0
 
 
 @pytest.mark.parametrize("relu", [False, True])
@@ -174,14 +214,28 @@ def test_k4_and_k2_bf16_refuse_what_they_do_not_take(cuda):
     assert (dict(k.LAUNCHES), dict(nlm.LAUNCHES)) == before
 
 
-@pytest.mark.parametrize("cin", [3, 64])
+@pytest.mark.parametrize("cin", [3, 16, 64, 200, 512])
 @pytest.mark.parametrize("hw", [(5, 7), (128, 128), (1, 1)])
 def test_int8_dequant_kernel_bit_exact_with_twin(cuda, cin, hw):
+    _check_dequant(cuda, (2, *hw, cin, 64))
+
+
+# Cout 3, 130 and 512 (several N tiles), 6x6 images across tiles
+DEQUANT_SHAPES = [(2, 9, 9, 64, 3), (4, 3, 11, 16, 130), (3, 7, 9, 512, 512),
+                  (9, 6, 6, 64, 64), (2, 13, 11, 3, 512)]
+
+
+@pytest.mark.parametrize("shape", DEQUANT_SHAPES)
+def test_int8_dequant_kernel_cout_and_tiles(cuda, shape):
+    _check_dequant(cuda, shape)
+
+
+def _check_dequant(cuda, shape):
     from chip_smoke import _int8_operands
-    g = torch.Generator(device=cuda).manual_seed(cin + sum(hw))
-    x, wq, rs, b = _int8_operands((2, *hw, cin, 64), g, cuda)
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x, wq, rs, b = _int8_operands(shape, g, cuda)
     before = k.LAUNCHES["conv3x3_int8_dequant"]
-    y = k.conv3x3_int8_dequant(x, wq, rs, b)
+    y = k.conv3x3_int8_dequant(x, wq, rs, b, k.pack_int8_kernel(wq))
     assert k.LAUNCHES["conv3x3_int8_dequant"] == before + 1
     assert y.dtype == torch.bfloat16
     yp = k.conv3x3_int8_dequant_plain(x, wq, rs, b)

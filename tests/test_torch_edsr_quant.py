@@ -50,7 +50,12 @@ def test_calibration_and_quantization_match_jax(sr_inputs):
     tail_kq_diff = 0
     for name, lj in qj["layers"].items():
         lt = q["layers"][name]
-        assert set(lt) == set(lj), name
+        # the port keeps the 3x3 convs' K-major kernels beside JAX's keys
+        packed = {"kernel_packed"} if lj["kernel_q"].shape[0] == 3 else set()
+        assert set(lt) == set(lj) | packed, name
+        if packed:
+            assert torch.equal(lt["kernel_packed"],
+                               conv3x3.pack_int8_kernel(lt["kernel_q"])), name
         diff = int((lt["kernel_q"].numpy() != lj["kernel_q"]).sum())
         if name == "tail":
             # W_eff: float64 impulse probe here, f32 HIGHEST in JAX; a

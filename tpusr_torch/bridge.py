@@ -83,14 +83,19 @@ def vgg16_from_flax(params: dict, device=None):
 
 def qtree_from_flax(q: dict, device=None) -> dict:
     """A JAX ``quantize_vgg16`` tree -> the port's int8 tree: the same keys,
-    torch tensors on ``device`` (kernel_q int8 HWIO, as K1 takes it; the
-    head's Dense kernels stay (in, out)), scales as Python floats."""
+    torch tensors on ``device`` (kernel_q int8 HWIO, as K1's public
+    signature takes it; the head's Dense kernels stay (in, out)), scales as
+    Python floats, plus each layer's ``kernel_packed``, the K-major copy K1
+    reads."""
+    from tpusr_torch.core.conv3x3 import pack_int8_kernel
     dev = resolve_device(device)
-    layers = {
-        name: {"kernel_q": _tensor(p["kernel_q"], torch.int8).contiguous().to(dev),
-               "rescale": _tensor(p["rescale"]).to(dev),
-               "bias_over_out": _tensor(p["bias_over_out"]).to(dev)}
-        for name, p in q["layers"].items()}
+    layers = {}
+    for name, p in q["layers"].items():
+        kq = _tensor(p["kernel_q"], torch.int8).contiguous()
+        layers[name] = {"kernel_q": kq.to(dev),
+                        "kernel_packed": pack_int8_kernel(kq).to(dev),
+                        "rescale": _tensor(p["rescale"]).to(dev),
+                        "bias_over_out": _tensor(p["bias_over_out"]).to(dev)}
     head = {name: {"kernel": _tensor(p["kernel"]).to(dev),
                    "bias": _tensor(p["bias"]).to(dev)}
             for name, p in q["head"].items()}
@@ -103,11 +108,15 @@ def edsr_qtree_from_flax(q: dict, device=None) -> dict:
     """A JAX ``quantize_edsr`` tree -> the port's int8 EDSR tree: the same
     keys, torch tensors on ``device`` (kernel_q int8 HWIO; rescale, bias,
     rescale_carry and bias_carry float32 vectors; inv_s_in a 0-dim float32),
-    ``pad`` and ``n_res`` as ints and the scales as Python floats."""
+    ``pad`` and ``n_res`` as ints and the scales as Python floats, plus each
+    3x3 layer's ``kernel_packed``, the K-major copy its conv kernel reads."""
+    from tpusr_torch.core.conv3x3 import pack_int8_kernel
     dev = resolve_device(device)
     layers = {}
     for name, p in q["layers"].items():
         layer = {"kernel_q": _tensor(p["kernel_q"], torch.int8).contiguous()}
+        if layer["kernel_q"].shape[0] == 3:
+            layer["kernel_packed"] = pack_int8_kernel(layer["kernel_q"])
         for key in ("rescale", "bias", "inv_s_in", "rescale_carry",
                     "bias_carry"):
             if key in p:

@@ -3,9 +3,10 @@
 Each ``.cu`` file is compiled on its own into a shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``) and loaded
 with ``ctypes``. Libraries land in ``tpusr_torch/_build/`` (listed in
-``.gitignore``) under a name keyed by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
-``build_all`` starts one ``nvcc`` per source, all together.
+``.gitignore``) under a name keyed by a hash of the flags, the source and
+the local headers it includes (``#include "x.cuh"``, followed recursively),
+so an edited source or header is rebuilt and an unchanged one is loaded as
+it is. ``build_all`` starts one ``nvcc`` per source, all together.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines that have no ``nvcc``.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -67,10 +69,27 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, recursively."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        key.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> subprocess.Popen | None:

@@ -18,9 +18,15 @@ dequant conv.
 
 All take the JAX package's layouts: x (N, H, W, Cin) NHWC and kernels
 (3, 3, Cin, Cout) HWIO. Each wrapper launches its hand-written CUDA kernel
-(K1 and the dequant conv in ``csrc/conv3x3.cu``) for a CUDA tensor and calls
-its plain PyTorch twin for a CPU tensor; there is no other dispatch. ``LAUNCHES`` counts kernel launches,
-one per call that reached the kernel.
+(K1 and the dequant conv in ``csrc/conv3x3.cu``, on the int8 tensor cores)
+for a CUDA tensor and calls its plain PyTorch twin for a CPU tensor; there
+is no other dispatch. ``LAUNCHES`` counts kernel launches, one per call that
+reached the kernel.
+
+The two int8 kernels read their weights K-major, packed once by
+``pack_int8_kernel``; the int8 trees keep the packed copy beside
+``kernel_q`` (``kernel_packed``) and the paths pass it. A call without it
+packs for itself.
 """
 
 from __future__ import annotations
@@ -87,6 +93,32 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+PACK_K_ALIGN, PACK_N_ALIGN = 128, 64   # csrc/conv3x3.cu: K_ALIGN, BN
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def pack_int8_kernel(w_q: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO int8 -> the K-major operand of K1 and the
+    dequant conv: (Cout_p, K_p) int8, row co = ``w_q[..., co]`` flattened
+    in (ky, kx, ci) order (k = (ky*3 + kx)*Cin + ci), zero-padded to
+    Cout_p = Cout rounded up to 64 and K_p = 9*Cin rounded up to 128."""
+    cin, cout = w_q.shape[2], w_q.shape[3]
+    packed = torch.zeros((_round_up(cout, PACK_N_ALIGN),
+                          _round_up(9 * cin, PACK_K_ALIGN)),
+                         dtype=w_q.dtype, device=w_q.device)
+    packed[:cout, :9 * cin] = w_q.permute(3, 0, 1, 2).reshape(cout, 9 * cin)
+    return packed
+
+
+def unpack_int8_kernel(packed: torch.Tensor, cin: int,
+                       cout: int) -> torch.Tensor:
+    """The inverse of ``pack_int8_kernel``: (3, 3, Cin, Cout) HWIO."""
+    return packed[:cout, :9 * cin].reshape(cout, 3, 3, cin).permute(1, 2, 3, 0)
+
+
 def conv3x3_int8_requant_plain(x, w_q, rescale, bias_over_out):
     """The plain twin of K1: an exact int8 conv via float64 ``F.conv2d``
     (|acc| <= 9*512*127^2 < 2^53), then the requant of quant.py:112-115 in
@@ -96,37 +128,57 @@ def conv3x3_int8_requant_plain(x, w_q, rescale, bias_over_out):
     return y.clamp(0.0, 127.0).to(torch.int8)
 
 
-def _int8_gemm_conv(name, plain, x, w_q, rescale, bias, out_dtype):
+def _int8_gemm_conv(name, plain, x, w_q, rescale, bias, w_packed,
+                    out_dtype):
     """One int8 instance of the template (K1 or the dequant): its plain twin
-    for a CPU tensor, its kernel for a CUDA tensor."""
+    for a CPU tensor (on the weights unpacked from ``w_packed`` when it is
+    given), its kernel for a CUDA tensor."""
     cout = _check_args(name, x, w_q, (rescale, bias), torch.int8, torch.int8)
+    cin = x.shape[-1]
+    if w_packed is not None:
+        want = (_round_up(cout, PACK_N_ALIGN), _round_up(9 * cin, PACK_K_ALIGN))
+        if (tuple(w_packed.shape) != want or w_packed.dtype != torch.int8
+                or w_packed.device != x.device):
+            raise ValueError(
+                f"{name}: packed weights must be int8 {want} on {x.device} "
+                f"(pack_int8_kernel), got {w_packed.dtype} "
+                f"{tuple(w_packed.shape)} on {w_packed.device}")
     if x.device.type == "cpu":
+        if w_packed is not None:
+            w_q = unpack_int8_kernel(w_packed, cin, cout)
         return plain(x, w_q, rescale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _check_cuda(name, x, w_q, rescale, bias)
-    n, h, w, cin = x.shape
+    if w_packed is None:
+        w_packed = pack_int8_kernel(w_q)
+    _check_cuda(name, x, w_packed, rescale, bias)
+    n, h, w, _ = x.shape
+    if max(x.numel(), n * h * w * cout) >= 2 ** 31:
+        raise ValueError(f"{name}: x and the output must hold < 2^31 elements "
+                         f"(the kernel's offsets are 32-bit)")
     y = torch.empty((n, h, w, cout), dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
     lib = _build.load("conv3x3")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check("conv3x3", getattr(lib, f"{name}_launch")(
-        x.data_ptr(), w_q.data_ptr(), rescale.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), n, h, w, cin, cout, stream))
+        x.data_ptr(), w_packed.data_ptr(), rescale.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), n, h, w, cin, cout, stream))
     _count_launch(name)
     return y
 
 
-def conv3x3_int8_requant(x, w_q, rescale, bias_over_out):
+def conv3x3_int8_requant(x, w_q, rescale, bias_over_out, w_packed=None):
     """3x3 SAME int8 conv + fused requantization (K1).
 
     x: (N, H, W, Cin) int8; w_q: (3, 3, Cin, Cout) int8; rescale and
-    bias_over_out: (Cout,) float32 (the bias carries quant.py's +0.5 fold).
+    bias_over_out: (Cout,) float32 (the bias carries quant.py's +0.5 fold);
+    w_packed: ``pack_int8_kernel(w_q)``, made here when not given.
     Returns (N, H, W, Cout) int8.
     """
     return _int8_gemm_conv("conv3x3_int8_requant", conv3x3_int8_requant_plain,
-                           x, w_q, rescale, bias_over_out, torch.int8)
+                           x, w_q, rescale, bias_over_out, w_packed,
+                           torch.int8)
 
 
 def conv3x3_int8_dequant_plain(x, w_q, rescale, bias):
@@ -138,15 +190,16 @@ def conv3x3_int8_dequant_plain(x, w_q, rescale, bias):
     return y.to(torch.bfloat16)
 
 
-def conv3x3_int8_dequant(x, w_q, rescale, bias):
+def conv3x3_int8_dequant(x, w_q, rescale, bias, w_packed=None):
     """3x3 SAME int8 conv + fused dequantization to bf16.
 
     x: (N, H, W, Cin) int8; w_q: (3, 3, Cin, Cout) int8; rescale (the input
-    scale times the per-channel weight scale) and bias: (Cout,) float32.
+    scale times the per-channel weight scale) and bias: (Cout,) float32;
+    w_packed: ``pack_int8_kernel(w_q)``, made here when not given.
     Returns (N, H, W, Cout) bfloat16.
     """
     return _int8_gemm_conv("conv3x3_int8_dequant", conv3x3_int8_dequant_plain,
-                           x, w_q, rescale, bias, torch.bfloat16)
+                           x, w_q, rescale, bias, w_packed, torch.bfloat16)
 
 
 def conv3x3_bias_act_plain(x, kernel, bias, relu: bool = False):

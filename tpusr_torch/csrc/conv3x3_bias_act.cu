@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int NT = 128;      // threads per GEMM block
@@ -87,26 +89,6 @@ constexpr int STAGES = 3;    // cp.async ring depth
 constexpr int ROW_BYTES = 64;         // one A row of one K chunk
 constexpr int A_PITCH_BYTES = 80;     // padded: 5 x 16 bytes (odd)
 constexpr int A_SEGS = ROW_BYTES / 16;  // 16-byte segments per A row
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_bytes 0 writes 16 zero bytes and reads
-// nothing (SAME padding, rows past M, k past K)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // The 4 output pixels whose A rows one thread gathers: rows tid/4 + 32*i of
 // the tile, 16-byte segment tid%4 of each. A pixel past M gets an oh that

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from tpusr_torch.bridge import hwio_to_oihw
 from tpusr_torch.core.conv3x3 import (conv3x3_bias_act, conv3x3_int8_dequant,
-                                      conv3x3_int8_requant)
+                                      conv3x3_int8_requant, pack_int8_kernel)
 from tpusr_torch.models.edsr_fast import (_chained_tail, _interleaved_to_poly,
                                           fused_tail_kernel)
 from tpusr_torch.models.quant import f32
@@ -88,7 +88,8 @@ def quantize_edsr(edsr, act_scales: dict) -> dict:
     head, residual-block, body and composed-tail convs, the same tree as
     ``tpusr.models.edsr_quant.quantize_edsr`` (``bridge.edsr_qtree_from_flax``
     converts one of those). Computed on the CPU in float32, then placed on the
-    model's device."""
+    model's device. Each 3x3 layer also keeps the K-major copy of its kernel
+    that the dequant conv and K1 read (``kernel_packed``)."""
     cpu = torch.device("cpu")
     w_eff, b_eff, pad = fused_tail_kernel(edsr)
     q = {"layers": {}, "pad": pad, "act_scales": dict(act_scales),
@@ -101,6 +102,8 @@ def quantize_edsr(edsr, act_scales: dict) -> dict:
                              "rescale": f32(s_in, cpu) * ws,
                              "bias": bias.detach().cpu().float().clone(),
                              "inv_s_in": f32(1.0 / s_in, cpu)}
+        if kernel.shape[0] == 3:
+            q["layers"][name]["kernel_packed"] = pack_int8_kernel(kq)
 
     add("head", edsr.head.kernel, edsr.head.bias)
     for i in range(edsr.num_res_blocks):
@@ -138,29 +141,35 @@ def _qconv(layer: dict, x: torch.Tensor) -> torch.Tensor:
     """Quantize the input, int8 3x3 conv, dequant to bf16, in one launch of
     ``conv3x3_int8_dequant`` after the quantization."""
     return conv3x3_int8_dequant(_quantize_in(layer, x), layer["kernel_q"],
-                                layer["rescale"], layer["bias"])
+                                layer["rescale"], layer["bias"],
+                                layer.get("kernel_packed"))
 
 
 def _qconv_int8_out(layer: dict, x8: torch.Tensor) -> torch.Tensor:
     """int8 input -> int8 conv -> ReLU + requant to the next conv's grid,
     fused into one rescale: K1 with ``rescale_carry``/``bias_carry``."""
     return conv3x3_int8_requant(x8, layer["kernel_q"], layer["rescale_carry"],
-                                layer["bias_carry"])
+                                layer["bias_carry"], layer.get("kernel_packed"))
+
+
+def im2col(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(N, H, W, Cin) -> the (N*H*W, k*k*Cin) im2col of a k x k SAME conv:
+    the k^2 shifted views of the zero-padded input, taps in HWIO order."""
+    n, h, w, cin = x.shape
+    p = k // 2
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    return torch.cat([xp[:, ty:ty + h, tx:tx + w] for ty in range(k)
+                      for tx in range(k)], dim=-1).reshape(n * h * w,
+                                                          k * k * cin)
 
 
 def tail_conv_int8(x8: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
-    """k x k SAME int8 conv -> exact int32, as one ``torch._int_mm`` over an
-    im2col of the k^2 shifted views of the zero-padded input (K = k^2 * Cin,
-    taps in HWIO order). x8: (N, H, W, Cin) int8; kq: (k, k, Cin, Cout)
-    int8."""
+    """k x k SAME int8 conv -> exact int32, as one ``torch._int_mm`` over
+    ``im2col`` (K = k^2 * Cin). x8: (N, H, W, Cin) int8; kq: (k, k, Cin,
+    Cout) int8."""
     n, h, w, cin = x8.shape
     k, cout = kq.shape[0], kq.shape[-1]
-    p = k // 2
-    xp = F.pad(x8, (0, 0, p, p, p, p))
-    cols = torch.cat([xp[:, ty:ty + h, tx:tx + w] for ty in range(k)
-                      for tx in range(k)], dim=-1)
-    acc = torch._int_mm(cols.reshape(n * h * w, k * k * cin),
-                        kq.reshape(k * k * cin, cout))
+    acc = torch._int_mm(im2col(x8, k), kq.reshape(k * k * cin, cout))
     return acc.reshape(n, h, w, cout)
 
 
@@ -211,7 +220,7 @@ def make_fused_sr_apply_int8(edsr, sample_lr=None, act_scales: dict | None = Non
             if int8_carry:
                 t8 = _qconv_int8_out(l1, _quantize_in(l1, y))
                 t = conv3x3_int8_dequant(t8, l2["kernel_q"], l2["rescale"],
-                                         l2["bias"])
+                                         l2["bias"], l2.get("kernel_packed"))
             else:
                 t = _qconv(l2, torch.relu(_qconv(l1, y)))
             y = y + res_scaling * t          # bf16(0.1) * t, then the add

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from tpusr_torch.bridge import dense_to_linear, oihw_to_hwio
-from tpusr_torch.core.conv3x3 import conv3x3_int8_requant
+from tpusr_torch.core.conv3x3 import conv3x3_int8_requant, pack_int8_kernel
 from tpusr_torch.models.block1 import block1_int8, max_pool2x2
 from tpusr_torch.models.vgg import VGG16_CFG
 
@@ -61,7 +61,8 @@ def calibrate_vgg16(model, sample_patches) -> dict:
 def quantize_vgg16(model, act_scales: dict) -> dict:
     """Quantize ``model``'s backbone to per-channel int8 and precompute the
     fused rescale factors. Computed on the CPU in float32 (device-independent,
-    as quant.py:57-87 computes it), then placed on the model's device."""
+    as quant.py:57-87 computes it), then placed on the model's device. Each
+    layer also keeps K1's K-major copy of its kernel (``kernel_packed``)."""
     dev = _model_device(model)
     cpu = torch.device("cpu")
     q = {"act_scales": dict(act_scales), "layers": {}}
@@ -80,6 +81,7 @@ def quantize_vgg16(model, act_scales: dict) -> dict:
             rescale = f32(prev_scale, cpu) * w_scale / f32(out_scale, cpu)
             bias_over_out = b / f32(out_scale, cpu) + 0.5
             q["layers"][name] = {"kernel_q": k_q.to(dev),
+                                 "kernel_packed": pack_int8_kernel(k_q).to(dev),
                                  "rescale": rescale.to(dev),
                                  "bias_over_out": bias_over_out.to(dev)}
             prev_scale = out_scale
@@ -109,7 +111,8 @@ def int8_backbone(q: dict, x: torch.Tensor, pool5: bool = True,
         for ci in range(1, n_convs + 1):
             layer = q["layers"][f"block{block}_conv{ci}"]
             x = conv3x3_int8_requant(x.contiguous(), layer["kernel_q"],
-                                     layer["rescale"], layer["bias_over_out"])
+                                     layer["rescale"], layer["bias_over_out"],
+                                     layer.get("kernel_packed"))
         if block < 5 or pool5:
             x = max_pool2x2(x)
     return x
