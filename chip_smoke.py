@@ -18,11 +18,14 @@ its own lines:
    achieved TOP/s and share of the bound per shape, ``torch._int_mm`` on a
    prebuilt im2col as a yardstick for the GEMM alone (``gemm_library_ms``)
    and the SM clock and power under load at the deepest trunk shape;
-4. K3 (``block1_int8``, fused patch extraction + block 1 + pool) against its
-   plain twin at the escalation's 4 images of 512^2 (400 patches), the guard
-   fallback's 16 (1600 patches) and one 128^2 image (4 patches): 0 differing
-   int8 values, timed beside the block 1 it replaces (patch extraction, two
-   K1 launches and the pool);
+4. K3 (``block1_int8``, fused patch extraction + block 1 + pool, both
+   convs on the int8 tensor cores) against its plain twin at the
+   escalation's 4 images of 512^2 (400 patches), the guard fallback's 16
+   (1600 patches) and one 128^2 image (4 patches): 0 differing int8 values
+   and equal to patch extraction + two K1 launches + the pool, timed beside
+   that path, with the achieved TOP/s and share of the bound; the tensor-core
+   and dp4a instructions in the kernel's SASS (``cuobjdump``) and any ptxas
+   warning about its wgmma;
 5. K2 (``conv3x3_bias_act``, f32) against its plain twin at the EDSR body
    shapes and the border-band slab shapes: max |err| <= 1e-4 (fp32 sums in
    another order), with ``F.conv2d`` fp32 timed beside it as the library
@@ -384,13 +387,18 @@ def _int8_operands(shape, g, dev):
     return x, wq, rs, b
 
 
-def block1_operands(g, dev, n: int, h: int, w: int):
+def block1_operands(g, dev, n: int, h: int, w: int, packed: bool = True):
     """A block-1 int8 tree (b1c1 3 -> 64, b1c2 64 -> 64) with K1's spread of
-    rescales and biases, and (n, h, w, 3) int8 images."""
+    rescales and biases (and K1's packed copies of the kernels, as the int8
+    trees carry them, unless not ``packed``), and (n, h, w, 3) int8
+    images."""
+    from tpusr_torch.core.conv3x3 import pack_int8_kernel
     q = {"layers": {}}
     for name, cin in (("block1_conv1", 3), ("block1_conv2", 64)):
         _, wq, rs, b = _int8_operands((1, 1, 1, cin, 64), g, dev)
         q["layers"][name] = {"kernel_q": wq, "rescale": rs, "bias_over_out": b}
+        if packed:
+            q["layers"][name]["kernel_packed"] = pack_int8_kernel(wq)
     images = torch.randint(-127, 128, (n, h, w, 3), generator=g, device=dev,
                            dtype=torch.int8)
     return q, images
@@ -554,15 +562,41 @@ def block1_work(n: int, h: int, w: int, patch: int, n_patches: int
     return ops, float(nbytes)
 
 
+# SASS mnemonics: int8 wgmma, int8 mma.sync, dp4a
+SASS_OPS = {"wgmma": "IGMMA", "mma.sync": "IMMA", "dp4a": "IDP"}
+
+
+def k3_instructions() -> dict:
+    """Count of each of ``SASS_OPS`` in K3's SASS; fails unless its products
+    run on the int8 tensor cores with no dp4a left. Prints any ptxas
+    warning about its wgmma (serialised products) from the build log."""
+    import re
+    from tpusr_torch.core import _build
+    sass = _build.sass("block1")
+    counts = {k: len(re.findall(rf"\b{op}\b", sass))
+              for k, op in SASS_OPS.items()}
+    log = _build.BUILD_DIR / "block1.log"
+    warns = ([ln.strip() for ln in log.read_text().splitlines()
+              if "wgmma" in ln.lower() and "warning" in ln.lower()]
+             if log.exists() else [])
+    print(f"[K3] instructions in the SASS of csrc/block1.cu: {counts}; ptxas "
+          f"wgmma warnings: {warns or 'none'}")
+    check(counts["wgmma"] + counts["mma.sync"] > 0 and counts["dp4a"] == 0,
+          f"K3 is not on the int8 tensor cores: {counts}")
+    return counts
+
+
 def phase_k3(cfg: Slice, dev) -> dict:
-    """K3 against its plain twin at the per-patch path's shapes; the current
-    block 1 (patch extraction, two K1 launches, the pool) timed beside it.
-    Returns the record of the escalation's shape, the served batch's K3
-    launch on the path without the guard fallback."""
-    from tpusr_torch.core.conv3x3 import conv3x3_int8_requant, pack_int8_kernel
+    """K3 against its plain twin at the per-patch path's shapes; the path it
+    replaced (patch extraction, two K1 launches, the pool) held equal and
+    timed beside it. Returns the record of the escalation's shape, the
+    served batch's K3 launch on the path without the guard fallback."""
+    from tpusr_torch.core.conv3x3 import conv3x3_int8_requant
     from tpusr_torch.models.block1 import (block1_int8, block1_plain,
                                            extract_patches_reference,
                                            grid_counts, max_pool2x2)
+    counts = k3_instructions()
+    instruction = "wgmma" if counts["wgmma"] else "mma.sync"
     g = torch.Generator(device=dev).manual_seed(5)
     rec = {}
     for where, n, hw in (("escalation", cfg.escalated(), cfg.hr),
@@ -576,13 +610,12 @@ def phase_k3(cfg: Slice, dev) -> dict:
                                            cfg.stride)
                               for i in range(0, n, 4)])
 
-        packed = [pack_int8_kernel(layer["kernel_q"]) for layer in (l1, l2)]
-
         def k1_block1():
             x = extract_patches_reference(images, cfg.patch, cfg.stride)
-            for layer, wp in zip((l1, l2), packed):
+            for layer in (l1, l2):
                 x = conv3x3_int8_requant(x, layer["kernel_q"], layer["rescale"],
-                                         layer["bias_over_out"], wp)
+                                         layer["bias_over_out"],
+                                         layer["kernel_packed"])
             return max_pool2x2(x)
 
         y = block1_int8(q, images, cfg.patch, cfg.stride)
@@ -601,14 +634,17 @@ def phase_k3(cfg: Slice, dev) -> dict:
         ops, nbytes = block1_work(n, hw, hw, cfg.patch, n * n_h * n_w)
         bms, by = bound(ops, nbytes, "int8")
         print(f"[K3] {where:16s} {n} x {hw}^2 -> {tuple(y.shape)}: 0 of "
-              f"{y.numel()} int8 values differ ({spread} levels)  kernel "
-              f"{ms:.4f} ms  twin {pms:.4f} ms  bound {bms:.4f} ms ({by}: "
-              f"{ops / 1e9:.1f} G int8 ops)  current block 1 (patches + 2 K1 "
-              f"+ pool) {k1ms:.4f} ms")
+              f"{y.numel()} int8 values differ ({spread} levels), equal to "
+              f"patches + 2 K1 + pool  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f}"
+              f" TOP/s, {100 * bms / ms:.1f}% of bound, {instruction})  twin "
+              f"{pms:.4f} ms  bound {bms:.4f} ms ({by}: {ops / 1e9:.1f} G int8"
+              f" ops)  patches + 2 K1 + pool {k1ms:.4f} ms "
+              f"({k1ms / ms:.2f}x the kernel's time)")
         if where == "escalation":
             rec = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "err": 0.0,
                    "t_ops": bms if by == "operations" else 0.0,
-                   "t_bytes": bms if by == "bytes" else 0.0}
+                   "t_bytes": bms if by == "bytes" else 0.0,
+                   "k1_path_ms": k1ms, "instruction": instruction}
         del q, images, y, yp
     torch.cuda.empty_cache()
     return rec
@@ -1356,6 +1392,9 @@ def kernel_record(name, source, replaces, launches, tot, library) -> dict:
            "library_ms": library}
     if "gemm_library_ms" in tot:     # torch._int_mm, the GEMM alone
         rec["gemm_library_ms"] = tot["gemm_library_ms"]
+    for key in ("k1_path_ms", "instruction"):   # K3: the path it replaced
+        if key in tot:
+            rec[key] = tot[key]
     return rec
 
 

@@ -7,8 +7,11 @@ cross images and the largest |acc| of a 512-channel conv; for K2 the
 serving shapes' edges (Cout = 256 on several N tiles, the 3-channel tail,
 the Cin = 3 head) and batch invariance; for K4 a tiny image, a single row
 and a size off the 16-pixel tile;
-for K3 one image, sizes that need the reflect pad, small patch grids and a
-patch that is not a multiple of the 16-pixel tile.
+for K3 (int8 tensor cores) one image, sizes that need the reflect pad,
+small patch grids, patches that are not a multiple of the 16 x 32 tile,
+|acc| at its 576 * 127^2 maximum, batch invariance, fewer work items than
+resident blocks and a tree without packed weights; and the per-patch int8
+classifier at an odd patch, which runs on K1 alone.
 
 These tests need an NVIDIA card with sm_90a and ``nvcc``; without a card
 they skip. ``tests/conftest.py`` imports JAX and hides CUDA devices, so on
@@ -246,9 +249,11 @@ def _check_dequant(cuda, shape):
 
 # (N, H, W, patch, stride): one image at the serving size, sizes that need
 # the reflect pad (bottom and right, one of them repeated), the CPU tests'
-# grid, a patch that is not a multiple of the 16-pixel tile, a tiny image
+# grid, patches that are not a multiple of the 16 x 32 tile (40 in neither
+# direction, 48 across only) or narrower than it, a tiny image
 K3_CASES = [(1, 128, 128, 96, 48), (2, 130, 170, 96, 48), (3, 64, 64, 32, 16),
-            (2, 37, 45, 32, 16), (1, 50, 70, 40, 24), (2, 9, 9, 16, 8)]
+            (2, 37, 45, 32, 16), (1, 50, 70, 40, 24), (2, 9, 9, 16, 8),
+            (1, 70, 90, 48, 32)]
 
 
 @pytest.mark.parametrize("case", K3_CASES)
@@ -295,3 +300,91 @@ def test_k3_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="one device"):
         block1.block1_int8(q, images.cpu(), 32, 16)
     assert block1.LAUNCHES == before
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+def test_k3_at_the_largest_accumulator(cuda, sign):
+    """Images 127 and b1c1 weights 127 saturate b1c1 at 127 inside each
+    patch; b1c2 weights of +-127 then give |acc| = 576 * 127^2 (9.29M) in the
+    patch interior, fewer taps on its border; rescales of b1c2's sign spread
+    the requant over [0, 127]."""
+    from chip_smoke import block1_operands
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, _ = block1_operands(g, cuda, 1, 1, 1, packed=False)
+    l1, l2 = q["layers"]["block1_conv1"], q["layers"]["block1_conv2"]
+    l1["kernel_q"].fill_(127)
+    l1["rescale"].fill_(1.0)
+    l2["kernel_q"].fill_(127 * sign)
+    l2["rescale"] = sign * (torch.arange(64, device=cuda, dtype=torch.float32)
+                            + 1.0) * (127.0 / 64 / (576 * 127.0 ** 2))
+    l2["bias_over_out"].fill_(0.5)
+    images = torch.full((2, 130, 100, 3), 127, dtype=torch.int8, device=cuda)
+    y = block1.block1_int8(q, images, 96, 48)
+    yp = block1.block1_plain(q, images, 96, 48)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yp), int((y != yp).sum())
+    assert int(y.max()) == 127 and int(torch.unique(y).numel()) > 32
+
+
+def test_k3_is_batch_invariant(cuda):
+    """The patches of images 0-1 of a 16-image launch equal a 2-image
+    launch bit for bit (int32 sums, no split-K, the grid set by the card)."""
+    from chip_smoke import block1_operands
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, images = block1_operands(g, cuda, 16, 128, 128)
+    y16 = block1.block1_int8(q, images, 96, 48)
+    y2 = block1.block1_int8(q, images[:2].contiguous(), 96, 48)
+    torch.cuda.synchronize()
+    per_image = y16.shape[0] // 16
+    assert torch.equal(y16[:2 * per_image], y2)
+
+
+def test_k3_with_fewer_items_than_resident_blocks(cuda):
+    """One 16^2 image at patch 16: one patch, one work item for a grid
+    sized to the card."""
+    from chip_smoke import block1_operands
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, images = block1_operands(g, cuda, 1, 16, 16)
+    y = block1.block1_int8(q, images, 16, 16)
+    yp = block1.block1_plain(q, images, 16, 16)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (1, 8, 8, 64)
+    assert torch.equal(y, yp), int((y != yp).sum())
+
+
+def test_k3_packs_a_tree_without_kernel_packed(cuda):
+    from chip_smoke import block1_operands
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q, images = block1_operands(g, cuda, 2, 64, 80)
+    bare = {"layers": {n: {k: v for k, v in layer.items() if k != "kernel_packed"}
+                       for n, layer in q["layers"].items()}}
+    y = block1.block1_int8(q, images, 32, 16)
+    y_bare = block1.block1_int8(bare, images, 32, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_bare)
+    assert torch.equal(y, block1.block1_plain(q, images, 32, 16))
+
+
+def test_per_patch_int8_at_an_odd_patch_runs_k1_alone(cuda):
+    """Patch 33 (K3 takes even patches only): 13 K1 launches per call and no
+    K3 launch; the probabilities equal the same call on the plain twins."""
+    from chip_smoke import on_plain_twins
+    from tpusr_torch.models import VGG16Classifier
+    from tpusr_torch.models import quant
+    vgg = VGG16Classifier(num_classes=2, dense_units=16,
+                          widths=(64, 16, 16, 32, 32), device=cuda,
+                          generator=torch.Generator().manual_seed(15))
+    g = torch.Generator(device=cuda).manual_seed(15)
+    calib = torch.rand((8, 33, 33, 3), generator=g, device=cuda)
+    q = quant.quantize_vgg16(vgg, quant.calibrate_vgg16(vgg, calib))
+    images = torch.rand((2, 64, 64, 3), generator=g, device=cuda)
+    before = (k.LAUNCHES["conv3x3_int8_requant"], block1.LAUNCHES["block1_int8"])
+    probs = quant.per_patch_int8_probs(q, images, 33, 16)
+    after = (k.LAUNCHES["conv3x3_int8_requant"], block1.LAUNCHES["block1_int8"])
+    assert (after[0] - before[0], after[1] - before[1]) == (13, 0)
+    with on_plain_twins():
+        plain = quant.per_patch_int8_probs(q, images, 33, 16)
+    torch.cuda.synchronize()
+    n_h, n_w = block1.grid_counts(64, 64, 33, 16)
+    assert tuple(probs.shape) == (2, n_h * n_w, 2)
+    assert torch.equal(probs, plain)

@@ -151,6 +151,17 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def sass(name: str) -> str:
+    """The SASS of the built ``csrc/<name>.cu`` (``cuobjdump -sass``, beside
+    ``nvcc``), building it first if needed: which instructions a kernel
+    really issues."""
+    load(name)
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
 def check(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err:

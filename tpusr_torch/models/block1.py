@@ -9,10 +9,15 @@ own SAME zero padding. The result equals ``frames_to_pooled(block1_reference(
 q, extract_patches_reference(...)))`` of the JAX package bit for bit.
 
 - ``block1_int8`` launches the hand-written CUDA kernel of ``csrc/block1.cu``
-  for a CUDA tensor and calls ``block1_plain`` for a CPU tensor; there is no
-  other dispatch. ``LAUNCHES`` counts its launches.
-- The kernel takes any even ``patch`` and any ``stride``: every per-patch
-  int8 call goes through it, whatever its grid.
+  (both convs on the int8 tensor cores) for a CUDA tensor and calls
+  ``block1_plain`` for a CPU tensor; there is no other dispatch.
+  ``LAUNCHES`` counts its launches.
+- The kernel takes any even ``patch`` and any ``stride`` at block-1 width
+  64 (``takes``); ``quant.per_patch_int8_probs`` runs any other call through
+  patch extraction and K1 alone.
+- It reads both layers' weights packed K-major, as K1 does
+  (``kernel_packed`` of the int8 trees, ``pack_int8_kernel``); a tree
+  without them is packed per call.
 
 The TPU kernel's layout helpers are not ported: ``pack_b1c1_img36``,
 ``pack_pair_taps_e2o``, ``build_img36_from_image``/``_from_poly``,
@@ -28,7 +33,8 @@ import threading
 import torch
 
 from tpusr_torch.core import _build
-from tpusr_torch.core.conv3x3 import _check_cuda, conv3x3_int8_requant_plain
+from tpusr_torch.core.conv3x3 import (_check_cuda, conv3x3_int8_requant_plain,
+                                      pack_int8_kernel)
 from tpusr_torch.core.pad import pad_amounts, reflect_pad_hw
 from tpusr_torch.core.patches import patch_grid_size, patchify
 
@@ -78,6 +84,30 @@ def block1_plain(q: dict, images: torch.Tensor, patch: int = 96,
         x = conv3x3_int8_requant_plain(x, layer["kernel_q"], layer["rescale"],
                                        layer["bias_over_out"])
     return max_pool2x2(x)
+
+
+def takes(q: dict, images: torch.Tensor, patch: int) -> bool:
+    """Whether ``block1_int8`` takes a call at this ``patch`` on ``images``'
+    device: an even patch, and on a card block-1 width 64 (the plain twin
+    takes any width)."""
+    width = q["layers"][_LAYERS[0]]["kernel_q"].shape[-1]
+    return (patch >= 2 and patch % 2 == 0
+            and (images.device.type != "cuda" or width == 64))
+
+
+def _packed(layer: dict, cin: int, device) -> torch.Tensor:
+    """The layer's K-major weights for the kernel: the tree's
+    ``kernel_packed``, else packed here."""
+    packed = layer.get("kernel_packed")
+    if packed is None:
+        return pack_int8_kernel(layer["kernel_q"])
+    want = (64, 128 if cin == 3 else 640)
+    if (tuple(packed.shape) != want or packed.dtype != torch.int8
+            or packed.device != device):
+        raise ValueError(f"block1_int8: kernel_packed must be int8 {want} on "
+                         f"{device} (pack_int8_kernel), got {packed.dtype} "
+                         f"{tuple(packed.shape)} on {packed.device}")
+    return packed
 
 
 def _check_args(q, images, patch, stride):
@@ -131,10 +161,13 @@ def block1_int8(q: dict, images: torch.Tensor, patch: int = 96,
     if images.device.type != "cuda":
         raise ValueError(f"block1_int8: unsupported device {images.device}")
     # the image is read byte by byte (a sub-batch view of an odd-sized
-    # batch need not be 16-byte aligned); weights and vectors are read as
-    # words and the output is written 16 bytes at a time
+    # batch need not be 16-byte aligned); the packed weights come by 16-byte
+    # copies and the output is written 16 bytes at a time
     if not images.is_contiguous():
         raise ValueError("block1_int8: operands must be contiguous")
+    # each layer's kernel_q -> its packed copy
+    operands[1] = _packed(q["layers"][_LAYERS[0]], 3, images.device)
+    operands[4] = _packed(q["layers"][_LAYERS[1]], 64, images.device)
     _check_cuda("block1_int8", *operands[1:])
     n, h, w, _ = images.shape
     n_h, n_w = grid_counts(h, w, patch, stride)
@@ -144,7 +177,7 @@ def block1_int8(q: dict, images: torch.Tensor, patch: int = 96,
         return out
     lib = _build.load("block1")
     stream = torch.cuda.current_stream(images.device).cuda_stream
-    # operands: images, then kernel_q, rescale, bias_over_out of each conv
+    # operands: images, then kernel_packed, rescale, bias_over_out of each conv
     _build.check("block1", lib.block1_int8_launch(
         *(t.data_ptr() for t in operands), out.data_ptr(), n, h, w, patch,
         stride, n_h, n_w, stream))

@@ -7,7 +7,8 @@
 - each conv runs int8 x int8 -> int32 with the fused f32 requant to the next
   layer's grid: K1 (``conv3x3_int8_requant``), except block 1 of the
   per-patch path on whole images (``per_patch_int8_probs``), which K3
-  (``models/block1.py``) fuses with the patch extraction and the pool;
+  (``models/block1.py``) fuses with the patch extraction and the pool
+  wherever it takes the call (an even patch; width 64 on a card);
 - the head (GAP -> Dense 256 -> Dense softmax) stays f32.
 
 The int8 tree mirrors the JAX one key for key (``tpusr_torch.bridge.
@@ -25,7 +26,9 @@ import torch.nn.functional as F
 
 from tpusr_torch.bridge import dense_to_linear, oihw_to_hwio
 from tpusr_torch.core.conv3x3 import conv3x3_int8_requant, pack_int8_kernel
-from tpusr_torch.models.block1 import block1_int8, max_pool2x2
+from tpusr_torch.models import block1
+from tpusr_torch.models.block1 import (block1_int8, extract_patches_reference,
+                                       max_pool2x2)
 from tpusr_torch.models.vgg import VGG16_CFG
 
 
@@ -145,8 +148,17 @@ def per_patch_int8_probs(q: dict, images: torch.Tensor, patch: int = 96,
     int8 from ``quantize_input``) -> (N, n_patches, classes) probs in
     row-major patch order. Block 1 runs through K3 (patch extraction
     included), blocks 2-5 through K1, the head in f32; the values equal
-    ``quantized_vgg16_apply`` on the extracted patches."""
+    ``quantized_vgg16_apply`` on the extracted patches, which is what runs
+    where K3 does not take the call (an odd patch, or a block-1 width other
+    than 64 on a card): 13 K1 launches, the VALID pools flooring as JAX's
+    do."""
     x = images if images.dtype == torch.int8 else quantize_input(q, images)
-    pooled = block1_int8(q, x.contiguous(), patch, stride)
-    probs = _pooled_head(q, int8_backbone(q, pooled, pool5=True, first_block=2))
+    x = x.contiguous()
+    if block1.takes(q, x, patch):
+        pooled = block1_int8(q, x, patch, stride)
+        probs = _pooled_head(q, int8_backbone(q, pooled, pool5=True,
+                                              first_block=2))
+    else:
+        probs = quantized_vgg16_apply(
+            q, extract_patches_reference(x, patch, stride))
     return probs.reshape(x.shape[0], -1, probs.shape[-1])
