@@ -38,7 +38,11 @@ its own lines:
    yardstick, the same rates and batch-invariance check;
 7. K4 (``nlm_denoise``) against its twin at 128^2 (the LR size the classic
    comparison denoises) and 512^2, 1024^2, 2048^2: ``allclose`` at atol
-   1e-5 (box sums and exp weights in another order);
+   1e-5 (exp weights and sums in another order), bit for bit on a repeat
+   at 128^2 and 2048^2, no spill in nlm.cu's ``-Xptxas -v`` lines, at
+   least one block per SM at 128^2; timed as a wrapper call (``ms``) and
+   as a bare launch replayed from a CUDA graph (``kernel_ms``) at both
+   launch configurations;
 8. the serving slice at full width: EDSR x4 (16 blocks, 64 filters) and
    VGG16 (2 classes) from ``--seed``, the classifier's last bias centered so
    both classes get votes, the shipped mode (f32 fused SR -> guarded
@@ -73,8 +77,9 @@ Each path (8-12) is driven with the launch counts set to 0 just before it
 and read just after. Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
-dequant conv for one int8-SR batch, K4 one launch at 128^2; ``launches``
-counts the kernel's path) and the ``nvidia-smi`` line; the last line is
+dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
+and as a bare launch; ``launches`` counts the kernel's path) and the
+``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
 """
@@ -275,17 +280,30 @@ def conv_work(shape, elem_bytes: int, n_vecs: int = 2) -> tuple[float, float]:
 
 
 def nlm_work(h: int, w: int) -> tuple[float, float, float]:
-    """fp32 operations, expf calls and bytes of one K4 launch on an (h, w)
-    image. For each of the 168 offsets: a difference and a square on the
-    (h+4, w+4) box-extended window, 4 + 4 adds of the separable box sum,
-    and per pixel the 1/25 scale, the subtraction of 2 sigma^2, the max,
-    the scale by 1/h^2, the weighted add to num and the add to den (8); then
-    one division per pixel. The image is read once and the output written
-    once."""
-    n_off = 168
-    ops = n_off * (2.0 * (h + 4) * (w + 4) + 4.0 * h * (w + 4) + 4.0 * h * w
-                   + 8.0 * h * w) + h * w
-    return ops, float(n_off * h * w), 8.0 * h * w + 8.0
+    """fp32 operations, expf calls and bytes of the least work that K4's
+    function needs on an (h, w) image. The weight of offset q at pixel p
+    equals that of -q at p + q, bit for bit (the squared differences are
+    equal and the box sums add the same positions in the same order), so
+    each of the 84 offsets q that come before the centre serves both: its
+    weights are needed on the image and on the image moved by -q. For each
+    such q, over the union of those two regions: a difference and a square
+    on the box-extended positions (2), the column sums (4 adds) on the
+    weight rows by the box-extended columns, the row sums (4 adds), the 1/25
+    scale, the subtraction of 2 sigma^2, the max and the scale by 1/h^2 (4)
+    and one expf per weight. For each of the 168 offsets at each pixel: the
+    multiply and add into num and the add into den (3); then one division
+    per pixel. The image is read once, the output written once."""
+    def union(a, b, dy, dx):     # an a x b region and its copy moved by q
+        return 2 * a * b - max(a - abs(dy), 0) * max(b - abs(dx), 0)
+    ops = exps = 0.0
+    for k in range(84):
+        dy, dx = k // 13 - 6, k % 13 - 6
+        n_w = union(h, w, dy, dx)
+        ops += (2 * union(h + 4, w + 4, dy, dx) + 4 * union(h, w + 4, dy, dx)
+                + 8 * n_w)
+        exps += n_w
+    ops += 168 * 3 * h * w + h * w
+    return ops, exps, 8.0 * h * w + 8.0
 
 
 # ----------------------------------------------------------------- timing
@@ -566,6 +584,15 @@ def block1_work(n: int, h: int, w: int, patch: int, n_patches: int
 SASS_OPS = {"wgmma": "IGMMA", "mma.sync": "IMMA", "dp4a": "IDP"}
 
 
+def build_log_lines(name: str) -> list[str]:
+    """The lines nvcc printed when it built the library that is loaded for
+    ``csrc/<name>.cu``; fails when that build's log is missing."""
+    from tpusr_torch.core import _build
+    log = _build.build_log(name)
+    check(log.exists(), f"{name}.cu: no build log {log.name} beside its library")
+    return log.read_text().splitlines()
+
+
 def k3_instructions() -> dict:
     """Count of each of ``SASS_OPS`` in K3's SASS; fails unless its products
     run on the int8 tensor cores with no dp4a left. Prints any ptxas
@@ -575,10 +602,8 @@ def k3_instructions() -> dict:
     sass = _build.sass("block1")
     counts = {k: len(re.findall(rf"\b{op}\b", sass))
               for k, op in SASS_OPS.items()}
-    log = _build.BUILD_DIR / "block1.log"
-    warns = ([ln.strip() for ln in log.read_text().splitlines()
-              if "wgmma" in ln.lower() and "warning" in ln.lower()]
-             if log.exists() else [])
+    warns = [ln.strip() for ln in build_log_lines("block1")
+             if "wgmma" in ln.lower() and "warning" in ln.lower()]
     print(f"[K3] instructions in the SASS of csrc/block1.cu: {counts}; ptxas "
           f"wgmma warnings: {warns or 'none'}")
     check(counts["wgmma"] + counts["mma.sync"] > 0 and counts["dp4a"] == 0,
@@ -732,9 +757,47 @@ def smooth_images(g: torch.Generator, n: int, size: int, channels: int,
     return img.clamp(0.0, 255.0)
 
 
+def graph_ms(launch, n: int = 50, replays: int = 3) -> float:
+    """Device ms of one bare kernel launch: ``n`` calls of ``launch()``
+    captured in a CUDA graph, its replay timed by CUDA events, so the host's
+    enqueue rate does not enter."""
+    launch()                                                 # warm-up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * replays)
+
+
+def check_k4_build_log() -> str:
+    """The ``-Xptxas -v`` lines of nlm.cu's kernels: fails on a spill."""
+    lines = build_log_lines("nlm")
+    spills = [ln.strip() for ln in lines if "spill" in ln]
+    check(all(ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                            "0 bytes spill loads") for ln in spills),
+          f"nlm.cu spills: {spills}")
+    regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in lines
+                   if "Used " in ln})
+    return f"{len(spills)} kernels, 0 spill bytes, {regs} registers"
+
+
 def phase_k4(dev) -> dict:
+    """K4 against its twin at K4_SIZES, timed as a wrapper call (``ms``) and
+    as a bare launch (``kernel_ms``, graph_ms) at both configurations, with
+    the bit-for-bit repeat check."""
     from tpusr_torch.classic.algorithms import estimate_sigma
+    from tpusr_torch.core import nlm
     from tpusr_torch.core.nlm import nl_means_denoise, nlm_denoise
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[K4] nlm.cu: {check_k4_build_log()}")
     g = torch.Generator(device=dev).manual_seed(4)
     rec = {}
     for size in K4_SIZES:
@@ -748,20 +811,43 @@ def phase_k4(dev) -> dict:
         check(bool(torch.isfinite(y).all()) and torch.allclose(
             y, yp, rtol=0, atol=K4_ATOL),
             f"K4 differs from its twin at {size}^2: max|err| {err} > {K4_ATOL}")
+        if size in (CLASSIC_LR, K4_SIZES[-1]):
+            check(torch.equal(nlm_denoise(x, sigma, h), y),
+                  f"K4 is not bit-for-bit repeatable at {size}^2")
         ms = time_ms(lambda: nlm_denoise(x, sigma, h))
         pms = time_ms(lambda: nl_means_denoise(x, sigma, h), max_iters=5)
         ops, exps, nbytes = nlm_work(size, size)
         bms, by = bound(ops, nbytes, "fp32", sfu_ops=exps)
+        rows, split = nlm.launch_config(size, size, n_sms)
+        gx, gy = nlm.grid(size, size, rows, split)
+        if size == CLASSIC_LR:
+            check(gx * gy >= n_sms, f"K4 at {size}^2 launches {gx * gy} "
+                                    f"blocks for {n_sms} SMs")
+        out = torch.empty_like(x)
+        per_config = {}
+        for r, s in nlm.CONFIGS:
+            per_config[(r, s)] = graph_ms(
+                lambda: nlm.launch(x, sigma, h, out, r, s))
+            check(torch.allclose(out, yp, rtol=0, atol=K4_ATOL),
+                  f"K4 config {(r, s)} differs from its twin at {size}^2")
+        kms = per_config[(rows, split)]
         print(f"[K4] {size}x{size} sigma {float(sigma):.4f} max|err| {err:.3g}"
-              f"  kernel {ms:.4f} ms  twin {pms:.4f} ms  bound {bms:.4f} ms "
-              f"({by}: {ops / 1e9:.2f} GFLOP fp32 at 67 TFLOP/s, "
-              f"{exps / 1e6:.1f} M expf at {PEAK_OPS_PER_S['sfu'] / 1e12:.2f} "
-              f"T/s, {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+              f"  call {ms:.4f} ms ({100 * bms / ms:.2f}% of bound)  kernel "
+              f"{kms:.4f} ms ({100 * bms / kms:.2f}%)  twin {pms:.4f} ms  "
+              f"bound {bms:.4f} ms ({by}: {ops / 1e9:.2f} GFLOP fp32 at 67 "
+              f"TFLOP/s, {exps / 1e6:.1f} M expf at "
+              f"{PEAK_OPS_PER_S['sfu'] / 1e12:.2f} T/s, {nbytes / 1e6:.2f} MB "
+              f"at 3.35 TB/s); config rows {rows} split {split}, "
+              f"{gx}x{gy} blocks of {nlm.WARPS} warps")
+        print(f"[K4] {size}x{size} kernel ms by (rows, split): "
+              + ", ".join(f"{c} {t:.4f}" for c, t in per_config.items()))
         if size == CLASSIC_LR:          # the shape the classic path launches
-            rec = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "err": 0.0,
+            rec = {"ms": ms, "kernel_ms": kms, "plain_ms": pms,
+                   "bound_ms": bms, "err": 0.0,
                    "t_ops": bms if by == "operations" else 0.0,
                    "t_bytes": bms if by == "bytes" else 0.0}
         rec["err"] = max(rec.get("err", 0.0), err)
+        del x, y, yp, out
     return rec
 
 
@@ -1392,7 +1478,8 @@ def kernel_record(name, source, replaces, launches, tot, library) -> dict:
            "library_ms": library}
     if "gemm_library_ms" in tot:     # torch._int_mm, the GEMM alone
         rec["gemm_library_ms"] = tot["gemm_library_ms"]
-    for key in ("k1_path_ms", "instruction"):   # K3: the path it replaced
+    for key in ("k1_path_ms", "instruction",    # K3: the path it replaced
+                "kernel_ms"):                   # K4: the bare launch
         if key in tot:
             rec[key] = tot[key]
     return rec

@@ -180,7 +180,9 @@ def test_k2_is_batch_invariant(cuda, shape, dtype):
     assert torch.equal(y16[:2], y2)
 
 
-@pytest.mark.parametrize("hw", [(9, 9), (1, 2048), (513, 511), (16, 33)])
+@pytest.mark.parametrize("hw", [(9, 9), (1, 2048), (513, 511), (16, 33),
+                                (128, 128), (2048, 2048), (29, 61),
+                                (127, 129)])
 def test_k4_kernel_matches_twin(cuda, hw):
     rng = np.random.default_rng(sum(hw))
     img = np.clip(0.5 + rng.normal(0, 0.1, hw), 0, 1).astype(np.float32)
@@ -195,6 +197,90 @@ def test_k4_kernel_matches_twin(cuda, hw):
     assert y.shape == x.shape and bool(torch.isfinite(y).all())
     # exp weights and box sums in another order than the twin's convs
     assert float((y - yp).abs().max()) <= 1e-5
+
+
+def _k4_image(cuda, hw, seed):
+    rng = np.random.default_rng(seed)
+    img = np.clip(0.5 + rng.normal(0, 0.1, hw), 0, 1).astype(np.float32)
+    return torch.from_numpy(img).to(cuda)
+
+
+@pytest.mark.parametrize("hw", [(128, 128), (61, 29)])
+def test_k4_every_config_matches_twin(cuda, hw):
+    """Each (rows, split) instantiation of nlm.cu, launched directly, not
+    only the one the wrapper picks at this size."""
+    x = _k4_image(cuda, hw, 21)
+    sigma = torch.tensor(0.1, device=cuda)
+    h = 1.15 * sigma
+    fp32_math()
+    yp = nlm.nl_means_denoise(x, sigma, h)
+    for rows, split in nlm.CONFIGS:
+        y = torch.full_like(x, float("nan"))
+        nlm.launch(x, sigma, h, y, rows, split)
+        torch.cuda.synchronize()
+        assert float((y - yp).abs().max()) <= 1e-5, (rows, split)
+
+
+def test_k4_is_bit_for_bit_repeatable(cuda):
+    x = _k4_image(cuda, (128, 128), 22)
+    sigma = torch.tensor(0.1, device=cuda)
+    runs = [nlm.nlm_denoise(x, sigma, 1.15 * sigma) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+def test_k4_keeps_a_constant_image(cuda):
+    x = torch.full((128, 96), 0.375, device=cuda)
+    y = nlm.nlm_denoise(x, 0.05, 0.06)
+    torch.cuda.synchronize()
+    assert float((y - x).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("sigma,h", [(0.0, 0.1), (0.0, 0.0), (10.0, 0.1)])
+def test_k4_at_sigma_zero_and_large(cuda, sigma, h):
+    """sigma 0 keeps d2 whole, h 0 meets the 1e-12 floor (only equal
+    patches keep weight), a large sigma gives every offset weight 1: the
+    mean of the 169 shifted values."""
+    x = _k4_image(cuda, (40, 56), 23)
+    y = nlm.nlm_denoise(x, sigma, h)
+    fp32_math()
+    yp = nlm.nl_means_denoise(x, sigma, h)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert float((y - yp).abs().max()) <= 1e-5
+    if sigma == 10.0:
+        from tpusr_torch.core.pad import pad_2d
+        xp = pad_2d(x, 6)
+        mean = sum(xp[dy:dy + 40, dx:dx + 56] for dy in range(13)
+                   for dx in range(13)) / 169.0
+        assert float((y - mean).abs().max()) <= 1e-5
+
+
+def test_k4_with_device_scalars_is_one_launch_and_nothing_else(cuda):
+    """0-d float32 sigma and h on the card: the call dispatches no PyTorch
+    op but the output's allocation, and launches the kernel once."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    x = _k4_image(cuda, (64, 64), 24)
+    sigma = torch.tensor(0.1, device=cuda)
+    h = torch.tensor(0.115, device=cuda)
+    nlm.nlm_denoise(x, sigma, h)                      # build and load first
+    before = nlm.LAUNCHES["nlm_denoise"]
+    with Ops() as ops:
+        y = nlm.nlm_denoise(x, sigma, h)
+    assert ops.seen == ["aten.empty_like.default"]
+    assert nlm.LAUNCHES["nlm_denoise"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(y, nlm.nlm_denoise(x, 0.1, 0.115))
 
 
 def test_k4_and_k2_bf16_refuse_what_they_do_not_take(cuda):

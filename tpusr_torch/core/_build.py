@@ -6,7 +6,7 @@ with ``ctypes``. Libraries land in ``tpusr_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the flags, the source and
 the local headers it includes (``#include "x.cuh"``, followed recursively),
 so an edited source or header is rebuilt and an unchanged one is loaded as
-it is. ``build_all`` starts one ``nvcc`` per source, all together.
+it is; nvcc's output lands beside it under the same name (``build_log``). ``build_all`` starts one ``nvcc`` per source, all together.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines that have no ``nvcc``.
@@ -49,7 +49,7 @@ SIGNATURES = {
                                          _I, _P],
     },
     "nlm": {
-        "nlm_denoise_launch": [_P, _P, _P, _I, _I, _P],
+        "nlm_denoise_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 
@@ -106,9 +106,15 @@ def _compile(name: str) -> subprocess.Popen | None:
     return proc
 
 
+def build_log(name: str) -> Path:
+    """nvcc's output (``-Xptxas -v`` included) for the library ``load(name)``
+    loads, keyed by the same hash."""
+    return _lib_path(name).with_suffix(".log")
+
+
 def _finish(proc: subprocess.Popen) -> None:
     log, _ = proc.communicate()
-    (BUILD_DIR / f"{proc.src_name}.log").write_text(log)
+    proc.out_path.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {proc.src_name}.cu "
                            f"(rc={proc.returncode}):\n{log[-4000:]}")

@@ -10,7 +10,7 @@
   reflect-padded image, weights ``exp(-max(d2 - 2 sigma^2, 0) / h^2)``.
 
 A CPU tensor takes the twin; there is no other dispatch. ``LAUNCHES`` counts
-kernel launches, one per call that reached the kernel.
+kernel launches (``launch``), one per ``nlm_denoise`` call on a card.
 """
 
 from __future__ import annotations
@@ -37,12 +37,25 @@ def _scalar(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
-def nlm_params(sigma, h, device) -> torch.Tensor:
-    """(2,) float32 [sigma^2, 1 / max(h^2, 1e-12)] on ``device``: the Pallas
-    kernel's SMEM params (pallas_nlm.py:109-111), computed on the device."""
-    sig2 = _scalar(sigma, device) ** 2
-    inv_h2 = 1.0 / torch.clamp(_scalar(h, device) ** 2, min=1e-12)
-    return torch.stack([sig2, inv_h2])
+# The kernel's geometry (csrc/nlm.cu): blocks of WARPS warps, each warp
+# yielding COLS output columns; CONFIGS are its two instantiations, (rows a
+# thread walks, warps that split the 168 offsets of one pixel run): one warp
+# per run, and all eight warps of a block on one run.
+WARPS, COLS = 8, 60
+NO_SPLIT, SPLIT = CONFIGS = ((8, 1), (2, 8))
+
+
+def grid(H: int, W: int, rows: int, split: int) -> tuple[int, int]:
+    """(blocks across, blocks down) of a launch on an (H, W) image."""
+    return -(-W // COLS), -(-H // (WARPS // split * rows))
+
+
+def launch_config(H: int, W: int, n_sms: int) -> tuple[int, int]:
+    """(rows, split) for an (H, W) image on a card with ``n_sms`` SMs: no
+    split unless that grid has fewer blocks than SMs. It depends on the
+    sizes alone, so a call's bits never change."""
+    gx, gy = grid(H, W, *NO_SPLIT)
+    return NO_SPLIT if gx * gy >= n_sms else SPLIT
 
 
 def nl_means_denoise(img01: torch.Tensor, sigma, h, patch_size: int = 5,
@@ -82,8 +95,11 @@ def nlm_denoise(img01: torch.Tensor, sigma, h) -> torch.Tensor:
     """Fast NLM on an (H, W) float32 [0, 1] grayscale image (K4), with the
     harness's 5x5 patches and 13x13 search window (compiled into nlm.cu).
 
-    ``sigma`` and ``h`` are floats or 0-d tensors (on the image's device, so
-    no host sync is needed). Returns (H, W) float32.
+    ``sigma`` and ``h`` are floats or 0-d tensors. For a CUDA image the
+    call is one kernel launch and nothing else when both are float32 0-d
+    tensors on its device (a float is copied there first): the kernel forms
+    sigma^2 and 1 / max(h^2, 1e-12) itself, and nothing syncs with the
+    host. Returns (H, W) float32.
     """
     name = "nlm_denoise"
     if img01.dim() != 2:
@@ -96,15 +112,29 @@ def nlm_denoise(img01: torch.Tensor, sigma, h) -> torch.Tensor:
         raise ValueError(f"{name}: unsupported device {img01.device}")
     if not img01.is_contiguous():
         raise ValueError(f"{name}: img01 must be contiguous")
-    params = nlm_params(sigma, h, img01.device)
+    dev = img01.device
+    sigma, h = _scalar(sigma, dev), _scalar(h, dev)
+    if sigma.numel() != 1 or h.numel() != 1:
+        raise ValueError(f"{name}: sigma and h must be scalars")
     y = torch.empty_like(img01)
     if y.numel() == 0:
         return y
     H, W = img01.shape
-    lib = _build.load("nlm")
-    stream = torch.cuda.current_stream(img01.device).cuda_stream
-    _build.check("nlm", lib.nlm_denoise_launch(
-        img01.data_ptr(), params.data_ptr(), y.data_ptr(), H, W, stream))
-    with _launch_lock:
-        LAUNCHES[name] += 1
+    launch(img01, sigma, h, y, *launch_config(
+        H, W, torch.cuda.get_device_properties(dev).multi_processor_count))
     return y
+
+
+def launch(x: torch.Tensor, sigma: torch.Tensor, h: torch.Tensor,
+           y: torch.Tensor, rows: int, split: int) -> None:
+    """One launch of ``csrc/nlm.cu`` at one of ``CONFIGS`` on the current
+    stream: (H, W) float32 ``x`` into ``y``, float32 scalars ``sigma`` and
+    ``h``, all contiguous on one CUDA device (``nlm_denoise`` checks that)."""
+    H, W = x.shape
+    lib = _build.load("nlm")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check("nlm", lib.nlm_denoise_launch(
+        x.data_ptr(), sigma.data_ptr(), h.data_ptr(), y.data_ptr(), H, W,
+        rows, split, stream))
+    with _launch_lock:
+        LAUNCHES["nlm_denoise"] += 1
