@@ -71,14 +71,28 @@ its own lines:
 12. the classic-SR comparison: ``run_classic_comparison`` on 16 HR 512^2 /
    LR 128^2 uint8 pairs made from ``--seed``, with the K4 launches it
    implies, the reference's score pattern, and one pair's SR images held
-   against the same harness run on the CPU (plain twins).
+   against the same harness run on the CPU (plain twins);
+13. the trainers at the serving gate's shapes (``TrainSlice``): the K2
+   autograd Function (``conv3x3_bias_act_train``) against autograd through
+   the plain twin at every conv of an EDSR x4 training step (dX within
+   ``k2_f32_bound``, Cin 256 at up0/up1; dW, db within 1e-5 of their max),
+   3 steps on K2 against 3 on the twin (losses rtol 1e-4); then 20
+   ``SupervisedSRTrainer`` steps of EDSR x4 at batch 16 of LR 32^2 (73 K2
+   launches a step, 37 an eval step, a falling loss), 10
+   ``ClassifierTrainer`` steps of VGG16 at batch 64 of 96^2 with dropout
+   (finite losses), a 2-epoch ``fit`` with a checkpoint each epoch,
+   restored and evaluated, and no call of K2's plain twin; the median step
+   ms, peak memory, a ``torch.profiler`` breakdown of each step and K2's ms
+   at the training shapes beside ``F.conv2d`` and ``conv2d_input``.
 
-Each path (8-12) is driven with the launch counts set to 0 just before it
+Each path (8-13) is driven with the launch counts set to 0 just before it
 and read just after. Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
 dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
-and as a bare launch; ``launches`` counts the kernel's path) and the
+and as a bare launch; ``launches`` counts the kernel's path; K2's record
+carries a ``train`` object, one EDSR x4 train step's forward and dX
+launches with ``launches`` over the training path) and the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
@@ -1468,6 +1482,495 @@ def phase_classic(dev, seed: int, sync, card: str) -> int:
     return launches
 
 
+# ----------------------------------------------------------------- training
+
+@dataclass(frozen=True)
+class TrainSlice:
+    """The trainers at the serving gate's shapes (tools/serving_gate.py
+    ``train_edsr``: EDSR x4, 16 blocks, 64 filters, batch 16 of LR 32^2 ->
+    HR 128^2, rate 1e-4; ``train_classifier``: VGG16, 2 classes, batch 64 of
+    96^2, rate 2e-4, dropout on)."""
+    lr: int = 32
+    scale: int = 4
+    blocks: int = 16
+    filters: int = 64
+    batch: int = 16
+    edsr_steps: int = 20
+    twin_steps: int = 3
+    widths: tuple = (64, 128, 256, 512, 512)
+    dense: int = 256
+    vgg_batch: int = 64
+    vgg_patch: int = 96
+    vgg_steps: int = 10
+    pool: int = 256
+    fit_pairs: int = 64
+    val_pairs: int = 16
+    fit_epochs: int = 2
+
+
+TRAIN_LOSS_RTOL = 1e-4   # 3 trainer steps on K2 against 3 on the twin
+GRAD_RTOL = 1e-5         # dW, db: |d| <= 1e-5 max|g| (cuDNN on both sides)
+FP32_UNIT = 2.0 ** -24
+
+
+def edsr_train_layers(t: TrainSlice) -> list[tuple[str, tuple, bool]]:
+    """(conv, forward shape (N, H, W, Cin, Cout), relu) of every conv of
+    the x4 EDSR training forward, in order: 37 K2 launches; the backward
+    launches K2 once more for each but the head (its input is the data)."""
+    n, h, f = t.batch, t.lr, t.filters
+    out = [("head", (n, h, h, 3, f), False)]
+    for i in range(t.blocks):
+        out += [(f"res{i}.conv1", (n, h, h, f, f), True),
+                (f"res{i}.conv2", (n, h, h, f, f), False)]
+    return out + [("body", (n, h, h, f, f), False),
+                  ("up0", (n, h, h, f, 4 * f), False),
+                  ("up1", (n, 2 * h, 2 * h, f, 4 * f), False),
+                  ("tail", (n, 4 * h, 4 * h, f, 3), False)]
+
+
+def k2_f32_bound(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The largest difference (float64, per output) of two fp32 results of
+    the 3x3 SAME conv of ``x`` (N, H, W, C) with ``k`` (3, 3, C, Cout) that
+    sum its K = 9*C products in any order: 2 * K * 2^-24 * S, S = the same
+    conv on |x|, |k| in float64 (the second term of ``k2_bf16_tolerance``
+    with fp32's unit). For dX, x is dY and k the flipped, transposed
+    kernel, so C is the forward's Cout."""
+    from tpusr_torch.core.conv3x3 import conv3x3_bias_act_plain
+    zero = torch.zeros(k.shape[-1], dtype=torch.float64, device=x.device)
+    s = conv3x3_bias_act_plain(x.double().abs(), k.double().abs(), zero)
+    return 2 * 9 * x.shape[-1] * FP32_UNIT * s
+
+
+class count_plain_calls:
+    """Count the calls of K2's plain twin made through the wrapper's module
+    while the context is open (``n``)."""
+
+    def __enter__(self):
+        from tpusr_torch.core import conv3x3
+        self._mod, self._orig, self.n = conv3x3, conv3x3.conv3x3_bias_act_plain, 0
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self._orig(*a, **kw)
+        conv3x3.conv3x3_bias_act_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.conv3x3_bias_act_plain = self._orig
+
+
+class train_on_plain_twin:
+    """Route the EDSR training forward's convs to K2's plain twin under
+    autograd (``F.conv2d`` + bias + ReLU; cuDNN's backward) for the
+    duration of a reference computation."""
+
+    def __enter__(self):
+        from tpusr_torch.core.conv3x3 import conv3x3_bias_act_plain
+        from tpusr_torch.models import edsr
+        self._mod, self._orig = edsr, edsr.conv3x3_bias_act_train
+        edsr.conv3x3_bias_act_train = (
+            lambda x, k, b, relu=False: conv3x3_bias_act_plain(x, k, b, relu))
+
+    def __exit__(self, *exc):
+        self._mod.conv3x3_bias_act_train = self._orig
+
+
+def check_k2_backward(t: TrainSlice, edsr, dev) -> dict:
+    """The K2 Function's gradients against autograd through the plain twin
+    at every conv of the training forward, on the model's weights, random x
+    and the same dY (masked by K2's ReLU output on both sides; the masks of
+    K2's and the twin's outputs may differ only where the twin's
+    pre-activation is within K2_ATOL of 0). dX is held to ``k2_f32_bound``,
+    dW and db to ``GRAD_RTOL`` of their largest value."""
+    from tpusr_torch.core.conv3x3 import (conv3x3_bias_act_plain,
+                                          conv3x3_bias_act_train)
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = {"dx_share": 0.0, "dw": 0.0, "db": 0.0, "flips": 0, "dx_err": 0.0}
+    convs = dict(edsr.named_modules())
+    for name, shape, relu in edsr_train_layers(t):
+        n, h, w, cin, cout = shape
+        m = convs[name]
+        x = torch.randn((n, h, w, cin), generator=g, device=dev)
+        dy = torch.randn((n, h, w, cout), generator=g, device=dev)
+        need_dx = name != "head"
+        xa = x.clone().requires_grad_(need_dx)
+        ka, ba = (p.detach().clone().requires_grad_() for p in (m.kernel, m.bias))
+        y = conv3x3_bias_act_train(xa, ka, ba, relu)
+        y.backward(dy)
+        xb = x.clone().requires_grad_(need_dx)
+        kb, bb = (p.detach().clone().requires_grad_() for p in (m.kernel, m.bias))
+        pre = conv3x3_bias_act_plain(xb, kb, bb, False)
+        g_ref = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
+        pre.backward(g_ref)
+        torch.cuda.synchronize()
+        if relu:
+            flips = (y > 0) != (pre > 0)
+            n_flip = int(flips.sum())
+            check(n_flip == 0
+                  or float(pre.detach()[flips].abs().max()) <= K2_ATOL,
+                  f"{name}: K2's and the twin's ReLU masks differ away from 0")
+            worst["flips"] += n_flip
+        if need_dx:
+            k_t = m.kernel.detach().flip(0, 1).transpose(2, 3).contiguous()
+            tol = k2_f32_bound(g_ref, k_t)
+            d = (xa.grad.double() - xb.grad.double()).abs()
+            n_out = int((d > tol).sum())
+            check(n_out == 0, f"{name}: dX of the K2 Function vs the twin "
+                              f"at {shape}: {n_out} values beyond the bound "
+                              f"(max |d| {float(d.max()):.3g})")
+            worst["dx_share"] = max(worst["dx_share"], float((d / tol).max()))
+            worst["dx_err"] = max(worst["dx_err"], float(d.max()))
+            del tol, d
+        for key, a, b in (("dw", ka.grad, kb.grad), ("db", ba.grad, bb.grad)):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            check(err <= GRAD_RTOL * scale, f"{name}: {key} of the K2 Function"
+                  f" vs the twin: max|d| {err:.3g} > {GRAD_RTOL} x {scale:.3g}")
+            worst[key] = max(worst[key], err / scale)
+        del x, dy, xa, xb, y, pre, g_ref
+    torch.cuda.empty_cache()
+    n_fwd = len(edsr_train_layers(t))
+    print(f"[train] K2 Function vs autograd through the twin at the {n_fwd} "
+          f"convs ({n_fwd - 1} dX shapes, Cin {4 * t.filters} at up0/up1, Cin 3"
+          f" at the tail): dX within "
+          f"2*9*C*2^-24*sum|dY||k| everywhere (largest share of the bound "
+          f"{worst['dx_share']:.3f}, max|d| {worst['dx_err']:.3g}); dW, db "
+          f"within {GRAD_RTOL} of their max (worst {worst['dw']:.2g}, "
+          f"{worst['db']:.2g}); ReLU masks differ at {worst['flips']} "
+          f"near-zero outputs")
+    return worst
+
+
+def train_k2_times(t: TrainSlice, edsr, dev, card: str) -> dict:
+    """K2's ms per EDSR train step at the training shapes: the 37 forward
+    launches and the 36 dX launches, beside the plain twin, ``F.conv2d``
+    (forward) and ``torch.nn.grad.conv2d_input`` (dX) at the same shapes,
+    and the bound (``conv_work``, fp32)."""
+    from tpusr_torch.core.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
+    g = torch.Generator(device=dev).manual_seed(6)
+    layers = {}
+    for name, shape, relu in edsr_train_layers(t):   # distinct (shape, relu)
+        key = (shape, relu)
+        layers.setdefault(key, [name, 0])[1] += 1
+    tot = {k: 0.0 for k in ("fwd_ms", "dx_ms", "plain_ms", "library_ms",
+                            "bound_ms", "t_ops", "t_bytes")}
+    convs = dict(edsr.named_modules())
+    for (shape, relu), (name, mult) in layers.items():
+        n, h, w, cin, cout = shape
+        m = convs[name]
+        k, b = m.kernel.detach(), m.bias.detach()
+        x = torch.randn((n, h, w, cin), generator=g, device=dev)
+        dy = torch.randn((n, h, w, cout), generator=g, device=dev)
+        k_t = k.flip(0, 1).transpose(2, 3).contiguous()
+        zero = torch.zeros(cin, device=dev)
+        x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        k_oihw = k.permute(3, 2, 0, 1).contiguous()
+        fwd = time_ms(lambda: conv3x3_bias_act(x, k, b, relu))
+        lib = time_ms(lambda: F.conv2d(x_nchw, k_oihw, b, padding=1))
+        plain = time_ms(lambda: conv3x3_bias_act_plain(x, k, b, relu))
+        ops, nbytes = conv_work(shape, 4, n_vecs=1)
+        bms, by = bound(ops, nbytes, "fp32")
+        line = (f"[train-K2] {name:11s} {str(shape):26s} relu={int(relu)} x{mult}"
+                f"  forward {fwd:.4f} ms ({ops / fwd / 1e9:.1f} TFLOP/s)  "
+                f"F.conv2d {lib:.4f}  twin {plain:.4f}  bound {bms:.4f} ({by})")
+        tot["fwd_ms"] += mult * fwd
+        tot["library_ms"] += mult * lib
+        tot["plain_ms"] += mult * plain
+        tot["bound_ms"] += mult * bms
+        tot["t_" + ("ops" if by == "operations" else by)] += mult * bms
+        if name != "head":
+            dx = time_ms(lambda: conv3x3_bias_act(dy, k_t, zero))
+            dlib = time_ms(lambda: torch.nn.grad.conv2d_input(
+                x_nchw.shape, k_oihw, dy_nchw, padding=1))
+            dplain = time_ms(lambda: conv3x3_bias_act_plain(dy, k_t, zero))
+            ops, nbytes = conv_work((n, h, w, cout, cin), 4, n_vecs=1)
+            dbms, dby = bound(ops, nbytes, "fp32")
+            line += (f";  dX {dx:.4f} ms ({ops / dx / 1e9:.1f} TFLOP/s)  "
+                     f"conv2d_input {dlib:.4f}  twin {dplain:.4f}  bound "
+                     f"{dbms:.4f} ({dby})")
+            tot["dx_ms"] += mult * dx
+            tot["library_ms"] += mult * dlib
+            tot["plain_ms"] += mult * dplain
+            tot["bound_ms"] += mult * dbms
+            tot["t_" + ("ops" if dby == "operations" else dby)] += mult * dbms
+        print(line)
+        del x, dy
+    tot["ms"] = tot["fwd_ms"] + tot["dx_ms"]
+    n_fwd = len(edsr_train_layers(t))
+    print(f"[train-K2] {card}: per EDSR train step: {n_fwd} forward launches "
+          f"{tot['fwd_ms']:.3f} ms + {n_fwd - 1} dX launches "
+          f"{tot['dx_ms']:.3f} ms = "
+          f"{tot['ms']:.3f} ms; F.conv2d + conv2d_input {tot['library_ms']:.3f}"
+          f" ms; twin {tot['plain_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms "
+          f"({100 * tot['bound_ms'] / tot['ms']:.1f}%)")
+    return tot
+
+
+def sr_pairs(g: torch.Generator, n: int, t: TrainSlice, dev):
+    """(LR, HR) pairs from ``smooth_images``: HR crops in [0, 1] at the
+    gate's 128^2 (lr * scale), LR their area downscale, as train_edsr
+    makes them."""
+    from tpusr_torch.core.resize import resize
+    hr = smooth_images(g, n, t.lr * t.scale, 3, dev) / 255.0
+    return resize(hr, (t.lr, t.lr), "area"), hr
+
+
+def timed_steps(step, n: int):
+    """Run ``step(i)`` for i < n; returns the results and the device ms of
+    each step by CUDA events around it."""
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    out = []
+    for i in range(n):
+        starts[i].record()
+        out.append(step(i))
+        ends[i].record()
+    torch.cuda.synchronize()
+    return out, [s.elapsed_time(e) for s, e in zip(starts, ends)]
+
+
+def kernel_group(name: str) -> str:
+    """The group a device kernel's time is booked under in a train step."""
+    low = name.lower()
+    if "conv3x3" in low:
+        return "K2"
+    if any(w in low for w in ("cudnn", "xmma", "cutlass", "gemm", "conv",
+                              "wgrad", "dgrad", "fprop")):
+        return "cuDNN/cuBLAS"
+    if "multi_tensor" in low or "foreach" in low:
+        return "foreach (Adam)"
+    if "reduce" in low:
+        return "reductions"
+    return "elementwise/other"
+
+
+def step_profile(step, n: int = 3) -> dict:
+    """Per call of ``step()``, from a ``torch.profiler`` trace of ``n`` calls
+    after a warm-up: device ms by kernel group (empty when the trace holds
+    no device events), kernel launches, the six kernels and the five host
+    ops that take most time, as (name, ms, count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    groups: dict[str, float] = {}
+    for e in kernels:
+        key = kernel_group(e.key)
+        groups[key] = groups.get(key, 0.0) + e.self_device_time_total / 1e3 / n
+
+    def top(evs, attr, k):
+        evs = sorted(evs, key=lambda e: -getattr(e, attr))[:k]
+        return [(e.key[:48], getattr(e, attr) / 1e3 / n, e.count / n) for e in evs]
+    return {"groups": groups, "launches": sum(e.count for e in kernels) / n,
+            "kernels": top(kernels, "self_device_time_total", 6),
+            "host": top(host, "self_cpu_time_total", 5)}
+
+
+def print_breakdown(tag: str, card: str, step, step_ms: float) -> None:
+    prof = step_profile(step)
+    groups, busy = prof["groups"], sum(prof["groups"].values())
+    if not groups:
+        print(f"[train] {tag}: the profiler trace holds no device events; "
+              f"device busy time not measured")
+        return
+
+    def listed(rows):
+        return "; ".join(f"{nm} {ms:.3f} ms x{c:g}" for nm, ms, c in rows)
+    print(f"[train] {card}: {tag} step, device busy {busy:.3f} ms of "
+          f"{step_ms:.3f} (idle share {100 * (1 - busy / step_ms):.1f}%, "
+          f"torch.profiler, 3 steps), {prof['launches']:g} kernel launches: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      sorted(groups.items(), key=lambda kv: -kv[1]))
+          + f"; top kernels {listed(prof['kernels'])}; top host ops (self "
+          f"CPU) {listed(prof['host'])}")
+
+
+def phase_train(t: TrainSlice, dev, seed: int, sync, card: str) -> dict:
+    """The training path on the card: K2's backward against its twin, three
+    trainer steps on K2 against three on the twin, then the main path (20
+    EDSR x4 steps and one eval step, 10 VGG16 steps, a 2-epoch fit with
+    periodic checkpoints, restored and evaluated) with its launch counts and
+    no call of K2's plain twin; and K2's times at the training shapes."""
+    import tempfile
+
+    from tpusr_torch.core import conv3x3
+    from tpusr_torch.models import EDSR, VGG16Classifier
+    from tpusr_torch.train import (ClassifierTrainer, SupervisedSRTrainer,
+                                   restore_checkpoint)
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    pool_lr, pool_hr = sr_pairs(g, t.pool, t, dev)
+    clf_x = smooth_images(g, t.pool, t.vgg_patch, 3, dev) / 255.0
+    bright = clf_x.mean(dim=(1, 2, 3))
+    clf_y = (bright > bright.median()).to(torch.int32)
+    sel = torch.randint(0, t.pool, (t.edsr_steps, t.batch), generator=g,
+                        device=dev)
+    clf_sel = torch.randint(0, t.pool, (t.vgg_steps, t.vgg_batch), generator=g,
+                            device=dev)
+    edsr = EDSR(scale_factor=t.scale, num_res_blocks=t.blocks,
+                num_filters=t.filters, device=dev,
+                generator=torch.Generator().manual_seed(seed))
+    trainer = SupervisedSRTrainer(edsr, learning_rate=1e-4, device=dev)
+    sync()
+    print(f"[train] EDSR x{t.scale} {t.blocks} blocks {t.filters} filters, "
+          f"batch {t.batch} of LR {t.lr}^2 -> HR {t.lr * t.scale}^2, rate 1e-4;"
+          f" VGG16 widths {t.widths}, batch {t.vgg_batch} of {t.vgg_patch}^2, "
+          f"rate 2e-4, dropout 0.2; seed {seed}; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    back = check_k2_backward(t, edsr, dev)
+
+    # ---- three trainer steps on K2 against three on the twin ----
+    def steps_from(state, n):
+        losses = []
+        for i in range(n):
+            state, m = trainer.train_step(state, pool_lr[sel[i]], pool_hr[sel[i]])
+            losses.append(float(m["loss"]))
+        return losses
+    on_k2 = steps_from(trainer.init_state(), t.twin_steps)
+    with train_on_plain_twin():
+        on_twin = steps_from(trainer.init_state(), t.twin_steps)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on_k2, on_twin))
+    print(f"[train] {t.twin_steps} EDSR steps on K2 vs on the twin: losses "
+          f"{[f'{v:.6f}' for v in on_k2]} vs {[f'{v:.6f}' for v in on_twin]} "
+          f"(max rel {rel:.2g}, rtol {TRAIN_LOSS_RTOL})")
+    check(rel <= TRAIN_LOSS_RTOL, f"trainer on K2 vs on the twin: {rel}")
+
+    # ---- the main path ----
+    n_fwd = len(edsr_train_layers(t))
+    per_step = launches_want(conv3x3_bias_act=2 * n_fwd - 1)
+    per_eval = launches_want(conv3x3_bias_act=n_fwd)
+    counted = {}
+    with count_plain_calls() as plain:
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = trainer.init_state()
+        reset_counts()
+
+        def edsr_step(i):
+            nonlocal state
+            before = read_counts()
+            state, m = trainer.train_step(state, pool_lr[sel[i]], pool_hr[sel[i]])
+            after = read_counts()
+            check({k: after[k] - before[k] for k in after} == per_step,
+                  f"EDSR train step {i}: launches {after} - {before} != "
+                  f"{per_step}")
+            return m["loss"]
+        losses, edsr_ms = timed_steps(edsr_step, t.edsr_steps)
+        before = read_counts()
+        ev = trainer.eval_step(state, pool_lr[:t.batch], pool_hr[:t.batch])
+        after = read_counts()
+        check({k: after[k] - before[k] for k in after} == per_eval,
+              f"EDSR eval step: launches {after} - {before} != {per_eval}")
+        edsr_peak = torch.cuda.max_memory_allocated(dev)
+        counted["edsr"] = read_counts()["conv3x3_bias_act"]
+        losses = [float(v) for v in losses]
+        check(all(math.isfinite(v) for v in losses), f"EDSR losses {losses}")
+        late = float(np.mean(losses[-5:]))
+        check(late < losses[0], f"EDSR loss did not fall: first {losses[0]}, "
+                                f"mean of the last 5 {late}")
+        check(all(math.isfinite(float(ev[k])) for k in ("loss", "psnr", "ssim")),
+              f"EDSR eval {ev}")
+        edsr_med = float(np.median(edsr_ms))
+        print_breakdown("EDSR x4 train", card, lambda: trainer.train_step(
+            state, pool_lr[sel[0]], pool_hr[sel[0]]), edsr_med)
+        del state
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        vgg = VGG16Classifier(num_classes=2, dense_units=t.dense,
+                              widths=t.widths, device=dev,
+                              generator=torch.Generator().manual_seed(seed + 1))
+        clf = ClassifierTrainer(vgg, learning_rate=2e-4, device=dev)
+        cstate = clf.init_state()
+        reset_counts()
+
+        def vgg_step(i):
+            nonlocal cstate
+            cstate, m = clf.train_step(cstate, clf_x[clf_sel[i]],
+                                       clf_y[clf_sel[i]], i)
+            return m["loss"], m["accuracy"]
+        vgg_out, vgg_ms = timed_steps(vgg_step, t.vgg_steps)
+        vgg_peak = torch.cuda.max_memory_allocated(dev)
+        check(read_counts() == launches_want(),
+              f"VGG16 steps launched {read_counts()}")
+        vgg_losses = [float(l) for l, _ in vgg_out]
+        check(all(math.isfinite(v) for v in vgg_losses), f"VGG losses {vgg_losses}")
+        vgg_med = float(np.median(vgg_ms))
+        print_breakdown("VGG16 train", card, lambda: clf.train_step(
+            cstate, clf_x[clf_sel[0]], clf_y[clf_sel[0]], 0), vgg_med)
+        del cstate, clf, vgg
+        torch.cuda.empty_cache()
+
+        # a 2-epoch fit with a checkpoint each epoch, restored and evaluated
+        fit_lr, fit_hr = pool_lr[:t.fit_pairs], pool_hr[:t.fit_pairs]
+        val_lr = pool_lr[t.fit_pairs:t.fit_pairs + t.val_pairs]
+        val_hr = pool_hr[t.fit_pairs:t.fit_pairs + t.val_pairs]
+        n_train = math.ceil(t.fit_pairs / t.batch)
+        n_val = math.ceil(t.val_pairs / t.batch)
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            res = trainer.fit(fit_lr, fit_hr, val_lr, val_hr,
+                              batch_size=t.batch, epochs=t.fit_epochs,
+                              verbose=False, checkpoint_dir=tmp,
+                              checkpoint_every=1)
+            n_ep = len(res.history["loss"])
+            want = launches_want(conv3x3_bias_act=n_ep * (
+                n_train * (2 * n_fwd - 1) + n_val * n_fwd))
+            check(read_counts() == want, f"fit launched {read_counts()}, "
+                                         f"expected {want}")
+            counted["fit"] = read_counts()["conv3x3_bias_act"]
+            saved = sorted(f for f in os.listdir(tmp) if not f.endswith(".json"))
+            check(saved == [f"epoch_{e + 1:04d}" for e in range(n_ep)],
+                  f"checkpoints {saved}")
+            last = saved[-1]
+            restored = restore_checkpoint(tmp, last, trainer.init_state())
+            check(restored.opt_state["count"] == n_ep * n_train,
+                  f"restored Adam count {restored.opt_state['count']}")
+            reset_counts()
+            evr = trainer.evaluate(restored, val_lr, val_hr, batch_size=t.batch)
+            check(read_counts() == launches_want(conv3x3_bias_act=n_val * n_fwd),
+                  f"evaluate launched {read_counts()}")
+            counted["evaluate"] = read_counts()["conv3x3_bias_act"]
+            check(abs(evr["loss"] - res.history["val_loss"][-1])
+                  <= 1e-6 * abs(res.history["val_loss"][-1]),
+                  f"restored {last}: val loss {evr['loss']} != the fit's "
+                  f"{res.history['val_loss'][-1]}")
+    check(plain.n == 0, f"K2's plain twin was called {plain.n} times on the "
+                        f"card's training path")
+    print(f"[train] {card}: EDSR x{t.scale} train step median {edsr_med:.3f} ms"
+          f" (CUDA events, {t.edsr_steps} steps, first {edsr_ms[0]:.1f} ms), "
+          f"{2 * n_fwd - 1} K2 launches a step ({n_fwd} forward + {n_fwd - 1} "
+          f"dX), {n_fwd} an eval step; peak memory {edsr_peak / 1e9:.2f} GB; "
+          f"loss {losses[0]:.5f} -> mean of the last 5 {late:.5f}; eval PSNR "
+          f"{float(ev['psnr']):.2f} dB, SSIM {float(ev['ssim']):.4f}; K2's "
+          f"plain twin called {plain.n} times")
+    print(f"[train] {card}: VGG16 train step median {vgg_med:.3f} ms (CUDA "
+          f"events, {t.vgg_steps} steps of {t.vgg_batch}, first "
+          f"{vgg_ms[0]:.1f} ms); peak memory {vgg_peak / 1e9:.2f} GB; losses "
+          f"{[round(v, 4) for v in vgg_losses]}")
+    print(f"[train] {card}: fit {n_ep} epochs of {t.fit_pairs} pairs at batch "
+          f"{t.batch}: epoch times "
+          f"{[round(v, 3) for v in res.time_tracker.epoch_times_sec]} s, peak "
+          f"{res.memory_tracker.as_dict()['gpu_peak_mb']:.0f} MB, val loss "
+          f"{[round(v, 6) for v in res.history['val_loss']]}; checkpoints "
+          f"{saved}; {last} restored: count {restored.opt_state['count']}, "
+          f"evaluate loss {evr['loss']:.6f} PSNR {evr['psnr']:.2f}")
+
+    tot = train_k2_times(t, edsr, dev, card)
+    tot.update(launches=sum(counted.values()), err=back["dx_err"],
+               edsr_step_ms=edsr_med, vgg_step_ms=vgg_med)
+    return tot
+
+
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
     rec = {"name": name, "route": "cuda",
            "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
@@ -1483,6 +1986,18 @@ def kernel_record(name, source, replaces, launches, tot, library) -> dict:
         if key in tot:
             rec[key] = tot[key]
     return rec
+
+
+def train_record(tot) -> dict:
+    """K2 on the training path: one EDSR x4 train step's 37 forward and 36
+    dX launches (``ms`` = ``fwd_ms`` + ``dx_ms``); ``launches`` counts the
+    main training path."""
+    return {"launches": tot["launches"], "max_abs_err": tot["err"],
+            "ms": tot["ms"], "fwd_ms": tot["fwd_ms"], "dx_ms": tot["dx_ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["t_ops"] >= tot["t_bytes"]
+                         else "bytes"),
+            "library_ms": tot["library_ms"]}
 
 
 def main() -> int:
@@ -1520,16 +2035,20 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
         k4_launches = phase_classic(dev, args.seed, sync, card)
+        torch.cuda.empty_cache()
+        train = phase_train(TrainSlice(), dev, args.seed, sync, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    k2_rec = kernel_record("conv3x3_bias_act", "conv3x3_bias_act.cu",
+                           "tpusr/core/pallas_conv.py:123",
+                           launches["conv3x3_bias_act"], k2, k2["library_ms"])
+    k2_rec["train"] = train_record(train)
     print(json.dumps({"kernels": [
         kernel_record("conv3x3_int8_requant", "conv3x3.cu",
                       "tpusr/core/pallas_conv.py:78",
                       launches["conv3x3_int8_requant"], k1, None),
-        kernel_record("conv3x3_bias_act", "conv3x3_bias_act.cu",
-                      "tpusr/core/pallas_conv.py:123",
-                      launches["conv3x3_bias_act"], k2, k2["library_ms"]),
+        k2_rec,
         kernel_record("conv3x3_bias_act_bf16", "conv3x3_bias_act.cu",
                       "tpusr/core/pallas_conv.py:123",
                       bf16_launches["conv3x3_bias_act_bf16"], k2b,

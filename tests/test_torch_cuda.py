@@ -474,3 +474,116 @@ def test_per_patch_int8_at_an_odd_patch_runs_k1_alone(cuda):
     n_h, n_w = block1.grid_counts(64, 64, 33, 16)
     assert tuple(probs.shape) == (2, n_h * n_w, 2)
     assert torch.equal(probs, plain)
+
+
+# the training path: K2 under autograd (Conv3x3BiasActFn) at the EDSR x4
+# training shapes of the serving gate (batch 16, LR 32^2), forward shapes
+TRAIN_LAYERS = [("head", (16, 32, 32, 3, 64), False),
+                ("res.conv1", (16, 32, 32, 64, 64), True),
+                ("res.conv2", (16, 32, 32, 64, 64), False),
+                ("up0", (16, 32, 32, 64, 256), False),
+                ("up1", (16, 64, 64, 64, 256), False),
+                ("tail", (16, 128, 128, 64, 3), False)]
+
+
+@pytest.mark.parametrize("layer", TRAIN_LAYERS, ids=[n for n, *_ in TRAIN_LAYERS])
+def test_k2_function_matches_autograd_through_the_twin(cuda, layer):
+    """dX (K2 on the flipped, transposed kernel: Cin 256 at up0/up1, Cin 3 at
+    the tail) within chip_smoke.k2_f32_bound of autograd through the twin on
+    the same (ReLU-masked) dY; dW and db within 1e-5 of their max; two K2
+    launches, one for the head (its input needs no gradient)."""
+    from chip_smoke import k2_f32_bound
+    name, (n, h, w, cin, cout), relu = layer
+    g = torch.Generator(device=cuda).manual_seed(cin + cout + h)
+    x = torch.randn((n, h, w, cin), generator=g, device=cuda)
+    kern = torch.randn((3, 3, cin, cout), generator=g, device=cuda) \
+        * math.sqrt(2.0 / (9 * cin))
+    b = torch.randn(cout, generator=g, device=cuda) * 0.1
+    dy = torch.randn((n, h, w, cout), generator=g, device=cuda)
+    need_dx = name != "head"
+    xa = x.clone().requires_grad_(need_dx)
+    ka, ba = kern.clone().requires_grad_(), b.clone().requires_grad_()
+    before = k.LAUNCHES["conv3x3_bias_act"]
+    y = k.conv3x3_bias_act_train(xa, ka, ba, relu)
+    y.backward(dy)
+    assert k.LAUNCHES["conv3x3_bias_act"] == before + 1 + need_dx
+    fp32_math()
+    xb = x.clone().requires_grad_(need_dx)
+    kb, bb = kern.clone().requires_grad_(), b.clone().requires_grad_()
+    pre = k.conv3x3_bias_act_plain(xb, kb, bb, False)
+    g_ref = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
+    pre.backward(g_ref)
+    torch.cuda.synchronize()
+    if relu:   # masks differ only where the twin's pre-activation is ~0
+        flips = (y > 0) != (pre > 0)
+        assert not bool(flips.any()) or float(pre[flips].abs().max()) <= 1e-4
+    if need_dx:
+        k_t = kern.flip(0, 1).transpose(2, 3).contiguous()
+        d = (xa.grad.double() - xb.grad.double()).abs()
+        assert bool((d <= k2_f32_bound(g_ref, k_t)).all()), float(d.max())
+    else:
+        assert xa.grad is None
+    for got, want in ((ka.grad, kb.grad), (ba.grad, bb.grad)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 32, 256, 64), (16, 64, 64, 256, 64),
+                                   (2, 7, 9, 256, 64), (3, 6, 10, 256, 130),
+                                   (1, 5, 5, 256, 3)])
+def test_k2_at_cin_256_matches_twin(cuda, shape):
+    """K = 2304 through K2-f32's loader and shared-memory ring (the dX convs
+    of up0 and up1; no serving path launches Cin 256)."""
+    from chip_smoke import k2_f32_bound
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn((n, h, w, cin), generator=g, device=cuda)
+    kern = torch.randn((3, 3, cin, cout), generator=g, device=cuda) \
+        / math.sqrt(9 * cin)
+    b = torch.randn(cout, generator=g, device=cuda) * 0.1
+    y = k.conv3x3_bias_act(x, kern, b)
+    fp32_math()
+    yp = k.conv3x3_bias_act_plain(x, kern, b)
+    torch.cuda.synchronize()
+    d = (y.double() - yp.double()).abs()
+    assert bool((d <= k2_f32_bound(x, kern)).all()), float(d.max())
+
+
+def test_edsr_train_step_on_k2_matches_the_twin(cuda):
+    """A narrow EDSR x4 under SupervisedSRTrainer on K2 against the same
+    trainer through the twin: the first step's gradients within 1e-5 of
+    each leaf's max|g| (as the CPU tests hold them against jax.grad; a
+    wrong dX shows in every leaf before the last conv), 17 K2 launches (9
+    forward, 8 dX) and no call of the twin; then three steps, whose second
+    and third losses follow an update, within rtol 1e-4."""
+    from chip_smoke import count_plain_calls, train_on_plain_twin
+    from tpusr_torch.models import EDSR
+    from tpusr_torch.train import SupervisedSRTrainer
+    model = EDSR(4, num_res_blocks=2, num_filters=16, device=cuda,
+                 generator=torch.Generator().manual_seed(3))
+    tr = SupervisedSRTrainer(model, learning_rate=1e-4, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xs = torch.rand((3, 4, 16, 16, 3), generator=g, device=cuda)
+    ys = torch.rand((3, 4, 64, 64, 3), generator=g, device=cuda)
+    before = k.LAUNCHES["conv3x3_bias_act"]
+    with count_plain_calls() as plain:
+        _, _, g_k2 = tr.value_and_grad(tr.init_state(), xs[0], ys[0])
+        torch.cuda.synchronize()
+    assert k.LAUNCHES["conv3x3_bias_act"] - before == 17 and plain.n == 0
+    with train_on_plain_twin():
+        _, _, g_tw = tr.value_and_grad(tr.init_state(), xs[0], ys[0])
+    assert list(g_k2) == list(g_tw)
+    for name, want in g_tw.items():
+        err = float((g_k2[name] - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (name, err)
+
+    def losses(state):
+        out = []
+        for x, y in zip(xs, ys):
+            state, m = tr.train_step(state, x, y)
+            out.append(float(m["loss"]))
+        return out
+    on_k2 = losses(tr.init_state())
+    with train_on_plain_twin():
+        on_twin = losses(tr.init_state())
+    for a, b in zip(on_k2, on_twin):
+        assert abs(a - b) <= 1e-4 * abs(b), (on_k2, on_twin)

@@ -12,12 +12,30 @@ import jax.numpy as jnp
 
 from tpusr.models import EDSR as JaxEDSR
 from tpusr.models.vgg import _VGG16_CFG
+from tpusr_torch.bridge import dense_to_linear, flax_path, oihw_to_hwio
 
 NARROW_WIDTHS = (8, 16, 16, 32, 32)  # VGG16 layer names, narrow widths
 
 
 def to_numpy(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def to_flax_tree(params: dict) -> dict:
+    """Port parameters (name -> tensor, as ``named_parameters`` or a
+    trainer's ``TrainState.params`` hold them) -> a nested flax tree of
+    numpy arrays in flax's layouts (HWIO conv kernels, (in, out) Dense)."""
+    tree: dict = {}
+    for name, t in params.items():
+        a = t.detach().cpu()
+        if name.endswith(".weight"):
+            a = oihw_to_hwio(a) if a.dim() == 4 else dense_to_linear(a)
+        *path, leaf = flax_path(name)
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = a.numpy().copy()
+    return tree
 
 
 def vgg16_tree(rng, widths=NARROW_WIDTHS, num_classes=2, dense_units=16):

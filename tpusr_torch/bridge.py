@@ -58,7 +58,33 @@ def edsr_from_flax(params: dict, scale_factor: int, res_scaling: float = 0.1,
     return model
 
 
-def vgg16_from_flax(params: dict, device=None):
+def flax_path(name: str) -> tuple[str, ...]:
+    """A port parameter name -> the path of the same leaf in the flax tree:
+    ``vgg16.block5_conv3.weight`` -> ``("vgg16", "block5_conv3", "kernel")``,
+    ``res0.conv1.kernel`` -> ``("res0", "conv1", "kernel")``."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return tuple(parts)
+
+
+def srcnn_from_flax(params: dict, device=None):
+    """``tpusr.models.SRCNN`` params -> ``tpusr_torch.models.srcnn.SRCNN``."""
+    from tpusr_torch.models.srcnn import SRCNN
+
+    k1 = np.shape(params["conv1"]["kernel"])
+    model = SRCNN(channels=k1[2], f1=k1[3],
+                  f2=np.shape(params["conv2"]["kernel"])[3],
+                  device=resolve_device(device))
+    sd = {}
+    for name in ("conv1", "conv2", "conv3"):
+        sd[f"{name}.weight"] = hwio_to_oihw(_tensor(params[name]["kernel"]))
+        sd[f"{name}.bias"] = _tensor(params[name]["bias"])
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def vgg16_from_flax(params: dict, device=None, dropout_rate: float = 0.2):
     """``tpusr.models.VGG16Classifier`` params (VGG16 block names; any block
     widths) -> ``tpusr_torch.models.vgg.VGG16Classifier``."""
     from tpusr_torch.models.vgg import VGG16_CFG, VGG16Classifier
@@ -69,7 +95,7 @@ def vgg16_from_flax(params: dict, device=None):
     model = VGG16Classifier(
         num_classes=np.shape(params["predictions"]["bias"])[0],
         dense_units=np.shape(params["fc1"]["bias"])[0], widths=widths,
-        device=resolve_device(device))
+        device=resolve_device(device), dropout_rate=dropout_rate)
     sd = {}
     for name, p in bb.items():
         sd[f"vgg16.{name}.weight"] = hwio_to_oihw(_tensor(p["kernel"]))

@@ -11,6 +11,10 @@ dequant conv.
   the EDSR forward, f32 and bf16; each dtype is its own kernel with its own
   launch count (``csrc/conv3x3_bias_act.cu``: bf16 on the tensor cores, f32
   on an FFMA register-tiled GEMM, picked among their tiles by shape alone).
+- ``conv3x3_bias_act_train`` is K2 under autograd (``Conv3x3BiasActFn``):
+  the forward is K2, and so is the input gradient, a 3x3 SAME conv of the
+  output gradient with the flipped, transposed kernel. It runs every conv
+  of the EDSR training forward and backward; serving never enters it.
 - ``conv3x3_int8_dequant`` has no Pallas counterpart: it replaces the XLA
   int8 conv + dequant of the int8 EDSR (``tpusr/models/edsr_quant.py::
   _qconv``): int8 x int8 -> int32, then ``acc * rescale + bias`` in f32 and
@@ -253,3 +257,53 @@ def conv3x3_bias_act(x, kernel, bias, relu: bool = False):
         n, h, w, cin, cout, int(relu), stream))
     _count_launch(name)
     return y
+
+
+class Conv3x3BiasActFn(torch.autograd.Function):
+    """K2 with a backward, for float32 training.
+
+    Forward: ``conv3x3_bias_act`` (K2 on a card, the plain twin on the CPU).
+    Backward, from the saved output ``y``: the ReLU mask ``y > 0`` (the
+    gradient at 0 is 0, as ``jax.nn.relu``'s); dX = K2 on the mask times dY
+    with the kernel flipped in both spatial dims and transposed in its
+    channel dims, zero bias, no ReLU (exact for a stride-1 SAME 3x3 conv),
+    only when x needs a gradient; dW = ``torch.nn.grad.conv2d_weight``
+    (cuDNN on a card; JAX computes it in XLA, outside any Pallas kernel);
+    db = the sum over N, H and W in fp32.
+    """
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, relu: bool):
+        y = conv3x3_bias_act(x.contiguous(), kernel, bias, relu)
+        ctx.relu = relu
+        ctx.save_for_backward(x, kernel, y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kernel, y = ctx.saved_tensors
+        if ctx.relu:
+            dy = torch.where(y > 0, dy, torch.zeros((), dtype=dy.dtype,
+                                                    device=dy.device))
+        dy = dy.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            k_t = kernel.flip(0, 1).transpose(2, 3).contiguous()
+            dx = conv3x3_bias_act(dy, k_t, kernel.new_zeros(kernel.shape[2]))
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(
+                _nchw(x), (kernel.shape[3], kernel.shape[2], 3, 3), _nchw(dy),
+                padding=1).permute(2, 3, 1, 0)
+        if ctx.needs_input_grad[2]:
+            db = dy.sum(dim=(0, 1, 2))
+        return dx, dw, db, None
+
+
+def conv3x3_bias_act_train(x, kernel, bias, relu: bool = False):
+    """``conv3x3_bias_act`` (float32) with a gradient for x, kernel and bias
+    (``Conv3x3BiasActFn``): two K2 launches a call on a card, one forward
+    and one for dX, the second skipped when x needs no gradient."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"conv3x3_bias_act_train: float32 only (training runs "
+                        f"in fp32), got {x.dtype}")
+    return Conv3x3BiasActFn.apply(x, kernel, bias, relu)

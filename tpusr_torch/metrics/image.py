@@ -1,15 +1,20 @@
-"""Image quality metrics of the classic-SR comparison (port of the parts of
-``tpusr/metrics/image.py`` that ``classic/harness.py`` uses).
+"""Image quality metrics (port of ``tpusr/metrics/image.py``): the trainers'
+PSNR and SSIM with tf.image parity, and the metrics of the classic-SR
+comparison.
 
 Every function takes and returns tensors on the caller's device and reads
 nothing back to the host, so a metric block runs as a chain of launches.
 Filters are ``F.conv2d`` in float32 with TF32 off, as the JAX package left
-them to XLA at HIGHEST precision. The profiling metrics follow the reference
-study's ``profiling_methods.py:45-164``; ``ssim_skimage`` follows
+them to XLA at HIGHEST precision. ``psnr``/``ssim`` follow ``tf.image.psnr``
+and ``tf.image.ssim`` (11x11 Gaussian window, sigma 1.5, k1 0.01, k2 0.03,
+VALID, uncentred second moments); the profiling metrics follow the
+reference study's ``profiling_methods.py:45-164``; ``ssim_skimage`` follows
 ``skimage.metrics.structural_similarity``'s defaults.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -25,13 +30,70 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float32 else x.float()
 
 
-def _separable_valid(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """Separable VALID filter of a 2-D image: the column pass, then the row
-    pass, ``taps`` in float32."""
+def _filter2_valid(x: torch.Tensor, win) -> torch.Tensor:
+    """Separable VALID filter over (N, H, W, C), each channel on its own:
+    the column pass, then the row pass, with ``win`` (float64 taps) cast to
+    x's dtype. An image smaller than the window gives an empty map (SSIM
+    NaN), as XLA's VALID conv does."""
     fp32_math()
-    k = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
-    y = F.conv2d(x[None, None], k.reshape(1, 1, -1, 1))
-    return F.conv2d(y, k.reshape(1, 1, 1, -1))[0, 0]
+    n, h, w, c = x.shape
+    k = len(win)
+    if h < k or w < k:
+        return x.new_zeros((n, max(h - k + 1, 0), max(w - k + 1, 0), c))
+    taps = torch.as_tensor(np.asarray(win, np.float64)).to(x.dtype).to(x.device)
+    xr = x.permute(0, 3, 1, 2).reshape(n * c, 1, h, w)
+    y = F.conv2d(F.conv2d(xr, taps.reshape(1, 1, k, 1)), taps.reshape(1, 1, 1, k))
+    return y.reshape(n, c, y.shape[-2], y.shape[-1]).permute(0, 2, 3, 1)
+
+
+def _separable_valid(x: torch.Tensor, taps) -> torch.Tensor:
+    """``_filter2_valid`` of a 2-D image."""
+    return _filter2_valid(x[None, :, :, None], taps)[0, :, :, 0]
+
+
+# ------------------------------------------------------------------ PSNR/SSIM
+def psnr(y_true: torch.Tensor, y_pred: torch.Tensor,
+         max_val: float = 1.0) -> torch.Tensor:
+    """Per-image PSNR over the last three dims (tf.image.psnr parity)."""
+    err = (_f32(y_true) - _f32(y_pred)) ** 2
+    mse = err.mean(dim=(-3, -2, -1))
+    return 10.0 * (2.0 * math.log10(max_val) - torch.log10(mse))
+
+
+def _fspecial_gauss(size: int, sigma: float) -> np.ndarray:
+    coords = np.arange(size, dtype=np.float64) - (size - 1) / 2.0
+    g = np.exp(-(coords ** 2) / (2.0 * sigma ** 2))
+    g /= g.sum()
+    return g
+
+
+def ssim(y_true: torch.Tensor, y_pred: torch.Tensor, max_val: float = 1.0,
+         filter_size: int = 11, filter_sigma: float = 1.5, k1: float = 0.01,
+         k2: float = 0.03) -> torch.Tensor:
+    """Per-image SSIM (tf.image.ssim parity). Accepts (..., H, W, C); an
+    unbatched (H, W, C) pair gives a 0-d tensor."""
+    x, y = _f32(y_true), _f32(y_pred)
+    squeeze = x.dim() == 3
+    if squeeze:
+        x, y = x[None], y[None]
+    lead = x.shape[:-3]
+    x = x.reshape((-1,) + tuple(x.shape[-3:]))
+    y = y.reshape((-1,) + tuple(y.shape[-3:]))
+
+    win = _fspecial_gauss(filter_size, filter_sigma)
+    c1 = (k1 * max_val) ** 2
+    c2 = (k2 * max_val) ** 2
+    mu_x = _filter2_valid(x, win)
+    mu_y = _filter2_valid(y, win)
+    mu_xx = _filter2_valid(x * x, win)
+    mu_yy = _filter2_valid(y * y, win)
+    mu_xy = _filter2_valid(x * y, win)
+
+    lum = (2.0 * mu_x * mu_y + c1) / (mu_x ** 2 + mu_y ** 2 + c1)
+    cs = ((2.0 * (mu_xy - mu_x * mu_y) + c2)
+          / ((mu_xx - mu_x ** 2) + (mu_yy - mu_y ** 2) + c2))
+    val = (lum * cs).mean(dim=(1, 2, 3))
+    return val[0] if squeeze else val.reshape(lead)
 
 
 # ------------------------------------------------------------------ SSIM

@@ -3,9 +3,12 @@ body conv + global skip -> DCR pixel-shuffle upsampling -> tail conv ->
 clip [0, 1].
 
 Activations are NHWC and conv kernels HWIO, as in the JAX package; every 3x3
-conv runs through K2 (``conv3x3_bias_act``). Submodule names mirror the flax
-tree (``head``, ``res{i}.conv1``/``conv2``, ``body``, ``up0``/``up1``,
-``tail``), so a flax tree maps onto the state dict key for key.
+conv runs through K2 (``conv3x3``): ``conv3x3_bias_act``, or
+``conv3x3_bias_act_train`` (K2 forward and K2 input gradient) where grad mode
+is on and the conv's input, kernel or bias requires grad (``trainable()``,
+or the trainers' state). Submodule names mirror the flax tree (``head``, ``res{i}.conv1``/
+``conv2``, ``body``, ``up0``/``up1``, ``tail``), so a flax tree maps onto
+the state dict key for key.
 """
 
 from __future__ import annotations
@@ -13,10 +16,20 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpusr_torch.core.conv3x3 import conv3x3_bias_act
+from tpusr_torch.core.conv3x3 import (conv3x3_bias_act,
+                                      conv3x3_bias_act_train)
 from tpusr_torch.device import resolve_device
 from tpusr_torch.models.init import default_generator, variance_scaling
 from tpusr_torch.models.layers import pixel_shuffle
+
+
+def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+            relu: bool = False) -> torch.Tensor:
+    """A 3x3 SAME conv on K2, with K2's gradient where autograd needs one."""
+    if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad
+                                    or bias.requires_grad):
+        return conv3x3_bias_act_train(x, kernel, bias, relu)
+    return conv3x3_bias_act(x.contiguous(), kernel, bias, relu)
 
 
 class Conv3x3(nn.Module):
@@ -31,7 +44,7 @@ class Conv3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
 
     def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-        return conv3x3_bias_act(x.contiguous(), self.kernel, self.bias, relu)
+        return conv3x3(x, self.kernel, self.bias, relu)
 
 
 class ResBlock(nn.Module):
@@ -42,9 +55,10 @@ class ResBlock(nn.Module):
 
 
 class EDSR(nn.Module):
-    """EDSR x2/x3/x4 for inference. Runs on ``device`` (CUDA unless the
-    caller passes ``device="cpu"``); weights come from ``generator`` or are
-    loaded with ``tpusr_torch.bridge.edsr_from_flax``."""
+    """EDSR x2/x3/x4. Runs on ``device`` (CUDA unless the caller passes
+    ``device="cpu"``); weights come from ``generator`` or are loaded with
+    ``tpusr_torch.bridge.edsr_from_flax``, without gradients until
+    ``trainable()``."""
 
     def __init__(self, scale_factor: int = 2, channels: int = 3,
                  num_res_blocks: int = 16, num_filters: int = 64,
@@ -56,6 +70,9 @@ class EDSR(nn.Module):
         dev = resolve_device(device)
         g = default_generator(generator)
         f = num_filters
+        self.init_args = dict(scale_factor=scale_factor, channels=channels,
+                              num_res_blocks=num_res_blocks,
+                              num_filters=num_filters, res_scaling=res_scaling)
         self.scale_factor = scale_factor
         self.num_res_blocks = num_res_blocks
         self.res_scaling = res_scaling
@@ -70,6 +87,10 @@ class EDSR(nn.Module):
             self.up1 = Conv3x3(f, f * 4, g)
         self.tail = Conv3x3(f, channels, g)
         self.to(dev)
+
+    def trainable(self, on: bool = True) -> "EDSR":
+        """Turn the weights' gradients on (or off); returns the model."""
+        return self.requires_grad_(on)
 
     def tail_convs(self) -> dict[str, Conv3x3]:
         """The linear upsample tail: up conv(s) and the final conv."""
@@ -92,8 +113,7 @@ class EDSR(nn.Module):
         params = self.conv_params() if params is None else params
 
         def conv(name, t, relu=False):
-            k, b = params[name]
-            return conv3x3_bias_act(t.contiguous(), k, b, relu)
+            return conv3x3(t, *params[name], relu)
 
         head = y = conv("head", x)
         for i in range(self.num_res_blocks):
@@ -108,4 +128,6 @@ class EDSR(nn.Module):
         else:
             y = pixel_shuffle(self.up0(y), 2)
             y = pixel_shuffle(self.up1(y), 2)
-        return self.tail(y).clamp(0.0, 1.0)
+        # clip as jnp.clip: gradient 0.5 at exactly 0 and 1 (clamp's is 1)
+        y = self.tail(y)
+        return torch.minimum(torch.maximum(y, y.new_zeros(())), y.new_ones(()))

@@ -1,0 +1,46 @@
+"""SRCNN (port of ``tpusr/models/srcnn.py``): Conv 96x(9,9) relu -> Conv
+32x(1,1) relu -> Conv channels x(5,5) linear, all SAME, on a pre-upscaled LR
+image in [0, 1].
+
+The JAX package runs these convs through XLA, not a Pallas kernel, so the
+port runs ``F.conv2d`` (TF32 off). Weights are in PyTorch's layout (OIHW);
+``tpusr_torch.bridge.srcnn_from_flax`` converts a flax tree. The forward
+takes and returns NHWC, as the JAX model does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpusr_torch.bridge import hwio_to_oihw
+from tpusr_torch.device import resolve_device
+from tpusr_torch.models.init import default_generator, variance_scaling
+
+
+class SRCNN(nn.Module):
+    def __init__(self, channels: int = 3, f1: int = 96, f2: int = 32,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        g = default_generator(generator)
+        self.init_args = dict(channels=channels, f1=f1, f2=f2)
+        for name, cin, cout, k in (("conv1", channels, f1, 9),
+                                   ("conv2", f1, f2, 1),
+                                   ("conv3", f2, channels, 5)):
+            conv = nn.Conv2d(cin, cout, k, padding=k // 2)
+            # flax nn.Conv's default lecun_normal: variance 1 / fan_in
+            conv.weight.data = hwio_to_oihw(variance_scaling(
+                (k, k, cin, cout), k * k * cin, 1.0, g)).contiguous()
+            conv.bias.data.zero_()
+            self.add_module(name, conv)
+        self.requires_grad_(False)
+        self.to(dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, C) -> (N, H, W, C)."""
+        x = x.permute(0, 3, 1, 2)
+        x = F.relu(self.conv1(x))
+        x = F.relu(self.conv2(x))
+        return self.conv3(x).permute(0, 2, 3, 1)

@@ -1,0 +1,15 @@
+"""The training path: the supervised SR and classifier trainers, their
+callbacks, checkpoints and metrics log."""
+
+from tpusr_torch.train.callbacks import (EarlyStopping, EpochMemoryTracker,
+                                         EpochTimeTracker, ReduceLROnPlateau)
+from tpusr_torch.train.checkpoint import (load_metadata, restore_checkpoint,
+                                          save_checkpoint,
+                                          save_checkpoint_async)
+from tpusr_torch.train.trainer import (ClassifierTrainer, FitResult,
+                                       SupervisedSRTrainer, TrainState)
+
+__all__ = ["ClassifierTrainer", "EarlyStopping", "EpochMemoryTracker",
+           "EpochTimeTracker", "FitResult", "ReduceLROnPlateau",
+           "SupervisedSRTrainer", "TrainState", "load_metadata",
+           "restore_checkpoint", "save_checkpoint", "save_checkpoint_async"]

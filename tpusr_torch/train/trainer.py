@@ -1,0 +1,453 @@
+"""Supervised trainers for SRCNN / EDSR / VGG16 (port of
+``tpusr/train/trainer.py``).
+
+Lifecycle parity with the reference model classes (``SRCNN_model.py:62-109``,
+``EDSR_model.py:140-187``, ``VGG16_model.py:111-166``): ``fit`` returns
+(history, time_tracker, memory_tracker, state); EarlyStopping(val_loss) with
+best-weight restore, ReduceLROnPlateau, Adam. The JAX class names, arguments
+and defaults hold, plus ``device`` (CUDA unless the caller passes
+``device="cpu"``).
+
+The state is the JAX trainer's: a ``TrainState`` of parameters (the model's
+parameter names -> tensors), optimiser state and a mutable learning rate.
+The model is a template run by ``torch.func.functional_call`` on the
+state's parameters, so a restored or copied state trains and evaluates as it
+is. Where JAX donates the state and returns a new one, a step here updates
+the state's tensors in place and returns the same state: ``EarlyStopping``
+and the checkpoints keep real copies.
+
+A step: forward (EDSR's convs on K2 and its input gradient on K2, through
+``conv3x3_bias_act_train``; SRCNN and VGG16 on ``F.conv2d``, as XLA runs
+them in JAX), loss, gradients, optax's ``clip_by_global_norm`` when
+``clipnorm`` is set, Adam (b1 0.9, b2 0.999, eps 1e-8, then the rate), and
+the PSNR/SSIM or accuracy metrics without grad. Metrics stay on the device
+until an epoch ends.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from tpusr_torch.bridge import flax_path
+from tpusr_torch.data.augment import random_augment_batch
+from tpusr_torch.data.prefetch import prefetch_iterator
+from tpusr_torch.device import resolve_device
+from tpusr_torch.metrics.image import psnr as psnr_fn, ssim as ssim_fn
+from tpusr_torch.train.callbacks import (EarlyStopping, EpochMemoryTracker,
+                                         EpochTimeTracker, ReduceLROnPlateau)
+from tpusr_torch.train.checkpoint import save_checkpoint_async
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Parameters by the model's parameter names; ``opt_state`` holds Adam's
+    step ``count`` and the moments ``mu``/``nu`` of the trainable
+    parameters; ``lr`` is mutable so ``ReduceLROnPlateau`` can change it."""
+    params: dict
+    opt_state: dict
+    lr: float
+
+
+@dataclasses.dataclass
+class FitResult:
+    history: dict
+    time_tracker: EpochTimeTracker
+    memory_tracker: EpochMemoryTracker
+    state: TrainState
+
+
+def _not_in_this_slice(mesh, remat, compute_dtype) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: data-parallel training is not ported yet (ROADMAP queue 1, "
+            "item 8: parallelism)")
+    if remat:
+        raise NotImplementedError(
+            "remat: a checkpointed forward is not ported yet (ROADMAP queue "
+            "1, item 7: the rest of training)")
+    if str(compute_dtype) not in ("float32", "torch.float32"):
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype!r}: mixed-precision training is "
+            f"not ported yet (ROADMAP queue 1, item 7: the rest of training)")
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, as the JAX state holds its rate."""
+    return float(np.float32(v))
+
+
+def _seeded_generator(device: torch.device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded by the tuple ``key`` (e.g. (seed,
+    step)): the port's stand-in for ``jax.random.fold_in``."""
+    seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _take(a, sel: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Rows ``sel`` of a numpy array or a tensor, as a tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a[torch.as_tensor(sel, device=a.device)].to(device)
+    return torch.as_tensor(np.asarray(a)[sel]).to(device)
+
+
+def _wmean(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.sum(v * w) / torch.sum(w)
+
+
+def clip_by_global_norm(grads: list, max_norm: float) -> list:
+    """optax's ``clip_by_global_norm``: every leaf ``(g / |g|) * max_norm``
+    where the global norm |g| over all leaves is at least ``max_norm``
+    (``clip_grad_norm_`` divides by |g| + 1e-6 instead)."""
+    g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+    trigger = g_norm < max_norm
+    return [torch.where(trigger, g, (g / g_norm) * max_norm) for g in grads]
+
+
+def adam_update(state: TrainState, names: list, grads: list) -> None:
+    """optax ``scale_by_adam`` then ``-lr`` and ``apply_updates``, in place:
+    mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, both bias-corrected
+    by 1 - b^count (float32), u = mu_hat / (sqrt(nu_hat) + eps), p += -lr u."""
+    opt = state.opt_state
+    opt["count"] += 1
+    t = np.float32(opt["count"])
+    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** t)
+    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** t)
+    mu = [opt["mu"][k] for k in names]
+    nu = [opt["nu"][k] for k in names]
+    params = [state.params[k] for k in names]
+    with torch.no_grad():
+        torch._foreach_mul_(mu, ADAM_B1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - ADAM_B1))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1 - ADAM_B2)
+        torch._foreach_mul_(nu, ADAM_B2)
+        torch._foreach_add_(nu, sq)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, ADAM_EPS)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, -state.lr)
+        torch._foreach_add_(params, upd)
+
+
+class SupervisedSRTrainer:
+    """MSE (or MAE) regression trainer with PSNR/SSIM metrics
+    (SRCNN/EDSR semantics)."""
+
+    metric_keys = ("loss", "psnr", "ssim")
+    trainable_predicate = None      # every parameter trains
+
+    def __init__(self, model, learning_rate=1e-4, clipnorm=None, mesh=None,
+                 loss: str = "mse", remat: bool = False,
+                 compute_dtype="float32", device=None):
+        _not_in_this_slice(mesh, remat, compute_dtype)
+        if loss not in ("mse", "mae"):
+            raise ValueError(f"Unsupported loss {loss!r}: 'mse' or 'mae'")
+        self.model = model
+        self.base_lr = learning_rate
+        self.clipnorm = clipnorm
+        self.loss_name = loss
+        self.device = resolve_device(device)
+
+    # ---- functional pieces -------------------------------------------------
+    def _trainable(self, name: str) -> bool:
+        pred = self.trainable_predicate
+        return pred is None or bool(pred(flax_path(name)))
+
+    def init_state(self, sample_x=None, rng=None) -> TrainState:
+        """A fresh state: the model's own weights (``sample_x`` is not needed,
+        the port's models know their shapes), or, with ``rng`` a
+        ``torch.Generator``, weights drawn anew from it. Frozen parameters
+        (``trainable_predicate``) need no gradient and have no moments."""
+        model = self.model
+        if rng is not None:
+            model = type(model)(**model.init_args, device="cpu", generator=rng)
+        params = {k: v.detach().to(self.device, torch.float32, copy=True)
+                  .requires_grad_(self._trainable(k))
+                  for k, v in model.named_parameters()}
+        train = [k for k, v in params.items() if v.requires_grad]
+        opt = {"count": 0,
+               "mu": {k: torch.zeros_like(params[k]) for k in train},
+               "nu": {k: torch.zeros_like(params[k]) for k in train}}
+        return TrainState(params=params, opt_state=opt, lr=_f32(self.base_lr))
+
+    def _apply(self, params: dict, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        return functional_call(self.model, params, (x,), kwargs)
+
+    def _loss(self, params, x, y, w, step):
+        """(loss, prediction) of a weighted batch."""
+        pred = self._apply(params, x).float()
+        d = pred - y
+        per = (d * d) if self.loss_name == "mse" else d.abs()
+        return _wmean(per.mean(dim=tuple(range(1, per.dim()))), w), pred
+
+    def _metrics(self, loss, pred, y, w) -> dict:
+        with torch.no_grad():
+            pred = pred.detach()
+            return {"loss": loss.detach(), "psnr": _wmean(psnr_fn(y, pred), w),
+                    "ssim": _wmean(ssim_fn(y, pred), w), "n": torch.sum(w)}
+
+    def value_and_grad(self, state: TrainState, x, y, w=None, step: int = 0):
+        """(loss, prediction, {name: gradient}) of one batch, for the
+        trainable parameters (clipped when ``clipnorm`` is set)."""
+        if w is None:
+            w = self._ones_weights(x.shape[0])
+        names = [k for k, v in state.params.items() if v.requires_grad]
+        with torch.enable_grad():
+            loss, pred = self._loss(state.params, x, y, w, step)
+            grads = list(torch.autograd.grad(loss, [state.params[k] for k in names]))
+        if self.clipnorm is not None:
+            grads = clip_by_global_norm(grads, self.clipnorm)
+        return loss, pred, dict(zip(names, grads))
+
+    def _train_step_w(self, state: TrainState, x, y, w, step: int = 0):
+        loss, pred, grads = self.value_and_grad(state, x, y, w, step)
+        adam_update(state, list(grads), list(grads.values()))
+        return state, self._metrics(loss, pred, y, w)
+
+    def _eval_step_w(self, state: TrainState, x, y, w) -> dict:
+        with torch.no_grad():
+            loss, pred = self._loss(state.params, x, y, w, None)
+        return self._metrics(loss, pred, y, w)
+
+    # unweighted public steps (tests / direct users)
+    def train_step(self, state, x, y):
+        return self._train_step_w(state, x, y, self._ones_weights(x.shape[0]))
+
+    def eval_step(self, state, x, y):
+        return self._eval_step_w(state, x, y, self._ones_weights(x.shape[0]))
+
+    def _ones_weights(self, n):
+        return torch.ones((n,), dtype=torch.float32, device=self.device)
+
+    # ---- keras-like lifecycle ----------------------------------------------
+    def _batches(self, x, y, batch_size, rng, shuffle=True):
+        """Yield (xb, yb, wb) on the trainer's device with a STATIC batch
+        shape: the trailing partial batch is padded by repeating its first
+        row and masked out via wb (Keras trains on the trailing batch)."""
+        n = x.shape[0]
+        idx = rng.permutation(n) if shuffle else np.arange(n)
+        for s in range(0, n, batch_size):
+            sel = idx[s: s + batch_size]
+            nb = sel.shape[0]
+            if nb < batch_size:
+                sel = np.concatenate([sel, np.repeat(sel[:1], batch_size - nb)])
+            wb = torch.as_tensor((np.arange(batch_size) < nb).astype(np.float32))
+            yield (_take(x, sel, self.device), _take(y, sel, self.device),
+                   wb.to(self.device))
+
+    @staticmethod
+    def _epoch_mean(vals, ns):
+        """Aggregate per-batch means weighted by real (unmasked) row counts."""
+        v = torch.stack(vals).double().cpu().numpy()
+        n = torch.stack(ns).double().cpu().numpy()
+        return float((v * n).sum() / n.sum())
+
+    def fit(self, x_train, y_train, x_val, y_val, batch_size=16, epochs=50,
+            es_patience=3, plateau_patience=2, plateau_factor=0.5, min_lr=1e-7,
+            seed=42, verbose=True, state: TrainState | None = None,
+            metrics_logger=None, prefetch: int = 2,
+            checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+            checkpoint_offset: int = 0) -> FitResult:
+        # continue from loaded/previous weights when given (Keras fit semantics)
+        state = state if state is not None else self.init_state(x_train[:1])
+
+        def fmt(epoch, train_m, val_m, st):
+            return (f"epoch {epoch + 1}/{epochs} loss={train_m['loss']:.5f} "
+                    f"psnr={train_m['psnr']:.2f} val_loss={val_m['loss']:.5f} "
+                    f"val_psnr={val_m['psnr']:.2f} lr={st.lr:.2e}")
+
+        return self._fit_loop(
+            x_train, y_train, x_val, y_val, batch_size, epochs, es_patience,
+            plateau_patience, plateau_factor, min_lr, seed, verbose, state,
+            metrics_logger, prefetch, checkpoint_dir, checkpoint_every,
+            checkpoint_offset, train_fn=self._train_step_w, fmt_line=fmt)
+
+    def _fit_loop(self, x_train, y_train, x_val, y_val, batch_size, epochs,
+                  es_patience, plateau_patience, plateau_factor, min_lr, seed,
+                  verbose, state, metrics_logger, prefetch, checkpoint_dir,
+                  checkpoint_every, checkpoint_offset, train_fn,
+                  fmt_line) -> FitResult:
+        """The Keras-parity epoch loop shared by both trainers: train batches
+        (prefetched), validation, trackers, history/logging, periodic async
+        checkpoints, ReduceLROnPlateau, EarlyStopping with best-weight
+        restore. ``train_fn(state, xb, yb, wb) -> (state, metrics)``."""
+        metric_keys = self.metric_keys
+        ckpt_handle = None  # most recent async periodic save
+        rng = np.random.default_rng(seed)
+        early = EarlyStopping(patience=es_patience)
+        plateau = ReduceLROnPlateau(plateau_factor, plateau_patience, min_lr)
+        tt, mt = EpochTimeTracker(self.device), EpochMemoryTracker(self.device)
+        history: dict[str, list] = {k: [] for k in (
+            *metric_keys, *(f"val_{k}" for k in metric_keys), "lr",
+            "epoch_time_sec")}
+
+        for epoch in range(epochs):
+            tt.begin_epoch()
+            mt.begin_epoch()
+            agg = {k: [] for k in metric_keys}
+            ns = []
+            for xb, yb, wb in prefetch_iterator(
+                    self._batches(x_train, y_train, batch_size, rng), prefetch):
+                state, m = train_fn(state, xb, yb, wb)
+                for k in agg:
+                    agg[k].append(m[k])
+                ns.append(m["n"])
+            train_m = {k: self._epoch_mean(v, ns) for k, v in agg.items()}
+
+            vagg = {k: [] for k in metric_keys}
+            vns = []
+            for xb, yb, wb in self._batches(x_val, y_val, batch_size, rng,
+                                            shuffle=False):
+                m = self._eval_step_w(state, xb, yb, wb)
+                for k in vagg:
+                    vagg[k].append(m[k])
+                vns.append(m["n"])
+            val_m = {k: self._epoch_mean(v, vns) for k, v in vagg.items()}
+
+            tt.end_epoch()
+            mt.end_epoch()
+            for k, v in train_m.items():
+                history[k].append(v)
+            for k, v in val_m.items():
+                history[f"val_{k}"].append(v)
+            history["lr"].append(state.lr)
+            history["epoch_time_sec"].append(tt.epoch_times_sec[-1])
+            if metrics_logger is not None:
+                metrics_logger.log_epoch(epoch, {
+                    **train_m, **{f"val_{k}": v for k, v in val_m.items()},
+                    "lr": state.lr, "epoch_time_sec": tt.epoch_times_sec[-1]})
+            if verbose:
+                print(fmt_line(epoch, train_m, val_m, state))
+
+            if (checkpoint_dir is not None and checkpoint_every > 0
+                    and (epoch + 1) % checkpoint_every == 0):
+                # periodic resume point (the whole TrainState); the write
+                # overlaps the next epoch. One save in flight at a time, and
+                # an earlier save's failure surfaces here. checkpoint_offset
+                # keeps epoch numbering monotonic across resumed runs.
+                if ckpt_handle is not None:
+                    ckpt_handle.wait()
+                ep = checkpoint_offset + epoch + 1
+                ckpt_handle = save_checkpoint_async(
+                    checkpoint_dir, f"epoch_{ep:04d}", state,
+                    metadata={"epoch": ep, "val_loss": val_m["loss"]})
+            state.lr = _f32(plateau.update(val_m["loss"], state.lr))
+            if early.update(val_m["loss"], state.params):
+                break
+
+        if ckpt_handle is not None:
+            ckpt_handle.wait()
+        if early.best_state is not None:  # restore_best_weights, in place
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(early.best_state[k])
+        return FitResult(history, tt, mt, state)
+
+    def evaluate(self, state: TrainState, x_test, y_test, batch_size=16):
+        agg = {k: [] for k in self.metric_keys}
+        ns = []
+        for xb, yb, wb in self._batches(x_test, y_test, batch_size,
+                                        np.random.default_rng(0), shuffle=False):
+            m = self._eval_step_w(state, xb, yb, wb)
+            for k in agg:
+                agg[k].append(m[k])
+            ns.append(m["n"])
+        return {k: self._epoch_mean(v, ns) for k, v in agg.items()}
+
+
+class ClassifierTrainer(SupervisedSRTrainer):
+    """Sparse-categorical-crossentropy + accuracy (VGG16_model.py semantics).
+
+    ``trainable_predicate(path)`` decides which parameters train; it is
+    called on the flax path tuple (``("vgg16", "block5_conv3", "kernel")``,
+    ``tpusr_torch.bridge.flax_path``), so one predicate serves both packages.
+    A frozen parameter gets no gradient and no update: the JAX step's masked
+    gradients and updates. Dropout and augmentation draw from generators
+    seeded by (dropout_seed, step) and (dropout_seed + 1, step).
+    """
+
+    metric_keys = ("loss", "accuracy")
+
+    def __init__(self, model, learning_rate=1e-3, mesh=None,
+                 trainable_predicate: Callable[[tuple], bool] | None = None,
+                 dropout_seed: int = 0, l2_reg: float = 0.0,
+                 compute_dtype="float32", device=None):
+        self.trainable_predicate = trainable_predicate
+        self.dropout_seed = dropout_seed
+        self.l2_reg = float(l2_reg)
+        super().__init__(model, learning_rate=learning_rate, mesh=mesh,
+                         compute_dtype=compute_dtype, device=device)
+
+    def _loss(self, params, x, y, w, step):
+        """(cross-entropy on log(clip(probs, 1e-7, 1)) + the Keras L2 penalty
+        on the Dense-256 kernel, probs); ``step`` None is the eval forward
+        (no dropout)."""
+        if step is None:
+            probs = self._apply(params, x).float()
+        else:
+            gen = _seeded_generator(self.device, self.dropout_seed, step)
+            probs = self._apply(params, x, train=True, generator=gen).float()
+        # minimum/maximum, not clamp: softmax saturates to exactly 1.0 in
+        # fp32, where jnp.clip's gradient is 0.5 and clamp's 1
+        clipped = torch.minimum(torch.maximum(probs, probs.new_tensor(1e-7)),
+                                probs.new_ones(()))
+        ce = -torch.log(clipped).gather(1, y.long()[:, None])[:, 0]
+        loss = _wmean(ce, w)
+        if self.l2_reg > 0:
+            loss = loss + self.l2_reg * torch.sum(params["fc1.weight"] ** 2)
+        return loss, probs
+
+    def _metrics(self, loss, probs, y, w) -> dict:
+        with torch.no_grad():
+            acc = _wmean((probs.argmax(-1) == y.long()).float(), w)
+            return {"loss": loss.detach(), "accuracy": acc, "n": torch.sum(w)}
+
+    def _train_step_w(self, state, x, y, w, step: int = 0,
+                      augment: bool = False):
+        if augment:
+            x = random_augment_batch(_seeded_generator(
+                self.device, self.dropout_seed + 1, step), x)
+        return super()._train_step_w(state, x, y, w, step)
+
+    def train_step(self, state, x, y, step):
+        return self._train_step_w(state, x, y, self._ones_weights(x.shape[0]),
+                                  int(step), False)
+
+    def fit(self, x_train, y_train, x_val, y_val, batch_size=32, epochs=50,
+            es_patience=3, plateau_patience=2, plateau_factor=0.5, min_lr=1e-7,
+            seed=42, verbose=True, augment=False,
+            state: TrainState | None = None, metrics_logger=None,
+            prefetch: int = 2, checkpoint_dir: str | None = None,
+            checkpoint_every: int = 0,
+            checkpoint_offset: int = 0) -> FitResult:
+        state = state if state is not None else self.init_state(x_train[:1])
+        step = 0  # global step feeds the dropout/augmentation generators
+
+        def train_fn(st, xb, yb, wb):
+            nonlocal step
+            st, m = self._train_step_w(st, xb, yb, wb, step, augment)
+            step += 1
+            return st, m
+
+        def fmt(epoch, train_m, val_m, st):
+            return (f"epoch {epoch + 1}/{epochs} loss={train_m['loss']:.4f} "
+                    f"acc={train_m['accuracy']:.4f} "
+                    f"val_acc={val_m['accuracy']:.4f}")
+
+        return self._fit_loop(
+            x_train, y_train, x_val, y_val, batch_size, epochs, es_patience,
+            plateau_patience, plateau_factor, min_lr, seed, verbose, state,
+            metrics_logger, prefetch, checkpoint_dir, checkpoint_every,
+            checkpoint_offset, train_fn=train_fn, fmt_line=fmt)
+
+    def evaluate(self, state: TrainState, x_test, y_test, batch_size=32):
+        return super().evaluate(state, x_test, y_test, batch_size)
