@@ -81,18 +81,33 @@ its own lines:
    launches a step, 37 an eval step, a falling loss), 10
    ``ClassifierTrainer`` steps of VGG16 at batch 64 of 96^2 with dropout
    (finite losses), a 2-epoch ``fit`` with a checkpoint each epoch,
-   restored and evaluated, and no call of K2's plain twin; the median step
-   ms, peak memory, a ``torch.profiler`` breakdown of each step and K2's ms
-   at the training shapes beside ``F.conv2d`` and ``conv2d_input``.
+   restored and evaluated, and no plain twin called on the card; the median
+   step ms, peak memory, a ``torch.profiler`` breakdown of each step and K2's ms
+   at the training shapes beside ``F.conv2d`` and ``conv2d_input``;
+14. the serving gate (``GateSlice``): ``tools/serving_gate.run_gate`` on one
+   seed of the hard task at the full protocol (64 training and 128 eval
+   images of 512^2, VGG16 500 steps at batch 64, EDSR x4 600 steps at batch
+   16, all nine modes and every derived cascade row), with the launches the
+   modes imply, no plain twin called on the card, finite losses and a
+   falling EDSR loss, the derived rows equal to their recompute from the
+   report's raw votes and a report that round-trips through json; it prints
+   the training times, every mode's agreement, the SR drifts and the
+   shipped row. Then, on the gate's trained weights, the shipped mode
+   serves the 128 eval images through ``PipelineServer`` at batch 16 (guard
+   trips, agreement with the gate's reference classes, ms per batch with
+   the guard on and off), and ``run_defect_detection_comparison`` runs
+   bicubic and EDSR f32, bf16 and int8 on 32 eval images with the per-patch
+   int8 classifier.
 
-Each path (8-13) is driven with the launch counts set to 0 just before it
+Each path (8-14) is driven with the launch counts set to 0 just before it
 and read just after. Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
 dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
 and as a bare launch; ``launches`` counts the kernel's path; K2's record
 carries a ``train`` object, one EDSR x4 train step's forward and dX
-launches with ``launches`` over the training path) and the
+launches with ``launches`` over the training path; every record's
+``gate_launches`` counts the serving gate's run) and the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
@@ -1541,22 +1556,43 @@ def k2_f32_bound(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return 2 * 9 * x.shape[-1] * FP32_UNIT * s
 
 
+PLAIN_TWINS = (("conv3x3", "conv3x3_bias_act_plain"),        # K2
+               ("conv3x3", "conv3x3_int8_requant_plain"),    # K1
+               ("conv3x3", "conv3x3_int8_dequant_plain"),    # the dequant conv
+               ("block1", "block1_plain"))                   # K3
+
+
 class count_plain_calls:
-    """Count the calls of K2's plain twin made through the wrapper's module
-    while the context is open (``n``)."""
+    """Count the calls on the card (with a CUDA tensor argument) of the
+    kernels' plain twins, made through their wrappers' modules while the
+    context is open (``n``, by twin in ``by_twin``)."""
 
     def __enter__(self):
         from tpusr_torch.core import conv3x3
-        self._mod, self._orig, self.n = conv3x3, conv3x3.conv3x3_bias_act_plain, 0
+        from tpusr_torch.models import block1
+        mods = {"conv3x3": conv3x3, "block1": block1}
+        self.by_twin, self._saved = {}, []
 
-        def counted(*a, **kw):
-            self.n += 1
-            return self._orig(*a, **kw)
-        conv3x3.conv3x3_bias_act_plain = counted
+        def counted(name, orig):
+            def call(*a, **kw):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in (*a, *kw.values())):
+                    self.by_twin[name] = self.by_twin.get(name, 0) + 1
+                return orig(*a, **kw)
+            return call
+        for mod, name in PLAIN_TWINS:
+            orig = getattr(mods[mod], name)
+            self._saved.append((mods[mod], name, orig))
+            setattr(mods[mod], name, counted(name, orig))
         return self
 
+    @property
+    def n(self) -> int:
+        return sum(self.by_twin.values())
+
     def __exit__(self, *exc):
-        self._mod.conv3x3_bias_act_plain = self._orig
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
 
 
 class train_on_plain_twin:
@@ -1944,15 +1980,15 @@ def phase_train(t: TrainSlice, dev, seed: int, sync, card: str) -> dict:
                   <= 1e-6 * abs(res.history["val_loss"][-1]),
                   f"restored {last}: val loss {evr['loss']} != the fit's "
                   f"{res.history['val_loss'][-1]}")
-    check(plain.n == 0, f"K2's plain twin was called {plain.n} times on the "
-                        f"card's training path")
+    check(plain.n == 0, f"plain twins were called on the card's training path: "
+                        f"{plain.by_twin}")
     print(f"[train] {card}: EDSR x{t.scale} train step median {edsr_med:.3f} ms"
           f" (CUDA events, {t.edsr_steps} steps, first {edsr_ms[0]:.1f} ms), "
           f"{2 * n_fwd - 1} K2 launches a step ({n_fwd} forward + {n_fwd - 1} "
           f"dX), {n_fwd} an eval step; peak memory {edsr_peak / 1e9:.2f} GB; "
           f"loss {losses[0]:.5f} -> mean of the last 5 {late:.5f}; eval PSNR "
-          f"{float(ev['psnr']):.2f} dB, SSIM {float(ev['ssim']):.4f}; K2's "
-          f"plain twin called {plain.n} times")
+          f"{float(ev['psnr']):.2f} dB, SSIM {float(ev['ssim']):.4f}; plain "
+          f"twins called {plain.n} times on the card")
     print(f"[train] {card}: VGG16 train step median {vgg_med:.3f} ms (CUDA "
           f"events, {t.vgg_steps} steps of {t.vgg_batch}, first "
           f"{vgg_ms[0]:.1f} ms); peak memory {vgg_peak / 1e9:.2f} GB; losses "
@@ -1969,6 +2005,364 @@ def phase_train(t: TrainSlice, dev, seed: int, sync, card: str) -> dict:
     tot.update(launches=sum(counted.values()), err=back["dx_err"],
                edsr_step_ms=edsr_med, vgg_step_ms=vgg_med)
     return tot
+
+
+# -------------------------------------------------------------------- gate
+
+@dataclass(frozen=True)
+class GateSlice:
+    """The serving gate at its full protocol on one seed of the hard task
+    (tools/serving_gate.py ``run_gate``: 64 training and 128 eval images of
+    512^2; VGG16 at full widths, 500 steps at batch 64; EDSR x4, 16 blocks,
+    64 filters, 600 steps at batch 16; every mode and derived row), then the
+    shipped mode served on its weights and the defect-detection comparison
+    on 32 of its eval images."""
+    task: str = "hard"
+    images: int = 128
+    size: int = 512
+    clf_steps: int = 500
+    edsr_steps: int = 600
+    compare_images: int = 32
+    shipped_row: str = "cascade_int8[vote_frac+guard]@frac=0.25"
+
+
+def gate_launches(g: GateSlice, cfg: Slice) -> dict:
+    """Kernel launches of one ``run_gate`` call with every mode: EDSR's
+    training steps (K2 forward and dX), the SR variants chunked by 16 (f32
+    and bf16 on K2, int8 on the dequant conv with the bf16 band, each int8
+    variant calibrated by one f32 forward of the EDSR body), the per-patch
+    int8 rows by 8 images (K3 + blocks 2-5 on K1) and the int8 trunk rows by
+    16 (13 K1)."""
+    n_fwd = len(edsr_train_layers(TrainSlice()))
+    sr_chunks = math.ceil(g.images / 16)
+    pp_chunks = math.ceil(g.images / 8)
+    k2_sr = sum(m for *_, m in k2_shapes(cfg))
+    body = 2 * cfg.blocks + 2                # head, residual blocks, body
+    per_patch_k1 = n_per_patch_k1(cfg)
+    trunk_k1 = len(k1_shapes(cfg)) - per_patch_k1
+    return launches_want(
+        conv3x3_bias_act=g.edsr_steps * (2 * n_fwd - 1) + sr_chunks * k2_sr
+        + 2 * body,
+        conv3x3_bias_act_bf16=sr_chunks * (12 + k2_sr),
+        conv3x3_int8_dequant=2 * sr_chunks * body,
+        conv3x3_int8_requant=3 * pp_chunks * per_patch_k1
+        + 4 * sr_chunks * trunk_k1,
+        block1_int8=3 * pp_chunks)
+
+
+class patched:
+    """Replace attributes of a module while the context is open:
+    ``patched(mod, name=wrap)`` sets ``mod.name = wrap(original)``."""
+
+    def __init__(self, mod, **wraps):
+        self._mod, self._wraps = mod, wraps
+
+    def __enter__(self):
+        self._orig = {k: getattr(self._mod, k) for k in self._wraps}
+        for k, wrap in self._wraps.items():
+            setattr(self._mod, k, wrap(self._orig[k]))
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self._orig.items():
+            setattr(self._mod, k, v)
+
+
+class trainer_steps:
+    """Each trainer step's device time (CUDA events around it) and loss,
+    recorded without a host sync while the context is open, by trainer."""
+
+    def __enter__(self):
+        from tpusr_torch.train import trainer as tr
+        self.steps = {}
+        self._saved = []
+        for cls in (tr.SupervisedSRTrainer, tr.ClassifierTrainer):
+            orig = cls.__dict__["train_step"]
+            rec = self.steps.setdefault(cls.__name__, [])
+
+            def timed(trainer, *a, _orig=orig, _rec=rec, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, m = _orig(trainer, *a, **kw)
+                end.record()
+                _rec.append((start, end, m["loss"]))
+                return state, m
+            self._saved.append((cls, orig))
+            cls.train_step = timed
+        return self
+
+    def read(self, name: str) -> tuple[list, list]:
+        """(step ms, losses) of the trainer class ``name``."""
+        torch.cuda.synchronize()
+        rec = self.steps[name]
+        return ([s.elapsed_time(e) for s, e, _ in rec],
+                [float(loss) for *_, loss in rec])
+
+    def __exit__(self, *exc):
+        for cls, orig in self._saved:
+            cls.train_step = orig
+
+
+def check_derived_rows(rep: dict, inputs: list) -> int:
+    """The report's derived cascade rows against a recompute from its own
+    raw votes: the classes the report stores, at the full-precision
+    confidences and ranking scores ``derive_cascade_modes`` was given (the
+    report keeps 4 decimals of each, checked here), with the eval labels
+    that ``surface_labels`` recovers. Returns the number of rows checked."""
+    from tpusr_torch.tools import serving_gate as sg
+    rv = rep["raw_votes"]
+    labels = sg.surface_labels(rep["seed"] + 1, rep["protocol"]["images"])
+    derived = {m["mode"]: m for m in rep["modes"]
+               if any(m["mode"].startswith(p + c)
+                      for p in sg.CASCADE_PARENTS for c in "@[")}
+    n_rows = 0
+    for args, kw in inputs:
+        raw, ref_cls, ref_conf, labels_h = args
+        check(np.array_equal(labels_h, labels), "surface_labels did not "
+              "recover the gate's eval labels")
+        check(rv["reference"]["cls"] == ref_cls.tolist()
+              and rv["reference"]["conf"] == np.round(ref_conf, 4).tolist(),
+              "raw_votes['reference'] differs from the votes the rows used")
+        votes = {}
+        for name, (cls, conf) in raw.items():
+            check(rv[name]["cls"] == cls.tolist()
+                  and rv[name]["conf"] == np.round(conf, 4).tolist(),
+                  f"raw_votes[{name!r}] differs from the votes the rows used")
+            votes[name] = (np.asarray(rv[name]["cls"]), conf)
+        scores = kw["trunk_scores"]
+        for key, v in (scores or {}).items():
+            check(rv[kw["parents"][0]][key] == np.round(v, 4).tolist(),
+                  f"raw_votes[{kw['parents'][0]!r}][{key!r}] differs from the "
+                  f"scores the rows used")
+        rows = sg.derive_cascade_modes(votes, np.asarray(rv["reference"]["cls"]),
+                                       ref_conf, labels, trunk_scores=scores,
+                                       n_patches=kw["n_patches"],
+                                       parents=kw["parents"],
+                                       prefix=kw["prefix"])
+        for row in rows:
+            have = {k: v for k, v in derived.pop(row["mode"]).items()
+                    if k not in ("passes_gate", "sr_psnr_vs_f32_db",
+                                 "image_faithful")}
+            check(have == row, f"derived row {row['mode']} differs from its "
+                               f"recompute: {have} != {row}")
+            n_rows += 1
+    check(not derived, f"derived rows without parents: {sorted(derived)}")
+    return n_rows
+
+
+def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
+               card: str) -> dict:
+    """The serving gate on the card at its full protocol, through
+    ``tools/serving_gate.run_gate``: training, every mode and derived row,
+    with the launch counts the modes imply and no plain twin on the card;
+    then the shipped mode served on the gate's trained weights, and the
+    defect-detection comparison. Returns the gate's launches."""
+    from tpusr_torch.core.resize import resize
+    from tpusr_torch.models.edsr_fast import make_fused_sr_apply
+    from tpusr_torch.models.edsr_quant import make_fused_sr_apply_int8
+    from tpusr_torch.models.layers import pixel_shuffle
+    from tpusr_torch.models.quant import quantized_vgg16_apply
+    from tpusr_torch.pipeline import PipelineServer, make_serving_pipeline
+    from tpusr_torch.pipeline.defect_pipeline import (
+        run_defect_detection_comparison)
+    from tpusr_torch.tools import serving_gate as sg
+
+    task = sg.TASKS[g.task]
+    kept = {"images": [], "derive": [], "wall": {}}
+
+    def keep(key):
+        def wrap(orig):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = orig(*a, **kw)
+                sync()
+                kept["wall"][key] = time.perf_counter() - t0
+                kept[key] = out
+                return out
+            return call
+        return wrap
+
+    def keep_images(orig):
+        def call(*a, **kw):
+            kept["images"].append(orig(*a, **kw))
+            return kept["images"][-1]
+        return call
+
+    def keep_derive(orig):
+        def call(*a, **kw):
+            kept["derive"].append((a, kw))
+            return orig(*a, **kw)
+        return call
+
+    # ---- the main path: run_gate at the full protocol ----
+    reset_counts()
+    t0 = time.perf_counter()
+    with count_plain_calls() as plain, trainer_steps() as steps, \
+            patched(sg, train_classifier=keep("clf"), train_edsr=keep("edsr"),
+                    make_surface_images=keep_images,
+                    derive_cascade_modes=keep_derive):
+        rep = sg.run_gate(g.images, g.size, g.clf_steps, g.edsr_steps, seed,
+                          verbose=False, amp_range=task["amp_range"],
+                          noise=task["noise"],
+                          coverage_range=task["coverage_range"], device=dev)
+    gate_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = gate_launches(g, cfg)
+    print(f"[gate] run_gate task {g.task} seed {seed}: {g.images} eval images "
+          f"of {g.size}^2, {rep['protocol']['patches_per_image']} patches "
+          f"each; {gate_s:.1f} s; launches {launches} (expected {want}); "
+          f"plain twins on the card {plain.by_twin}")
+    check(launches == want, f"gate launch counts {launches} != {want}")
+    check(plain.n == 0, f"plain twins called on the card: {plain.by_twin}")
+
+    clf_ms, clf_losses = steps.read("ClassifierTrainer")
+    edsr_ms, edsr_losses = steps.read("SupervisedSRTrainer")
+    check(len(clf_ms) == g.clf_steps and len(edsr_ms) == g.edsr_steps,
+          f"trainer steps {len(clf_ms)}, {len(edsr_ms)}")
+    check(all(math.isfinite(v) for v in clf_losses + edsr_losses),
+          "a non-finite training loss")
+    first, last = np.mean(edsr_losses[:10]), np.mean(edsr_losses[-10:])
+    check(last < first, f"EDSR loss did not fall: {first} -> {last}")
+    print(f"[gate] {card}: VGG16 {g.clf_steps} steps in "
+          f"{kept['wall']['clf']:.2f} s (median step {np.median(clf_ms):.3f} "
+          f"ms, CUDA events), loss {np.mean(clf_losses[:10]):.4f} -> "
+          f"{np.mean(clf_losses[-10:]):.4f} (means of the first and last 10), "
+          f"final train-batch accuracy {rep['training']['clf_final_train_acc']:.3f};"
+          f" EDSR x4 {g.edsr_steps} steps in {kept['wall']['edsr']:.2f} s "
+          f"(median step {np.median(edsr_ms):.3f} ms), loss {first:.5f} -> "
+          f"{last:.5f}")
+
+    base = [m for m in rep["modes"] if "escalation_fraction" not in m]
+    for m in base:
+        print(f"[gate] {m['mode']:36s} agreement {m['vote_agreement']:.4f} "
+              f"flips {m['flips']:3d} conf drift mean "
+              f"{m['mean_abs_conf_drift']:.4f} max {m['max_abs_conf_drift']:.4f}"
+              f" accuracy {m['accuracy']:.4f}"
+              + (f" SR {m['sr_psnr_vs_f32_db']:.2f} dB"
+                 if "sr_psnr_vs_f32_db" in m else ""))
+    print("[gate] SR drift against the f32 SR: "
+          + ", ".join(f"{k} {rep[k]:.4f}" for k in (
+              "psnr_int8_sr_vs_f32_sr_db", "ssim_int8_sr_vs_f32_sr",
+              "psnr_int8_noborder_sr_vs_f32_sr_db",
+              "ssim_int8_noborder_sr_vs_f32_sr", "psnr_bf16_sr_vs_f32_sr_db",
+              "ssim_bf16_sr_vs_f32_sr")))
+    derived = [m for m in rep["modes"] if "escalation_fraction" in m]
+    passing = sum(m["passes_gate"] for m in rep["modes"])
+    print(f"[gate] reference_accuracy {rep['reference_accuracy']:.4f}, "
+          f"boundary images {rep['reference_boundary_images']}, meaningful "
+          f"{rep['meaningful']}; {len(base)} modes and {len(derived)} derived "
+          f"rows, {passing} of {len(rep['modes'])} at >= 99% agreement")
+    shipped = next(m for m in rep["modes"] if m["mode"] == g.shipped_row)
+    print(f"[gate] shipped row {g.shipped_row}: agreement "
+          f"{shipped['vote_agreement']:.4f}, flips {shipped['flips']}, "
+          f"escalation {shipped['escalation_fraction']:.4f}, unescalated flips "
+          f"{shipped['unescalated_flips']}, guard canary "
+          f"{shipped['guard_canary']:.4f} (tripped "
+          f"{shipped['guard_triggered']}), passes {shipped['passes_gate']}")
+    n_rows = check_derived_rows(rep, kept["derive"])
+    check(json.loads(json.dumps(rep)) == rep, "the report does not round-trip "
+                                              "through json")
+    print(f"[gate] {n_rows} derived rows equal their recompute from the "
+          f"report's raw votes; the report round-trips through json")
+
+    # ---- the shipped mode served on the gate's trained weights ----
+    clf, _ = kept["clf"]
+    edsr = kept["edsr"]
+    (hr_train, y_train), (hr_eval, y_eval) = kept["images"]
+    calib = sg.make_crop_pool(seed + 300, hr_train, y_train, 32, sg.PATCH)[0]
+    lr_eval = resize(hr_eval, (cfg.lr, cfg.lr), "area")
+    ref_cls = np.asarray(rep["raw_votes"]["reference"]["cls"])
+
+    def build(guard):
+        return make_serving_pipeline(
+            edsr, clf, (cfg.lr, cfg.lr), cfg.scale, patch=cfg.patch,
+            stride=cfg.stride, sr_mode="f32", clf_mode="cascade_int8",
+            calib_patches=calib, cascade_escalate_frac=cfg.frac,
+            cascade_escalate_score="vote_frac", cascade_guard_threshold=guard,
+            device=dev)
+
+    pipe = build(cfg.guard)
+    votes = pipe.cascade_votes
+    server = PipelineServer(pipe, batch_size=cfg.batch, max_wait_ms=50.0)
+    futures = [server.submit(im) for im in lr_eval.cpu().numpy()]
+    with count_plain_calls() as plain:
+        reset_counts()
+        with server:
+            results = [f.result(timeout=600) for f in futures]
+        served = read_counts()
+    trips = votes.guard_trips
+    n_batches = math.ceil(g.images / cfg.batch)
+    want = launches_want(
+        conv3x3_int8_requant=n_batches * len(k1_shapes(cfg))
+        + trips * n_per_patch_k1(cfg),
+        conv3x3_bias_act=n_batches * sum(m for *_, m in k2_shapes(cfg)),
+        block1_int8=n_batches + trips)
+    check(served == want, f"served launch counts {served} != {want}")
+    check(plain.n == 0, f"plain twins called serving: {plain.by_twin}")
+    classes = np.array([r["class"] for r in results])
+    confs = np.array([r["confidence"] for r in results])
+    check(bool(((confs >= 0) & (confs <= 1)).all()), "confidence out of [0, 1]")
+    batch = lr_eval[:cfg.batch].contiguous()
+    unguarded = build(None)
+    with torch.inference_mode():
+        on_ms = min(host_ms(lambda: pipe(batch, n_valid=cfg.batch), sync)
+                    for _ in range(3))
+        off_ms = min(host_ms(lambda: unguarded(batch, n_valid=cfg.batch), sync)
+                     for _ in range(3))
+    print(f"[gate-serve] shipped mode (f32 SR, cascade_int8 vote_frac frac "
+          f"{cfg.frac}, guard {cfg.guard}) on the gate's trained weights: "
+          f"{g.images} eval images by PipelineServer at batch {cfg.batch}; "
+          f"guard trips {trips} of {n_batches} batches; launches {served}; "
+          f"agreement with the gate's reference classes "
+          f"{float((classes == ref_cls).mean()):.4f} "
+          f"({int((classes != ref_cls).sum())} flips), accuracy "
+          f"{float((classes == y_eval.cpu().numpy()).mean()):.4f}")
+    print(f"[gate-serve] {card}, batch {cfg.batch} (host clock, best of 3): "
+          f"guard on {on_ms:.2f} ms per batch, {cfg.batch / on_ms * 1e3:.1f} "
+          f"img/s; guard off {off_ms:.2f} ms, {cfg.batch / off_ms * 1e3:.1f} "
+          f"img/s")
+    qtree = pipe.qtree
+    del pipe, unguarded, server
+
+    # ---- the defect-detection comparison on the gate's weights ----
+    n = g.compare_images
+    f32_fn, r = make_fused_sr_apply(edsr)
+    bf16_fn, _ = make_fused_sr_apply(edsr, torch.bfloat16)
+    int8_fn, _ = make_fused_sr_apply_int8(edsr, sample_lr=lr_eval[:4])
+    methods = {
+        "bicubic": lambda x: resize(x, (g.size, g.size), "bicubic").clamp(0, 1),
+        "edsr_f32": lambda x: pixel_shuffle(f32_fn(x), r),
+        "edsr_bf16": lambda x: pixel_shuffle(bf16_fn(x), r).float(),
+        "edsr_int8": lambda x: pixel_shuffle(int8_fn(x), r)}
+    with count_plain_calls() as plain:
+        reset_counts()
+        res = run_defect_detection_comparison(
+            methods, lambda p: quantized_vgg16_apply(qtree, p),
+            lr_eval[:n].cpu().numpy(), hr_eval[:n].cpu().numpy(),
+            y_eval[:n].cpu().numpy(), cfg.patch, cfg.stride, cfg.batch,
+            verbose=False, device=dev)
+        compared = read_counts()
+    calls = 1 + math.ceil(n / cfg.batch)       # the warm-up and the batches
+    k2_sr = sum(m for *_, m in k2_shapes(cfg))
+    want = launches_want(
+        conv3x3_int8_requant=len(methods) * calls * 13,
+        conv3x3_bias_act=calls * k2_sr,
+        conv3x3_bias_act_bf16=calls * (k2_sr + 12),
+        conv3x3_int8_dequant=calls * (2 * cfg.blocks + 2))
+    check(compared == want, f"comparison launch counts {compared} != {want}")
+    check(plain.n == 0, f"plain twins called comparing: {plain.by_twin}")
+    for name, v in res.items():
+        check(math.isfinite(v["psnr_mean"]) and math.isfinite(v["ssim_mean"]),
+              f"{name}: PSNR/SSIM not finite")
+        print(f"[gate-compare] {name:9s} accuracy {v['accuracy']:.4f} PSNR "
+              f"{v['psnr_mean']:.2f} dB SSIM {v['ssim_mean']:.4f} against HR; "
+              f"{v['time_sec'] * 1e3:.1f} ms for {n} images (host clock, "
+              f"batches of {cfg.batch}); confusion "
+              f"{v['confusion_matrix'].tolist()}")
+    print(f"[gate-compare] {card}: per-patch int8 classifier (13 K1 a call), "
+          f"{n} eval images; launches {compared}")
+    return launches
 
 
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
@@ -2037,6 +2431,8 @@ def main() -> int:
         k4_launches = phase_classic(dev, args.seed, sync, card)
         torch.cuda.empty_cache()
         train = phase_train(TrainSlice(), dev, args.seed, sync, card)
+        torch.cuda.empty_cache()
+        gate = phase_gate(GateSlice(), cfg, dev, args.seed, sync, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2044,7 +2440,7 @@ def main() -> int:
                            "tpusr/core/pallas_conv.py:123",
                            launches["conv3x3_bias_act"], k2, k2["library_ms"])
     k2_rec["train"] = train_record(train)
-    print(json.dumps({"kernels": [
+    records = [
         kernel_record("conv3x3_int8_requant", "conv3x3.cu",
                       "tpusr/core/pallas_conv.py:78",
                       launches["conv3x3_int8_requant"], k1, None),
@@ -2061,7 +2457,10 @@ def main() -> int:
         kernel_record("conv3x3_int8_dequant", "conv3x3.cu",
                       "tpusr/models/edsr_quant.py:117", dequant_launches, dq,
                       None),
-    ]}))
+    ]
+    for rec in records:     # the serving gate's launches (phase_gate)
+        rec["gate_launches"] = gate.get(rec["name"], 0)
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,9 @@ and a size off the 16-pixel tile;
 for K3 (int8 tensor cores) one image, sizes that need the reflect pad,
 small patch grids, patches that are not a multiple of the 16 x 32 tile,
 |acc| at its 576 * 127^2 maximum, batch invariance, fewer work items than
-resident blocks and a tree without packed weights; and the per-patch int8
-classifier at an odd patch, which runs on K1 alone.
+resident blocks and a tree without packed weights; the per-patch int8
+classifier at an odd patch, which runs on K1 alone; and a two-image run of
+the serving gate with its launch counts.
 
 These tests need an NVIDIA card with sm_90a and ``nvcc``; without a card
 they skip. ``tests/conftest.py`` imports JAX and hides CUDA devices, so on
@@ -587,3 +588,33 @@ def test_edsr_train_step_on_k2_matches_the_twin(cuda):
         on_twin = losses(tr.init_state())
     for a, b in zip(on_k2, on_twin):
         assert abs(a - b) <= 1e-4 * abs(b), (on_k2, on_twin)
+
+def test_gate_runs_two_images_on_the_card(cuda):
+    """tests/test_serving_gate.py::test_gate_harness_end_to_end_smoke on the
+    card: two 128^2 eval images, two training steps of each full-size
+    network, two modes (the f32-SR trunk and the no-border int8-SR trunk).
+    It launches K2 (146 training, 46 f32 SR, 34 calibrating the int8 SR),
+    the dequant conv (34) and K1 (13 per trunk), builds only the int8 SR
+    variant a mode consumes, and calls no plain twin on the card."""
+    from chip_smoke import count_plain_calls
+    from tpusr_torch.tools import serving_gate as sg
+    modes = ("shared_trunk_int8", "int8_sr_noborder_shared_trunk_int8")
+    k.reset_launch_counts()
+    block1.reset_launch_counts()
+    with count_plain_calls() as plain:
+        rep = sg.run_gate(n_images=2, size=128, clf_steps=2, edsr_steps=2,
+                          verbose=False, mode_names=modes, device=cuda)
+        torch.cuda.synchronize()
+    assert plain.n == 0, plain.by_twin
+    assert k.LAUNCHES == {"conv3x3_bias_act": 2 * 73 + 46 + 34,
+                          "conv3x3_bias_act_bf16": 0,
+                          "conv3x3_int8_dequant": 34,
+                          "conv3x3_int8_requant": 2 * 13}
+    assert block1.LAUNCHES["block1_int8"] == 0
+    assert {m["mode"] for m in rep["modes"]} == set(modes)
+    assert rep["psnr_int8_noborder_sr_vs_f32_sr_db"] is not None
+    assert rep["psnr_int8_sr_vs_f32_sr_db"] is None
+    nb = next(m for m in rep["modes"]
+              if m["mode"] == "int8_sr_noborder_shared_trunk_int8")
+    assert "sr_psnr_vs_f32_db" in nb and "image_faithful" in nb
+    assert len(rep["raw_votes"]["reference"]["cls"]) == 2

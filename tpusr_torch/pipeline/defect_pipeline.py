@@ -1,7 +1,9 @@
 """LR -> SR -> patch-vote defect classification (port of
-``tpusr/pipeline/defect_pipeline.py``: ``_vote``, ``FusedSRClassifyPipeline``
-with its per-patch, trunk and cascade branches and ``classify_chunks``, and
-``make_serving_pipeline`` for every SR and classifier mode but ``mesh``).
+``tpusr/pipeline/defect_pipeline.py``: ``_vote``, ``make_patch_classifier``,
+``classify_defects``, ``FusedSRClassifyPipeline`` with its per-patch, trunk
+and cascade branches, ``classify_chunks`` and ``throughput``,
+``make_serving_pipeline`` for every SR and classifier mode but ``mesh``, and
+``run_defect_detection_comparison``).
 
 PyTorch runs eagerly, so the pipeline is a sequence of launches on one stream
 rather than one compiled graph; no host round trip happens between stages
@@ -10,12 +12,16 @@ except the cascade guard's one scalar read.
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpusr_torch.core.pad import pad_amounts
 from tpusr_torch.core.patches import patch_grid_size
 from tpusr_torch.device import resolve_device
+from tpusr_torch.metrics.image import psnr as psnr_fn, ssim as ssim_fn
 from tpusr_torch.models.block1 import extract_patches_reference
 from tpusr_torch.models.layers import pixel_shuffle
 
@@ -33,6 +39,36 @@ def _vote(probs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     winner = (votes + mean_probs).argmax(dim=-1)
     conf = mean_probs.gather(-1, winner[..., None])[..., 0]
     return winner, conf
+
+
+def make_patch_classifier(clf_apply, image_hw: tuple[int, int], patch: int,
+                          stride: int | None = None):
+    """image -> (class, confidence) patch-vote classification for a fixed
+    image shape. ``clf_apply(patches)`` -> (N, num_classes) probs; the image
+    is (H, W, C) on the classifier's device."""
+    stride = stride if stride is not None else max(1, patch // 2)
+    h, w = image_hw
+
+    def fn(image):
+        if tuple(image.shape[:2]) != (h, w):
+            raise ValueError(f"image {tuple(image.shape)} is not {(h, w)}")
+        with torch.inference_mode():
+            patches = extract_patches_reference(image[None], patch, stride)
+            return _vote(clf_apply(patches))
+
+    return fn
+
+
+def classify_defects(clf_apply, image, patch: int, stride: int | None = None,
+                     device=None):
+    """One-shot patch-vote classification (classify_defects_method parity):
+    (class, confidence) of one (H, W, C) [0, 1] image, classified on
+    ``device`` (CUDA unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    image = torch.as_tensor(np.asarray(image, np.float32), device=dev)
+    cls, conf = make_patch_classifier(clf_apply, image.shape[:2], patch,
+                                      stride)(image)
+    return int(cls), float(conf)
 
 
 class FusedSRClassifyPipeline:
@@ -125,6 +161,25 @@ class FusedSRClassifyPipeline:
                             device=self.device).contiguous()
         with torch.inference_mode():
             return self.run(x, x.shape[0] if n_valid is None else int(n_valid))
+
+    def throughput(self, lr_batch, iters: int = 10) -> float:
+        """Steady-state images/sec of the pipeline: the host clock over
+        ``iters`` calls after a warm-up, between device barriers."""
+        x = torch.as_tensor(lr_batch, dtype=torch.float32,
+                            device=self.device).contiguous()
+        with torch.inference_mode():
+            self.run(x, x.shape[0])
+            _sync(self.device)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                self.run(x, x.shape[0])
+            _sync(self.device)
+        return x.shape[0] * iters / (time.perf_counter() - t0)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def make_serving_pipeline(edsr, clf, lr_hw: tuple[int, int], scale: int,
@@ -224,3 +279,83 @@ def make_serving_pipeline(edsr, clf, lr_hw: tuple[int, int], scale: int,
         pre_quant=pre_quant, device=dev, **stage)
     pipe.qtree = qtree
     return pipe
+
+
+def run_defect_detection_comparison(sr_methods: dict, clf_apply, x_lr, x_hr, y,
+                                    patch: int = 96, stride: int | None = None,
+                                    batch_size: int = 16, verbose: bool = True,
+                                    device=None):
+    """The reference's missing ``defect_detection_pipeline.ipynb``, as a
+    function.
+
+    For each SR method name -> ``sr_apply(lr_batch) -> sr_batch`` ([0, 1] in
+    and out, tensors on ``device``, CUDA unless ``device="cpu"``),
+    super-resolve every prediction image, patch-vote classify it with
+    ``clf_apply(patches) -> probs``, and collect per-method results:
+    predictions, confidences, accuracy, confusion matrix, SR fidelity
+    (PSNR/SSIM against HR) and SR + classify wall time. Each batch is padded
+    to one shape (the trailing one by repeating its last image), one untimed
+    warm-up batch runs first, and only the pipeline call is timed, on the
+    host clock between device barriers.
+    """
+    dev = resolve_device(device)
+    x_lr = np.asarray(x_lr, np.float32)
+    x_hr = np.asarray(x_hr, np.float32)
+    y = np.asarray(y)
+    n = x_lr.shape[0]
+    hr_hw = x_hr.shape[1:3]
+    results: dict[str, dict] = {}
+
+    for name, sr_apply in sr_methods.items():
+        scale = hr_hw[0] // x_lr.shape[1]
+        pipe = FusedSRClassifyPipeline(sr_apply, clf_apply, x_lr.shape[1:3],
+                                       scale, patch, stride, device=dev)
+        bs = min(batch_size, n)
+        pipe(x_lr[:bs])  # warm-up, untimed
+        preds, confs, psnrs, ssims = [], [], [], []
+        elapsed = 0.0
+        for s in range(0, n, bs):
+            xb = x_lr[s:s + bs]
+            nb = xb.shape[0]
+            if nb < bs:  # pad to one batch shape, slice results after
+                xb = np.concatenate([xb, np.repeat(xb[-1:], bs - nb, axis=0)])
+            xb = torch.as_tensor(xb, device=dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            sr, cls, conf = pipe(xb)
+            _sync(dev)
+            elapsed += time.perf_counter() - t0
+            hb = torch.as_tensor(x_hr[s:s + bs], device=dev)
+            with torch.inference_mode():
+                psnrs.append(psnr_fn(hb, sr[:nb]))
+                ssims.append(ssim_fn(hb, sr[:nb]))
+            preds.append(cls[:nb])
+            confs.append(conf[:nb])
+
+        preds, confs, psnrs, ssims = (torch.cat(v).cpu().numpy() for v in
+                                      (preds, confs, psnrs, ssims))
+        # size from labels and predictions: a class the classifier emits but
+        # the label subset lacks must not index out of the matrix
+        num_classes = int(max(2, y.max() + 1, preds.max() + 1))
+        cm = np.zeros((num_classes, num_classes), np.int64)
+        for t, p in zip(y, preds):
+            cm[int(t), int(p)] += 1
+        acc = float((preds == y).mean())
+        correct = preds == y
+        results[name] = {
+            "predictions": preds,
+            "confidences": confs,
+            "accuracy": acc,
+            "confusion_matrix": cm,
+            "psnr_mean": float(psnrs.mean()),
+            "ssim_mean": float(ssims.mean()),
+            "time_sec": elapsed,
+            "mean_confidence": float(confs.mean()),
+            "mean_confidence_correct": float(confs[correct].mean()) if correct.any() else np.nan,
+            "mean_confidence_wrong": float(confs[~correct].mean()) if (~correct).any() else np.nan,
+            "error_rate": 1.0 - acc,
+        }
+        if verbose:
+            print(f"{name}: acc={acc:.4f} psnr={results[name]['psnr_mean']:.2f} "
+                  f"time={elapsed:.2f}s")
+    return results
