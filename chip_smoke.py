@@ -72,7 +72,25 @@ its own lines:
    LR 128^2 uint8 pairs made from ``--seed``, with the K4 launches it
    implies, the reference's score pattern, and one pair's SR images held
    against the same harness run on the CPU (plain twins);
-13. the trainers at the serving gate's shapes (``TrainSlice``): the K2
+13. patch and full-image SR (``pipeline/inference.py``, ``InferenceSlice``)
+   on one 128^2 LR image at full width from ``--seed``: EDSR x4 by
+   ``super_resolve_image`` at patch 48, stride 24 (37 K2 launches), SRCNN by
+   ``srcnn_super_resolve`` to 512^2 (no kernel), the ESRGAN generator at
+   ``ESRGANConfig`` (growth 8, 4 RRDB, x2) by patches (65 launches) and by
+   ``super_resolve_full_image`` at attention block 4096, and at growth 32,
+   23 RRDB on the full image (350 launches); each path's output in [0, 1]
+   at its shape, bit for bit the same on a second call, against the same
+   call on K2's plain twin (EDSR at ``SR_ATOL``; ESRGAN g8 at 1/2 x launches
+   x ``K2_ATOL``; g32x23 in two parts from inputs shared with the twin,
+   ``check_chaotic_generator``: its trunk at its launches x ``K2_ATOL``
+   against the twin and a float64 run, its tail from the twin's trunk no
+   further from float64 on average than 2x the twin's, the output's
+   distances from a float64 run reported),
+   every K2 launch within its per-output bound
+   (``k2_forward_bound``) against the twin on its own input, and no plain twin
+   on the card; it prints each call's ``time_sec`` and ``gpu_peak_mb`` and
+   K2's ms at every shape of these paths beside ``F.conv2d`` fp32;
+14. the trainers at the serving gate's shapes (``TrainSlice``): the K2
    autograd Function (``conv3x3_bias_act_train``) against autograd through
    the plain twin at every conv of an EDSR x4 training step (dX within
    ``k2_f32_bound``, Cin 256 at up0/up1; dW, db within 1e-5 of their max),
@@ -84,7 +102,7 @@ its own lines:
    restored and evaluated, and no plain twin called on the card; the median
    step ms, peak memory, a ``torch.profiler`` breakdown of each step and K2's ms
    at the training shapes beside ``F.conv2d`` and ``conv2d_input``;
-14. the serving gate (``GateSlice``): ``tools/serving_gate.run_gate`` on one
+15. the serving gate (``GateSlice``): ``tools/serving_gate.run_gate`` on one
    seed of the hard task at the full protocol (64 training and 128 eval
    images of 512^2, VGG16 500 steps at batch 64, EDSR x4 600 steps at batch
    16, all nine modes and every derived cascade row), with the launches the
@@ -97,9 +115,22 @@ its own lines:
    trips, agreement with the gate's reference classes, ms per batch with
    the guard on and off), and ``run_defect_detection_comparison`` runs
    bicubic and EDSR f32, bf16 and int8 on 32 eval images with the per-patch
-   int8 classifier.
+   int8 classifier;
+16. the HTTP serving tier on the gate's trained weights: the trained EDSR
+   and VGG16 saved by the facades (``models/api.py``), 16 calibration LR
+   images drawn as the gate draws its eval set (another seed) written as
+   PNG by the port's codec, ``python -m tpusr_torch.cli serve`` in its
+   default mode on a thread (``--port 0``, ``--max-requests``); /healthz
+   with the gate note from ``GATE_torch.json``; the 128 eval LR images as
+   PNG to /classify at client concurrency 1 and 16, with the K1, K2 and K3
+   launches the batches imply, classes against the gate's reference at >=
+   99%, request latency p50/p99 on the client's clock, requests/s, batches
+   formed, mean fill, queue wait and batch time; 8 /sr answers byte for
+   byte the pipeline's direct SR of the image beside 15 other eval images;
+   400 for a non-image and a JPEG body, 404 for another path; the
+   command's exit after its last request.
 
-Each path (8-14) is driven with the launch counts set to 0 just before it
+Each path (8-16) is driven with the launch counts set to 0 just before it
 and read just after. Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
@@ -107,7 +138,10 @@ dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
 and as a bare launch; ``launches`` counts the kernel's path; K2's record
 carries a ``train`` object, one EDSR x4 train step's forward and dX
 launches with ``launches`` over the training path; every record's
-``gate_launches`` counts the serving gate's run) and the
+``gate_launches`` counts the serving gate's run, ``launches_by_path``
+every path's launches by name; K2's record carries an ``inference`` object,
+its ms, bound and ``F.conv2d`` ms summed over each SR path's launches) and
+the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
@@ -1497,6 +1531,335 @@ def phase_classic(dev, seed: int, sync, card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- inference
+
+@dataclass(frozen=True)
+class InferenceSlice:
+    """Patch and full-image SR (``pipeline/inference.py``) on one 128^2 LR
+    image, at full width from ``--seed``: EDSR x4 (16 blocks, 64 filters)
+    at the facade's patch 48, stride 24 (25 patches); SRCNN (96/32 filters)
+    to 512^2 at patch 33, stride 14; ESRGAN at ``ESRGANConfig`` (growth 8, 4
+    RRDB, x2) by patches at the ESRGAN facade's 48/24 and on the full image
+    at attention block 4096 (16,384 tokens at the trunk, 65,536 at
+    ``upsample_0``); ESRGAN at the class defaults (growth 32, 23 RRDB, x2)
+    on the full image."""
+    lr: int = 128
+    patch: int = 48
+    stride: int = 24
+    srcnn_patch: int = 33
+    srcnn_stride: int = 14
+    attention_block: int = 4096
+
+
+def k2_forward_bound(x: torch.Tensor, k: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """The largest difference (float64, per output) of two fp32 results of
+    K2's function (3x3 SAME conv + bias, with or without ReLU) that sum the
+    9*C products in any order and round the bias add once each:
+    ``k2_f32_bound`` = 2 * 9C * 2^-24 * S plus 2^-23 (S + |b|), S =
+    conv(|x|, |k|), |y| <= S + |b|. The ReLU is 1-Lipschitz."""
+    bnd = k2_f32_bound(x, k)
+    return bnd * (1 + 1 / (9 * x.shape[-1])) + 2 * FP32_UNIT * b.double().abs()
+
+
+def models_on_k2_twin():
+    """Route the models' 3x3 convs (``edsr.conv3x3``: EDSR's and ESRGAN's)
+    to K2's plain twin while open: the reference run of an SR path."""
+    from tpusr_torch.core.conv3x3 import conv3x3_bias_act_plain
+    from tpusr_torch.models import edsr
+    return patched(edsr, conv3x3_bias_act=lambda _k2: conv3x3_bias_act_plain)
+
+
+class k2_against_twin:
+    """While open, every K2 launch of the models' convs also runs the plain
+    twin on the same input; ``rows`` holds, per launch, the conv's shape (N,
+    H, W, Cin, Cout), its ReLU, max |K2 - twin|, the largest per-output
+    ``k2_forward_bound`` and whether every output lies within it."""
+
+    def __enter__(self):
+        from tpusr_torch.core.conv3x3 import conv3x3_bias_act_plain
+        from tpusr_torch.models import edsr
+        self.rows = []
+        self._mod, self._orig = edsr, edsr.conv3x3_bias_act
+
+        def call(x, k, b, relu=False):
+            y = self._orig(x, k, b, relu)
+            err = (y - conv3x3_bias_act_plain(x, k, b, relu)).abs().double()
+            bnd = k2_forward_bound(x, k, b)
+            self.rows.append(((*x.shape, k.shape[-1]), bool(relu),
+                              float(err.max()), float(bnd.max()),
+                              bool((err <= bnd).all())))
+            return y
+        edsr.conv3x3_bias_act = call
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.conv3x3_bias_act = self._orig
+
+
+def esrgan_launches(rrdb: int, scale: int) -> int:
+    """K2 launches of one ESRGAN generator forward: the initial conv, 15 per
+    RRDB, the trunk conv, one per upsample block and the two final convs."""
+    return 1 + 15 * rrdb + 1 + int(math.log2(scale)) + 2
+
+
+def k2_shape_times(shapes: dict, dev) -> dict:
+    """K2 against its plain twin (max |err| <= K2_ATOL on random inputs) at
+    each (shape, relu) of ``shapes``, timed beside the twin and ``F.conv2d``
+    fp32; returns {(shape, relu): times}."""
+    from tpusr_torch.core.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for shape, relu in sorted(shapes):
+        n, h, w, cin, cout = shape
+        x = torch.randn((n, h, w, cin), generator=g, device=dev)
+        k = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+             * math.sqrt(2.0 / (9 * cin)))
+        b = torch.randn(cout, generator=g, device=dev) * 0.1
+        err = float((conv3x3_bias_act(x, k, b, relu)
+                     - conv3x3_bias_act_plain(x, k, b, relu)).abs().max())
+        check(err <= K2_ATOL, f"K2 differs from its twin at {shape}: max|err| "
+                              f"{err} > {K2_ATOL}")
+        x_nchw, k_oihw = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).contiguous()
+        ops, nbytes = conv_work(shape, 4, n_vecs=1)
+        bms, by = bound(ops, nbytes, "fp32")
+        out[(shape, relu)] = {
+            "ms": time_ms(lambda: conv3x3_bias_act(x, k, b, relu),
+                          min_total_ms=10.0),
+            "plain_ms": time_ms(lambda: conv3x3_bias_act_plain(x, k, b, relu),
+                                min_total_ms=10.0),
+            "library_ms": time_ms(lambda: F.conv2d(x_nchw, k_oihw, b,
+                                                   padding=1),
+                                  min_total_ms=10.0),
+            "bound_ms": bms, "bound_by": by, "err": err, "ops": ops}
+        del x, k
+    torch.cuda.empty_cache()
+    return out
+
+
+TAIL_F64_RATIO = 2.0     # g32's tail: K2's mean distance from float64 / the twin's
+
+
+def check_chaotic_generator(gen, lr: torch.Tensor, block: int,
+                            out: torch.Tensor, ref: torch.Tensor) -> str:
+    """For a generator whose output does not hold the first-order tolerance
+    (random weights at 23 RRDB grow the trunk to |x| ~ 200 and the features
+    at ``upsample_0`` to ~300, where the attentions' logits spread by
+    ~2.5e4 and ~6e4 in a row: hard maxes that turn fp32 rounding, in any
+    implementation, into O(0.1-1) output differences), held in two parts,
+    each from an input shared by K2 and the twin. The trunk (the 1 + 15 *
+    RRDB + 1 launches before the first attention) on K2 against the twin's
+    and a float64 run's at launches x K2_ATOL (first order, gain 1, no
+    [0, 1] map there). The tail (both attentions, the upsample blocks and
+    the final convs), run from the twin's trunk output on K2, on the twin
+    and in float64: K2's mean distance from float64 over the image at most
+    ``TAIL_F64_RATIO`` x the twin's (both sum the same products in fp32 in
+    other orders, and share the attentions' fp32 rounding). The full
+    output's distance from a float64 run is reported for K2 and the twin."""
+    from tpusr_torch.pipeline.inference import _largest_divisor_at_most
+    x = lr[None] * 2.0 - 1.0
+    n_trunk = 2 + 15 * gen.num_rrdb_blocks
+    n_tail = esrgan_launches(gen.num_rrdb_blocks, gen.scale_factor) - n_trunk
+    tol = n_trunk * K2_ATOL
+    spreads = []
+
+    def image(y):
+        return ((y[0] + 1.0) / 2.0).clamp(0.0, 1.0)
+
+    def attend(layer, y):
+        # the logits (g f^T) of the first 2048 queries: their spread in a
+        # row is how hard the softmax is
+        q = layer.g(y).reshape(-1, layer.channels // 8)[:2048]
+        logits = q @ layer.f(y).reshape(-1, layer.channels // 8).T
+        spreads.append(float((logits.amax(-1) - logits.amin(-1)).max()))
+        return type(gen)._attend(gen, layer, y)
+    saved = gen.attention_block_size
+    gen.attention_block_size = _largest_divisor_at_most(x.shape[1] * x.shape[2],
+                                                        block)
+    try:
+        with torch.inference_mode():
+            t_k2 = gen.trunk(x)
+            with models_on_k2_twin():
+                t_tw = gen.trunk(x)
+            tail_k2 = image(gen.tail(t_tw))
+            with models_on_k2_twin():
+                tail_tw = image(gen.tail(t_tw))
+                gen.double()
+                t_64 = gen.trunk(x.double())
+                o_64 = image(gen(x.double()))
+                gen._attend = attend
+                tail_64 = image(gen.tail(t_tw.double()))
+    finally:
+        gen.__dict__.pop("_attend", None)
+        gen.float()
+        gen.attention_block_size = saved
+    e_tw = float((t_k2 - t_tw).abs().max())
+    e_64 = float((t_k2.double() - t_64).abs().max())
+    check(e_tw <= tol and e_64 <= tol,
+          f"trunk on K2 against the twin {e_tw}, float64 {e_64} > {tol}")
+    d_k2, d_tw = ((t.double() - tail_64).abs() for t in (tail_k2, tail_tw))
+    m_k2, m_tw = float(d_k2.mean()), float(d_tw.mean())
+    check(m_k2 <= TAIL_F64_RATIO * m_tw,
+          f"tail from the twin's trunk: K2's mean distance from float64 "
+          f"{m_k2} > {TAIL_F64_RATIO} x the twin's {m_tw}")
+    e_tw64 = float((t_tw.double() - t_64).abs().max())
+    return (f"trunk ({n_trunk} launches, max|x| {float(t_64.abs().max()):.1f}) "
+            f"against the twin's max|err| {e_tw:.3g}, float64's {e_64:.3g} "
+            f"(tolerance {tol:.3g}, derived: {n_trunk} launches x K2_ATOL; the "
+            f"twin's from float64 {e_tw64:.3g}); the tail ({n_tail} launches "
+            f"and the attentions, logits spread by up to "
+            f"{', '.join(f'{v:.4g}' for v in spreads)} in a row) from the "
+            f"twin's trunk: mean distance from float64 K2 {m_k2:.4g}, the "
+            f"twin {m_tw:.4g} (held at most {TAIL_F64_RATIO:g}x), max K2 "
+            f"{float(d_k2.max()):.3g}, the twin {float(d_tw.max()):.3g}, max"
+            f"|K2 - twin| {float((tail_k2 - tail_tw).abs().max()):.3g}; the "
+            f"output from the image against the twin "
+            f"{float((out - ref).abs().max()):.3g}, against float64 "
+            f"{float((out.double() - o_64).abs().max()):.3g} (the twin's "
+            f"{float((ref.double() - o_64).abs().max()):.3g})")
+
+
+def phase_inference(s: InferenceSlice, dev, seed: int, sync, card: str) -> dict:
+    """Patch and full-image SR through ``pipeline/inference.py`` at full
+    width. Each path is driven once with the launch counts set to 0 just
+    before it and read just after (no plain twin on the card), then again
+    (bit for bit the same), on K2's plain twin (the reference), and with
+    every K2 launch held against the twin on its own input. Returns the
+    launches per path and K2's times at the paths' shapes."""
+    from tpusr_torch.config import ESRGANConfig
+    from tpusr_torch.models import EDSR, SRCNN
+    from tpusr_torch.models.esrgan import ESRGANGenerator
+    from tpusr_torch.pipeline.inference import (srcnn_super_resolve,
+                                                super_resolve_full_image,
+                                                super_resolve_image)
+
+    def gen(k):
+        return torch.Generator().manual_seed(seed * 100 + k)
+    lr = (smooth_images(torch.Generator(device=dev).manual_seed(seed + 40), 1,
+                        s.lr, 3, dev)[0] / 255.0).contiguous()
+    hr = 4 * s.lr
+    edsr = EDSR(scale_factor=4, device=dev, generator=gen(1))
+    srcnn = SRCNN(device=dev, generator=gen(2))
+    c8 = ESRGANConfig()
+    esr8 = ESRGANGenerator(c8.scale_factor, c8.growth_channels,
+                           c8.num_rrdb_blocks, device=dev, generator=gen(3))
+    esr32 = ESRGANGenerator(device=dev, generator=gen(4))
+    n8 = sum(p.numel() for p in esr8.parameters())
+    check(n8 == 1_162_915, f"ESRGANConfig generator has {n8} parameters")
+    # name: (call, K2 launches, output side, tolerance against the twin:
+    # None = derived from K2's per-conv tolerance, the generator held in two
+    # parts in place of its output, or None)
+    paths = {
+        "edsr_x4_patches": (lambda: super_resolve_image(
+            edsr, lr, s.patch, s.stride, scale=4), 2 * 16 + 5, hr, SR_ATOL,
+            None),
+        "srcnn": (lambda: srcnn_super_resolve(
+            srcnn, lr, hr, hr, s.srcnn_patch, s.srcnn_stride), 0, hr, None,
+            None),
+        "esrgan_g8x4_patches": (lambda: super_resolve_image(
+            esr8, lr, s.patch, s.stride, scale=2, normalize_pm1=True),
+            esrgan_launches(4, 2), 2 * s.lr, None, None),
+        "esrgan_g8x4_full": (lambda: super_resolve_full_image(
+            esr8, lr, attention_block_size=s.attention_block),
+            esrgan_launches(4, 2), 2 * s.lr, None, None),
+        "esrgan_g32x23_full": (lambda: super_resolve_full_image(
+            esr32, lr, attention_block_size=s.attention_block),
+            esrgan_launches(23, 2), 2 * s.lr, None, esr32),
+    }
+    launches, shapes = {}, {}
+    for name, (call, want_k2, side, tol, in_parts) in paths.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        with count_plain_calls() as plain:
+            reset_counts()
+            out, m = call()
+            got = read_counts()
+        launches[name] = got["conv3x3_bias_act"]
+        check(got == launches_want(conv3x3_bias_act=want_k2),
+              f"{name}: launches {got} != {want_k2} K2")
+        check(plain.n == 0, f"{name}: plain twins on the card {plain.by_twin}")
+        out = torch.as_tensor(out, device=dev)
+        check(tuple(out.shape) == (side, side, 3), f"{name}: {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()) and float(out.min()) >= 0.0
+              and float(out.max()) <= 1.0, f"{name}: not finite in [0, 1]")
+        torch.cuda.reset_peak_memory_stats(dev)
+        again, m2 = call()
+        check(torch.equal(torch.as_tensor(again, device=dev), out),
+              f"{name}: a second call differs")
+        line = (f"[inference] {name}: {tuple(out.shape)} in "
+                f"[{float(out.min()):.3f}, {float(out.max()):.3f}], K2 "
+                f"launches {launches[name]}, plain twins 0; time_sec "
+                f"{m['time_sec']:.4f} (first call), {m2['time_sec']:.4f} "
+                f"(second); gpu_peak_mb {m2['gpu_peak_mb']:.1f}, "
+                f"gpu_mean_current_mb {m2['gpu_mean_current_mb']:.1f}")
+        if want_k2:
+            with models_on_k2_twin():
+                ref = torch.as_tensor(call()[0], device=dev)
+            with k2_against_twin() as k2c:
+                call()
+            check(len(k2c.rows) == want_k2, f"{name}: {len(k2c.rows)} checked")
+            check(all(r[4] for r in k2c.rows),
+                  f"{name}: K2 beyond the per-output bound against its twin "
+                  f"at {[r[0] for r in k2c.rows if not r[4]]}")
+            if tol is None:
+                # K2's per-conv tolerance against its twin (K2_ATOL, held at
+                # every serving shape) at each launch, carried to the output
+                # to first order with gain 1 (tanh, the overlap mean and the
+                # clip are 1-Lipschitz) and halved by the [-1, 1] -> [0, 1]
+                # map
+                tol = 0.5 * want_k2 * K2_ATOL
+                how = f"derived: 1/2 x {want_k2} launches x K2_ATOL"
+            else:
+                how = "SR_ATOL, as the served f32 SR"
+            err = float((out - ref).abs().max())
+            if in_parts is None:
+                check(err <= tol, f"{name}: against the twin max|err| {err} "
+                                  f"> {tol}")
+                line += (f"; against the same call on K2's twin max|err| "
+                         f"{err:.3g} (tolerance {tol:.3g}, {how})")
+            else:
+                line += "; " + check_chaotic_generator(
+                    in_parts, lr, s.attention_block, out, ref)
+            line += (f"; every launch "
+                     f"within its per-output bound against the twin on its "
+                     f"own input (largest err {max(r[2] for r in k2c.rows):.3g}"
+                     f", largest bound {max(r[3] for r in k2c.rows):.3g})")
+            for shape, relu, *_ in k2c.rows:
+                per = shapes.setdefault((shape, relu), {})
+                per[name] = per.get(name, 0) + 1
+        print(line)
+        del out, again
+        torch.cuda.empty_cache()
+
+    times = k2_shape_times(shapes, dev)
+    per_path = {}
+    for (shape, relu), t in times.items():
+        uses = shapes[(shape, relu)]
+        print(f"[inference-K2] {str(shape):26s} relu={int(relu)} "
+              f"{', '.join(f'{p} x{n}' for p, n in uses.items())}: kernel "
+              f"{t['ms']:.4f} ms ({t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of bound)  F.conv2d fp32 "
+              f"{t['library_ms']:.4f} ms  twin {t['plain_ms']:.4f} ms  bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})  max|err| "
+              f"{t['err']:.3g}" + ("  SLOWER than F.conv2d"
+                                   if t["ms"] > t["library_ms"] else ""))
+        for p, n in uses.items():
+            tot = per_path.setdefault(p, {"ms": 0.0, "plain_ms": 0.0,
+                                          "library_ms": 0.0, "bound_ms": 0.0,
+                                          "err": 0.0, "t_ops": 0.0,
+                                          "t_bytes": 0.0})
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] += n * t[key]
+            tot["t_" + ("ops" if t["bound_by"] == "operations" else "bytes")] \
+                += n * t["bound_ms"]
+            tot["err"] = max(tot["err"], t["err"])
+    for p, tot in per_path.items():
+        print(f"[inference-K2] {card}: {p}: {launches[p]} launches, kernel "
+              f"{tot['ms']:.3f} ms, F.conv2d fp32 {tot['library_ms']:.3f} ms, "
+              f"bound {tot['bound_ms']:.3f} ms "
+              f"({100 * tot['bound_ms'] / tot['ms']:.1f}%)")
+    return {"launches": launches, "k2": per_path}
+
+
 # ----------------------------------------------------------------- training
 
 @dataclass(frozen=True)
@@ -2157,7 +2520,9 @@ def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
     ``tools/serving_gate.run_gate``: training, every mode and derived row,
     with the launch counts the modes imply and no plain twin on the card;
     then the shipped mode served on the gate's trained weights, and the
-    defect-detection comparison. Returns the gate's launches."""
+    defect-detection comparison. Returns the gate's launches and what
+    ``phase_serve`` serves: the trained EDSR and VGG16, the eval LR images
+    and the gate's reference classes."""
     from tpusr_torch.core.resize import resize
     from tpusr_torch.models.edsr_fast import make_fused_sr_apply
     from tpusr_torch.models.edsr_quant import make_fused_sr_apply_int8
@@ -2362,7 +2727,281 @@ def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
               f"{v['confusion_matrix'].tolist()}")
     print(f"[gate-compare] {card}: per-patch int8 classifier (13 K1 a call), "
           f"{n} eval images; launches {compared}")
-    return launches
+    return launches, {"edsr": edsr, "clf": clf, "lr_eval": lr_eval,
+                      "ref_cls": ref_cls}
+
+
+# -------------------------------------------------------------------- serve
+
+SERVE_LEVELS = (1, 16)       # client concurrency (bench_serving.py's 1 and 16)
+SERVE_SR_CHECKS = 8          # /sr answers held byte for byte
+SERVE_CALIB_SEED = 500       # the calibration images' draw (eval is seed + 1)
+
+
+def http(url: str, body: bytes | None = None) -> tuple[int, bytes]:
+    """(status, body) of one request, a GET when ``body`` is None."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+class batch_log:
+    """While open, ``PipelineServer`` stamps each request's submit time and
+    logs each batch it runs: (start, end, requests, submit times); ``pipes``
+    keeps the pipelines it served."""
+
+    def __enter__(self):
+        from tpusr_torch.pipeline import serving
+        self.batches, self.pipes = [], set()
+        cls = serving.PipelineServer
+        self._cls, self._orig = cls, (cls.submit, cls._run_batch)
+        orig_submit, orig_run = self._orig
+
+        def submit(srv, img):
+            t = time.perf_counter()
+            fut = orig_submit(srv, img)
+            fut.t_submit = t
+            return fut
+
+        def run(srv, batch):
+            t0 = time.perf_counter()
+            orig_run(srv, batch)
+            self.batches.append((t0, time.perf_counter(), len(batch),
+                                 [getattr(f, "t_submit", t0) for _, f in batch]))
+            self.pipes.add(srv.pipeline)
+        cls.submit, cls._run_batch = submit, run
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.submit, self._cls._run_batch = self._orig
+
+
+def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
+                trained: dict) -> dict:
+    """The HTTP serving tier on the gate's trained weights, through the
+    port's ``serve`` command in its default mode: the trained EDSR and VGG16
+    saved by the facades, 16 calibration LR images written as PNG, the
+    command run on a thread; then GET /healthz, the 128 eval LR images as
+    PNG to /classify at client concurrency 1 and 16 (each level driven with
+    the launch counts set to 0 just before it and read just after), /sr
+    answers held byte for byte against the pipeline's direct SR, the error
+    codes, and the command's exit on ``--max-requests``. Returns the launches
+    of each level."""
+    import shutil
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpusr_torch.cli.__main__ import main as cli_main
+    from tpusr_torch.core.resize import resize
+    from tpusr_torch.models.api import EDSR as EDSRFacade, FineTunedVGG16
+    from tpusr_torch.pipeline.png import decode_png, encode_png
+    from tpusr_torch.tools import serving_gate as sg
+
+    t_setup = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        # ---- the checkpoints, through the facades ----
+        paths = []
+        for facade, module, kw in (
+                (EDSRFacade, trained["edsr"], dict(scale_factor=cfg.scale)),
+                (FineTunedVGG16, trained["clf"],
+                 dict(input_shape=(cfg.patch, cfg.patch, 3), num_classes=2))):
+            f = facade(device=dev)
+            f.setup_model(**kw)
+            weights = dict(module.named_parameters())
+            with torch.no_grad():
+                for name, p in f.state.params.items():
+                    p.copy_(weights[name])
+            f.trained = True
+            paths.append(f.save(work, "gate"))
+        # ---- 16 calibration LR images, drawn as the gate draws its eval set
+        task = sg.TASKS[g.task]
+        hr_cal, _ = sg.make_surface_images(
+            seed + SERVE_CALIB_SEED, 16, g.size, amp_range=task["amp_range"],
+            noise=task["noise"], coverage_range=task["coverage_range"],
+            device=dev)
+        calib_dir = os.path.join(work, "calib")
+        os.makedirs(calib_dir)
+        for i, im in enumerate(resize(hr_cal, (cfg.lr, cfg.lr), "area")
+                               .clamp(0, 1).cpu().numpy()):
+            with open(os.path.join(calib_dir, f"c{i:02d}.png"), "wb") as fh:
+                fh.write(encode_png(im))
+        lr_eval = trained["lr_eval"].cpu().numpy()
+        ref_cls = trained["ref_cls"]
+        bodies = [encode_png(im) for im in lr_eval]
+        n_sr = min(SERVE_SR_CHECKS, len(bodies))
+        n_post = len(SERVE_LEVELS) * len(bodies) + n_sr + 2
+        port_file = os.path.join(work, "port")
+        argv = ["serve", "--edsr-ckpt", paths[0], "--vgg16-ckpt", paths[1],
+                "--scale", str(cfg.scale), "--lr-size", str(cfg.lr),
+                "--patch", str(cfg.patch), "--stride", str(cfg.stride),
+                "--calib-dir", calib_dir, "--port", "0", "--port-file",
+                port_file, "--max-requests", str(n_post)]
+        err = []
+
+        def run():
+            try:
+                cli_main(argv)
+            except BaseException as e:  # noqa: BLE001 - reported below
+                err.append(e)
+
+        with batch_log() as log, count_plain_calls() as plain:
+            thread = threading.Thread(target=run, daemon=True)
+            thread.start()
+            deadline = time.monotonic() + 300
+            while (not os.path.exists(port_file) and not err
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            check(not err, f"serve failed to start: {err[:1]}")
+            check(os.path.exists(port_file), "serve never wrote its port")
+            base = f"http://127.0.0.1:{open(port_file).read().strip()}"
+            startup_s = time.perf_counter() - t_setup
+            status, body = http(base + "/healthz")
+            cfg_echo = json.loads(body)["config"]
+            check(status == 200 and cfg_echo["sr_mode"] == "f32"
+                  and cfg_echo["clf_mode"] == "cascade_int8"
+                  and cfg_echo["cascade_escalate_score"] == "vote_frac"
+                  and cfg_echo["cascade_escalate_frac"] == cfg.frac
+                  and cfg_echo["cascade_guard_threshold"] == cfg.guard
+                  and cfg_echo["batch_size"] == cfg.batch,
+                  f"/healthz config {cfg_echo}")
+            check("GATE_torch.json" in cfg_echo.get("gate", "")
+                  and "certified" in cfg_echo["gate"]
+                  and "WARNING" not in cfg_echo["gate"],
+                  f"/healthz gate note {cfg_echo.get('gate')}")
+            pipe = next(iter(log.pipes))
+            votes = pipe.cascade_votes
+
+            def classify(b):
+                t0 = time.perf_counter()
+                st, data = http(base + "/classify", b)
+                return st, data, (time.perf_counter() - t0) * 1e3
+
+            levels, launches = {}, {}
+            for conc in SERVE_LEVELS:
+                n0, trips0 = len(log.batches), votes.guard_trips
+                reset_counts()
+                t0 = time.perf_counter()
+                if conc == 1:
+                    answers = [classify(b) for b in bodies]
+                else:
+                    with ThreadPoolExecutor(conc) as pool:
+                        answers = list(pool.map(classify, bodies))
+                wall = time.perf_counter() - t0
+                got = read_counts()
+                batches = log.batches[n0:]
+                trips = votes.guard_trips - trips0
+                check(all(st == 200 for st, *_ in answers),
+                      f"concurrency {conc}: statuses "
+                      f"{sorted({st for st, *_ in answers})}")
+                res = [json.loads(d) for _, d, _ in answers]
+                classes = np.array([r["class"] for r in res])
+                lat = np.array([ms for *_, ms in answers])
+                agree = float((classes == ref_cls).mean())
+                want = launches_want(
+                    conv3x3_int8_requant=len(batches) * len(k1_shapes(cfg))
+                    + trips * n_per_patch_k1(cfg),
+                    conv3x3_bias_act=len(batches)
+                    * sum(m for *_, m in k2_shapes(cfg)),
+                    block1_int8=len(batches) + trips)
+                check(got == want, f"concurrency {conc}: launches {got} != "
+                                   f"{want} for {len(batches)} batches")
+                check(sum(n for _, _, n, _ in batches) == len(bodies),
+                      f"concurrency {conc}: batches hold "
+                      f"{sum(n for _, _, n, _ in batches)} requests")
+                check(agree >= 0.99, f"concurrency {conc}: classes agree with "
+                                     f"the gate's reference on {agree:.4f} < "
+                                     f"0.99")
+                wait = np.array([1e3 * (b0 - t) for b0, _, _, ts in batches
+                                 for t in ts])
+                run_ms = np.array([1e3 * (b1 - b0) for b0, b1, _, _ in batches])
+                levels[conc] = {
+                    "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)),
+                    "req_per_s": len(bodies) / wall, "batches": len(batches),
+                    "mean_fill": float(np.mean([n for _, _, n, _ in batches])),
+                    "queue_wait_ms": float(np.mean(wait)),
+                    "batch_ms": float(np.median(run_ms)),
+                    "trips": trips, "agreement": agree}
+                launches[conc] = got
+                v = levels[conc]
+                print(f"[serve] {card}: concurrency {conc}: {len(bodies)} "
+                      f"POST /classify (PNG, {cfg.lr}^2) in {wall:.3f} s, "
+                      f"{v['req_per_s']:.1f} req/s; latency p50 "
+                      f"{v['p50_ms']:.2f} ms, p99 {v['p99_ms']:.2f} ms (client "
+                      f"clock, POST to reply); {v['batches']} batches, mean "
+                      f"fill {v['mean_fill']:.2f} of {cfg.batch}; mean queue "
+                      f"wait {v['queue_wait_ms']:.2f} ms, median batch "
+                      f"{v['batch_ms']:.2f} ms (server clock); guard trips "
+                      f"{trips}; classes agree with the gate's reference on "
+                      f"{agree:.4f} ({int((classes != ref_cls).sum())} flips);"
+                      f" launches {got}")
+            # ---- /sr, one request per batch (the request and 15 pad copies
+            # of it): byte for byte the pipeline's direct SR of the image
+            # in a batch of 16 distinct eval images
+            lr_dev = torch.as_tensor(lr_eval, device=dev)
+            sr_diff_alone = 0
+            for i in range(n_sr):
+                status, png_body = http(base + "/sr", bodies[i])
+                check(status == 200, f"/sr status {status}")
+                img = torch.as_tensor(decode_png(bodies[i]), device=dev)
+                mates = torch.cat([img[None], lr_dev[:i],
+                                   lr_dev[i + 1:]])[:cfg.batch]
+                with torch.inference_mode():
+                    direct = pipe.sr_apply(mates)
+                    alone = pipe.sr_apply(img[None])
+                check(encode_png(direct[0].cpu().numpy()) == png_body,
+                      f"/sr image {i} differs from the pipeline's direct SR "
+                      f"beside 15 other images")
+                sr_diff_alone += int(encode_png(alone[0].cpu().numpy())
+                                     != png_body)
+            # what a served batch adds to the pipeline's own time: the
+            # server copies all 16 SR images (pads included) to the host
+            x16 = lr_dev[:cfg.batch]
+            with torch.inference_mode():
+                pipe_ms = min(host_ms(lambda: pipe(x16, n_valid=1), sync)
+                              for _ in range(3))
+                d2h_ms = min(host_ms(lambda: direct.cpu(), sync)
+                             for _ in range(3))
+            # ---- the error codes (the two 400s are the last POSTs counted)
+            check(http(base + "/nope", bodies[0])[0] == 404, "POST /nope")
+            check(http(base + "/nope")[0] == 404, "GET /nope")
+            status, body = http(base + "/classify", b"not an image")
+            check(status == 400, f"a non-image body got {status}")
+            status, body = http(base + "/classify",
+                                b"\xff\xd8\xff\xe0" + bytes(64))
+            check(status == 400 and "JPEG" in json.loads(body)["error"],
+                  f"a JPEG body got {status} {body[:120]!r}")
+            thread.join(timeout=60)
+            check(not thread.is_alive(), f"serve did not exit after "
+                                         f"{n_post} requests")
+            check(not err, f"serve failed: {err[:1]}")
+            check(plain.n == 0, f"plain twins on the card serving: "
+                                f"{plain.by_twin}")
+        print(f"[serve] `python -m tpusr_torch.cli serve` (default mode) up "
+              f"in {startup_s:.1f} s (facades, calibration on 16 PNGs, the "
+              f"warm-up batch); /healthz gate note: {cfg_echo['gate']}; "
+              f"{n_sr} /sr answers equal byte for byte the "
+              f"pipeline's direct SR of the image beside 15 other eval images "
+              f"({sr_diff_alone} of {n_sr} differ from the SR of the image "
+              f"alone, N = 1, which the server never runs); 400 for a "
+              f"non-image and a JPEG body, 404 for /nope; exited after "
+              f"{n_post} POSTs; no plain twin on the card")
+        print(f"[serve] {card}: where a batch's time goes: the pipeline "
+              f"on one request padded to {cfg.batch} {pipe_ms:.2f} ms (host "
+              f"clock, best of 3); copying its {cfg.batch} SR images to the "
+              f"host {d2h_ms:.2f} ms; the server's median "
+              f"batch at concurrency 1 {levels[1]['batch_ms']:.2f} ms")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"levels": levels, "launches": launches}
 
 
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
@@ -2388,6 +3027,16 @@ def train_record(tot) -> dict:
     main training path."""
     return {"launches": tot["launches"], "max_abs_err": tot["err"],
             "ms": tot["ms"], "fwd_ms": tot["fwd_ms"], "dx_ms": tot["dx_ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["t_ops"] >= tot["t_bytes"]
+                         else "bytes"),
+            "library_ms": tot["library_ms"]}
+
+
+def inference_record(tot) -> dict:
+    """K2 on one SR path of ``phase_inference``: the sums over its launches
+    of K2's, the twin's, ``F.conv2d``'s and the bound's ms at each shape."""
+    return {"max_abs_err": tot["err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": ("operations" if tot["t_ops"] >= tot["t_bytes"]
                          else "bytes"),
@@ -2430,9 +3079,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         k4_launches = phase_classic(dev, args.seed, sync, card)
         torch.cuda.empty_cache()
+        inference = phase_inference(InferenceSlice(), dev, args.seed, sync,
+                                    card)
+        torch.cuda.empty_cache()
         train = phase_train(TrainSlice(), dev, args.seed, sync, card)
         torch.cuda.empty_cache()
-        gate = phase_gate(GateSlice(), cfg, dev, args.seed, sync, card)
+        gate, trained = phase_gate(GateSlice(), cfg, dev, args.seed, sync,
+                                   card)
+        serve = phase_serve(GateSlice(), cfg, dev, args.seed, sync, card,
+                            trained)
+        del trained
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2458,8 +3114,19 @@ def main() -> int:
                       "tpusr/models/edsr_quant.py:117", dequant_launches, dq,
                       None),
     ]
+    k2_rec["inference"] = {     # phase_inference, per path
+        path: {"launches": n, **inference_record(inference["k2"][path])}
+        for path, n in inference["launches"].items() if n}
     for rec in records:     # the serving gate's launches (phase_gate)
         rec["gate_launches"] = gate.get(rec["name"], 0)
+        # every path that launched the kernel: its name -> its launches
+        rec["launches_by_path"] = {
+            "slice": rec["launches"], "gate": rec["gate_launches"],
+            **{f"serve_concurrency_{c}": n.get(rec["name"], 0)
+               for c, n in serve["launches"].items()},
+            **({f"inference_{p}": n for p, n in
+                inference["launches"].items() if n}
+               if rec["name"] == "conv3x3_bias_act" else {})}
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,11 @@ for K3 (int8 tensor cores) one image, sizes that need the reflect pad,
 small patch grids, patches that are not a multiple of the 16 x 32 tile,
 |acc| at its 576 * 127^2 maximum, batch invariance, fewer work items than
 resident blocks and a tree without packed weights; the per-patch int8
-classifier at an odd patch, which runs on K1 alone; and a two-image run of
-the serving gate with its launch counts.
+classifier at an odd patch, which runs on K1 alone; a two-image run of
+the serving gate with its launch counts; K2 at ESRGAN's shapes (the dense
+blocks' Cin 64 + i * growth, Cout = growth, Cin 72 and 88 off the narrow
+kernel), a narrow ESRGAN generator and patch SR on K2 against the twin; and
+the HTTP tier answering each kind of request on the card.
 
 These tests need an NVIDIA card with sm_90a and ``nvcc``; without a card
 they skip. ``tests/conftest.py`` imports JAX and hides CUDA devices, so on
@@ -618,3 +621,166 @@ def test_gate_runs_two_images_on_the_card(cuda):
               if m["mode"] == "int8_sr_noborder_shared_trunk_int8")
     assert "sr_psnr_vs_f32_db" in nb and "image_faithful" in nb
     assert len(rep["raw_votes"]["reference"]["cls"]) == 2
+
+
+# ESRGAN's 3x3 convs on K2: the dense blocks' concatenated inputs (Cin 64 +
+# i * growth, Cout = growth, then back to 64; Cin 72 and 88 are off the
+# 16-channel narrow kernel and take the GEMM), the upsample conv (64 -> 256)
+# and the final convs at 2x
+ESRGAN_K2_SHAPES = [(1, 128, 128, 64, 8), (1, 128, 128, 72, 8),
+                    (1, 128, 128, 80, 8), (1, 128, 128, 88, 8),
+                    (1, 128, 128, 96, 64), (1, 128, 128, 64, 256),
+                    (1, 128, 128, 192, 64), (1, 128, 128, 160, 32),
+                    (25, 48, 48, 72, 8), (1, 256, 256, 64, 3)]
+
+
+@pytest.mark.parametrize("shape", ESRGAN_K2_SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2_at_the_esrgan_shapes_matches_twin(cuda, shape, relu):
+    """Within chip_smoke.k2_forward_bound of the twin, per output."""
+    from chip_smoke import k2_forward_bound
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + relu)
+    x = torch.randn((n, h, w, cin), generator=g, device=cuda)
+    kern = torch.randn((3, 3, cin, cout), generator=g, device=cuda) \
+        / math.sqrt(9 * cin)
+    b = torch.randn(cout, generator=g, device=cuda) * 0.1
+    before = k.LAUNCHES["conv3x3_bias_act"]
+    y = k.conv3x3_bias_act(x, kern, b, relu)
+    assert k.LAUNCHES["conv3x3_bias_act"] == before + 1
+    fp32_math()
+    yp = k.conv3x3_bias_act_plain(x, kern, b, relu)
+    torch.cuda.synchronize()
+    d = (y.double() - yp.double()).abs()
+    assert bool((d <= k2_forward_bound(x, kern, b)).all()), float(d.max())
+
+
+def _narrow_esrgan(cuda, scale):
+    from tpusr_torch.models.esrgan import ESRGANGenerator
+    gen = ESRGANGenerator(scale_factor=scale, growth_channels=8,
+                          num_rrdb_blocks=2, base_filters=32, device=cuda,
+                          generator=torch.Generator().manual_seed(scale))
+    with torch.no_grad():     # non-zero biases, so their paths are held too
+        for name, p in gen.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.05, generator=torch.Generator(
+                    device=cuda).manual_seed(len(name)))
+    return gen
+
+
+@pytest.mark.parametrize("scale", [2, 4])
+def test_narrow_esrgan_generator_on_k2_matches_the_twin(cuda, scale):
+    """Every 3x3 conv of the generator on K2 (1 + 15 * 2 + 1 + log2(s) + 2
+    launches), within 1/2 x launches x K2_ATOL of the same forward on the
+    twin after the [0, 1] map, as chip_smoke holds the full-width paths;
+    no plain twin on the card."""
+    from chip_smoke import (K2_ATOL, count_plain_calls, esrgan_launches,
+                            models_on_k2_twin)
+    gen = _narrow_esrgan(cuda, scale)
+    x = torch.rand((2, 24, 24, 3), generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda) * 2 - 1
+    before = k.LAUNCHES["conv3x3_bias_act"]
+    with count_plain_calls() as plain, torch.inference_mode():
+        y = gen(x)
+    launches = esrgan_launches(2, scale)
+    assert k.LAUNCHES["conv3x3_bias_act"] - before == launches
+    assert plain.n == 0, plain.by_twin
+    with models_on_k2_twin(), torch.inference_mode():
+        yp = gen(x)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (2, 24 * scale, 24 * scale, 3)
+    err = float((y - yp).abs().max()) / 2
+    assert err <= 0.5 * launches * K2_ATOL, err
+
+
+def test_super_resolve_image_on_k2_matches_the_twin(cuda):
+    """Patch SR with a narrow EDSR x4 (1 block, 16 filters): 7 K2 launches
+    on the 9 patches of a 40^2 LR image at patch 16, stride 12, within
+    chip_smoke.SR_ATOL of the same call on the twin; the reference's
+    metrics fields, from the card's allocator."""
+    from chip_smoke import SR_ATOL, count_plain_calls, models_on_k2_twin
+    from tpusr_torch.models import EDSR
+    from tpusr_torch.pipeline.inference import super_resolve_image
+    edsr = EDSR(4, num_res_blocks=1, num_filters=16, device=cuda,
+                generator=torch.Generator().manual_seed(4))
+    lr = np.random.default_rng(4).random((40, 40, 3), dtype=np.float32)
+    before = k.LAUNCHES["conv3x3_bias_act"]
+    with count_plain_calls() as plain:
+        sr, metrics = super_resolve_image(edsr, lr, patch_size_lr=16,
+                                          stride=12, scale=4)
+    assert k.LAUNCHES["conv3x3_bias_act"] - before == 7 and plain.n == 0
+    with models_on_k2_twin():
+        ref, _ = super_resolve_image(edsr, lr, patch_size_lr=16, stride=12,
+                                     scale=4)
+    assert sr.is_cuda and tuple(sr.shape) == (160, 160, 3)
+    assert float((sr - ref).abs().max()) <= SR_ATOL
+    assert metrics["gpu_peak_mb"] > 0 and metrics["time_sec"] > 0
+
+
+def test_http_tier_on_the_card_answers_each_kind(cuda):
+    """make_http_server over a narrow per_patch_int8 pipeline on the card:
+    /healthz, /classify, /sr (equal byte for byte to the pipeline's SR of the
+    served batch) and /classify_sr answer, a JPEG body gets 400; K2, K1 and
+    K3 launch and no plain twin runs."""
+    import json
+    import threading
+    import urllib.request
+
+    from chip_smoke import count_plain_calls
+    from tpusr_torch.models import EDSR, VGG16Classifier
+    from tpusr_torch.pipeline import PipelineServer, make_serving_pipeline
+    from tpusr_torch.pipeline.http_serving import make_http_server
+    from tpusr_torch.pipeline.png import encode_png
+
+    lr_side, patch = 32, 32
+    gen = torch.Generator().manual_seed(9)
+    edsr = EDSR(2, num_res_blocks=1, num_filters=16, device=cuda, generator=gen)
+    vgg = VGG16Classifier(num_classes=2, dense_units=16,
+                          widths=(64, 16, 16, 32, 32), device=cuda,
+                          generator=gen)
+    calib = torch.rand((8, patch, patch, 3), device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(9))
+    pipe = make_serving_pipeline(edsr, vgg, (lr_side, lr_side), 2,
+                                 patch=patch, stride=16, sr_mode="f32",
+                                 clf_mode="per_patch_int8",
+                                 calib_patches=calib, device=cuda)
+    img = np.random.default_rng(9).random((lr_side, lr_side, 3),
+                                          dtype=np.float32)
+    body = encode_png(img)
+    with PipelineServer(pipe, batch_size=2, max_wait_ms=1) as server:
+        httpd = make_http_server(server, (lr_side, lr_side), port=0)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+        def call(path, data=None):
+            req = urllib.request.Request(base + path, data=data)
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    return resp.status, resp.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+        try:
+            k.reset_launch_counts()
+            block1.reset_launch_counts()
+            with count_plain_calls() as plain:
+                assert call("/healthz")[0] == 200
+                status, data = call("/classify", body)
+                assert status == 200 and json.loads(data)["class"] in (0, 1)
+                status, sr_png = call("/sr", body)
+                assert status == 200
+                status, data = call("/classify_sr", body)
+                assert status == 200 and "sr_png_base64" in json.loads(data)
+                status, _ = call("/classify", b"\xff\xd8\xff\xe0" + bytes(32))
+                assert status == 400
+            assert plain.n == 0, plain.by_twin
+            assert k.LAUNCHES["conv3x3_bias_act"] > 0
+            assert k.LAUNCHES["conv3x3_int8_requant"] > 0
+            assert block1.LAUNCHES["block1_int8"] > 0
+            x = torch.as_tensor(np.clip(img * 255 + 0.5, 0, 255).astype(
+                np.uint8).astype(np.float32) / 255.0, device=cuda)
+            with torch.inference_mode():
+                sr = pipe.sr_apply(x[None].repeat(2, 1, 1, 1))[0]
+            assert encode_png(sr.cpu().numpy()) == sr_png
+        finally:
+            httpd.shutdown()
+            httpd.server_close()

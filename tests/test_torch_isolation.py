@@ -1,5 +1,6 @@
 """The port stands alone: tpusr_torch and chip_smoke.py import no JAX, no
-flax and nothing of the JAX package, at import time or lazily."""
+flax and nothing of the JAX package, at import time or lazily; nor OpenCV,
+PIL or matplotlib, which the card's machine does not have."""
 
 import ast
 import pathlib
@@ -10,6 +11,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tpusr"}
+IMAGE_LIBS = {"cv2", "PIL", "matplotlib"}   # absent on the card's machine
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -34,7 +36,8 @@ def test_every_port_module_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(tpusr_torch.__path__, "
         "'tpusr_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN | IMAGE_LIBS!r})\n"
         "assert not bad, bad\n"
         "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -47,7 +50,11 @@ def test_every_port_module_imports_without_jax():
             "tpusr_torch.metrics.image", "tpusr_torch.metrics.stats",
             "tpusr_torch.core.nlm", "tpusr_torch.core.resize",
             "tpusr_torch.models.block1", "tpusr_torch.models.edsr_quant",
-            "tpusr_torch.entry"} <= mods
+            "tpusr_torch.entry", "tpusr_torch.config",
+            "tpusr_torch.models.esrgan", "tpusr_torch.models.api",
+            "tpusr_torch.pipeline.inference", "tpusr_torch.pipeline.png",
+            "tpusr_torch.pipeline.http_serving",
+            "tpusr_torch.cli.__main__"} <= mods
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -56,3 +63,11 @@ def test_every_port_module_imports_without_jax():
 def test_source_names_no_jax_import(path):
     roots = _imported_roots(REPO / path)
     assert not roots & FORBIDDEN, (path, sorted(roots & FORBIDDEN))
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*(REPO / "tpusr_torch").rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_source_names_no_image_library(path):
+    roots = _imported_roots(REPO / path)
+    assert not roots & IMAGE_LIBS, (path, sorted(roots & IMAGE_LIBS))

@@ -3,8 +3,10 @@
 The one place that converts layouts. A flax tree is a nested dict of arrays
 (anything ``np.asarray`` takes); flax keeps NHWC activations, HWIO conv
 kernels and Dense kernels as (in, out). The port keeps HWIO where its own
-kernels take it (EDSR's K2 convs, the int8 tree's K1 weights) and PyTorch's
-layouts in PyTorch's own layers (OIHW ``nn.Conv2d``, (out, in) ``nn.Linear``).
+kernels take it (EDSR's and ESRGAN's K2 convs, the int8 tree's K1 weights, the
+SN convs), flax's (in, out) in its matrix products (SN Dense, the attention's
+1x1 convs as (Cin, Cout) matrices) and PyTorch's layouts in PyTorch's own
+layers (OIHW ``nn.Conv2d``, (out, in) ``nn.Linear``).
 """
 
 from __future__ import annotations
@@ -150,3 +152,45 @@ def edsr_qtree_from_flax(q: dict, device=None) -> dict:
         layers[name] = {k: v.to(dev) for k, v in layer.items()}
     return {"layers": layers, "pad": int(q["pad"]), "n_res": int(q["n_res"]),
             "act_scales": {k: float(v) for k, v in q["act_scales"].items()}}
+
+
+def _with_1x1_as_matrix(name: str, t: torch.Tensor) -> torch.Tensor:
+    """flax's 1x1 conv kernels (1, 1, Cin, Cout) -> the port's ``Conv1x1``
+    (Cin, Cout); any other leaf as it is."""
+    if name.endswith(".kernel") and t.dim() == 4 and t.shape[:2] == (1, 1):
+        return t[0, 0]
+    return t
+
+
+def esrgan_generator_from_flax(params: dict, device=None,
+                               attention_block_size: int | None = None):
+    """``tpusr.models.ESRGANGenerator`` params -> ``tpusr_torch.models.
+    esrgan.ESRGANGenerator``; the configuration is read off the tree."""
+    from tpusr_torch.models.esrgan import ESRGANGenerator
+
+    n_up = sum(1 for k in params if k.startswith("upsample_"))
+    model = ESRGANGenerator(
+        scale_factor=2 ** n_up,
+        growth_channels=np.shape(params["rrdb_0"]["dense1"]["conv1"]["kernel"])[-1],
+        num_rrdb_blocks=sum(1 for k in params if k.startswith("rrdb_")),
+        channels=np.shape(params["final_conv2"]["kernel"])[-1],
+        base_filters=np.shape(params["initial_conv"]["kernel"])[-1],
+        attention_block_size=attention_block_size, device="cpu")
+    sd = {k: _with_1x1_as_matrix(k, _tensor(v))
+          for k, v in _flatten(params).items()}
+    model.load_state_dict(sd, strict=True)
+    return model.to(resolve_device(device))
+
+
+def esrgan_discriminator_from_flax(params: dict, spectral: dict, device=None):
+    """``tpusr.models.ESRGANDiscriminator`` params and its ``spectral``
+    collection (each SN layer's ``u``) -> ``tpusr_torch.models.esrgan.
+    ESRGANDiscriminator``."""
+    from tpusr_torch.models.esrgan import ESRGANDiscriminator
+
+    model = ESRGANDiscriminator(
+        channels=np.shape(params["conv1"]["kernel"])[2], device="cpu")
+    sd = {k: _tensor(v) for k, v in _flatten(params).items()}
+    sd.update({k: _tensor(v) for k, v in _flatten(spectral).items()})
+    model.load_state_dict(sd, strict=True)
+    return model.to(resolve_device(device))

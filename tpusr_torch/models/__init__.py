@@ -1,7 +1,9 @@
-"""EDSR, SRCNN, the VGG16 classifier and its int8 paths."""
+"""EDSR, SRCNN, ESRGAN, the VGG16 classifier and its int8 paths."""
 
 from tpusr_torch.models.edsr import EDSR
+from tpusr_torch.models.esrgan import ESRGANDiscriminator, ESRGANGenerator
 from tpusr_torch.models.srcnn import SRCNN
 from tpusr_torch.models.vgg import VGG16Classifier
 
-__all__ = ["EDSR", "SRCNN", "VGG16Classifier"]
+__all__ = ["EDSR", "ESRGANDiscriminator", "ESRGANGenerator", "SRCNN",
+           "VGG16Classifier"]

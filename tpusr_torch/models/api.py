@@ -1,0 +1,389 @@
+"""Reference-shaped lifecycle facades (port of ``tpusr/models/api.py``:
+``SRCNNModel``, ``EDSR``, ``FineTunedVGG16``, ``_saved_arch`` and
+``augment_classification_set``).
+
+The reference exposes one class per model with a uniform contract,
+``setup_model`` -> ``fit`` -> ``evaluate`` -> ``super_resolve_image`` /
+``classify_defects_method`` -> ``save`` (``SRCNN_model.py``,
+``EDSR_model.py``, ``VGG16_model.py``). These facades present that surface
+over the port's trainers (``tpusr_torch.train``), inference
+(``pipeline/inference.py``) and patch-vote classifier, with the JAX
+facades' names, arguments and defaults, plus ``device`` (CUDA unless the
+caller passes ``device="cpu"``).
+
+Each facade keeps a module as a template and a trainer state whose
+parameters (by the module's parameter names) it trains, restores and saves;
+``torch.func.functional_call`` runs the template on them. Checkpoints are the
+port's own (``train/checkpoint.py``), with the JAX facades' ``arch``
+metadata, so ``from_pretrained`` rebuilds the saved architecture whatever
+the setup arguments. Not ported yet: Keras ``.h5`` import and export and
+Orbax checkpoint directories (ROADMAP queue 1, item 7), ``imagenet_weights_path``
+(its weights need a download), and the ``ESRGAN`` facade, whose state is the
+GAN trainer's (item 7, with ``train/gan.py``).
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from tpusr_torch.config import RANDOM_SEED
+from tpusr_torch.device import resolve_device
+from tpusr_torch.models.edsr import EDSR as EDSRModule
+from tpusr_torch.models.srcnn import SRCNN
+from tpusr_torch.models.vgg import VGG16_CFG, VGG16Classifier
+from tpusr_torch.pipeline.defect_pipeline import classify_defects
+from tpusr_torch.pipeline.inference import (srcnn_super_resolve,
+                                            super_resolve_image)
+from tpusr_torch.train.checkpoint import (load_metadata, restore_checkpoint,
+                                          save_checkpoint)
+from tpusr_torch.train.trainer import ClassifierTrainer, SupervisedSRTrainer
+
+_ITEM_7 = "ROADMAP queue 1, item 7: the rest of training"
+
+
+def _is_h5(path):
+    return isinstance(path, str) and path.endswith((".h5", ".hdf5"))
+
+
+def _saved_arch(pretrained_path):
+    """Architecture config stored in a facade checkpoint's sidecar, if any."""
+    if pretrained_path is None or _is_h5(pretrained_path):
+        return None
+    meta = load_metadata(os.path.dirname(pretrained_path) or ".",
+                         os.path.basename(pretrained_path))
+    return (meta or {}).get("arch")
+
+
+def _restore(state, pretrained_path):
+    """``state`` restored from the port's checkpoint at ``pretrained_path``."""
+    if pretrained_path is None or not os.path.exists(pretrained_path):
+        raise FileNotFoundError(
+            f"Pretrained model file not found at {pretrained_path}")
+    if _is_h5(pretrained_path):
+        raise NotImplementedError(
+            f"{pretrained_path}: Keras .h5 import is not ported yet ({_ITEM_7})")
+    if os.path.isdir(pretrained_path):
+        raise NotImplementedError(
+            f"{pretrained_path}: a directory is an Orbax checkpoint of the JAX "
+            f"package, which the port does not read yet ({_ITEM_7}); the "
+            f"port's checkpoints are files")
+    return restore_checkpoint(os.path.dirname(pretrained_path) or ".",
+                              os.path.basename(pretrained_path), state)
+
+
+def _no_h5_export():
+    return NotImplementedError(f"Keras .h5 export is not ported yet ({_ITEM_7})")
+
+
+def _seeded() -> torch.Generator:
+    """The facades' initialiser stream (JAX: ``PRNGKey(RANDOM_SEED)``)."""
+    return torch.Generator().manual_seed(RANDOM_SEED)
+
+
+def module_with_params(module: torch.nn.Module, params: dict
+                       ) -> torch.nn.Module:
+    """A copy of ``module`` holding ``params`` (a trainer state's, by
+    parameter name), without gradients: what the serving factory takes
+    where the JAX package passes ``state.params``."""
+    out = copy.deepcopy(module).requires_grad_(False)
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            p.copy_(params[name])
+    return out
+
+
+class _Facade:
+    """What the three facades share: the template, the state, the device."""
+
+    def __init__(self, mesh=None, device=None):
+        self.module = None
+        self.trainer = None
+        self.state = None
+        self.mesh = mesh
+        self.device = resolve_device(device)
+
+    def _apply(self, x):
+        """The template on the state's parameters."""
+        return functional_call(self.module, self.state.params, (x,))
+
+    def network(self) -> torch.nn.Module:
+        """The module with the state's current weights
+        (``module_with_params``)."""
+        if self.module is None:
+            raise ValueError("Model is not built yet.")
+        return module_with_params(self.module, self.state.params)
+
+
+class SRCNNModel(_Facade):
+    """SRCNN lifecycle parity with ``SRCNN_model.py:18-260``."""
+
+    def __init__(self, mesh=None, device=None):
+        super().__init__(mesh, device)
+        self.module = SRCNN(device=self.device, generator=_seeded())
+        self._trained = False
+
+    def setup_model(self, input_shape=(24, 24, 3), learning_rate=1e-4,
+                    from_pretrained=False, pretrained_path=None,
+                    compute_dtype="float32"):
+        self.trainer = SupervisedSRTrainer(self.module,
+                                           learning_rate=learning_rate,
+                                           mesh=self.mesh,
+                                           compute_dtype=compute_dtype,
+                                           device=self.device)
+        self.state = self.trainer.init_state()
+        if from_pretrained:
+            self.state = _restore(self.state, pretrained_path)
+            self._trained = True
+
+    def fit(self, X_train, Y_train, X_val, Y_val, batch_size=16, epochs=50):
+        if self.trainer is None:
+            raise ValueError("Model has not been set up.")
+        res = self.trainer.fit(X_train, Y_train, X_val, Y_val,
+                               batch_size=batch_size, epochs=epochs,
+                               es_patience=3, plateau_patience=2,
+                               state=self.state)
+        self.state = res.state
+        self._trained = True
+        return res.history, res.time_tracker, res.memory_tracker
+
+    def evaluate(self, X_test, Y_test):
+        if not self._trained:
+            raise RuntimeError("Model has not been trained.")
+        ev = self.trainer.evaluate(self.state, X_test, Y_test)
+        print(f"Loss: {ev['loss']:.4f}, PSNR: {ev['psnr']:.2f} dB, "
+              f"SSIM: {ev['ssim']:.4f}")
+        return [ev["loss"], ev["psnr"], ev["ssim"]]
+
+    def super_resolve_image(self, lr_img, hr_h, hr_w, patch_size=33, stride=14,
+                            interpolation="bicubic"):
+        if not self._trained:
+            raise RuntimeError("Model has not been trained.")
+        return srcnn_super_resolve(self._apply, lr_img, hr_h, hr_w,
+                                   patch_size=patch_size, stride=stride,
+                                   interpolation=interpolation,
+                                   device=self.device)
+
+    def save(self, directory, timestamp):
+        if not self._trained:
+            raise RuntimeError("Cannot save an untrained model.")
+        if not directory:
+            raise ValueError("Directory path must be provided.")
+        path = save_checkpoint(directory, f"SRCNN_{timestamp}", self.state)
+        print(f"Model saved to {path}")
+        return path
+
+    def save_h5(self, directory, timestamp):
+        raise _no_h5_export()
+
+
+class EDSR(_Facade):
+    """EDSR lifecycle parity with ``EDSR_model.py:23-330``."""
+
+    def __init__(self, mesh=None, device=None):
+        super().__init__(mesh, device)
+        self.scale_factor = None
+        self.trained = False
+
+    def setup_model(self, scale_factor=2, channels=3, num_res_blocks=16,
+                    num_filters=64, res_scaling=0.1, learning_rate=1e-4,
+                    loss="mean_squared_error", from_pretrained=False,
+                    pretrained_path=None, compute_dtype="float32"):
+        if from_pretrained:
+            arch = _saved_arch(pretrained_path)
+            if arch:  # the checkpoint knows its own architecture
+                scale_factor = arch.get("scale_factor", scale_factor)
+                channels = arch.get("channels", channels)
+                num_res_blocks = arch.get("num_res_blocks", num_res_blocks)
+                num_filters = arch.get("num_filters", num_filters)
+                res_scaling = arch.get("res_scaling", res_scaling)
+        self.scale_factor = scale_factor
+        self._arch = {"scale_factor": scale_factor, "channels": channels,
+                      "num_res_blocks": num_res_blocks,
+                      "num_filters": num_filters, "res_scaling": res_scaling}
+        self.module = EDSRModule(scale_factor=scale_factor, channels=channels,
+                                 num_res_blocks=num_res_blocks,
+                                 num_filters=num_filters,
+                                 res_scaling=res_scaling, device=self.device,
+                                 generator=_seeded())
+        # the reference compiles MSE regardless of the loss arg (EDSR_model.py:137)
+        self.trainer = SupervisedSRTrainer(self.module,
+                                           learning_rate=learning_rate,
+                                           clipnorm=1.0, mesh=self.mesh,
+                                           loss="mse",
+                                           compute_dtype=compute_dtype,
+                                           device=self.device)
+        self.state = self.trainer.init_state()
+        if from_pretrained:
+            self.state = _restore(self.state, pretrained_path)
+            self.trained = True
+
+    def fit(self, X_train, Y_train, X_val, Y_val, batch_size=16, epochs=300):
+        if self.module is None:
+            raise ValueError("Model is not built yet.")
+        res = self.trainer.fit(X_train, Y_train, X_val, Y_val,
+                               batch_size=batch_size, epochs=epochs,
+                               es_patience=5, plateau_patience=3,
+                               state=self.state)
+        self.state = res.state
+        self.trained = True
+        return res.history, res.time_tracker, res.memory_tracker
+
+    def evaluate(self, X_test, Y_test):
+        if not self.trained:
+            raise RuntimeError("Model has not been trained.")
+        ev = self.trainer.evaluate(self.state, X_test, Y_test)
+        print(f"Loss: {ev['loss']:.4f}, PSNR: {ev['psnr']:.2f} dB, "
+              f"SSIM: {ev['ssim']:.4f}")
+        return [ev["loss"], ev["psnr"], ev["ssim"]]
+
+    def super_resolve_image(self, lr_img, patch_size_lr=48, stride=24):
+        if not self.trained:
+            raise RuntimeError("Model has not been trained.")
+        if self.scale_factor is None:
+            raise ValueError("scale_factor is not set. Call setup_model first.")
+        return super_resolve_image(self._apply, lr_img,
+                                   patch_size_lr=patch_size_lr, stride=stride,
+                                   scale=self.scale_factor, device=self.device)
+
+    def save(self, directory, timestamp):
+        if not self.trained:
+            raise RuntimeError("Cannot save an untrained model.")
+        if not directory:
+            raise ValueError("Directory path must be provided.")
+        path = save_checkpoint(directory,
+                               f"EDSR_x{self.scale_factor}_{timestamp}",
+                               self.state, metadata={"arch": self._arch})
+        print(f"Model saved to {path}")
+        return path
+
+    def save_h5(self, directory, timestamp):
+        raise _no_h5_export()
+
+
+class FineTunedVGG16(_Facade):
+    """VGG16 defect-classifier lifecycle parity with ``VGG16_model.py:16-281``."""
+
+    def __init__(self, mesh=None, device=None):
+        super().__init__(mesh, device)
+        self.input_shape = None
+        self.trained = False
+
+    def setup_model(self, input_shape=(128, 128, 3), num_classes=2,
+                    train_last_n_layers=4, base_trainable=False,
+                    dropout_rate=0.2, l2_reg=0.0, learning_rate=1e-3,
+                    loss="sparse_categorical_crossentropy",
+                    from_pretrained=False, pretrained_path=None,
+                    imagenet_weights_path=None, compute_dtype="float32"):
+        if from_pretrained:
+            arch = _saved_arch(pretrained_path)
+            if arch:
+                input_shape = tuple(arch.get("input_shape", input_shape))
+                num_classes = arch.get("num_classes", num_classes)
+                dropout_rate = arch.get("dropout_rate", dropout_rate)
+        assert input_shape[-1] == 3, "Input must have 3 channels (RGB)."
+        if loss != "sparse_categorical_crossentropy":
+            raise ValueError(
+                f"Unsupported loss {loss!r}: only "
+                "'sparse_categorical_crossentropy' is implemented "
+                "(the reference compiles exactly this, VGG16_model.py:102)")
+        if imagenet_weights_path:
+            raise NotImplementedError(
+                "imagenet_weights_path: the converted Keras ImageNet weights "
+                "need a download, so their loader is not ported")
+        self.input_shape = tuple(input_shape)
+        self._arch = {"input_shape": list(self.input_shape),
+                      "num_classes": num_classes, "dropout_rate": dropout_rate}
+        self.module = VGG16Classifier(num_classes=num_classes,
+                                      dropout_rate=dropout_rate,
+                                      device=self.device, generator=_seeded())
+        pred = None
+        if not base_trainable:
+            pred = lambda path: path[0] != "vgg16"  # noqa: E731
+        elif train_last_n_layers > 0:
+            # unfreeze the last N backbone conv layers (VGG16_model.py:79-82)
+            names = [f"block{b}_conv{c}" for b, n, _f in VGG16_CFG
+                     for c in range(1, n + 1)]
+            trainable = set(names[-train_last_n_layers:])
+            pred = lambda path: (path[0] != "vgg16"  # noqa: E731
+                                 or path[1] in trainable)
+        self.trainer = ClassifierTrainer(self.module,
+                                         learning_rate=learning_rate,
+                                         mesh=self.mesh,
+                                         trainable_predicate=pred,
+                                         l2_reg=l2_reg,
+                                         compute_dtype=compute_dtype,
+                                         device=self.device)
+        self.state = self.trainer.init_state()
+        if from_pretrained:
+            self.state = _restore(self.state, pretrained_path)
+            self.trained = True
+
+    def fit(self, X_train, y_train, X_val, y_val, batch_size=32, epochs=50,
+            use_augmentation=True):
+        if self.module is None:
+            raise ValueError("Model is not built yet.")
+        # augmentation happens per batch inside the train step (Keras
+        # ImageDataGenerator parity, tpusr_torch.data.augment)
+        res = self.trainer.fit(X_train, y_train, X_val, y_val,
+                               batch_size=batch_size, epochs=epochs,
+                               augment=use_augmentation, state=self.state)
+        self.state = res.state
+        self.trained = True
+        return res.history
+
+    def evaluate(self, X_test, y_test):
+        if not self.trained:
+            raise RuntimeError("Model has not been trained.")
+        ev = self.trainer.evaluate(self.state, X_test, y_test)
+        print(f"Loss: {ev['loss']:.4f}, Accuracy: {ev['accuracy']:.4f}")
+        return [ev["loss"], ev["accuracy"]]
+
+    def classify_defects_method(self, image, patch_size=None, stride=None,
+                                batch_size=32):
+        if self.module is None:
+            raise ValueError("Model is not built yet.")
+        if not self.trained:  # same guard as evaluate(): random-init weights
+            raise RuntimeError("Model has not been trained.")
+        if image is None:
+            raise ValueError("image must be provided")
+        img = np.asarray(image)
+        if img.ndim != 3 or img.shape[2] != 3:
+            raise ValueError("image must be HxWx3 RGB array")
+        if patch_size is None:
+            patch_size = int(self.input_shape[0])
+        return classify_defects(self._apply, img, patch=patch_size,
+                                stride=stride, device=self.device)
+
+    def save(self, directory, timestamp):
+        if not self.trained:
+            raise RuntimeError("Cannot save an untrained model.")
+        path = save_checkpoint(directory, f"VGG16_{timestamp}", self.state,
+                               metadata={"arch": self._arch})
+        print(f"Model saved to {path}")
+        return path
+
+    def save_h5(self, directory, timestamp):
+        raise _no_h5_export()
+
+
+def augment_classification_set(x, y, seed=RANDOM_SEED, device=None):
+    """One-shot dataset doubling via the Keras-parity warp ops, drawn from a
+    generator seeded by ``seed`` on ``device``.
+
+    Training-time parity lives in the train step (``ClassifierTrainer`` with
+    ``augment=True`` warps every batch on the fly, like
+    ``ImageDataGenerator.flow`` in VGG16_model.py:129-140); this helper
+    remains for offline dataset expansion only.
+    """
+    from tpusr_torch.data.augment import random_augment_batch
+
+    dev = resolve_device(device)
+    xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    out = random_augment_batch(torch.Generator(device=dev).manual_seed(seed), xt)
+    return (np.concatenate([xt.cpu().numpy(), out.cpu().numpy()]),
+            np.concatenate([y, y]))

@@ -33,13 +33,16 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 
 class Conv3x3(nn.Module):
-    """3x3 SAME conv with an HWIO ``kernel`` and a ``bias``, run by K2."""
+    """3x3 SAME conv with an HWIO ``kernel`` and a ``bias``, run by K2.
+    ``init_scale`` 2.0 is flax's he_normal (EDSR), 1.0 its lecun_normal (the
+    ``nn.Conv`` default)."""
 
-    def __init__(self, cin: int, cout: int, generator: torch.Generator):
+    def __init__(self, cin: int, cout: int, generator: torch.Generator,
+                 init_scale: float = 2.0):
         super().__init__()
-        # flax he_normal: variance 2 / fan_in, truncated normal
+        # truncated normal, variance init_scale / fan_in
         self.kernel = nn.Parameter(
-            variance_scaling((3, 3, cin, cout), 9 * cin, 2.0, generator),
+            variance_scaling((3, 3, cin, cout), 9 * cin, init_scale, generator),
             requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
 

@@ -23,3 +23,12 @@ def variance_scaling(shape, fan_in: int, scale: float,
     torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                 generator=generator)
     return t
+
+
+def glorot_uniform(shape, fan_in: int, fan_out: int,
+                   generator: torch.Generator) -> torch.Tensor:
+    """flax ``glorot_uniform``: uniform on [-l, l], l = sqrt(6 / (fan_in +
+    fan_out)), drawn on the CPU."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    t = torch.empty(shape, dtype=torch.float32)
+    return t.uniform_(-limit, limit, generator=generator)
