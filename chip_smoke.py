@@ -102,7 +102,26 @@ its own lines:
    restored and evaluated, and no plain twin called on the card; the median
    step ms, peak memory, a ``torch.profiler`` breakdown of each step and K2's ms
    at the training shapes beside ``F.conv2d`` and ``conv2d_input``;
-15. the serving gate (``GateSlice``): ``tools/serving_gate.run_gate`` on one
+15. the adversarial ESRGAN trainer (``GanSlice``: ``ESRGANConfig``'s growth
+   8, 4 RRDB, x2, batch 16 of LR 24^2 -> HR 48^2, the full VGG19 to
+   ``block5_conv4``): the G step on K2 against the twin at each of its 65
+   convs on the input and output gradient recorded in the step
+   (``k2_backward_case``: dX within ``k2_f32_bound``, dW and db within 1e-5
+   of their max), the whole G gradient against the twin's and a float64
+   witness's (reported per leaf), and 3 steps on K2 against 3 on the twin
+   (losses rtol 1e-4); then 20
+   steps (129 K2 launches each: 65 forward + 64 dX; step median by the host
+   clock, CUDA-event ms, device busy and idle share, peak memory; a
+   ``profiling.trace`` of one step and ``time_compiled`` val steps), the
+   ``ESRGAN`` facade's 2-epoch fit, evaluate, save and ``from_trained`` (the
+   restored generator's SR byte-equal), a 2-epoch trainer fit with a
+   checkpoint each epoch, restored, and no plain twin on the card; 3 steps
+   with ``remat`` (194 launches, the same bits, a lower peak); 3 bf16 steps
+   (129 K2-bf16 launches, every dX within ``k2_bf16_tolerance`` of its
+   twin); 3 steps at the facade's default growth 32, 23 RRDB; K2's and
+   K2-bf16's ms at the training shapes beside ``F.conv2d`` +
+   ``conv2d_input``;
+16. the serving gate (``GateSlice``): ``tools/serving_gate.run_gate`` on one
    seed of the hard task at the full protocol (64 training and 128 eval
    images of 512^2, VGG16 500 steps at batch 64, EDSR x4 600 steps at batch
    16, all nine modes and every derived cascade row), with the launches the
@@ -116,7 +135,7 @@ its own lines:
    the guard on and off), and ``run_defect_detection_comparison`` runs
    bicubic and EDSR f32, bf16 and int8 on 32 eval images with the per-patch
    int8 classifier;
-16. the HTTP serving tier on the gate's trained weights: the trained EDSR
+17. the HTTP serving tier on the gate's trained weights: the trained EDSR
    and VGG16 saved by the facades (``models/api.py``), 16 calibration LR
    images drawn as the gate draws its eval set (another seed) written as
    PNG by the port's codec, ``python -m tpusr_torch.cli serve`` in its
@@ -130,14 +149,18 @@ its own lines:
    400 for a non-image and a JPEG body, 404 for another path; the
    command's exit after its last request.
 
-Each path (8-16) is driven with the launch counts set to 0 just before it
-and read just after. Before the last line it prints one JSON object with a
+Phase 8 also prints which stage of the fused f32 SR first differs between
+an image alone (N = 1) and the same image in the batch of 16, each stage
+run on shared inputs (``sr_stage_diffs``). Each path (8-17) is driven with
+the launch counts set to 0 just before it and read just after. Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
 dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
 and as a bare launch; ``launches`` counts the kernel's path; K2's record
 carries a ``train`` object, one EDSR x4 train step's forward and dX
-launches with ``launches`` over the training path; every record's
+launches with ``launches`` over the training path, and a ``gan`` object,
+one GAN step's at g8x4 with ``launches`` over the GAN path (and the g32x23
+step's times); K2-bf16's record a ``train`` object, one bf16 GAN step's; every record's
 ``gate_launches`` counts the serving gate's run, ``launches_by_path``
 every path's launches by name; K2's record carries an ``inference`` object,
 its ms, bound and ``F.conv2d`` ms summed over each SR path's launches) and
@@ -977,6 +1000,40 @@ class on_plain_twins:
          self._quant.block1_int8) = self._orig
 
 
+SR_STAGES = ("head", "body", "tail", "borders", "sr")
+SR_STAGE_CODE = {"head": "K2", "body": "K2 and the residual adds",
+                 "tail": "F.conv2d, the composed 7x7 conv (cuDNN)",
+                 "borders": "K2 on the slabs", "sr": "the whole forward"}
+
+
+def sr_stage_diffs(edsr, x: torch.Tensor, images: int = 4) -> dict:
+    """max |N = 1 - in the batch of len(x)| of each stage of the fused f32
+    SR (``edsr_fast.fused_sr_stages``) over the first ``images`` images,
+    each stage run alone on the batch run's input of that stage, and the
+    whole forward ("sr") on the image alone."""
+    from tpusr_torch.models.edsr_fast import fused_sr_stages
+    st = fused_sr_stages(edsr)
+    worst = dict.fromkeys(SR_STAGES, 0.0)
+    with torch.inference_mode():
+        h = st["head"](x)
+        y = st["body"](x)
+        z = st["tail"](y)
+        bz = st["borders"](y, z.clone())
+        full = st["clip"](bz.clone())
+        for i in range(images):
+            one = slice(i, i + 1)
+            y1 = st["body"](x[one])
+            pairs = {"head": (st["head"](x[one]), h[one]),
+                     "body": (y1, y[one]),
+                     "tail": (st["tail"](y[one]), z[one]),
+                     "borders": (st["borders"](y[one], z[one].clone()), bz[one]),
+                     "sr": (st["clip"](st["borders"](y1, st["tail"](y1))),
+                            full[one])}
+            for k, (a, b) in pairs.items():
+                worst[k] = max(worst[k], float((a - b).abs().max()))
+    return worst
+
+
 def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
     from tpusr_torch.core.patches import patchify
     from tpusr_torch.models import EDSR, VGG16Classifier
@@ -1040,6 +1097,17 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
           f"log-odds trunk [{lt.min():+.4f}, {lt.max():+.4f}], per-patch "
           f"[{lp.min():+.4f}, {lp.max():+.4f}]; class-1 bias shifted by "
           f"{delta:+.4f}; set-up {time.perf_counter() - t0:.1f} s")
+
+    # which stage of the fused f32 SR depends on the batch size
+    diffs = sr_stage_diffs(edsr, torch.as_tensor(requests[:cfg.batch],
+                                                 device=dev))
+    first = next((k for k in SR_STAGES if diffs[k] > 0), None)
+    print(f"[slice] fused f32 SR, 4 images alone (N = 1) against the same "
+          f"images in a batch of {cfg.batch}, each stage on shared inputs: "
+          + ", ".join(f"{k} max|d| {v:.3g}" for k, v in diffs.items())
+          + (f"; first stage that differs: {first} "
+             f"({SR_STAGE_CODE[first]})" if first else
+             "; no stage differs"))
 
     # ---- the main path: 20 requests through the server at batch 16 ----
     votes = pipe.cascade_votes
@@ -1974,59 +2042,72 @@ class train_on_plain_twin:
         self._mod.conv3x3_bias_act_train = self._orig
 
 
-def check_k2_backward(t: TrainSlice, edsr, dev) -> dict:
-    """The K2 Function's gradients against autograd through the plain twin
-    at every conv of the training forward, on the model's weights, random x
-    and the same dY (masked by K2's ReLU output on both sides; the masks of
-    K2's and the twin's outputs may differ only where the twin's
-    pre-activation is within K2_ATOL of 0). dX is held to ``k2_f32_bound``,
-    dW and db to ``GRAD_RTOL`` of their largest value."""
+def k2_backward_case(name: str, x: torch.Tensor, dy: torch.Tensor,
+                     kernel: torch.Tensor, bias: torch.Tensor, relu: bool,
+                     need_dx: bool, worst: dict) -> None:
+    """One conv of a training backward: the K2 Function's gradients on
+    ``x`` and the output gradient ``dy`` against autograd through the plain
+    twin on the same inputs (``dy`` masked by K2's ReLU output on both
+    sides; the masks of K2's and the twin's outputs may differ only where
+    the twin's pre-activation is within K2_ATOL of 0). dX is held to
+    ``k2_f32_bound``, dW and db to ``GRAD_RTOL`` of their largest value;
+    ``worst`` collects the largest shares."""
     from tpusr_torch.core.conv3x3 import (conv3x3_bias_act_plain,
                                           conv3x3_bias_act_train)
+    shape = (*x.shape, kernel.shape[-1])
+    xa = x.clone().requires_grad_(need_dx)
+    ka, ba = (p.detach().clone().requires_grad_() for p in (kernel, bias))
+    y = conv3x3_bias_act_train(xa, ka, ba, relu)
+    y.backward(dy)
+    xb = x.clone().requires_grad_(need_dx)
+    kb, bb = (p.detach().clone().requires_grad_() for p in (kernel, bias))
+    pre = conv3x3_bias_act_plain(xb, kb, bb, False)
+    g_ref = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
+    pre.backward(g_ref)
+    torch.cuda.synchronize()
+    if relu:
+        flips = (y > 0) != (pre > 0)
+        n_flip = int(flips.sum())
+        check(n_flip == 0
+              or float(pre.detach()[flips].abs().max()) <= K2_ATOL,
+              f"{name}: K2's and the twin's ReLU masks differ away from 0")
+        worst["flips"] += n_flip
+    if need_dx:
+        k_t = kernel.detach().flip(0, 1).transpose(2, 3).contiguous()
+        tol = k2_f32_bound(g_ref, k_t)
+        d = (xa.grad.double() - xb.grad.double()).abs()
+        n_out = int((d > tol).sum())
+        check(n_out == 0, f"{name}: dX of the K2 Function vs the twin "
+                          f"at {shape}: {n_out} values beyond the bound "
+                          f"(max |d| {float(d.max()):.3g})")
+        worst["dx_share"] = max(worst["dx_share"], float((d / tol).max()))
+        worst["dx_err"] = max(worst["dx_err"], float(d.max()))
+    for key, ga, gb in (("dw", ka.grad, kb.grad), ("db", ba.grad, bb.grad)):
+        err = float((ga - gb).abs().max())
+        scale = float(gb.abs().max())
+        check(err <= GRAD_RTOL * scale, f"{name}: {key} of the K2 Function"
+              f" vs the twin: max|d| {err:.3g} > {GRAD_RTOL} x {scale:.3g}")
+        worst[key] = max(worst[key], err / scale if scale else 0.0)
+
+
+def new_worst() -> dict:
+    return {"dx_share": 0.0, "dw": 0.0, "db": 0.0, "flips": 0, "dx_err": 0.0}
+
+
+def check_k2_backward(t: TrainSlice, edsr, dev) -> dict:
+    """``k2_backward_case`` at every conv of the EDSR training forward, on
+    the model's weights, random x and a random dY."""
     g = torch.Generator(device=dev).manual_seed(5)
-    worst = {"dx_share": 0.0, "dw": 0.0, "db": 0.0, "flips": 0, "dx_err": 0.0}
+    worst = new_worst()
     convs = dict(edsr.named_modules())
     for name, shape, relu in edsr_train_layers(t):
         n, h, w, cin, cout = shape
         m = convs[name]
         x = torch.randn((n, h, w, cin), generator=g, device=dev)
         dy = torch.randn((n, h, w, cout), generator=g, device=dev)
-        need_dx = name != "head"
-        xa = x.clone().requires_grad_(need_dx)
-        ka, ba = (p.detach().clone().requires_grad_() for p in (m.kernel, m.bias))
-        y = conv3x3_bias_act_train(xa, ka, ba, relu)
-        y.backward(dy)
-        xb = x.clone().requires_grad_(need_dx)
-        kb, bb = (p.detach().clone().requires_grad_() for p in (m.kernel, m.bias))
-        pre = conv3x3_bias_act_plain(xb, kb, bb, False)
-        g_ref = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
-        pre.backward(g_ref)
-        torch.cuda.synchronize()
-        if relu:
-            flips = (y > 0) != (pre > 0)
-            n_flip = int(flips.sum())
-            check(n_flip == 0
-                  or float(pre.detach()[flips].abs().max()) <= K2_ATOL,
-                  f"{name}: K2's and the twin's ReLU masks differ away from 0")
-            worst["flips"] += n_flip
-        if need_dx:
-            k_t = m.kernel.detach().flip(0, 1).transpose(2, 3).contiguous()
-            tol = k2_f32_bound(g_ref, k_t)
-            d = (xa.grad.double() - xb.grad.double()).abs()
-            n_out = int((d > tol).sum())
-            check(n_out == 0, f"{name}: dX of the K2 Function vs the twin "
-                              f"at {shape}: {n_out} values beyond the bound "
-                              f"(max |d| {float(d.max()):.3g})")
-            worst["dx_share"] = max(worst["dx_share"], float((d / tol).max()))
-            worst["dx_err"] = max(worst["dx_err"], float(d.max()))
-            del tol, d
-        for key, a, b in (("dw", ka.grad, kb.grad), ("db", ba.grad, bb.grad)):
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            check(err <= GRAD_RTOL * scale, f"{name}: {key} of the K2 Function"
-                  f" vs the twin: max|d| {err:.3g} > {GRAD_RTOL} x {scale:.3g}")
-            worst[key] = max(worst[key], err / scale)
-        del x, dy, xa, xb, y, pre, g_ref
+        k2_backward_case(name, x, dy, m.kernel, m.bias, relu,
+                         name != "head", worst)
+        del x, dy
     torch.cuda.empty_cache()
     n_fwd = len(edsr_train_layers(t))
     print(f"[train] K2 Function vs autograd through the twin at the {n_fwd} "
@@ -2040,36 +2121,72 @@ def check_k2_backward(t: TrainSlice, edsr, dev) -> dict:
     return worst
 
 
-def train_k2_times(t: TrainSlice, edsr, dev, card: str) -> dict:
-    """K2's ms per EDSR train step at the training shapes: the 37 forward
-    launches and the 36 dX launches, beside the plain twin, ``F.conv2d``
-    (forward) and ``torch.nn.grad.conv2d_input`` (dX) at the same shapes,
-    and the bound (``conv_work``, fp32)."""
+class conv_io:
+    """While open, record each ``Conv3x3`` of ``model`` run by a forward
+    with autograd: its input and the gradient that reaches its output in
+    the backward (``io[name] = [x, dy]``)."""
+
+    def __init__(self, model):
+        from tpusr_torch.models.edsr import Conv3x3
+        self.io, self._mods = {}, [(n, m) for n, m in model.named_modules()
+                                   if isinstance(m, Conv3x3)]
+
+    def __enter__(self):
+        self._hooks = []
+        for name, m in self._mods:
+            def fwd(_mod, inp, out, name=name):
+                self.io[name] = [inp[0].detach().clone(), None]
+                if out.requires_grad:
+                    out.register_hook(lambda gr, name=name: self.io[name]
+                                      .__setitem__(1, gr.detach().clone()))
+            self._hooks.append(m.register_forward_hook(fwd))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._hooks:
+            h.remove()
+
+
+def train_k2_times(layers: list, convs: dict, dev, card: str,
+                   tag: str = "train-K2", what: str = "EDSR train step",
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """K2's ms per train step at the training shapes ``layers`` ((name,
+    shape, relu) in forward order; the first conv's input is the data, so
+    it has no dX launch): the forward and the dX launches in ``dtype``,
+    beside the plain twin, ``F.conv2d`` (forward) and
+    ``torch.nn.grad.conv2d_input`` (dX) in the same dtype at the same
+    shapes, and the bound (``conv_work``: fp32 operations, or bf16 by its
+    bytes where they take longer). ``convs`` maps a name to its conv
+    module (its kernel and bias)."""
     from tpusr_torch.core.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
+    bf16 = dtype == torch.bfloat16
+    elem, kind = (2, "bf16") if bf16 else (4, "fp32")
     g = torch.Generator(device=dev).manual_seed(6)
-    layers = {}
-    for name, shape, relu in edsr_train_layers(t):   # distinct (shape, relu)
-        key = (shape, relu)
-        layers.setdefault(key, [name, 0])[1] += 1
+    first = layers[0][0]
+    distinct = {}
+    for name, shape, relu in layers:   # distinct (shape, relu, first)
+        key = (shape, relu, name == first)
+        distinct.setdefault(key, [name, 0])[1] += 1
     tot = {k: 0.0 for k in ("fwd_ms", "dx_ms", "plain_ms", "library_ms",
                             "bound_ms", "t_ops", "t_bytes")}
-    convs = dict(edsr.named_modules())
-    for (shape, relu), (name, mult) in layers.items():
+    for (shape, relu, is_first), (name, mult) in distinct.items():
         n, h, w, cin, cout = shape
         m = convs[name]
-        k, b = m.kernel.detach(), m.bias.detach()
-        x = torch.randn((n, h, w, cin), generator=g, device=dev)
-        dy = torch.randn((n, h, w, cout), generator=g, device=dev)
+        k = m.kernel.detach().to(dtype)
+        b = m.bias.detach().to(dtype).float()
+        x = torch.randn((n, h, w, cin), generator=g, device=dev).to(dtype)
+        dy = torch.randn((n, h, w, cout), generator=g, device=dev).to(dtype)
         k_t = k.flip(0, 1).transpose(2, 3).contiguous()
         zero = torch.zeros(cin, device=dev)
         x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
         k_oihw = k.permute(3, 2, 0, 1).contiguous()
+        b_lib = b.to(dtype)
         fwd = time_ms(lambda: conv3x3_bias_act(x, k, b, relu))
-        lib = time_ms(lambda: F.conv2d(x_nchw, k_oihw, b, padding=1))
+        lib = time_ms(lambda: F.conv2d(x_nchw, k_oihw, b_lib, padding=1))
         plain = time_ms(lambda: conv3x3_bias_act_plain(x, k, b, relu))
-        ops, nbytes = conv_work(shape, 4, n_vecs=1)
-        bms, by = bound(ops, nbytes, "fp32")
-        line = (f"[train-K2] {name:11s} {str(shape):26s} relu={int(relu)} x{mult}"
+        ops, nbytes = conv_work(shape, elem, n_vecs=1)
+        bms, by = bound(ops, nbytes, kind)
+        line = (f"[{tag}] {name:22s} {str(shape):26s} relu={int(relu)} x{mult}"
                 f"  forward {fwd:.4f} ms ({ops / fwd / 1e9:.1f} TFLOP/s)  "
                 f"F.conv2d {lib:.4f}  twin {plain:.4f}  bound {bms:.4f} ({by})")
         tot["fwd_ms"] += mult * fwd
@@ -2077,13 +2194,13 @@ def train_k2_times(t: TrainSlice, edsr, dev, card: str) -> dict:
         tot["plain_ms"] += mult * plain
         tot["bound_ms"] += mult * bms
         tot["t_" + ("ops" if by == "operations" else by)] += mult * bms
-        if name != "head":
+        if not is_first:
             dx = time_ms(lambda: conv3x3_bias_act(dy, k_t, zero))
             dlib = time_ms(lambda: torch.nn.grad.conv2d_input(
                 x_nchw.shape, k_oihw, dy_nchw, padding=1))
             dplain = time_ms(lambda: conv3x3_bias_act_plain(dy, k_t, zero))
-            ops, nbytes = conv_work((n, h, w, cout, cin), 4, n_vecs=1)
-            dbms, dby = bound(ops, nbytes, "fp32")
+            ops, nbytes = conv_work((n, h, w, cout, cin), elem, n_vecs=1)
+            dbms, dby = bound(ops, nbytes, kind)
             line += (f";  dX {dx:.4f} ms ({ops / dx / 1e9:.1f} TFLOP/s)  "
                      f"conv2d_input {dlib:.4f}  twin {dplain:.4f}  bound "
                      f"{dbms:.4f} ({dby})")
@@ -2094,13 +2211,15 @@ def train_k2_times(t: TrainSlice, edsr, dev, card: str) -> dict:
             tot["t_" + ("ops" if dby == "operations" else dby)] += mult * dbms
         print(line)
         del x, dy
+    torch.cuda.empty_cache()
     tot["ms"] = tot["fwd_ms"] + tot["dx_ms"]
-    n_fwd = len(edsr_train_layers(t))
-    print(f"[train-K2] {card}: per EDSR train step: {n_fwd} forward launches "
+    n_fwd = len(layers)
+    print(f"[{tag}] {card}: per {what}: {n_fwd} forward launches "
           f"{tot['fwd_ms']:.3f} ms + {n_fwd - 1} dX launches "
           f"{tot['dx_ms']:.3f} ms = "
-          f"{tot['ms']:.3f} ms; F.conv2d + conv2d_input {tot['library_ms']:.3f}"
-          f" ms; twin {tot['plain_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms "
+          f"{tot['ms']:.3f} ms; F.conv2d + conv2d_input {kind} "
+          f"{tot['library_ms']:.3f} ms; twin {tot['plain_ms']:.3f} ms; bound "
+          f"{tot['bound_ms']:.3f} ms "
           f"({100 * tot['bound_ms'] / tot['ms']:.1f}%)")
     return tot
 
@@ -2364,10 +2483,521 @@ def phase_train(t: TrainSlice, dev, seed: int, sync, card: str) -> dict:
           f"{saved}; {last} restored: count {restored.opt_state['count']}, "
           f"evaluate loss {evr['loss']:.6f} PSNR {evr['psnr']:.2f}")
 
-    tot = train_k2_times(t, edsr, dev, card)
+    tot = train_k2_times(edsr_train_layers(t), dict(edsr.named_modules()),
+                         dev, card)
     tot.update(launches=sum(counted.values()), err=back["dx_err"],
                edsr_step_ms=edsr_med, vgg_step_ms=vgg_med)
     return tot
+
+
+# --------------------------------------------------------------------- GAN
+
+@dataclass(frozen=True)
+class GanSlice:
+    """The adversarial ESRGAN trainer (``train/gan.py``) at ``ESRGANConfig``
+    (growth 8, 4 RRDB, x2; the notebook's), batch 16 of LR 24^2 -> HR 48^2
+    (the ``ESRGAN`` facade's input and output shapes), the full VGG19 to
+    ``block5_conv4``, the trainer's rates; then a few steps at the facade's
+    default width (growth 32, 23 RRDB)."""
+    lr: int = 24
+    scale: int = 2
+    growth: int = 8
+    rrdb: int = 4
+    batch: int = 16
+    twin_steps: int = 3
+    steps: int = 20
+    remat_steps: int = 3
+    bf16_steps: int = 3
+    wide_growth: int = 32
+    wide_rrdb: int = 23
+    wide_steps: int = 3
+    pool: int = 128
+    fit_pairs: int = 64
+    val_pairs: int = 20
+    fit_epochs: int = 2
+
+
+def gan_train_layers(s: GanSlice, growth: int, rrdb: int,
+                     f: int = 64) -> list[tuple[str, tuple, bool]]:
+    """(conv, forward shape (N, H, W, Cin, Cout), relu) of every 3x3 conv of
+    the ESRGAN generator's forward, in order: ``esrgan_launches`` K2
+    launches; the backward launches K2 once more for each but the initial
+    conv (its input is the data)."""
+    n, h = s.batch, s.lr
+    out = [("initial_conv", (n, h, h, 3, f), False)]
+    for r in range(rrdb):
+        for d in (1, 2, 3):
+            out += [(f"rrdb_{r}.dense{d}.conv{i + 1}",
+                     (n, h, h, f + i * growth, growth), True) for i in range(4)]
+            out.append((f"rrdb_{r}.dense{d}.conv5",
+                        (n, h, h, f + 4 * growth, f), False))
+    out.append(("trunk_conv", (n, h, h, f, f), False))
+    for u in range(int(math.log2(s.scale))):
+        out.append((f"upsample_{u}_conv", (n, h, h, f, 4 * f), False))
+        h *= 2
+    return out + [("final_conv1", (n, h, h, f, f), True),
+                  ("final_conv2", (n, h, h, f, 3), False)]
+
+
+class dx_against_twin:
+    """While open, every dX launch of K2-bf16's autograd Function (a call of
+    ``conv3x3_bias_act`` inside ``Conv3x3BiasActFn.backward`` on bf16) also
+    runs the plain twin on the same input, held to ``k2_bf16_tolerance``.
+    ``n`` counts the launches held, ``err`` the largest |K2 - twin|."""
+
+    def __enter__(self):
+        from tpusr_torch.core import conv3x3
+        from tpusr_torch.core.conv3x3 import conv3x3_bias_act_plain
+        fn = conv3x3.Conv3x3BiasActFn
+        self._fn, self._bwd = fn, fn.__dict__["backward"]
+        self._mod, self._k2 = conv3x3, conv3x3.conv3x3_bias_act
+        self.n, self.err = 0, 0.0
+        in_bwd = [False]
+
+        def k2(x, k, b, relu=False):
+            y = self._k2(x, k, b, relu)
+            if in_bwd[0]:
+                check(x.dtype == torch.bfloat16, f"dX in {x.dtype}")
+                _ulps, _over, err = check_k2_bf16(
+                    x, k, y, conv3x3_bias_act_plain(x, k, b, relu))
+                self.n += 1
+                self.err = max(self.err, err)
+            return y
+
+        def backward(ctx, dy):
+            in_bwd[0] = True
+            try:
+                return self._bwd.__func__(ctx, dy)
+            finally:
+                in_bwd[0] = False
+        conv3x3.conv3x3_bias_act = k2
+        fn.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.conv3x3_bias_act = self._k2
+        self._fn.backward = self._bwd
+
+
+def g_grads_f64(trainer, state, lr: torch.Tensor, hr: torch.Tensor):
+    """A float64 witness of the G loss and its gradients: the loss terms of
+    ``ESRGANTrainer._g_terms`` (restated here) with every weight, input
+    and operation in float64 (the FFT in complex128) and the generator's
+    convs on the plain twin (``F.conv2d`` in float64)."""
+    from torch.func import functional_call
+    from tpusr_torch.models.vgg import preprocess_caffe
+    from tpusr_torch.train import gan
+    f64 = torch.float64
+    gp = {k: v.detach().to(f64).requires_grad_()
+          for k, v in state.g_params.items()}
+    dv = {k: v.detach().to(f64)
+          for k, v in {**state.d_params, **state.d_spectral}.items()}
+    vp = {k: v.detach().to(f64) for k, v in trainer.vgg_params.items()}
+    hr = hr.to(f64)
+
+    def mag(x):
+        return torch.fft.fft2(x.to(torch.complex128), dim=(-2, -1)).abs()
+
+    def feats(x):
+        return functional_call(trainer.vgg_features, vp,
+                               (preprocess_caffe((x + 1.0) * 127.5),))
+    with torch.enable_grad(), train_on_plain_twin():
+        fake = functional_call(trainer.generator, gp, (lr.to(f64),))
+        d_fake = functional_call(trainer.discriminator, dv, (fake,))
+        wa, wp, wx, ws = trainer.weights
+        total = (wa * gan._bce(torch.ones_like(d_fake), d_fake)
+                 + wp * torch.mean((feats(hr) - feats(fake)) ** 2)
+                 + wx * torch.mean(torch.abs(hr - fake))
+                 + ws * torch.mean(torch.abs(mag(hr) - mag(fake))))
+        grads = torch.autograd.grad(total, list(gp.values()))
+    return float(total), dict(zip(gp, grads))
+
+
+def gan_grad_close(got: dict, want: dict, witness: dict) -> dict:
+    """Per leaf of the G gradients: K2's (``got``) against the twin's
+    (``want``) as a share of GRAD_RTOL x the leaf's max|g|, and each one's
+    distance from the float64 witness as a share of the same scale. The
+    attention's key bias (``.f.bias``), whose gradient is 0 in exact
+    arithmetic (softmax is invariant to a shift shared by every key), is
+    scaled by its layer's kernel gradient."""
+    rows = {}
+    for name, w in witness.items():
+        scale = float(w.abs().max())
+        if name.endswith(".f.bias"):
+            scale = float(witness[name[:-4] + "kernel"].abs().max())
+        unit = GRAD_RTOL * scale
+        rows[name] = (float((got[name].double() - want[name].double())
+                            .abs().max()) / unit,
+                      float((got[name].double() - w).abs().max()) / unit,
+                      float((want[name].double() - w).abs().max()) / unit)
+    return rows
+
+
+def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
+    """The adversarial ESRGAN trainer on the card: the G step's gradients
+    and three steps on K2 against the twin (every dX launch within its
+    bound); the main path (20 steps, launches per step, step times, device
+    busy share, peak memory; the ``ESRGAN`` facade's 2-epoch fit, evaluate,
+    save and ``from_trained``, byte-equal SR; a 2-epoch trainer fit with a
+    checkpoint each epoch, restored) with no call of a plain twin; remat;
+    bf16 training on K2-bf16; the facade's default width; K2's times at
+    the training shapes. Returns K2's and K2-bf16's records."""
+    import shutil
+    import tempfile
+
+    from tpusr_torch.models import (ESRGANDiscriminator, ESRGANGenerator,
+                                    VGG19Features)
+    from tpusr_torch.models.api import ESRGAN
+    from tpusr_torch.train import ESRGANTrainer, restore_checkpoint
+    from tpusr_torch.train.profiling import (device_memory_mb,
+                                             time_compiled, trace)
+
+    def gen(k):
+        return torch.Generator().manual_seed(seed * 100 + 60 + k)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 60)
+    pool_lr, pool_hr = sr_pairs(g, s.pool, s, dev)
+    pool_lr, pool_hr = pool_lr * 2.0 - 1.0, pool_hr * 2.0 - 1.0   # [-1, 1]
+    sel = torch.randint(0, s.pool, (s.steps, s.batch), generator=g, device=dev)
+    gen8 = ESRGANGenerator(s.scale, s.growth, s.rrdb, device=dev,
+                           generator=gen(1))
+    disc = ESRGANDiscriminator(device=dev, generator=gen(2))
+    vgg = VGG19Features(device=dev, generator=gen(3))
+    trainer = ESRGANTrainer(gen8, disc, vgg, device=dev)
+    layers = gan_train_layers(s, s.growth, s.rrdb)
+    n_fwd = len(layers)
+    check(n_fwd == esrgan_launches(s.rrdb, s.scale), f"{n_fwd} convs")
+    per_step = launches_want(conv3x3_bias_act=2 * n_fwd - 1)
+
+    def batch(i):
+        return pool_lr[sel[i]], pool_hr[sel[i]]
+    sync()
+    print(f"[gan] ESRGAN generator growth {s.growth}, {s.rrdb} RRDB, x{s.scale};"
+          f" spectral-norm discriminator; VGG19 to block5_conv4; batch "
+          f"{s.batch} of LR {s.lr}^2 -> HR {s.lr * s.scale}^2; G 1e-4, D 1e-5;"
+          f" seed {seed}; set-up {time.perf_counter() - t0:.1f} s")
+
+    # ---- the G step on K2 against the twin ----
+    def g_grads(state, lr, hr):
+        with torch.enable_grad():
+            total, _ = trainer.g_loss_components(
+                state.g_params, state.d_params, state.d_spectral, lr, hr)
+            grads = torch.autograd.grad(total, list(state.g_params.values()))
+        return total.item(), dict(zip(state.g_params, grads))
+    st0 = trainer.init_state()
+    with conv_io(gen8) as rec:
+        loss_k2, grads_k2 = g_grads(st0, *batch(0))
+    # every conv of the step on its own recorded input and output gradient
+    worst = new_worst()
+    for name, shape, relu in layers:
+        x, dy = rec.io[name]
+        k2_backward_case(name, x, dy, st0.g_params[f"{name}.kernel"],
+                         st0.g_params[f"{name}.bias"], relu,
+                         name != "initial_conv", worst)
+    del rec
+    # end to end: the whole G gradient on the twin and in float64
+    with train_on_plain_twin():
+        loss_tw, grads_tw = g_grads(st0, *batch(0))
+    loss_64, grads_64 = g_grads_f64(trainer, st0, *batch(0))
+    check(abs(loss_k2 - loss_tw) <= TRAIN_LOSS_RTOL * abs(loss_tw),
+          f"G loss on K2 {loss_k2} vs the twin {loss_tw}")
+    rows = gan_grad_close(grads_k2, grads_tw, grads_64)
+    over = sorted((r for r in rows.items() if r[1][0] > 1.0),
+                  key=lambda kv: -kv[1][0])
+    del grads_k2, grads_tw, grads_64
+
+    def steps_from(tr, state, n, start=0):
+        out = []
+        for i in range(n):
+            state, m = tr.train_step(state, *batch(start + i))
+            out.append({k: float(v) for k, v in m.items()})
+        return state, out
+    _, on_k2 = steps_from(trainer, trainer.init_state(), s.twin_steps)
+    with train_on_plain_twin():
+        _, on_twin = steps_from(trainer, trainer.init_state(), s.twin_steps)
+    rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(on_k2, on_twin)
+              for k in ("g_loss", "d_loss"))
+    check(rel <= TRAIN_LOSS_RTOL, f"GAN steps on K2 vs on the twin: {rel}")
+    print(f"[gan] G step on K2 vs on the twin, at each of the {n_fwd} convs "
+          f"on its recorded x and dY: the {n_fwd - 1} dX within "
+          f"2*9*C*2^-24*sum|dY||k| (largest share {worst['dx_share']:.3f}, "
+          f"max|d| {worst['dx_err']:.3g}), dW and db within {GRAD_RTOL} of their "
+          f"max (worst {worst['dw']:.2g}, {worst['db']:.2g}), ReLU masks "
+          f"differ at {worst['flips']} near-zero outputs; G loss K2 "
+          f"{loss_k2:.7f}, twin {loss_tw:.7f}, float64 {loss_64:.7f}; "
+          f"{s.twin_steps} steps: g_loss "
+          f"{[round(m['g_loss'], 5) for m in on_k2]} vs "
+          f"{[round(m['g_loss'], 5) for m in on_twin]}, d_loss "
+          f"{[round(m['d_loss'], 6) for m in on_k2]} (max rel {rel:.2g}, rtol "
+          f"{TRAIN_LOSS_RTOL})")
+    print(f"[gan] the whole G gradient of the step, per leaf in units of "
+          f"{GRAD_RTOL} x the leaf's max|g| (float64): K2 vs the twin beyond 1 "
+          f"at {len(over)} of {len(rows)} leaves; the largest (|K2 - twin|, "
+          f"|K2 - f64|, |twin - f64|): "
+          + "; ".join(f"{n} {a:.2f}, {b:.2f}, {c:.2f}"
+                      for n, (a, b, c) in over[:4]))
+
+    # ---- the main path ----
+    counted = {}
+    work = tempfile.mkdtemp(prefix="tpusr_gan_")
+    try:
+        with count_plain_calls() as plain:
+            torch.cuda.reset_peak_memory_stats(dev)
+            state = trainer.init_state()
+            reset_counts()
+            host = []
+
+            def gan_step(i):
+                nonlocal state
+                before = read_counts()
+                h0 = time.perf_counter()
+                state, m = trainer.train_step(state, *batch(i))
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - h0) * 1e3)
+                after = read_counts()
+                check({k: after[k] - before[k] for k in after} == per_step,
+                      f"GAN step {i}: launches {after} - {before} != "
+                      f"{per_step}")
+                return m
+            ms_out, dev_ms = timed_steps(gan_step, s.steps)
+            peak = torch.cuda.max_memory_allocated(dev)
+            mem = device_memory_mb(dev)
+            g_losses = [float(m["g_loss"]) for m in ms_out]
+            d_losses = [float(m["d_loss"]) for m in ms_out]
+            check(all(math.isfinite(v) for v in g_losses + d_losses),
+                  f"GAN losses {g_losses} {d_losses}")
+            check(state.step == s.steps and state.g_opt["count"] == s.steps,
+                  f"GAN state step {state.step}")
+            before = read_counts()
+            val_ms = time_compiled(trainer.val_step, state, *batch(0),
+                                   iters=5) * 1e3
+            after = read_counts()
+            check(after["conv3x3_bias_act"] - before["conv3x3_bias_act"]
+                  == 6 * n_fwd, f"val steps launched {after} - {before}")
+            counted["steps"] = read_counts()["conv3x3_bias_act"]
+            step_med, dev_med = float(np.median(host)), float(np.median(dev_ms))
+            print_breakdown(f"ESRGAN g{s.growth}x{s.rrdb} GAN train", card,
+                            lambda: trainer.train_step(state, *batch(0)),
+                            dev_med)
+            with trace(os.path.join(work, "trace")):
+                trainer.train_step(state, *batch(1))
+            events = json.load(open(os.path.join(work, "trace",
+                                                 "trace.json")))["traceEvents"]
+            k2_events = sum(1 for e in events if e.get("cat") == "kernel"
+                            and "conv3x3" in e.get("name", ""))
+            check(k2_events >= 2 * n_fwd - 1,
+                  f"profiling.trace holds {k2_events} K2 kernel events")
+            del state
+            torch.cuda.empty_cache()
+
+            # the ESRGAN facade: fit, evaluate, save, from_trained
+            fit_lr = (pool_lr[:s.fit_pairs] + 1.0) / 2.0
+            fit_hr = (pool_hr[:s.fit_pairs] + 1.0) / 2.0
+            val = slice(s.fit_pairs, s.fit_pairs + s.val_pairs)
+            val_lr, val_hr = (pool_lr[val] + 1.0) / 2.0, (pool_hr[val] + 1.0) / 2.0
+            n_train = s.fit_pairs // s.batch
+            n_val = math.ceil(s.val_pairs / s.batch)
+            m = ESRGAN(device=dev)
+            m.setup_model(growth_channels=s.growth, num_rrdb_blocks=s.rrdb)
+            reset_counts()
+            hist, tt, _mt = m.fit(fit_lr, fit_hr, val_lr, val_hr,
+                                  epochs=s.fit_epochs, batch_size=s.batch)
+            want = launches_want(conv3x3_bias_act=s.fit_epochs * (
+                n_train * (2 * n_fwd - 1) + n_val * n_fwd))
+            check(read_counts() == want, f"facade fit launched "
+                                         f"{read_counts()}, expected {want}")
+            counted["facade_fit"] = read_counts()["conv3x3_bias_act"]
+            reset_counts()
+            ev = m.evaluate(val_lr, val_hr, batch_size=s.batch)
+            check(read_counts() == launches_want(
+                conv3x3_bias_act=n_val * n_fwd), f"evaluate {read_counts()}")
+            counted["facade_evaluate"] = read_counts()["conv3x3_bias_act"]
+            check(all(math.isfinite(v) for v in ev.values()), f"evaluate {ev}")
+            path = m.save(work, "smoke")
+            m2 = ESRGAN(device=dev)
+            m2.setup_model(from_trained=True, generator_pretrained_path=path)
+            check(m2.state.step == m.state.step and m2._arch == m._arch,
+                  f"from_trained: step {m2.state.step}, arch {m2._arch}")
+            lr_img = (smooth_images(g, 1, 3 * s.lr, 3, dev)[0] / 255.0
+                      ).cpu().numpy()
+            reset_counts()
+            sr_a, _ = m.super_resolve_image(lr_img)
+            sr_b, _ = m2.super_resolve_image(lr_img)
+            counted["facade_sr"] = read_counts()["conv3x3_bias_act"]
+            check(torch.equal(sr_a, sr_b),
+                  "the restored generator's SR differs from the saved one's")
+            del m, m2
+
+            # the trainer's fit with a checkpoint each epoch, restored
+            reset_counts()
+            ckpt = os.path.join(work, "ckpt")
+            res = trainer.fit(fit_lr, fit_hr, val_lr, val_hr,
+                              epochs=s.fit_epochs, batch_size=s.batch,
+                              verbose=False, checkpoint_dir=ckpt,
+                              checkpoint_every=1)
+            check(read_counts() == want, f"fit launched {read_counts()}")
+            counted["fit"] = read_counts()["conv3x3_bias_act"]
+            saved = sorted(f for f in os.listdir(ckpt)
+                           if not f.endswith(".json"))
+            check(saved == [f"epoch_{e + 1:04d}" for e in range(s.fit_epochs)],
+                  f"checkpoints {saved}")
+            back = restore_checkpoint(ckpt, saved[-1], trainer.init_state())
+            check(back.step == s.fit_epochs * n_train and all(
+                torch.equal(back.g_params[k], res.state.g_params[k])
+                for k in back.g_params), f"restored {saved[-1]}")
+            del res, back
+        check(plain.n == 0, f"plain twins were called on the GAN path: "
+                            f"{plain.by_twin}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[gan] {card}: ESRGAN g{s.growth}x{s.rrdb} GAN step median "
+          f"{step_med:.3f} ms by the host clock ({dev_med:.3f} ms between "
+          f"CUDA events; {s.steps} steps, first {host[0]:.1f} ms), "
+          f"{2 * n_fwd - 1} K2 launches a step ({n_fwd} forward + "
+          f"{n_fwd - 1} dX), {n_fwd} a val step (val step {val_ms:.3f} ms, "
+          f"time_compiled); peak memory {peak / 1e9:.2f} GB "
+          f"(device_memory_mb: {mem['peak_mb']:.0f} MB); g_loss "
+          f"{g_losses[0]:.4f} -> {g_losses[-1]:.4f}, d_loss {d_losses[0]:.4f}"
+          f" -> {d_losses[-1]:.4f}; profiling.trace: {k2_events} K2 kernel "
+          f"events in one step; plain twins called 0 times")
+    print(f"[gan] {card}: ESRGAN facade fit {s.fit_epochs} epochs of "
+          f"{s.fit_pairs} pairs: epoch times "
+          f"{[round(v, 3) for v in tt.epoch_times_sec]} s, g_loss "
+          f"{[round(v, 4) for v in hist['g_loss']]}, val_psnr "
+          f"{[round(v, 2) for v in hist['val_psnr']]}; evaluate "
+          f"{ {k: round(v, 4) for k, v in ev.items()} }; save -> from_trained"
+          f": SR byte-equal; trainer fit with checkpoints {saved}, the last "
+          f"restored equal")
+
+    # ---- remat: the same steps, the forward recomputed in the backward ----
+    def held_by_forward(tr) -> int:
+        """Bytes the generator's forward leaves allocated for the backward
+        (its output and saved activations)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        with torch.enable_grad():
+            fake = tr._generate(st0.g_params, batch(0)[0])
+        torch.cuda.synchronize()
+        held_bytes = torch.cuda.memory_allocated(dev) - base
+        del fake
+        return held_bytes
+
+    runs = {}
+    before_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            tr = ESRGANTrainer(gen8, disc, vgg, remat=remat, device=dev)
+            kept = held_by_forward(tr)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            st, out = steps_from(tr, tr.init_state(), s.remat_steps)
+            runs[remat] = (st, out, read_counts()["conv3x3_bias_act"],
+                           torch.cuda.max_memory_allocated(dev), kept)
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = before_det
+    (a, oa, la, pa, ka), (b, ob, lb, pb, kb) = runs[False], runs[True]
+    check(la == s.remat_steps * (2 * n_fwd - 1)
+          and lb == s.remat_steps * (3 * n_fwd - 1),
+          f"remat launches {la} -> {lb}")
+    check(oa == ob and all(torch.equal(a.g_params[k], b.g_params[k])
+                           for k in a.g_params)
+          and all(torch.equal(a.d_params[k], b.d_params[k])
+                  for k in a.d_params), "remat changed the steps")
+    check(kb < ka, f"remat kept {kb} bytes after the forward, not below {ka}")
+    counted["remat"] = la + lb
+    del runs, a, b
+    print(f"[gan] {card}: remat: {s.remat_steps} steps bit for bit the same "
+          f"(losses, G and D parameters; cuDNN deterministic in both); K2 "
+          f"launches a step {2 * n_fwd - 1} -> {3 * n_fwd - 1} (the forward "
+          f"again in the backward); memory the G forward keeps for the "
+          f"backward {ka / 1e6:.1f} -> {kb / 1e6:.1f} MB; the step's peak "
+          f"{pa / 1e9:.3f} -> {pb / 1e9:.3f} GB")
+
+    # ---- bf16 training on K2-bf16 ----
+    tr16 = ESRGANTrainer(gen8, disc, vgg, compute_dtype="bfloat16", device=dev)
+    st16 = tr16.init_state()
+    reset_counts()
+    with dx_against_twin() as held16:
+        bf_out = []
+        for i in range(s.bf16_steps):
+            before = read_counts()
+            st16, m16 = tr16.train_step(st16, *batch(i))
+            after = read_counts()
+            check({k: after[k] - before[k] for k in after} == launches_want(
+                conv3x3_bias_act_bf16=2 * n_fwd - 1),
+                f"bf16 step {i}: launches {after} - {before}")
+            bf_out.append({k: float(v) for k, v in m16.items()})
+
+    def bf16_step(i):
+        nonlocal st16
+        st16, m = tr16.train_step(st16, *batch((s.bf16_steps + i) % s.steps))
+        return m
+    _, bf_ms = timed_steps(bf16_step, s.bf16_steps)    # no twin: timed
+    bf16_launches = read_counts()["conv3x3_bias_act_bf16"]
+    check(held16.n == s.bf16_steps * (n_fwd - 1), f"{held16.n} bf16 dX held")
+    check(all(math.isfinite(m["g_loss"]) for m in bf_out), f"bf16 {bf_out}")
+    check(all(v.dtype == torch.float32 for v in st16.g_params.values()),
+          "bf16 training changed the master weights' dtype")
+    del tr16, st16
+    print(f"[gan] {card}: bf16: {s.bf16_steps} steps, {2 * n_fwd - 1} K2-bf16 "
+          f"launches a step, every one of the {held16.n} dX launches within "
+          f"k2_bf16_tolerance of its twin (max|d| {held16.err:.3g}); "
+          f"{s.bf16_steps} more steps without the twin "
+          f"{[round(v, 3) for v in bf_ms]} ms (CUDA events; f32 "
+          f"{dev_med:.3f}); g_loss {[round(m['g_loss'], 4) for m in bf_out]} "
+          f"(f32 {[round(m['g_loss'], 4) for m in on_k2]})")
+
+    # ---- the facade's default width: growth 32, 23 RRDB ----
+    gen32 = ESRGANGenerator(s.scale, s.wide_growth, s.wide_rrdb, device=dev,
+                            generator=gen(4))
+    tr32 = ESRGANTrainer(gen32, disc, vgg, device=dev)
+    wide = gan_train_layers(s, s.wide_growth, s.wide_rrdb)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    st32 = tr32.init_state()
+
+    def wide_step(i):
+        nonlocal st32
+        st32, m = tr32.train_step(st32, *batch(i))
+        return m
+    out32, ms32 = timed_steps(wide_step, s.wide_steps)
+    l32 = read_counts()["conv3x3_bias_act"]
+    print_breakdown(f"ESRGAN g{s.wide_growth}x{s.wide_rrdb} GAN train", card,
+                    lambda: tr32.train_step(st32, *batch(0)), ms32[-1])
+    check(l32 == s.wide_steps * (2 * len(wide) - 1), f"g32 launched {l32}")
+    counted["wide"] = l32
+    g32 = [float(m["g_loss"]) for m in out32]
+    check(all(math.isfinite(v) for v in g32), f"g32 losses {g32}")
+    peak32 = torch.cuda.max_memory_allocated(dev)
+    del tr32, st32, gen32
+    torch.cuda.empty_cache()
+    print(f"[gan] {card}: ESRGAN g{s.wide_growth}x{s.wide_rrdb}: "
+          f"{s.wide_steps} steps {[round(v, 3) for v in ms32]} ms (CUDA "
+          f"events), {2 * len(wide) - 1} K2 launches a step, peak "
+          f"{peak32 / 1e9:.2f} GB, g_loss {[round(v, 4) for v in g32]}")
+
+    convs8 = dict(gen8.named_modules())
+    tot = train_k2_times(layers, convs8, dev, card, "gan-K2",
+                         f"GAN step (g{s.growth}x{s.rrdb})")
+    tot16 = train_k2_times(layers, convs8, dev, card, "gan-K2-bf16",
+                           f"bf16 GAN step (g{s.growth}x{s.rrdb})",
+                           torch.bfloat16)
+    gen32 = ESRGANGenerator(s.scale, s.wide_growth, s.wide_rrdb, device=dev,
+                            generator=gen(4))
+    tot32 = train_k2_times(wide, dict(gen32.named_modules()), dev, card,
+                           "gan-K2-g32", f"GAN step (g{s.wide_growth}x"
+                           f"{s.wide_rrdb})")
+    del gen32
+    torch.cuda.empty_cache()
+    tot.update(launches=sum(counted.values()), err=worst["dx_err"],
+               step_ms=step_med, wide=tot32)
+    tot16.update(launches=bf16_launches, err=held16.err,
+                 step_ms=float(np.median(bf_ms)))
+    return {"k2": tot, "k2_bf16": tot16}
 
 
 # -------------------------------------------------------------------- gate
@@ -2798,7 +3428,8 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
-    from tpusr_torch.cli.__main__ import main as cli_main
+    from tpusr_torch.cli.__main__ import (_gate_certification_note,
+                                         build_parser, main as cli_main)
     from tpusr_torch.core.resize import resize
     from tpusr_torch.models.api import EDSR as EDSRFacade, FineTunedVGG16
     from tpusr_torch.pipeline.png import decode_png, encode_png
@@ -2872,9 +3503,12 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
                   and cfg_echo["cascade_guard_threshold"] == cfg.guard
                   and cfg_echo["batch_size"] == cfg.batch,
                   f"/healthz config {cfg_echo}")
+            # the note of the served mode (the default), read from
+            # GATE_torch.json (the 12-seed report fails it on one seed)
+            want_note = _gate_certification_note(
+                build_parser().parse_args(argv))
             check("GATE_torch.json" in cfg_echo.get("gate", "")
-                  and "certified" in cfg_echo["gate"]
-                  and "WARNING" not in cfg_echo["gate"],
+                  and cfg_echo["gate"] == want_note,
                   f"/healthz gate note {cfg_echo.get('gate')}")
             pipe = next(iter(log.pipes))
             votes = pipe.cascade_votes
@@ -3084,6 +3718,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         train = phase_train(TrainSlice(), dev, args.seed, sync, card)
         torch.cuda.empty_cache()
+        gan = phase_gan(GanSlice(), dev, args.seed, sync, card)
+        torch.cuda.empty_cache()
         gate, trained = phase_gate(GateSlice(), cfg, dev, args.seed, sync,
                                    card)
         serve = phase_serve(GateSlice(), cfg, dev, args.seed, sync, card,
@@ -3096,15 +3732,22 @@ def main() -> int:
                            "tpusr/core/pallas_conv.py:123",
                            launches["conv3x3_bias_act"], k2, k2["library_ms"])
     k2_rec["train"] = train_record(train)
+    k2_rec["gan"] = {**train_record(gan["k2"]),
+                     "step_ms": gan["k2"]["step_ms"],
+                     "wide_g32x23": {k: gan["k2"]["wide"][k] for k in (
+                         "ms", "fwd_ms", "dx_ms", "plain_ms", "bound_ms",
+                         "library_ms")}}
     records = [
         kernel_record("conv3x3_int8_requant", "conv3x3.cu",
                       "tpusr/core/pallas_conv.py:78",
                       launches["conv3x3_int8_requant"], k1, None),
         k2_rec,
-        kernel_record("conv3x3_bias_act_bf16", "conv3x3_bias_act.cu",
-                      "tpusr/core/pallas_conv.py:123",
-                      bf16_launches["conv3x3_bias_act_bf16"], k2b,
-                      k2b["library_ms"]),
+        {**kernel_record("conv3x3_bias_act_bf16", "conv3x3_bias_act.cu",
+                         "tpusr/core/pallas_conv.py:123",
+                         bf16_launches["conv3x3_bias_act_bf16"], k2b,
+                         k2b["library_ms"]),
+         "train": {**train_record(gan["k2_bf16"]),
+                   "step_ms": gan["k2_bf16"]["step_ms"]}},
         kernel_record("nlm_denoise", "nlm.cu", "tpusr/core/pallas_nlm.py:81",
                       k4_launches, k4, None),
         kernel_record("block1_int8", "block1.cu",
@@ -3126,7 +3769,11 @@ def main() -> int:
                for c, n in serve["launches"].items()},
             **({f"inference_{p}": n for p, n in
                 inference["launches"].items() if n}
-               if rec["name"] == "conv3x3_bias_act" else {})}
+               if rec["name"] == "conv3x3_bias_act" else {}),
+            **({"train": rec["train"]["launches"], "gan": rec["gan"]["launches"]}
+               if rec["name"] == "conv3x3_bias_act" else {}),
+            **({"gan": rec["train"]["launches"]}
+               if rec["name"] == "conv3x3_bias_act_bf16" else {})}
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

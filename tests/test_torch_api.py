@@ -130,12 +130,12 @@ def test_paths_not_ported_yet_raise_naming_their_item(tmp_path):
                                                  "num_filters": 8}),
                        (FineTunedVGG16, {"input_shape": (32, 32, 3)})):
         m = facade(device="cpu")
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             m.setup_model(from_pretrained=True, pretrained_path=str(h5), **kw)
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             m.setup_model(from_pretrained=True, pretrained_path=str(tmp_path),
                           **kw)       # a directory: an Orbax checkpoint
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             m.save_h5(str(tmp_path), "t")
     with pytest.raises(NotImplementedError, match="download"):
         FineTunedVGG16(device="cpu").setup_model(

@@ -14,8 +14,10 @@ resident blocks and a tree without packed weights; the per-patch int8
 classifier at an odd patch, which runs on K1 alone; a two-image run of
 the serving gate with its launch counts; K2 at ESRGAN's shapes (the dense
 blocks' Cin 64 + i * growth, Cout = growth, Cin 72 and 88 off the narrow
-kernel), a narrow ESRGAN generator and patch SR on K2 against the twin; and
-the HTTP tier answering each kind of request on the card.
+kernel), a narrow ESRGAN generator and patch SR on K2 against the twin; the
+HTTP tier answering each kind of request on the card; the bf16 K2 training
+Function against its twin, one G step of the GAN trainer on K2 against the
+twin, and the profiling helpers on the card.
 
 These tests need an NVIDIA card with sm_90a and ``nvcc``; without a card
 they skip. ``tests/conftest.py`` imports JAX and hides CUDA devices, so on
@@ -784,3 +786,130 @@ def test_http_tier_on_the_card_answers_each_kind(cuda):
         finally:
             httpd.shutdown()
             httpd.server_close()
+
+
+@pytest.mark.parametrize("shape,relu", [((2, 12, 12, 72, 8), True),
+                                        ((2, 24, 24, 64, 256), False),
+                                        ((3, 9, 7, 3, 64), False),
+                                        ((2, 48, 48, 64, 3), False)])
+def test_k2_bf16_training_function_matches_the_twin(cuda, shape, relu):
+    """The bf16 K2 Function (K2-bf16 forward and dX) on the card: the
+    forward and dX each within ``chip_smoke.k2_bf16_tolerance`` of the twin
+    on the same bf16 inputs (the dense block's Cin = 72 on the general
+    kernel, the 64 -> 256 upsample conv, the Cin = 3 head, the 3-channel
+    tail), dW within 1 bf16 ulp plus the fp32 sum's bound of cuDNN's bf16
+    ``conv2d_weight`` (the same call), db in fp32, the gradients in their
+    inputs' dtypes, two K2-bf16 launches."""
+    from chip_smoke import check_k2_bf16
+    from tpusr_torch.core.conv3x3 import conv3x3_bias_act_plain
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn((n, h, w, cin), generator=g, device=cuda).bfloat16()
+    kk = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+          * math.sqrt(2.0 / (9 * cin))).bfloat16()
+    b = torch.randn(cout, generator=g, device=cuda) * 0.1
+    dy = torch.randn((n, h, w, cout), generator=g, device=cuda).bfloat16()
+    xt, kt, bt = (t.clone().requires_grad_() for t in (x, kk, b))
+    before = k.LAUNCHES["conv3x3_bias_act_bf16"]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # dW twice, the same sums
+    try:
+        y = k.conv3x3_bias_act_train(xt, kt, bt, relu)
+        y.backward(dy)
+        gm = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
+        dw = torch.nn.grad.conv2d_weight(
+            x.permute(0, 3, 1, 2), (cout, cin, 3, 3), gm.permute(0, 3, 1, 2),
+            padding=1).permute(2, 3, 1, 0)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert k.LAUNCHES["conv3x3_bias_act_bf16"] - before == 2
+    assert (y.dtype, xt.grad.dtype, kt.grad.dtype, bt.grad.dtype) == (
+        torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32)
+    check_k2_bf16(x, kk, y.detach(), conv3x3_bias_act_plain(x, kk, b, relu))
+    k_t = kk.flip(0, 1).transpose(2, 3).contiguous()
+    zero = torch.zeros(cin, device=cuda)
+    check_k2_bf16(gm, k_t, xt.grad, conv3x3_bias_act_plain(gm, k_t, zero))
+    assert torch.equal(kt.grad, dw)
+    db = gm.float().sum((0, 1, 2))
+    assert torch.allclose(bt.grad, db, rtol=1e-5, atol=1e-5)
+
+
+def test_gan_step_on_k2_matches_the_twin(cuda):
+    """One G step of a narrow ESRGAN (growth 8, 1 RRDB, x2, LR 16^2) under
+    ``ESRGANTrainer`` with VGG19 and D on cuDNN: the G gradient on K2 (20
+    forward and 19 dX launches, no twin), each conv held on its recorded
+    input and output gradient against autograd through the twin
+    (``chip_smoke.k2_backward_case``: dX within ``k2_f32_bound``, dW and db
+    within 1e-5 of their max, ReLU masks apart only near 0); then two full
+    steps' losses within rtol 1e-4."""
+    from chip_smoke import (conv_io, count_plain_calls, k2_backward_case,
+                            new_worst, train_on_plain_twin)
+    from tpusr_torch.models import (ESRGANDiscriminator, ESRGANGenerator,
+                                    VGG19Features)
+    from tpusr_torch.train import ESRGANTrainer
+    gen = ESRGANGenerator(2, 8, 1, device=cuda,
+                          generator=torch.Generator().manual_seed(1))
+    tr = ESRGANTrainer(gen, ESRGANDiscriminator(device=cuda),
+                       VGG19Features(device=cuda), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    lr = torch.rand((2, 4, 16, 16, 3), generator=g, device=cuda) * 2 - 1
+    hr = torch.rand((2, 4, 32, 32, 3), generator=g, device=cuda) * 2 - 1
+
+    def grads(state):
+        with torch.enable_grad():
+            total, _ = tr.g_loss_components(state.g_params, state.d_params,
+                                            state.d_spectral, lr[0], hr[0])
+            out = torch.autograd.grad(total, list(state.g_params.values()))
+        return dict(zip(state.g_params, out))
+    before = k.LAUNCHES["conv3x3_bias_act"]
+    st = tr.init_state()
+    with count_plain_calls() as plain, conv_io(gen) as rec:
+        grads(st)
+        torch.cuda.synchronize()
+    assert k.LAUNCHES["conv3x3_bias_act"] - before == 39 and plain.n == 0
+    worst = new_worst()
+    for name, (x, dy) in rec.io.items():
+        relu = name.endswith(("conv1", "conv2", "conv3", "conv4")) and (
+            "dense" in name) or name == "final_conv1"
+        k2_backward_case(name, x, dy, st.g_params[f"{name}.kernel"],
+                         st.g_params[f"{name}.bias"], relu,
+                         name != "initial_conv", worst)
+    assert len(rec.io) == 20
+
+    def losses(state):
+        out = []
+        for i in range(2):
+            state, m = tr.train_step(state, lr[i], hr[i])
+            out.append((float(m["g_loss"]), float(m["d_loss"])))
+        return out
+    on_k2 = losses(tr.init_state())
+    with train_on_plain_twin():
+        on_twin = losses(tr.init_state())
+    for a, b in zip(on_k2, on_twin):
+        for u, v in zip(a, b):
+            assert abs(u - v) <= 1e-4 * abs(v), (on_k2, on_twin)
+
+
+def test_profiling_helpers_on_the_card(cuda, tmp_path):
+    """``trace`` records the card's kernels (K2's among them),
+    ``time_compiled`` waits for the card (a sleep kernel of 4e6 cycles,
+    2 ms at the 1.98 GHz boost clock, makes a call last at least 1 ms),
+    ``device_memory_mb`` reads the allocator."""
+    import json
+    from tpusr_torch.train import profiling
+    x = torch.randn((1, 8, 8, 16), device=cuda)
+    kk = torch.randn((3, 3, 16, 8), device=cuda)
+    b = torch.zeros(8, device=cuda)
+    with profiling.trace(str(tmp_path)):
+        k.conv3x3_bias_act(x, kk, b)
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "conv3x3" in e.get("name", "")
+               for e in events)
+    t = profiling.time_compiled(lambda: (torch.cuda._sleep(4_000_000), x)[1],
+                                iters=3)
+    assert t >= 1e-3
+    held = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    mem = profiling.device_memory_mb(cuda)
+    assert mem["current_mb"] >= 64 and mem["peak_mb"] >= mem["current_mb"]
+    del held

@@ -104,6 +104,9 @@ def test_k2_function_gradients_match_jax_grad_of_the_flax_conv(shape, relu):
 
 
 def test_k2_function_skips_dx_for_data_and_refuses_bf16():
+    """dX is skipped for data. bfloat16 now trains on K2-bf16
+    (``test_k2_function_bf16_gradients``); the Function refuses any other
+    dtype, float16 here."""
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((1, 5, 5, 3)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((3, 3, 3, 4)).astype(np.float32))
@@ -112,8 +115,54 @@ def test_k2_function_skips_dx_for_data_and_refuses_bf16():
     conv3x3_bias_act_train(x, k, b).sum().backward()
     assert x.grad is None and k.grad is not None and b.grad is not None
     np.testing.assert_allclose(b.grad.numpy(), np.full(4, 25.0))
-    with pytest.raises(TypeError, match="float32"):
-        conv3x3_bias_act_train(x.bfloat16(), k.detach().bfloat16(), b)
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv3x3_bias_act_train(x.half(), k.detach().half(), b)
+
+
+BF16_UNIT = 2.0 ** -8     # bf16's unit roundoff (8 significant bits)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", [(2, 6, 7, 8, 16), (1, 5, 5, 3, 8)])
+def test_k2_function_bf16_gradients(shape, relu):
+    """The bf16 Function against float64 autograd on the same bf16-exact
+    values, through the Function's own ReLU mask: dX and dW are one fp32
+    sum each, rounded once to bf16, so within 1 bf16 rounding (2^-8
+    relative) plus the fp32 sum's (K * 2^-23) of sum |dY||k| (dX) or
+    sum |x||dY| (dW); db is summed in fp32 and returned in fp32. Every
+    gradient has its input's dtype."""
+    n, h, w, cin, cout = shape
+    rng = np.random.default_rng(sum(shape) + relu)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin)).astype(
+        np.float32)).bfloat16()
+    k = torch.from_numpy((rng.standard_normal((3, 3, cin, cout)) * 0.3)
+                         .astype(np.float32)).bfloat16()
+    b = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((n, h, w, cout)).astype(
+        np.float32)).bfloat16()
+    xt, kt, bt = (t.clone().requires_grad_() for t in (x, k, b))
+    y = conv3x3_bias_act_train(xt, kt, bt, relu)
+    assert y.dtype == torch.bfloat16
+    y.backward(dy)
+    assert (xt.grad.dtype, kt.grad.dtype, bt.grad.dtype) == (
+        torch.bfloat16, torch.bfloat16, torch.float32)
+    g = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
+    xd, kd = (t.double().requires_grad_() for t in (x, k))
+    zero = torch.zeros(cout, dtype=torch.float64)
+    conv3x3.conv3x3_bias_act_plain(xd, kd, zero).backward(g.double())
+    # sum |dY||k| per dX value and sum |x||dY| per dW value, in float64
+    k_t = k.double().abs().flip(0, 1).transpose(2, 3)
+    s_dx = conv3x3.conv3x3_bias_act_plain(g.double().abs(), k_t,
+                                          torch.zeros(cin, dtype=torch.float64))
+    s_dw = torch.nn.grad.conv2d_weight(
+        x.double().abs().permute(0, 3, 1, 2), (cout, cin, 3, 3),
+        g.double().abs().permute(0, 3, 1, 2), padding=1).permute(2, 3, 1, 0)
+    for got, want, s_abs, terms in ((xt.grad, xd.grad, s_dx, 9 * cout),
+                                    (kt.grad, kd.grad, s_dw, n * h * w)):
+        tol = BF16_UNIT * want.abs() + terms * 2.0 ** -23 * s_abs
+        assert bool(((got.double() - want).abs() <= tol).all())
+    np.testing.assert_allclose(bt.grad.numpy(),
+                               g.double().sum((0, 1, 2)).numpy(), rtol=1e-6)
 
 
 # ------------------------------------------------------------- trainable EDSR
@@ -193,15 +242,16 @@ def _narrow_vgg_cfg(monkeypatch):
 
 
 def _setup(kind, monkeypatch, loss="mse", clipnorm=None, l2_reg=0.0,
-           predicate=None):
+           predicate=None, compute_dtype="float32"):
     """(jax trainer, jax params, port trainer, batches)"""
+    dt = dict(compute_dtype=compute_dtype)
     rng = np.random.default_rng({"edsr": 0, "srcnn": 1, "vgg": 2}[kind])
     if kind == "edsr":
         jm, params = edsr_tree(rng, 4)
         port = edsr_from_flax(params, 4, device="cpu")
-        jt = JaxSRTrainer(jm, LR, clipnorm=clipnorm, loss=loss)
+        jt = JaxSRTrainer(jm, LR, clipnorm=clipnorm, loss=loss, **dt)
         pt = SupervisedSRTrainer(port, LR, clipnorm=clipnorm, loss=loss,
-                                 device="cpu")
+                                 device="cpu", **dt)
         xs = rng.random((STEPS, 4, 8, 8, 3), dtype=np.float32)
         ys = rng.random((STEPS, 4, 32, 32, 3), dtype=np.float32)
     elif kind == "srcnn":
@@ -211,9 +261,9 @@ def _setup(kind, monkeypatch, loss="mse", clipnorm=None, l2_reg=0.0,
         params = jax.tree.map(lambda a: a + (0.02 * rng.standard_normal(
             a.shape)).astype(np.float32), params)
         port = srcnn_from_flax(params, device="cpu")
-        jt = JaxSRTrainer(jm, LR, clipnorm=clipnorm, loss=loss)
+        jt = JaxSRTrainer(jm, LR, clipnorm=clipnorm, loss=loss, **dt)
         pt = SupervisedSRTrainer(port, LR, clipnorm=clipnorm, loss=loss,
-                                 device="cpu")
+                                 device="cpu", **dt)
         xs = rng.random((STEPS, 4, 16, 16, 3), dtype=np.float32)
         ys = np.clip(xs + 0.1 * rng.standard_normal(xs.shape), 0, 1).astype(np.float32)
     else:
@@ -222,9 +272,10 @@ def _setup(kind, monkeypatch, loss="mse", clipnorm=None, l2_reg=0.0,
         jm = JaxVGG16(num_classes=2, dropout_rate=0.0, dense_units=16)
         port = vgg16_from_flax(params, device="cpu", dropout_rate=0.0)
         jt = JaxClassifierTrainer(jm, LR, l2_reg=l2_reg,
-                                  trainable_predicate=predicate)
+                                  trainable_predicate=predicate, **dt)
         pt = ClassifierTrainer(port, LR, l2_reg=l2_reg,
-                               trainable_predicate=predicate, device="cpu")
+                               trainable_predicate=predicate, device="cpu",
+                               **dt)
         xs = rng.random((STEPS, 4, 32, 32, 3), dtype=np.float32)
         ys = rng.integers(0, 2, (STEPS, 4)).astype(np.int32)
     return jt, params, pt, xs, ys
@@ -414,20 +465,108 @@ def test_classifier_fit_matches_jax(monkeypatch):
                                    rtol=LOSS_RTOL, err_msg=k)
 
 
+# ------------------------------------------------ remat and bf16
+
+@pytest.mark.parametrize("kind", ["edsr", "srcnn"])
+def test_remat_is_bit_for_bit_the_same_training(kind, monkeypatch):
+    """``remat=True`` recomputes the forward in the backward (EDSR: each
+    of its 9 convs once more through K2's Function, whose forward and dX
+    calls are counted here) and trains bit for bit as without it."""
+    _, _, pt, xs, ys = _setup(kind, monkeypatch)
+    calls = {"n": 0}
+    twin = conv3x3.conv3x3_bias_act
+
+    def counted(*a, **kw):
+        calls["n"] += 1
+        return twin(*a, **kw)
+    monkeypatch.setattr(conv3x3, "conv3x3_bias_act", counted)
+    runs = {}
+    for remat in (False, True):
+        tr = SupervisedSRTrainer(pt.model, LR, remat=remat, device="cpu")
+        st, ms, calls["n"] = tr.init_state(), [], 0
+        for i in range(STEPS):
+            st, m = tr.train_step(st, torch.from_numpy(xs[i]),
+                                  torch.from_numpy(ys[i]))
+            ms.append({k: float(v) for k, v in m.items()})
+        ev = tr.eval_step(st, torch.from_numpy(xs[0]), torch.from_numpy(ys[0]))
+        runs[remat] = (st, ms, {k: float(v) for k, v in ev.items()}, calls["n"])
+    (a, ma, ea, na), (b, mb, eb, nb) = runs[False], runs[True]
+    assert ma == mb and ea == eb
+    assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+    assert all(torch.equal(a.opt_state["nu"][k], b.opt_state["nu"][k])
+               for k in a.params)
+    n_conv = 9 if kind == "edsr" else 0       # SRCNN's convs are F.conv2d
+    assert na == STEPS * max(2 * n_conv - 1, 0)
+    assert nb == na + STEPS * n_conv
+
+
+def test_classifier_trainer_has_no_remat_as_in_jax():
+    vgg = VGG16Classifier(widths=(4, 4, 4, 4, 4), dense_units=4, device="cpu")
+    with pytest.raises(TypeError, match="remat"):
+        ClassifierTrainer(vgg, device="cpu", remat=True)
+    with pytest.raises(TypeError, match="remat"):
+        JaxClassifierTrainer(None, remat=True)
+
+
+# bf16 roundings on the deepest path to the loss: EDSR x4 at 2 blocks has 9
+# convs, SRCNN 3, VGG16 13 convs and 2 Dense layers
+BF16_DEPTH = {"edsr": 9, "srcnn": 3, "vgg": 15}
+
+
+@pytest.mark.parametrize("kind", ["edsr", "srcnn", "vgg"])
+def test_bf16_step_matches_jax_bf16_step(kind, monkeypatch):
+    """One bf16 step and an eval step of the port against JAX's, from the
+    same weights and batch. Each bf16 rounding (unit 2^-8) moves a value
+    by at most that share to first order, and the forward has
+    ``BF16_DEPTH`` of them in a row, so the losses and metrics agree within
+    ``BF16_DEPTH * 2^-8`` relative (SSIM, a difference of terms of size ~1,
+    within that much absolutely). The port's bf16 loss differs from its
+    float32 loss (so bf16 ran); parameters and moments stay float32."""
+    jt, params, pt, xs, ys = _setup(kind, monkeypatch,
+                                    compute_dtype="bfloat16")
+    _, _, pt32, _, _ = _setup(kind, monkeypatch)
+    clf = kind == "vgg"
+    st_j = _jax_state(jt, params, xs[0][:1])
+    xj, yj = jnp.asarray(xs[0]), jnp.asarray(ys[0])
+    xt, yt = torch.from_numpy(xs[0]), torch.from_numpy(ys[0])
+    args = (0,) if clf else ()
+    st_j, m_j = jt.train_step(st_j, xj, yj, *args)
+    st_t, m_t = pt.train_step(pt.init_state(), xt, yt, *args)
+    _, m_f = pt32.train_step(pt32.init_state(), xt, yt, *args)
+    tol = BF16_DEPTH[kind] * 2.0 ** -8
+
+    def close(got, want):
+        for k in keys:
+            # SSIM is a difference of terms of size ~1: absolute there
+            kw = dict(atol=tol, rtol=0) if k == "ssim" else dict(rtol=tol)
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       err_msg=k, **kw)
+    keys = ("loss", "accuracy") if clf else ("loss", "psnr", "ssim")
+    close(m_t, m_j)
+    assert float(m_t["loss"]) != float(m_f["loss"])
+    close(pt.eval_step(st_t, xt, yt), jt.eval_step(st_j, xj, yj))
+    assert all(v.dtype == torch.float32 for v in st_t.params.values())
+    assert all(v.dtype == torch.float32
+               for v in st_t.opt_state["mu"].values())
+
+
+def test_compute_dtype_other_than_f32_and_bf16_raises():
+    with pytest.raises(ValueError, match="bfloat16"):
+        SupervisedSRTrainer(SRCNN(f1=4, f2=2, device="cpu"),
+                            compute_dtype="float16", device="cpu")
+
+
 # ------------------------------------------------ what is not in this slice
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 8"),
-                                     (dict(remat=True), "item 7"),
-                                     (dict(compute_dtype="bfloat16"), "item 7")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 8")])
 def test_options_of_later_slices_raise(kw, item):
     model = SRCNN(f1=4, f2=2, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         SupervisedSRTrainer(model, device="cpu", **kw)
-    if "remat" not in kw:
-        vgg = VGG16Classifier(widths=(4, 4, 4, 4, 4), dense_units=4,
-                              device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            ClassifierTrainer(vgg, device="cpu", **kw)
+    vgg = VGG16Classifier(widths=(4, 4, 4, 4, 4), dense_units=4,
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        ClassifierTrainer(vgg, device="cpu", **kw)
 
 
 def test_unsupported_loss_raises():

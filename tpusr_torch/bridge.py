@@ -109,6 +109,23 @@ def vgg16_from_flax(params: dict, device=None, dropout_rate: float = 0.2):
     return model
 
 
+def vgg19_features_from_flax(params: dict, device=None):
+    """``tpusr.models.VGG19Features`` params (any block widths) ->
+    ``tpusr_torch.models.vgg.VGG19Features``."""
+    from tpusr_torch.models.vgg import VGG19_CFG, VGG19Features
+
+    bb = params["vgg19"]
+    widths = tuple(np.shape(bb[f"block{b}_conv1"]["kernel"])[-1]
+                   for b, _n, _f in VGG19_CFG)
+    model = VGG19Features(widths=widths, device="cpu")
+    sd = {}
+    for name, p in bb.items():
+        sd[f"vgg19.{name}.weight"] = hwio_to_oihw(_tensor(p["kernel"]))
+        sd[f"vgg19.{name}.bias"] = _tensor(p["bias"])
+    model.load_state_dict(sd, strict=True)
+    return model.to(resolve_device(device))
+
+
 def qtree_from_flax(q: dict, device=None) -> dict:
     """A JAX ``quantize_vgg16`` tree -> the port's int8 tree: the same keys,
     torch tensors on ``device`` (kernel_q int8 HWIO, as K1's public

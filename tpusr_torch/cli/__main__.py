@@ -55,11 +55,12 @@ def _gate_certification_note(args) -> str | None:
         return (f"WARNING: {row} has no row in the serving gate "
                 "(uncertified configuration)")
     if not m.get("passes_gate_all_seeds"):
+        passing = [x["mode"] for x in modes if x.get("passes_gate_all_seeds")]
         return (f"WARNING: {row} FAILED the {task} serving gate "
                 f"(min vote agreement {m['min_vote_agreement']:.4f} < 0.99, "
-                f"{m['total_flips']} flips — {GATE_FILE}); certified "
-                "alternatives: the default cascade_int8[vote_frac+guard] "
-                "or per_patch_int8 on f32 SR")
+                f"{m['total_flips']} flips over seeds {m.get('seeds')} — "
+                f"{GATE_FILE}); rows that pass every seed there: "
+                f"{', '.join(passing) or 'none'}")
     return (f"{task}-gate certified: {row} (min vote agreement "
             f"{m['min_vote_agreement']:.4f}, {m['total_flips']} flips over "
             f"seeds {m.get('seeds')} — {GATE_FILE})")
@@ -213,10 +214,11 @@ def build_parser():
     sp.add_argument("--patch", type=int, default=96)
     sp.add_argument("--stride", type=int, default=48)
     sp.add_argument("--num-classes", type=int, default=2)
-    # serve defaults = the gate-certified guarded cascade: f32 SR +
+    # serve defaults = the JAX package's shipped mode: f32 SR +
     # vote_frac-ranked cascade_int8 at frac 0.25 with the trunk-collapse
-    # guard at 0.6 (GATE_torch.json: passes on every seed; the JAX
-    # package's GATE_r05.json certified the same row on the TPU)
+    # guard at 0.6 (certified on the TPU by GATE_r05.json's 12 seeds; the
+    # port's GATE_torch.json fails it on 1 of its 12 seeds, and the serve
+    # command says so)
     sp.add_argument("--sr-mode", default="f32",
                     choices=("f32", "bf16", "int8"))
     sp.add_argument("--clf-mode", default="cascade_int8",

@@ -13,8 +13,10 @@ dequant conv.
   on an FFMA register-tiled GEMM, picked among their tiles by shape alone).
 - ``conv3x3_bias_act_train`` is K2 under autograd (``Conv3x3BiasActFn``):
   the forward is K2, and so is the input gradient, a 3x3 SAME conv of the
-  output gradient with the flipped, transposed kernel. It runs every conv
-  of the EDSR training forward and backward; serving never enters it.
+  output gradient with the flipped, transposed kernel, both in the
+  forward's dtype (K2-f32 or K2-bf16). It runs every 3x3 conv of the EDSR
+  and ESRGAN-generator training forwards and backwards; serving never
+  enters it.
 - ``conv3x3_int8_dequant`` has no Pallas counterpart: it replaces the XLA
   int8 conv + dequant of the int8 EDSR (``tpusr/models/edsr_quant.py::
   _qconv``): int8 x int8 -> int32, then ``acc * rescale + bias`` in f32 and
@@ -260,16 +262,18 @@ def conv3x3_bias_act(x, kernel, bias, relu: bool = False):
 
 
 class Conv3x3BiasActFn(torch.autograd.Function):
-    """K2 with a backward, for float32 training.
+    """K2 with a backward, for training in float32 or bfloat16.
 
-    Forward: ``conv3x3_bias_act`` (K2 on a card, the plain twin on the CPU).
-    Backward, from the saved output ``y``: the ReLU mask ``y > 0`` (the
-    gradient at 0 is 0, as ``jax.nn.relu``'s); dX = K2 on the mask times dY
-    with the kernel flipped in both spatial dims and transposed in its
-    channel dims, zero bias, no ReLU (exact for a stride-1 SAME 3x3 conv),
-    only when x needs a gradient; dW = ``torch.nn.grad.conv2d_weight``
-    (cuDNN on a card; JAX computes it in XLA, outside any Pallas kernel);
-    db = the sum over N, H and W in fp32.
+    Forward: ``conv3x3_bias_act`` (K2-f32 or K2-bf16 on a card, by x's
+    dtype; the plain twin on the CPU). Backward, from the saved output
+    ``y``: the ReLU mask ``y > 0`` (the gradient at 0 is 0, as
+    ``jax.nn.relu``'s), taken on ``y`` in its own dtype; dX = K2 in x's
+    dtype on the mask times dY with the kernel flipped in both spatial dims
+    and transposed in its channel dims, zero bias, no ReLU (exact for a
+    stride-1 SAME 3x3 conv), only when x needs a gradient; dW =
+    ``torch.nn.grad.conv2d_weight`` in the kernel's dtype (cuDNN on a card;
+    JAX computes it in XLA, outside any Pallas kernel); db = the sum over N,
+    H and W in fp32. Each gradient has its input's dtype.
     """
 
     @staticmethod
@@ -282,6 +286,7 @@ class Conv3x3BiasActFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, kernel, y = ctx.saved_tensors
+        dy = dy.to(x.dtype)
         if ctx.relu:
             dy = torch.where(y > 0, dy, torch.zeros((), dtype=dy.dtype,
                                                     device=dy.device))
@@ -289,21 +294,23 @@ class Conv3x3BiasActFn(torch.autograd.Function):
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             k_t = kernel.flip(0, 1).transpose(2, 3).contiguous()
-            dx = conv3x3_bias_act(dy, k_t, kernel.new_zeros(kernel.shape[2]))
+            dx = conv3x3_bias_act(dy, k_t, torch.zeros(
+                kernel.shape[2], dtype=torch.float32, device=kernel.device))
         if ctx.needs_input_grad[1]:
             dw = torch.nn.grad.conv2d_weight(
                 _nchw(x), (kernel.shape[3], kernel.shape[2], 3, 3), _nchw(dy),
                 padding=1).permute(2, 3, 1, 0)
         if ctx.needs_input_grad[2]:
-            db = dy.sum(dim=(0, 1, 2))
+            db = dy.sum(dim=(0, 1, 2), dtype=torch.float32)
         return dx, dw, db, None
 
 
 def conv3x3_bias_act_train(x, kernel, bias, relu: bool = False):
-    """``conv3x3_bias_act`` (float32) with a gradient for x, kernel and bias
-    (``Conv3x3BiasActFn``): two K2 launches a call on a card, one forward
-    and one for dX, the second skipped when x needs no gradient."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"conv3x3_bias_act_train: float32 only (training runs "
-                        f"in fp32), got {x.dtype}")
+    """``conv3x3_bias_act`` (float32 or bfloat16 x and kernel, float32
+    bias) with a gradient for x, kernel and bias (``Conv3x3BiasActFn``): two
+    K2 launches of x's dtype a call on a card, one forward and one for dX,
+    the second skipped when x needs no gradient."""
+    if x.dtype not in _K2_INSTANCES:
+        raise TypeError(f"conv3x3_bias_act_train: float32 or bfloat16, got "
+                        f"{x.dtype}")
     return Conv3x3BiasActFn.apply(x, kernel, bias, relu)

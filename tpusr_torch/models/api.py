@@ -1,25 +1,27 @@
 """Reference-shaped lifecycle facades (port of ``tpusr/models/api.py``:
-``SRCNNModel``, ``EDSR``, ``FineTunedVGG16``, ``_saved_arch`` and
+``SRCNNModel``, ``EDSR``, ``ESRGAN``, ``FineTunedVGG16``, ``_saved_arch`` and
 ``augment_classification_set``).
 
 The reference exposes one class per model with a uniform contract,
 ``setup_model`` -> ``fit`` -> ``evaluate`` -> ``super_resolve_image`` /
 ``classify_defects_method`` -> ``save`` (``SRCNN_model.py``,
-``EDSR_model.py``, ``VGG16_model.py``). These facades present that surface
-over the port's trainers (``tpusr_torch.train``), inference
-(``pipeline/inference.py``) and patch-vote classifier, with the JAX
-facades' names, arguments and defaults, plus ``device`` (CUDA unless the
+``EDSR_model.py``, ``ESRGAN_model.py``, ``VGG16_model.py``). These facades
+present that surface over the port's trainers (``tpusr_torch.train``),
+inference (``pipeline/inference.py``) and patch-vote classifier, with the
+JAX facades' names, arguments and defaults, plus ``device`` (CUDA unless the
 caller passes ``device="cpu"``).
 
 Each facade keeps a module as a template and a trainer state whose
 parameters (by the module's parameter names) it trains, restores and saves;
-``torch.func.functional_call`` runs the template on them. Checkpoints are the
+``torch.func.functional_call`` runs the template on them (the ``ESRGAN``
+facade's state is the GAN trainer's whole ``GANState``). Checkpoints are the
 port's own (``train/checkpoint.py``), with the JAX facades' ``arch``
-metadata, so ``from_pretrained`` rebuilds the saved architecture whatever
-the setup arguments. Not ported yet: Keras ``.h5`` import and export and
-Orbax checkpoint directories (ROADMAP queue 1, item 7), ``imagenet_weights_path``
-(its weights need a download), and the ``ESRGAN`` facade, whose state is the
-GAN trainer's (item 7, with ``train/gan.py``).
+metadata, so ``from_pretrained``/``from_trained`` rebuilds the saved
+architecture whatever the setup arguments. Not ported: Keras ``.h5`` import
+and export and Orbax checkpoint directories (ROADMAP queue 1, item 10: they
+need h5py and tensorflow, which the card's machine lacks), and ImageNet
+weights (``imagenet_weights_path``, ``vgg19_weights_path``: they need a
+download).
 """
 
 from __future__ import annotations
@@ -34,16 +36,19 @@ from torch.func import functional_call
 from tpusr_torch.config import RANDOM_SEED
 from tpusr_torch.device import resolve_device
 from tpusr_torch.models.edsr import EDSR as EDSRModule
+from tpusr_torch.models.esrgan import ESRGANDiscriminator, ESRGANGenerator
 from tpusr_torch.models.srcnn import SRCNN
-from tpusr_torch.models.vgg import VGG16_CFG, VGG16Classifier
+from tpusr_torch.models.vgg import VGG16_CFG, VGG16Classifier, VGG19Features
 from tpusr_torch.pipeline.defect_pipeline import classify_defects
 from tpusr_torch.pipeline.inference import (srcnn_super_resolve,
+                                            super_resolve_full_image,
                                             super_resolve_image)
 from tpusr_torch.train.checkpoint import (load_metadata, restore_checkpoint,
                                           save_checkpoint)
+from tpusr_torch.train.gan import ESRGANTrainer
 from tpusr_torch.train.trainer import ClassifierTrainer, SupervisedSRTrainer
 
-_ITEM_7 = "ROADMAP queue 1, item 7: the rest of training"
+_ITEM_10 = "ROADMAP queue 1, item 10: Keras and Orbax interop, beside convert"
 
 
 def _is_h5(path):
@@ -66,18 +71,18 @@ def _restore(state, pretrained_path):
             f"Pretrained model file not found at {pretrained_path}")
     if _is_h5(pretrained_path):
         raise NotImplementedError(
-            f"{pretrained_path}: Keras .h5 import is not ported yet ({_ITEM_7})")
+            f"{pretrained_path}: Keras .h5 import is not ported yet ({_ITEM_10})")
     if os.path.isdir(pretrained_path):
         raise NotImplementedError(
             f"{pretrained_path}: a directory is an Orbax checkpoint of the JAX "
-            f"package, which the port does not read yet ({_ITEM_7}); the "
+            f"package, which the port does not read yet ({_ITEM_10}); the "
             f"port's checkpoints are files")
     return restore_checkpoint(os.path.dirname(pretrained_path) or ".",
                               os.path.basename(pretrained_path), state)
 
 
 def _no_h5_export():
-    return NotImplementedError(f"Keras .h5 export is not ported yet ({_ITEM_7})")
+    return NotImplementedError(f"Keras .h5 export is not ported yet ({_ITEM_10})")
 
 
 def _seeded() -> torch.Generator:
@@ -95,6 +100,12 @@ def module_with_params(module: torch.nn.Module, params: dict
         for name, p in out.named_parameters():
             p.copy_(params[name])
     return out
+
+
+def _no_imagenet_weights(arg: str):
+    return NotImplementedError(
+        f"{arg}: the converted Keras ImageNet weights need a download, so "
+        f"their loader is not ported")
 
 
 class _Facade:
@@ -265,6 +276,133 @@ class EDSR(_Facade):
         raise _no_h5_export()
 
 
+class ESRGAN(_Facade):
+    """ESRGAN lifecycle parity with ``ESRGAN_model.py:81-996``: the
+    generator, the discriminator and the frozen VGG19 extractor, trained
+    adversarially by ``ESRGANTrainer``; ``state`` is its whole
+    ``GANState``."""
+
+    def __init__(self, mesh=None, device=None):
+        super().__init__(mesh, device)
+        self.generator = None
+        self.discriminator = None
+        self.vgg_model = None
+        self.scale_factor = None
+        self.trained = False
+
+    def setup_model(self, scale_factor=2, growth_channels=32,
+                    num_rrdb_blocks=23, input_shape=(24, 24, 3),
+                    output_shape=(48, 48, 3), from_trained=False,
+                    generator_pretrained_path=None,
+                    discriminator_pretrained_path=None,
+                    vgg19_weights_path=None, compute_dtype="float32"):
+        if from_trained:
+            arch = _saved_arch(generator_pretrained_path)
+            if arch:
+                scale_factor = arch.get("scale_factor", scale_factor)
+                growth_channels = arch.get("growth_channels", growth_channels)
+                num_rrdb_blocks = arch.get("num_rrdb_blocks", num_rrdb_blocks)
+                # the output is always input * scale
+                output_shape = (input_shape[0] * scale_factor,
+                                input_shape[1] * scale_factor,
+                                input_shape[2])
+        if vgg19_weights_path:
+            raise _no_imagenet_weights("vgg19_weights_path")
+        self.scale_factor = scale_factor
+        self.output_shape = tuple(output_shape)
+        self._arch = {"scale_factor": scale_factor,
+                      "growth_channels": growth_channels,
+                      "num_rrdb_blocks": num_rrdb_blocks}
+        g = _seeded()
+        self.generator = ESRGANGenerator(scale_factor=scale_factor,
+                                         growth_channels=growth_channels,
+                                         num_rrdb_blocks=num_rrdb_blocks,
+                                         device=self.device, generator=g)
+        self.discriminator = ESRGANDiscriminator(device=self.device,
+                                                 generator=g)
+        # the JAX facade draws VGG19 from PRNGKey(0)
+        self.vgg_model = VGG19Features(
+            device=self.device, generator=torch.Generator().manual_seed(0))
+        self.trainer = ESRGANTrainer(self.generator, self.discriminator,
+                                     self.vgg_model, mesh=self.mesh,
+                                     compute_dtype=compute_dtype,
+                                     device=self.device)
+        self.state = self.trainer.init_state(input_shape, output_shape)
+        if from_trained:
+            if (generator_pretrained_path is None
+                    or not os.path.exists(generator_pretrained_path)):
+                raise FileNotFoundError("Generator pretrained path does not "
+                                        f"exist: {generator_pretrained_path}")
+            if _is_h5(generator_pretrained_path):
+                raise NotImplementedError(
+                    f"{generator_pretrained_path}: Keras .h5 import of the "
+                    f"generator and discriminator is not ported yet "
+                    f"({_ITEM_10})")
+            # the port's checkpoint holds the whole GANState
+            self.state = _restore(self.state, generator_pretrained_path)
+            self.trained = True
+
+    def network(self) -> torch.nn.Module:
+        """The generator with the state's current weights."""
+        if self.generator is None:
+            raise ValueError("Model is not built yet.")
+        return module_with_params(self.generator, self.state.g_params)
+
+    def _apply(self, x):
+        return functional_call(self.generator, self.state.g_params, (x,))
+
+    def fit(self, X_train=None, Y_train=None, X_val=None, Y_val=None,
+            epochs=100, batch_size=16, steps_per_epoch=None, normalize=True,
+            save_dir=None):
+        if X_train is None or Y_train is None:
+            raise ValueError("Must provide (X_train, Y_train)")
+        res = self.trainer.fit(X_train, Y_train, X_val, Y_val, epochs=epochs,
+                               batch_size=batch_size,
+                               steps_per_epoch=steps_per_epoch,
+                               normalize=normalize, save_dir=save_dir,
+                               state=self.state)
+        self.state = res.state
+        self.trained = True
+        return res.epoch_losses, res.time_tracker, res.memory_tracker
+
+    def evaluate(self, X_test, Y_test, batch_size=16):
+        if not self.trained:
+            raise RuntimeError("Model has not been trained.")
+        return self.trainer.evaluate(self.state, X_test, Y_test,
+                                     batch_size=batch_size)
+
+    def super_resolve_image(self, lr_img, patch_size_lr=48, stride=24,
+                            batch_size=16):
+        if not self.trained:
+            raise RuntimeError("Model has not been trained or loaded.")
+        return super_resolve_image(self._apply, lr_img,
+                                   patch_size_lr=patch_size_lr, stride=stride,
+                                   scale=self.scale_factor, normalize_pm1=True,
+                                   device=self.device)
+
+    def super_resolve_full_image(self, lr_img, attention_block_size=4096):
+        """Full-image SR: the whole image through the generator at once,
+        its attention blockwise (``pipeline.super_resolve_full_image``).
+        Returns (sr_img in [0, 1], metrics dict)."""
+        if not self.trained:
+            raise RuntimeError("Model has not been trained or loaded.")
+        return super_resolve_full_image(
+            self.network(), lr_img, mesh=self.mesh,
+            attention_block_size=attention_block_size)
+
+    def save(self, directory, timestamp):
+        if not self.trained:
+            raise RuntimeError("Cannot save an untrained model.")
+        path = save_checkpoint(
+            directory, f"ESRGAN_x{self.scale_factor}_{timestamp}", self.state,
+            metadata={"arch": self._arch})
+        print(f"Generator+discriminator state saved to {path}")
+        return path
+
+    def save_h5(self, directory, timestamp):
+        raise _no_h5_export()
+
+
 class FineTunedVGG16(_Facade):
     """VGG16 defect-classifier lifecycle parity with ``VGG16_model.py:16-281``."""
 
@@ -292,9 +430,7 @@ class FineTunedVGG16(_Facade):
                 "'sparse_categorical_crossentropy' is implemented "
                 "(the reference compiles exactly this, VGG16_model.py:102)")
         if imagenet_weights_path:
-            raise NotImplementedError(
-                "imagenet_weights_path: the converted Keras ImageNet weights "
-                "need a download, so their loader is not ported")
+            raise _no_imagenet_weights("imagenet_weights_path")
         self.input_shape = tuple(input_shape)
         self._arch = {"input_shape": list(self.input_shape),
                       "num_classes": num_classes, "dropout_rate": dropout_rate}

@@ -4,9 +4,9 @@ clip [0, 1].
 
 Activations are NHWC and conv kernels HWIO, as in the JAX package; every 3x3
 conv runs through K2 (``conv3x3``): ``conv3x3_bias_act``, or
-``conv3x3_bias_act_train`` (K2 forward and K2 input gradient) where grad mode
-is on and the conv's input, kernel or bias requires grad (``trainable()``,
-or the trainers' state). Submodule names mirror the flax tree (``head``, ``res{i}.conv1``/
+``conv3x3_bias_act_train`` (K2 forward and K2 input gradient, float32 or
+bfloat16) where grad mode is on and the conv's input, kernel or bias requires
+grad (``trainable()``, or the trainers' state). Submodule names mirror the flax tree (``head``, ``res{i}.conv1``/
 ``conv2``, ``body``, ``up0``/``up1``, ``tail``), so a flax tree maps onto
 the state dict key for key.
 """
@@ -25,7 +25,11 @@ from tpusr_torch.models.layers import pixel_shuffle
 
 def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
             relu: bool = False) -> torch.Tensor:
-    """A 3x3 SAME conv on K2, with K2's gradient where autograd needs one."""
+    """A 3x3 SAME conv on K2, with K2's gradient where autograd needs one.
+    A bf16 bias (the bf16 training forward casts every weight) is added in
+    fp32 at its rounded value, as K2 takes it."""
+    if bias.dtype == torch.bfloat16:
+        bias = bias.float()
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad
                                     or bias.requires_grad):
         return conv3x3_bias_act_train(x, kernel, bias, relu)
@@ -112,8 +116,10 @@ class EDSR(nn.Module):
                  ) -> torch.Tensor:
         """Head, residual blocks, body conv and the global skip, in x's
         dtype, with ``params`` from ``conv_params`` (by default the
-        module's own float32 weights)."""
-        params = self.conv_params() if params is None else params
+        module's own weights in their dtype: float32, or the bf16 training
+        forward's casts)."""
+        if params is None:
+            params = self.conv_params(self.head.kernel.dtype)
 
         def conv(name, t, relu=False):
             return conv3x3(t, *params[name], relu)

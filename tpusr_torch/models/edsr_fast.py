@@ -90,14 +90,17 @@ def fused_tail_kernel(edsr):
     return w.float(), b_eff.float(), pad
 
 
-def make_fused_sr_apply(edsr, dtype=torch.float32):
-    """Bind an ``EDSR`` module into a forward with the fused linear tail, in
-    ``dtype`` (float32 or bfloat16).
+def fused_sr_stages(edsr, dtype=torch.float32) -> dict:
+    """The fused forward's stages, bound to an ``EDSR`` module in ``dtype``
+    (float32 or bfloat16), each a function of the previous stage's output
+    so that each can be run alone on shared inputs:
 
-    Returns (fn, s), s the model's scale factor: ``fn(x) -> y_poly`` of
-    shape (N, H, W, s^2*channels) in ``dtype``, clipped to [0, 1], on the
-    module's device; in float32 ``pixel_shuffle(y_poly, s)`` equals
-    ``edsr(x)``, borders included.
+    - ``head``: x -> the head conv (the first launch of ``body``);
+    - ``body``: x -> head, residual blocks, body conv and skip (K2);
+    - ``tail``: y -> the composed 7x7 conv (``F.conv2d``) + ``b_eff``;
+    - ``borders``: (y, z) -> z with its ``pad``-cell border band replaced,
+      in place, by the chained tail on the four slabs (K2);
+    - ``clip``: z -> clamp to [0, 1].
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
@@ -114,15 +117,41 @@ def make_fused_sr_apply(edsr, dtype=torch.float32):
     def chained_poly(yslab):
         return _interleaved_to_poly(_chained_tail(tail, yslab, s), s)
 
-    def fn(x):
-        y = edsr.body_out(x.to(dtype).contiguous(), params)
+    def head(x):
+        return conv3x3_bias_act(x.to(dtype).contiguous(), *params["head"])
+
+    def body(x):
+        return edsr.body_out(x.to(dtype).contiguous(), params)
+
+    def composed(y):
         z = F.conv2d(y.permute(0, 3, 1, 2), w_eff, padding=pad)
-        z = z.permute(0, 2, 3, 1) + b_eff
+        return z.permute(0, 2, 3, 1) + b_eff
+
+    def borders(y, z):
         # border-band correction: chained zero-padding semantics
         z[:, :pad] = chained_poly(y[:, :slab])[:, :pad]
         z[:, -pad:] = chained_poly(y[:, -slab:])[:, -pad:]
         z[:, :, :pad] = chained_poly(y[:, :, :slab])[:, :, :pad]
         z[:, :, -pad:] = chained_poly(y[:, :, -slab:])[:, :, -pad:]
-        return z.clamp(0.0, 1.0)
+        return z
 
-    return fn, s
+    return {"head": head, "body": body, "tail": composed, "borders": borders,
+            "clip": lambda z: z.clamp(0.0, 1.0)}
+
+
+def make_fused_sr_apply(edsr, dtype=torch.float32):
+    """Bind an ``EDSR`` module into a forward with the fused linear tail, in
+    ``dtype`` (float32 or bfloat16).
+
+    Returns (fn, s), s the model's scale factor: ``fn(x) -> y_poly`` of
+    shape (N, H, W, s^2*channels) in ``dtype``, clipped to [0, 1], on the
+    module's device; in float32 ``pixel_shuffle(y_poly, s)`` equals
+    ``edsr(x)``, borders included. ``fn`` runs ``fused_sr_stages`` in turn.
+    """
+    st = fused_sr_stages(edsr, dtype)
+
+    def fn(x):
+        y = st["body"](x)
+        return st["clip"](st["borders"](y, st["tail"](y)))
+
+    return fn, edsr.scale_factor

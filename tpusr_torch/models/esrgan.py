@@ -174,6 +174,7 @@ class ESRGANDiscriminator(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         g = default_generator(generator)
+        self.init_args = dict(channels=channels)
         self.conv1 = SNConv(channels, 64, generator=g)
         cin = 64
         for i, (f, s) in enumerate(zip((64, 64, 128, 128, 256), (2, 1, 2, 1, 2))):

@@ -70,6 +70,8 @@ def _host_snapshot(tree) -> dict:
 
 
 def _write(path: str, leaves: dict, metadata: dict | None) -> str:
+    # the directory is made as Orbax makes it in the JAX package
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(leaves, path)
     if metadata is not None:
         with open(path + ".meta.json", "w") as f:

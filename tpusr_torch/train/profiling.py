@@ -1,0 +1,88 @@
+"""Profiling helpers (port of ``tpusr/train/profiling.py``): a
+``torch.profiler`` trace, a steady-state timing harness and the device's
+allocator statistics.
+
+- ``trace(log_dir)`` records the host and, on a card, the device's kernels
+  while its block runs, and writes one Chrome trace (viewable in Perfetto or
+  ``chrome://tracing``) into ``log_dir``.
+- ``time_compiled(fn, *args)`` keeps the JAX name: the port compiles nothing
+  per call, so it times steady-state calls after ``warmup`` of them,
+  waiting for the device that holds the result at both ends.
+- ``device_memory_mb`` reads torch's allocator; on the CPU it returns zeros,
+  as the JAX function does where a device has no memory statistics.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the block (CPU, and CUDA where
+    a card is present) and write it to ``log_dir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _devices_of(out) -> set:
+    """The CUDA devices holding the tensors of ``out`` (a tensor or a nested
+    tuple / list / dict of them)."""
+    if isinstance(out, torch.Tensor):
+        return {out.device} if out.is_cuda else set()
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        return set().union(*(_devices_of(o) for o in out)) if out else set()
+    return set()
+
+
+def _wait(out) -> None:
+    for dev in _devices_of(out):
+        torch.cuda.synchronize(dev)
+
+
+def time_compiled(fn, *args, iters: int = 10, warmup: int = 1):
+    """Steady-state seconds per call of ``fn(*args)``: ``warmup`` calls,
+    then ``iters`` timed by the host clock, each end waiting for the
+    device that holds the result (the reference's ``time_algorithm``,
+    profiling_methods.py:17-27, with the warm-up excluded)."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    _wait(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    _wait(out)
+    return (time.perf_counter() - t0) / iters
+
+
+def device_memory_mb(device=None) -> dict:
+    """Current and peak allocated memory in MB of ``device`` (by default the
+    current card), from torch's allocator; zeros on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return {"current_mb": 0.0, "peak_mb": 0.0}
+    stats = torch.cuda.memory_stats(dev)
+    mb = 1024.0 * 1024.0
+    cur = stats.get("allocated_bytes.all.current", 0)
+    return {"current_mb": cur / mb,
+            "peak_mb": stats.get("allocated_bytes.all.peak", cur) / mb}

@@ -22,6 +22,17 @@ them in JAX), loss, gradients, optax's ``clip_by_global_norm`` when
 ``clipnorm`` is set, Adam (b1 0.9, b2 0.999, eps 1e-8, then the rate), and
 the PSNR/SSIM or accuracy metrics without grad. Metrics stay on the device
 until an epoch ends.
+
+``compute_dtype="bfloat16"`` is JAX's ``_cast_in``: the forward runs on the
+parameters and the input cast to bf16 (EDSR's convs on K2-bf16, forward and
+dX) and its output is cast to float32; master parameters, Adam's moments,
+the loss and the metrics stay float32, and the gradients reach the float32
+parameters through the casts. ``remat=True`` (``SupervisedSRTrainer``, as
+JAX's ``jax.checkpoint`` of the forward; JAX's ``ClassifierTrainer`` has no
+``remat``) keeps no activation of the forward for the backward and runs the
+forward again there (``torch.utils.checkpoint``, non-reentrant): the same
+gradients, bit for bit, for the memory of the activations, and on a card
+one K2 launch more per conv.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Callable
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from tpusr_torch.bridge import flax_path
 from tpusr_torch.data.augment import random_augment_batch
@@ -63,19 +75,41 @@ class FitResult:
     state: TrainState
 
 
-def _not_in_this_slice(mesh, remat, compute_dtype) -> None:
+def no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh: data-parallel training is not ported yet (ROADMAP queue 1, "
             "item 8: parallelism)")
-    if remat:
-        raise NotImplementedError(
-            "remat: a checkpointed forward is not ported yet (ROADMAP queue "
-            "1, item 7: the rest of training)")
-    if str(compute_dtype) not in ("float32", "torch.float32"):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: mixed-precision training is "
-            f"not ported yet (ROADMAP queue 1, item 7: the rest of training)")
+
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(compute_dtype) -> torch.dtype:
+    """``"float32"``/``"bfloat16"`` (or the torch dtype) -> the torch dtype;
+    K2 has these two instances, so no other."""
+    for name, dt in _COMPUTE_DTYPES.items():
+        if compute_dtype in (name, dt):
+            return dt
+    raise ValueError(f"compute_dtype={compute_dtype!r}: 'float32' or "
+                     f"'bfloat16'")
+
+
+def cast_in(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """JAX's ``_cast_in`` of one leaf: a floating tensor cast to the compute
+    dtype (differentiably), anything else as it is."""
+    if t.is_floating_point() and t.dtype != dtype:
+        return t.to(dtype)
+    return t
+
+
+def remat_call(fn, on: bool):
+    """``fn()``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``on`` and autograd records: no activation of ``fn`` is kept for the
+    backward, which runs ``fn`` again (``jax.checkpoint``)."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, use_reentrant=False)
+    return fn()
 
 
 def _f32(v: float) -> float:
@@ -110,18 +144,20 @@ def clip_by_global_norm(grads: list, max_norm: float) -> list:
     return [torch.where(trigger, g, (g / g_norm) * max_norm) for g in grads]
 
 
-def adam_update(state: TrainState, names: list, grads: list) -> None:
-    """optax ``scale_by_adam`` then ``-lr`` and ``apply_updates``, in place:
-    mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, both bias-corrected
-    by 1 - b^count (float32), u = mu_hat / (sqrt(nu_hat) + eps), p += -lr u."""
-    opt = state.opt_state
+def adam_update(opt: dict, params: dict, names: list, grads: list,
+                lr: float) -> None:
+    """optax ``scale_by_adam`` then ``-lr`` and ``apply_updates``, in place,
+    on ``params[k]`` for k in ``names`` with the moments and step count of
+    ``opt`` (``{"count", "mu", "nu"}``): mu = (1 - b1) g + b1 mu, nu =
+    (1 - b2) g^2 + b2 nu, both bias-corrected by 1 - b^count (float32),
+    u = mu_hat / (sqrt(nu_hat) + eps), p += -lr u."""
     opt["count"] += 1
     t = np.float32(opt["count"])
     bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** t)
     bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** t)
     mu = [opt["mu"][k] for k in names]
     nu = [opt["nu"][k] for k in names]
-    params = [state.params[k] for k in names]
+    params = [params[k] for k in names]
     with torch.no_grad():
         torch._foreach_mul_(mu, ADAM_B1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - ADAM_B1))
@@ -134,7 +170,7 @@ def adam_update(state: TrainState, names: list, grads: list) -> None:
         torch._foreach_add_(den, ADAM_EPS)
         upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, den)
-        torch._foreach_mul_(upd, -state.lr)
+        torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(params, upd)
 
 
@@ -148,13 +184,15 @@ class SupervisedSRTrainer:
     def __init__(self, model, learning_rate=1e-4, clipnorm=None, mesh=None,
                  loss: str = "mse", remat: bool = False,
                  compute_dtype="float32", device=None):
-        _not_in_this_slice(mesh, remat, compute_dtype)
+        no_mesh(mesh)
         if loss not in ("mse", "mae"):
             raise ValueError(f"Unsupported loss {loss!r}: 'mse' or 'mae'")
         self.model = model
         self.base_lr = learning_rate
         self.clipnorm = clipnorm
         self.loss_name = loss
+        self.remat = remat
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.device = resolve_device(device)
 
     # ---- functional pieces -------------------------------------------------
@@ -180,11 +218,16 @@ class SupervisedSRTrainer:
         return TrainState(params=params, opt_state=opt, lr=_f32(self.base_lr))
 
     def _apply(self, params: dict, x: torch.Tensor, **kwargs) -> torch.Tensor:
-        return functional_call(self.model, params, (x,), kwargs)
+        """The model on ``params`` and ``x`` cast to the compute dtype; its
+        output cast to float32."""
+        dt = self.compute_dtype
+        params = {k: cast_in(v, dt) for k, v in params.items()}
+        return functional_call(self.model, params, (cast_in(x, dt),),
+                               kwargs).float()
 
     def _loss(self, params, x, y, w, step):
         """(loss, prediction) of a weighted batch."""
-        pred = self._apply(params, x).float()
+        pred = remat_call(lambda: self._apply(params, x), self.remat)
         d = pred - y
         per = (d * d) if self.loss_name == "mse" else d.abs()
         return _wmean(per.mean(dim=tuple(range(1, per.dim()))), w), pred
@@ -210,7 +253,8 @@ class SupervisedSRTrainer:
 
     def _train_step_w(self, state: TrainState, x, y, w, step: int = 0):
         loss, pred, grads = self.value_and_grad(state, x, y, w, step)
-        adam_update(state, list(grads), list(grads.values()))
+        adam_update(state.opt_state, state.params, list(grads),
+                    list(grads.values()), state.lr)
         return state, self._metrics(loss, pred, y, w)
 
     def _eval_step_w(self, state: TrainState, x, y, w) -> dict:
@@ -392,10 +436,10 @@ class ClassifierTrainer(SupervisedSRTrainer):
         on the Dense-256 kernel, probs); ``step`` None is the eval forward
         (no dropout)."""
         if step is None:
-            probs = self._apply(params, x).float()
+            probs = self._apply(params, x)
         else:
             gen = _seeded_generator(self.device, self.dropout_seed, step)
-            probs = self._apply(params, x, train=True, generator=gen).float()
+            probs = self._apply(params, x, train=True, generator=gen)
         # minimum/maximum, not clamp: softmax saturates to exactly 1.0 in
         # fp32, where jnp.clip's gradient is 0.5 and clamp's 1
         clipped = torch.minimum(torch.maximum(probs, probs.new_tensor(1e-7)),
