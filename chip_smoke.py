@@ -147,11 +147,27 @@ its own lines:
    formed, mean fill, queue wait and batch time; 8 /sr answers byte for
    byte the pipeline's direct SR of the image beside 15 other eval images;
    400 for a non-image and a JPEG body, 404 for another path; the
-   command's exit after its last request.
+   command's exit after its last request;
+18. the reference's commands (``CommandsSlice``) on its own dataset
+   layout, made on the card: 16 HR print surfaces of 512^2 (the gate's hard
+   task) and their x0.25 ``degrade_image`` LR as PNG with
+   ``interp_map.pkl`` and ``class_map.pkl``, and 16 more as the prediction
+   set; then, through ``tpusr_torch.cli.__main__.main`` in process,
+   ``train-edsr --scale 4`` (2 epochs, 1600 pairs split 1120/160/320),
+   ``train-srcnn`` (1 epoch), ``train-vgg16`` (2 epochs, 81 patches an
+   image), ``train-esrgan --scale 4`` (1 epoch, full VGG19), ``classic`` and
+   ``pipeline`` on the four checkpoints (ESRGAN's dense attention, so 2
+   images a batch); each command's files, wall time, steps/s, split, eval
+   loss and PSNR or accuracy, K2, K2-bf16 and K4 launches (K2 as the split
+   and the per-step launches imply, K4 as ``phase_classic``'s 49), peak
+   memory, no plain twin on the card, every trained state finite; the
+   pipeline's EDSR SR of its first batch against K2's twin (every launch
+   within ``k2_forward_bound``, the SR at ``SR_ATOL``); and one
+   ``python -m tpusr_torch.cli train-edsr --help`` subprocess.
 
 Phase 8 also prints which stage of the fused f32 SR first differs between
 an image alone (N = 1) and the same image in the batch of 16, each stage
-run on shared inputs (``sr_stage_diffs``). Each path (8-17) is driven with
+run on shared inputs (``sr_stage_diffs``). Each path (8-18) is driven with
 the launch counts set to 0 just before it and read just after. Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
@@ -2121,30 +2137,67 @@ def check_k2_backward(t: TrainSlice, edsr, dev) -> dict:
     return worst
 
 
-class conv_io:
-    """While open, record each ``Conv3x3`` of ``model`` run by a forward
-    with autograd: its input and the gradient that reaches its output in
-    the backward (``io[name] = [x, dy]``)."""
+def trace_records(events: list, lead_name: str) -> dict:
+    """What a ``profiling.trace`` Chrome trace kept of its launches: the
+    kernel launches made on the host inside the lead span ``lead_name``
+    (``lead``) and after it (``block``), and how many of each have no
+    kernel record of the same correlation id (``lead_lost``,
+    ``block_lost``)."""
+    span = next(e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == lead_name)
+    end = span["ts"] + span["dur"]
+    kernels = {e["args"]["correlation"] for e in events
+               if e.get("cat") == "kernel"}
+    lead, block = set(), set()
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", ""):
+            (lead if span["ts"] <= e["ts"] <= end else
+             block if e["ts"] > end else set()).add(e["args"]["correlation"])
+    return {"lead": len(lead), "lead_lost": len(lead - kernels),
+            "block": len(block), "block_lost": len(block - kernels)}
 
-    def __init__(self, model):
-        from tpusr_torch.models.edsr import Conv3x3
-        self.io, self._mods = {}, [(n, m) for n, m in model.named_modules()
-                                   if isinstance(m, Conv3x3)]
+
+class k2_train_io:
+    """While open, record each K2 training conv of the models
+    (``edsr.conv3x3_bias_act_train``: EDSR's and ESRGAN's) in call order:
+    ``calls`` holds [x, kernel, bias, relu, dY], dY being the gradient that
+    reaches the conv's output in the backward."""
 
     def __enter__(self):
-        self._hooks = []
-        for name, m in self._mods:
-            def fwd(_mod, inp, out, name=name):
-                self.io[name] = [inp[0].detach().clone(), None]
-                if out.requires_grad:
-                    out.register_hook(lambda gr, name=name: self.io[name]
-                                      .__setitem__(1, gr.detach().clone()))
-            self._hooks.append(m.register_forward_hook(fwd))
+        from tpusr_torch.models import edsr
+        self.calls = []
+
+        def wrap(orig):
+            def call(x, k, b, relu=False):
+                y = orig(x, k, b, relu)
+                row = [x.detach().clone(), k.detach(), b.detach(), relu, None]
+                self.calls.append(row)
+                y.register_hook(lambda g, row=row: row.__setitem__(
+                    4, g.detach().clone()))
+                return y
+            return call
+        self._p = patched(edsr, conv3x3_bias_act_train=wrap)
+        self._p.__enter__()
         return self
 
     def __exit__(self, *exc):
-        for h in self._hooks:
-            h.remove()
+        self._p.__exit__(*exc)
+
+
+def recorded_backward_cases(tag: str, layers: list, calls: list) -> dict:
+    """``k2_backward_case`` at each conv of ``layers`` ((name, shape, relu)
+    in forward order) on the x, weights and dY that ``k2_train_io``
+    recorded (``calls``), which must be those convs; returns the worst
+    shares (``new_worst``)."""
+    want = [(shape, relu) for _, shape, relu in layers]
+    check([((*c[0].shape, c[1].shape[-1]), c[3]) for c in calls] == want
+          and all(c[4] is not None for c in calls),
+          f"{tag}: the training forward's convs are not {want}")
+    worst = new_worst()
+    for (name, _, relu), (x, kernel, bias, _, dy) in zip(layers, calls):
+        k2_backward_case(f"{tag} {name}", x, dy, kernel, bias, relu,
+                         name != layers[0][0], worst)
+    return worst
 
 
 def train_k2_times(layers: list, convs: dict, dev, card: str,
@@ -2649,7 +2702,9 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
                                     VGG19Features)
     from tpusr_torch.models.api import ESRGAN
     from tpusr_torch.train import ESRGANTrainer, restore_checkpoint
-    from tpusr_torch.train.profiling import (device_memory_mb,
+    from tpusr_torch.train.profiling import (TRACE_LEAD_KERNELS,
+                                             TRACE_LEAD_NAME,
+                                             device_memory_mb,
                                              time_compiled, trace)
 
     def gen(k):
@@ -2685,15 +2740,10 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
             grads = torch.autograd.grad(total, list(state.g_params.values()))
         return total.item(), dict(zip(state.g_params, grads))
     st0 = trainer.init_state()
-    with conv_io(gen8) as rec:
+    with k2_train_io() as rec:
         loss_k2, grads_k2 = g_grads(st0, *batch(0))
     # every conv of the step on its own recorded input and output gradient
-    worst = new_worst()
-    for name, shape, relu in layers:
-        x, dy = rec.io[name]
-        k2_backward_case(name, x, dy, st0.g_params[f"{name}.kernel"],
-                         st0.g_params[f"{name}.bias"], relu,
-                         name != "initial_conv", worst)
+    worst = recorded_backward_cases("G step", layers, rec.calls)
     del rec
     # end to end: the whole G gradient on the twin and in float64
     with train_on_plain_twin():
@@ -2787,6 +2837,12 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
                             and "conv3x3" in e.get("name", ""))
             check(k2_events >= 2 * n_fwd - 1,
                   f"profiling.trace holds {k2_events} K2 kernel events")
+            # the lead's lost records measure the profiler's loss at this
+            # point of a long process; the lead must be twice that
+            kept = trace_records(events, TRACE_LEAD_NAME)
+            check(2 * kept["lead_lost"] <= TRACE_LEAD_KERNELS,
+                  f"profiling.trace's lead lost {kept['lead_lost']} of "
+                  f"{kept['lead']} kernel records: the lead is too short")
             del state
             torch.cuda.empty_cache()
 
@@ -2860,7 +2916,9 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
           f"(device_memory_mb: {mem['peak_mb']:.0f} MB); g_loss "
           f"{g_losses[0]:.4f} -> {g_losses[-1]:.4f}, d_loss {d_losses[0]:.4f}"
           f" -> {d_losses[-1]:.4f}; profiling.trace: {k2_events} K2 kernel "
-          f"events in one step; plain twins called 0 times")
+          f"events in one step, kernel records lost: {kept['lead_lost']} of "
+          f"the lead's {kept['lead']} launches, {kept['block_lost']} of the "
+          f"step's {kept['block']}; plain twins called 0 times")
     print(f"[gan] {card}: ESRGAN facade fit {s.fit_epochs} epochs of "
           f"{s.fit_pairs} pairs: epoch times "
           f"{[round(v, 3) for v in tt.epoch_times_sec]} s, g_loss "
@@ -3638,6 +3696,419 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
     return {"levels": levels, "launches": launches}
 
 
+# ----------------------------------------------------------------- commands
+
+@dataclass(frozen=True)
+class CommandsSlice:
+    """The reference's commands on its own dataset layout (HR/LR PNG pairs,
+    ``interp_map.pkl``, ``class_map.pkl``), made on the card: print
+    surfaces of the hard task degraded x0.25 by ``degrade_image``."""
+    images: int = 16             # per set: a training set and a prediction set
+    size: int = 512              # HR side; LR 128
+    edsr_epochs: int = 2
+    srcnn_epochs: int = 1
+    vgg16_epochs: int = 2
+    esrgan_epochs: int = 1
+    # pipeline's ESRGAN keeps JAX's dense attention: at LR 128^2 x4 its
+    # upsample attention holds a 65,536^2 f32 score map (17.2 GB) and its
+    # softmax per image, so two images a batch fit the card, not 16
+    pipeline_batch: int = 2
+    task: str = "hard"
+    train_seed: int = 700        # the sets' draws: --seed plus these
+    pred_seed: int = 800
+
+
+def write_reference_dataset(root: str, c: CommandsSlice, seed: int, dev,
+                            maps: bool) -> None:
+    """``c.images`` HR surfaces of ``c.size``^2 from ``seed`` and their x0.25
+    degradations, written as ``preprocess`` writes them: HR/ and LR/ PNGs
+    rounded to uint8, ``class_map.pkl`` (basename -> label) and, for a
+    training set, ``interp_map.pkl`` (basename -> the INTER_* name drawn)."""
+    import pickle
+
+    from tpusr_torch.data.degrade import DegradeConfig, degrade_image
+    from tpusr_torch.pipeline.png import encode_png_u8
+    from tpusr_torch.tools import serving_gate as sg
+
+    task = sg.TASKS[c.task]
+    hr, labels = sg.make_surface_images(
+        seed, c.images, c.size, amp_range=task["amp_range"],
+        noise=task["noise"], coverage_range=task["coverage_range"], device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cfg = DegradeConfig(scale_factor=0.25)
+    interp_map, class_map = {}, {}
+    for sub in ("HR", "LR"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(c.images):
+        lr, interp = degrade_image(hr[i], g, cfg, apply_jpeg=False)
+        name = f"sample_{i:05d}.png"
+        for sub, img in (("HR", hr[i]), ("LR", lr)):
+            u8 = (img * 255).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+            with open(os.path.join(root, sub, name), "wb") as f:
+                f.write(encode_png_u8(u8))
+        interp_map[name] = interp
+        class_map[name] = int(labels[i])
+    with open(os.path.join(root, "class_map.pkl"), "wb") as f:
+        pickle.dump(class_map, f)
+    if maps:
+        with open(os.path.join(root, "interp_map.pkl"), "wb") as f:
+            pickle.dump(interp_map, f)
+
+
+class split_sizes:
+    """While open, record the sizes of every ``cli._split`` (train, val,
+    test)."""
+
+    def __enter__(self):
+        from tpusr_torch.cli import __main__ as cli
+        self.sizes = []
+        self._p = patched(cli, _split=lambda orig: lambda x, y: self._rec(
+            orig(x, y)))
+        self._p.__enter__()
+        return self
+
+    def _rec(self, parts):
+        self.sizes.append(tuple(len(parts[i]) for i in (0, 2, 4)))
+        return parts
+
+    def __exit__(self, *exc):
+        self._p.__exit__(*exc)
+
+
+class first_train_step:
+    """While open, keep the trainer, a copy of the weights and the batch of
+    the first train step of a ``SupervisedSRTrainer`` or ``ESRGANTrainer``,
+    copied before the step updates the weights in place: ``got`` = (trainer,
+    {state field: {name: tensor}}, x, y)."""
+
+    def __enter__(self):
+        from tpusr_torch.train import gan
+        from tpusr_torch.train import trainer as tr
+        self.got = None
+
+        def keep(fields):
+            def wrap(orig):
+                def step(trainer, state, x, y, *a, **kw):
+                    if self.got is None:
+                        self.got = (trainer, {
+                            f: {k: v.detach().clone().requires_grad_(
+                                v.requires_grad and f in ("params", "g_params"))
+                                for k, v in getattr(state, f).items()}
+                            for f in fields}, x.clone(), y.clone())
+                    return orig(trainer, state, x, y, *a, **kw)
+                return step
+            return wrap
+        self._p = [patched(tr.SupervisedSRTrainer,
+                           _train_step_w=keep(("params",))),
+                   patched(gan.ESRGANTrainer, train_step=keep(
+                       ("g_params", "d_params", "d_spectral")))]
+        for p in self._p:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._p:
+            p.__exit__(*exc)
+
+
+def command_step_against_twin(tag: str, layers: list, params: dict, forward,
+                              loss) -> str:
+    """A train command's step at its own shapes, on the weights and the
+    batch of its first step: each K2 launch of the forward (``forward()``)
+    against the twin on its own input within ``k2_forward_bound``
+    (``k2_against_twin``), then each conv of ``layers`` ((name, shape,
+    relu) in forward order) on the x and dY that the backward of
+    ``loss()`` over ``params`` gives it: dX of the K2 Function within
+    ``k2_f32_bound`` of autograd through the twin, dW and db within
+    ``GRAD_RTOL`` (``k2_backward_case``)."""
+    want = [(shape, relu) for _, shape, relu in layers]
+    with torch.no_grad(), k2_against_twin() as k2c:
+        forward()
+    check([(r[0], r[1]) for r in k2c.rows] == want,
+          f"{tag}: the forward's K2 launches {[r[:2] for r in k2c.rows]} are "
+          f"not the convs {want}")
+    check(all(r[4] for r in k2c.rows),
+          f"{tag}: K2 beyond its per-output bound against the twin at "
+          f"{[r[0] for r in k2c.rows if not r[4]]}")
+    with k2_train_io() as rec, torch.enable_grad():
+        torch.autograd.grad(loss(), [p for p in params.values()
+                                     if p.requires_grad])
+    worst = recorded_backward_cases(tag, layers, rec.calls)
+    del rec
+    torch.cuda.empty_cache()
+    return (f"its first step at its own shapes on K2 against the twin: the "
+            f"{len(k2c.rows)} forward launches within their per-output bound "
+            f"(largest err {max(r[2] for r in k2c.rows):.3g}, bound "
+            f"{max(r[3] for r in k2c.rows):.3g}), the {len(layers) - 1} dX "
+            f"within 2*9*C*2^-24*sum|dY||k| (largest share "
+            f"{worst['dx_share']:.3f}), dW and db within {GRAD_RTOL} of their "
+            f"max (worst {worst['dw']:.2g}, {worst['db']:.2g}), ReLU masks "
+            f"differ at {worst['flips']} near-zero outputs")
+
+
+def k2_command_launches(sizes, bs: int, epochs: int, train_step: int,
+                        eval_step: int, gan: bool) -> int:
+    """K2 launches of a train command: per epoch its train steps (the
+    supervised trainer pads the trailing batch, the GAN trainer drops it)
+    and the validation batches, then the test batches."""
+    n_tr, n_va, n_te = sizes
+    steps = max(1, n_tr // bs) if gan else -(-n_tr // bs)
+    return (epochs * (steps * train_step + -(-n_va // bs) * eval_step)
+            + -(-n_te // bs) * eval_step)
+
+
+def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
+    """The reference's commands through ``tpusr_torch.cli.__main__.main``, in
+    process so that launches count: ``train-edsr`` (x4), ``train-srcnn``,
+    ``train-vgg16``, ``train-esrgan`` (x4), ``classic`` and ``pipeline`` on
+    the four checkpoints they wrote. Each command is driven with the launch
+    counts set to 0 just before it and read just after. Returns the K2 and
+    K4 launches of each command."""
+    import shutil
+    import tempfile
+
+    from tpusr_torch.cli.__main__ import main as cli_main
+    from tpusr_torch.config import EDSRConfig, ESRGANConfig, VGG16Config
+    from tpusr_torch.core import nlm
+    from tpusr_torch.pipeline import defect_pipeline
+    from tpusr_torch.utils import assert_all_finite
+
+    out = subprocess.run([sys.executable, "-m", "tpusr_torch.cli",
+                          "train-edsr", "--help"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0 and "--hr-dir" in out.stdout,
+          f"`python -m tpusr_torch.cli train-edsr --help`: {out.stderr[-300:]}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_commands_")
+    try:
+        t0 = time.perf_counter()
+        data, pred = os.path.join(work, "data"), os.path.join(work, "pred")
+        write_reference_dataset(data, c, seed + c.train_seed, dev, maps=True)
+        write_reference_dataset(pred, c, seed + c.pred_seed, dev, maps=False)
+        print(f"[commands] datasets: {c.images} + {c.images} HR {c.size}^2 / "
+              f"LR {c.size // 4}^2 PNG pairs ({c.task} task surfaces, "
+              f"degrade_image x0.25, no JPEG stage) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        hr, lr = os.path.join(data, "HR"), os.path.join(data, "LR")
+        ck = os.path.join(work, "ck")
+        ed, es, vg = EDSRConfig(), ESRGANConfig(), VGG16Config()
+        bs = 16      # the SR train commands' default --batch-size
+        commands = {
+            "train-edsr": ["--hr-dir", hr, "--lr-dir", lr, "--scale", "4",
+                           "--epochs", str(c.edsr_epochs)],
+            "train-srcnn": ["--hr-dir", hr, "--lr-dir", lr, "--interp-map",
+                            os.path.join(data, "interp_map.pkl"),
+                            "--epochs", str(c.srcnn_epochs)],
+            "train-vgg16": ["--hr-dir", hr, "--class-map",
+                            os.path.join(data, "class_map.pkl"),
+                            "--epochs", str(c.vgg16_epochs)],
+            "train-esrgan": ["--hr-dir", hr, "--lr-dir", lr, "--scale", "4",
+                             "--epochs", str(c.esrgan_epochs)],
+            "classic": ["--hr-dir", hr, "--lr-dir", lr, "--fraction", "1.0",
+                        "--limit", str(c.images)],
+            "pipeline": ["--lr-dir", os.path.join(pred, "LR"), "--hr-dir",
+                         os.path.join(pred, "HR"), "--class-map",
+                         os.path.join(pred, "class_map.pkl"), "--batch-size",
+                         str(c.pipeline_batch)],
+        }
+        per_step = {   # (train step, eval step) K2 launches at x4
+            "train-edsr": (2 * (2 * ed.num_res_blocks + 5) - 1,
+                           2 * ed.num_res_blocks + 5),
+            "train-esrgan": (2 * esrgan_launches(es.num_rrdb_blocks, 4) - 1,
+                             esrgan_launches(es.num_rrdb_blocks, 4))}
+        ckpt, launches, captured = {}, {}, {}
+
+        def keep(orig):
+            def run(sr_methods, *a, **kw):
+                captured["sr"], captured["x_lr"] = sr_methods, a[1]
+                return orig(sr_methods, *a, **kw)
+            return run
+
+        for name, args in commands.items():
+            argv = [name, *args, "--out", os.path.join(ck if name.startswith(
+                "train") else work, name)]
+            if name == "pipeline":
+                argv += ["--vgg16-ckpt", ckpt["train-vgg16"], "--srcnn-ckpt",
+                         ckpt["train-srcnn"], "--edsr-ckpt",
+                         ckpt["train-edsr"], "--esrgan-ckpt",
+                         ckpt["train-esrgan"]]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with (count_plain_calls() as plain, split_sizes() as sp,
+                  first_train_step() as first,
+                  patched(defect_pipeline,
+                          run_defect_detection_comparison=keep)):
+                reset_counts()
+                nlm.reset_launch_counts()
+                t0 = time.perf_counter()
+                ret = cli_main(argv)
+                sync()
+                wall = time.perf_counter() - t0
+                got = read_counts()
+                k4 = nlm.LAUNCHES["nlm_denoise"]
+            peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+            check(plain.n == 0, f"{name}: plain twins on the card "
+                                f"{plain.by_twin}")
+            launches[name] = {"conv3x3_bias_act": got["conv3x3_bias_act"],
+                              "nlm_denoise": k4}
+            want_k2, want_k4, extra = 0, 0, ""
+            if name.startswith("train"):
+                path = ret
+                ckpt[name] = path
+                files = sorted(f for f in os.listdir(os.path.dirname(path)))
+                base = os.path.basename(path)
+                check(files == sorted(base + s for s in (
+                    "", ".meta.json", ".metrics.csv", ".metrics.jsonl")),
+                      f"{name}: wrote {files}")
+                meta = json.load(open(path + ".meta.json"))
+                check({"eval", "history", "epoch_time_sec", "memory",
+                       "timestamp"} <= set(meta), f"{name}: meta {sorted(meta)}")
+                (sizes,) = sp.sizes
+                leaves = torch.load(path, map_location="cpu",
+                                    weights_only=True)
+                assert_all_finite(leaves, name)
+                hist = meta["history"]
+                epochs = len(hist.get("loss") or hist["g_loss"])
+                gan = name == "train-esrgan"
+                batch = vg.batch_size if name == "train-vgg16" else bs
+                steps = epochs * (max(1, sizes[0] // batch) if gan
+                                  else -(-sizes[0] // batch))
+                fit_s = sum(meta["epoch_time_sec"])
+                if name in per_step:
+                    want_k2 = k2_command_launches(sizes, bs, epochs,
+                                                  *per_step[name], gan)
+                ev = meta["eval"]
+                score = (f"accuracy {ev['accuracy']:.4f}" if "accuracy" in ev
+                         else f"PSNR {ev.get('psnr', ev.get('avg_psnr')):.2f} "
+                              f"dB")
+                loss = ev.get("loss", ev.get("avg_g_loss"))
+                check(math.isfinite(loss), f"{name}: eval loss {loss}")
+                extra = (f"split {sizes[0]}/{sizes[1]}/{sizes[2]}, {epochs} "
+                         f"epoch(s) in {fit_s:.1f} s, {steps} train steps "
+                         f"({steps / fit_s:.1f} steps/s over the epochs' "
+                         f"train and validation); eval loss {loss:.5f}, "
+                         f"{score}; files {files}")
+            elif name == "classic":
+                res = json.load(open(os.path.join(work, name,
+                                                  "classic_summary.json")))
+                check(sorted(res) == ["ranked", "summary"]
+                      and len(res["ranked"]) == 8, f"classic: {sorted(res)}")
+                # per pair: the scored run, the warm-up and one timed call;
+                # once per shape: the memory measurement (phase_classic)
+                want_k4 = c.images * 3 + 1
+                extra = (f"ranking {', '.join(a for a, _ in res['ranked'])}; "
+                         f"bicubic PSNR {res['summary']['bicubic']['psnr_mean']:.2f}"
+                         f" dB; files {sorted(os.listdir(os.path.join(work, name)))}")
+            else:
+                res = json.load(open(os.path.join(work, name,
+                                                  "pipeline_results.json")))
+                methods = ["bilinear", "bicubic", "area", "lanczos4", "srcnn",
+                           "edsr", "esrgan"]
+                check(list(res) == methods, f"pipeline: methods {list(res)}")
+                for m, r in res.items():
+                    check(0.0 <= r["accuracy"] <= 1.0
+                          and math.isfinite(r["psnr_mean"])
+                          and math.isfinite(r["mean_confidence"]),
+                          f"pipeline {m}: {r}")
+                    check(ret[m]["predictions"].shape == (c.images,),
+                          f"pipeline {m}: predictions")
+                calls = 1 + -(-c.images // c.pipeline_batch)   # + the warm-up
+                want_k2 = calls * (2 * ed.num_res_blocks + 5
+                                   + esrgan_launches(es.num_rrdb_blocks, 4))
+                extra = ("; ".join(f"{m} acc {r['accuracy']:.4f} PSNR "
+                                   f"{r['psnr_mean']:.2f} {r['time_sec']:.3f} s"
+                                   for m, r in res.items())
+                         + f"; files {sorted(os.listdir(os.path.join(work, name)))}")
+            check(got == launches_want(conv3x3_bias_act=want_k2),
+                  f"{name}: launches {got}, expected {want_k2} K2 and no other")
+            check(k4 == want_k4, f"{name}: K4 launches {k4} != {want_k4}")
+            print(f"[commands] {card}: {name} in {wall:.1f} s: {extra}; K2 "
+                  f"{got['conv3x3_bias_act']} launches, K2-bf16 "
+                  f"{got['conv3x3_bias_act_bf16']}, K4 {k4}; peak "
+                  f"{peak_mb:.1f} MB")
+            if name in per_step:
+                tr, w, x, y = first.got
+                n, lr_side = x.shape[0], x.shape[1]
+                check(tuple(y.shape[1:3]) == (4 * lr_side, 4 * lr_side),
+                      f"{name}: first batch {tuple(x.shape)} -> "
+                      f"{tuple(y.shape)}")
+                if name == "train-edsr":
+                    p = w["params"]
+                    line = command_step_against_twin(
+                        name, edsr_train_layers(TrainSlice(
+                            lr=lr_side, batch=n, blocks=ed.num_res_blocks,
+                            filters=ed.num_filters)), p,
+                        lambda: tr._apply(p, x),
+                        lambda: tr._loss(p, x, y, tr._ones_weights(n), 0)[0])
+                else:
+                    p = w["g_params"]
+                    line = command_step_against_twin(
+                        name, gan_train_layers(GanSlice(
+                            lr=lr_side, scale=4, batch=n),
+                            es.growth_channels, es.num_rrdb_blocks), p,
+                        lambda: tr._generate(p, x),
+                        lambda: tr.g_loss_components(
+                            p, w["d_params"], w["d_spectral"], x, y)[0])
+                print(f"[commands] {name} (batch {n} of LR {lr_side}^2 -> HR "
+                      f"{4 * lr_side}^2): {line}")
+                del first.got, tr, w, x, y, p
+
+        # pipeline's EDSR SR of its first batch against the same SR on K2's
+        # twin: every launch within its per-output bound on its own input,
+        # the output at SR_ATOL (as the served f32 SR)
+        x = torch.as_tensor(captured["x_lr"][:c.pipeline_batch], device=dev)
+        edsr_sr = captured["sr"]["edsr"]
+        with torch.inference_mode():
+            out = edsr_sr(x)
+            with models_on_k2_twin():
+                ref = edsr_sr(x)
+            with k2_against_twin() as k2c:
+                edsr_sr(x)
+        err = float((out - ref).abs().max())
+        check(len(k2c.rows) == 2 * ed.num_res_blocks + 5
+              and all(r[4] for r in k2c.rows),
+              f"pipeline EDSR: K2 beyond its bound against the twin at "
+              f"{[r[0] for r in k2c.rows if not r[4]]}")
+        check(err <= SR_ATOL, f"pipeline EDSR: against the twin max|err| "
+                              f"{err} > {SR_ATOL}")
+        print(f"[commands] pipeline's EDSR SR of its first batch "
+              f"{tuple(out.shape)}: every one of its {len(k2c.rows)} K2 "
+              f"launches within its per-output bound against the twin "
+              f"(largest err {max(r[2] for r in k2c.rows):.3g}, bound "
+              f"{max(r[3] for r in k2c.rows):.3g}); the SR against the same "
+              f"SR on the twin max|err| {err:.3g} (SR_ATOL {SR_ATOL})")
+
+        # its ESRGAN SR (x4, dense attention) of the same batch, held as
+        # phase_inference holds the x2 generator's full-image SR
+        esr_sr, n_esr = captured["sr"]["esrgan"], esrgan_launches(
+            es.num_rrdb_blocks, 4)
+        with torch.inference_mode():
+            out = esr_sr(x)
+            with models_on_k2_twin():
+                ref = esr_sr(x)
+            with k2_against_twin() as k2c:
+                esr_sr(x)
+        err = float((out - ref).abs().max())
+        # K2's per-conv tolerance at each launch carried to the output to
+        # first order with gain 1, halved by the [-1, 1] -> [0, 1] map
+        tol = 0.5 * n_esr * K2_ATOL
+        check(len(k2c.rows) == n_esr and all(r[4] for r in k2c.rows),
+              f"pipeline ESRGAN: {len(k2c.rows)} launches, K2 beyond its "
+              f"bound against the twin at "
+              f"{[r[0] for r in k2c.rows if not r[4]]}")
+        check(err <= tol, f"pipeline ESRGAN: against the twin max|err| {err} "
+                          f"> {tol}")
+        print(f"[commands] pipeline's ESRGAN SR of its first batch "
+              f"{tuple(out.shape)}: every one of its {len(k2c.rows)} K2 "
+              f"launches within its per-output bound against the twin "
+              f"(largest err {max(r[2] for r in k2c.rows):.3g}, bound "
+              f"{max(r[3] for r in k2c.rows):.3g}); the SR against the same "
+              f"SR on the twin max|err| {err:.3g} (tolerance {tol:.3g}, "
+              f"derived: 1/2 x {n_esr} launches x K2_ATOL)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
     rec = {"name": name, "route": "cuda",
            "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
@@ -3725,6 +4196,8 @@ def main() -> int:
         serve = phase_serve(GateSlice(), cfg, dev, args.seed, sync, card,
                             trained)
         del trained
+        torch.cuda.empty_cache()
+        commands = phase_commands(CommandsSlice(), dev, args.seed, sync, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3773,7 +4246,10 @@ def main() -> int:
             **({"train": rec["train"]["launches"], "gan": rec["gan"]["launches"]}
                if rec["name"] == "conv3x3_bias_act" else {}),
             **({"gan": rec["train"]["launches"]}
-               if rec["name"] == "conv3x3_bias_act_bf16" else {})}
+               if rec["name"] == "conv3x3_bias_act_bf16" else {}),
+            **({f"commands_{c.replace('-', '_')}": n[rec["name"]]
+                for c, n in commands.items()}
+               if rec["name"] in ("conv3x3_bias_act", "nlm_denoise") else {})}
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

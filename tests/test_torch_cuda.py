@@ -843,8 +843,8 @@ def test_gan_step_on_k2_matches_the_twin(cuda):
     (``chip_smoke.k2_backward_case``: dX within ``k2_f32_bound``, dW and db
     within 1e-5 of their max, ReLU masks apart only near 0); then two full
     steps' losses within rtol 1e-4."""
-    from chip_smoke import (conv_io, count_plain_calls, k2_backward_case,
-                            new_worst, train_on_plain_twin)
+    from chip_smoke import (count_plain_calls, k2_backward_case,
+                            k2_train_io, new_worst, train_on_plain_twin)
     from tpusr_torch.models import (ESRGANDiscriminator, ESRGANGenerator,
                                     VGG19Features)
     from tpusr_torch.train import ESRGANTrainer
@@ -864,18 +864,14 @@ def test_gan_step_on_k2_matches_the_twin(cuda):
         return dict(zip(state.g_params, out))
     before = k.LAUNCHES["conv3x3_bias_act"]
     st = tr.init_state()
-    with count_plain_calls() as plain, conv_io(gen) as rec:
+    with count_plain_calls() as plain, k2_train_io() as rec:
         grads(st)
         torch.cuda.synchronize()
     assert k.LAUNCHES["conv3x3_bias_act"] - before == 39 and plain.n == 0
     worst = new_worst()
-    for name, (x, dy) in rec.io.items():
-        relu = name.endswith(("conv1", "conv2", "conv3", "conv4")) and (
-            "dense" in name) or name == "final_conv1"
-        k2_backward_case(name, x, dy, st.g_params[f"{name}.kernel"],
-                         st.g_params[f"{name}.bias"], relu,
-                         name != "initial_conv", worst)
-    assert len(rec.io) == 20
+    for i, (x, kern, bias, relu, dy) in enumerate(rec.calls):
+        k2_backward_case(f"conv {i}", x, dy, kern, bias, relu, i > 0, worst)
+    assert len(rec.calls) == 20
 
     def losses(state):
         out = []
@@ -913,3 +909,43 @@ def test_profiling_helpers_on_the_card(cuda, tmp_path):
     mem = profiling.device_memory_mb(cuda)
     assert mem["current_mb"] >= 64 and mem["peak_mb"] >= mem["current_mb"]
     del held
+
+
+
+TRACE_SESSIONS = 24      # profiling.trace sessions, one after another
+TRACE_LAUNCHES = 200     # K2 launches in each session's block
+
+
+def test_trace_keeps_every_kernel_record_across_sessions(cuda, tmp_path):
+    """torch.profiler on the card has lost the kernel records of the first
+    launches of a session (their launch records stay) late in a long
+    process. In each of ``TRACE_SESSIONS`` ``profiling.trace`` sessions of
+    one process, every K2 launch of the block has its kernel record, and
+    the lead is at least twice the records it lost
+    (``chip_smoke.trace_records``). Run with ``-s`` to print the losses."""
+    import json
+    from chip_smoke import trace_records
+    from tpusr_torch.train import profiling
+    x = torch.randn((1, 8, 8, 16), device=cuda)
+    kk = torch.randn((3, 3, 16, 8), device=cuda)
+    b = torch.zeros(8, device=cuda)
+    rows = []
+    for i in range(TRACE_SESSIONS):
+        d = tmp_path / f"session{i}"
+        with profiling.trace(str(d)):
+            for _ in range(TRACE_LAUNCHES):
+                k.conv3x3_bias_act(x, kk, b)
+        events = json.loads((d / "trace.json").read_text())["traceEvents"]
+        kept = trace_records(events, profiling.TRACE_LEAD_NAME)
+        kept["k2"] = sum(1 for e in events if e.get("cat") == "kernel"
+                         and "conv3x3" in e.get("name", ""))
+        rows.append(kept)
+    print(f"\n[trace] {torch.cuda.get_device_name(0)}: {TRACE_LAUNCHES} K2 "
+          f"launches in each of {TRACE_SESSIONS} sessions; kernel records "
+          f"lost per session: of the lead's launches "
+          f"{[r['lead_lost'] for r in rows]} (of {rows[0]['lead']}), of the "
+          f"block's {[r['block_lost'] for r in rows]}; K2 records "
+          f"{[r['k2'] for r in rows]}")
+    assert [r["k2"] for r in rows] == [TRACE_LAUNCHES] * TRACE_SESSIONS
+    assert all(r["lead"] >= profiling.TRACE_LEAD_KERNELS for r in rows)
+    assert 2 * max(r["lead_lost"] for r in rows) <= profiling.TRACE_LEAD_KERNELS

@@ -1,0 +1,158 @@
+"""The port's degradation model (``tpusr_torch/data/degrade.py``) against
+JAX's ``tpusr.data.degrade.degrade_image_core``.
+
+torch cannot reproduce ``jax.random``'s streams, so the port's core takes
+its draws as arguments: the test computes JAX's draws from the same key (the
+eight key splits of ``degrade_image_core`` and ``fold_in(key, 99)`` for the
+noise), hands them to the port's core, and compares the LR images at atol
+1e-5 on [0, 1] (blur sums, the resize matrix products and the noise add in
+float32, in another order). The keys are chosen to cover every branch: each
+Gaussian size, each motion size, each interpolation, noise on and off.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpusr.data import degrade as jd
+from tpusr_torch.data import degrade as td
+
+ATOL = 1e-5
+HR_SHAPE = (32, 40, 3)
+
+
+def jax_draws(key, hr_shape, cfg=td.DegradeConfig()) -> td.DegradeDraws:
+    """The draws ``tpusr.data.degrade.degrade_image_core`` makes from
+    ``key``, as the port's ``DegradeDraws``."""
+    keys = jax.random.split(key, 8)
+    k_idx = int(jax.random.randint(keys[1], (), 0, len(cfg.gauss_ksizes)))
+    m_idx = int(jax.random.randint(keys[4], (), 0, len(cfg.motion_ksizes)))
+    noise = jax.random.normal(jax.random.fold_in(key, 99),
+                              td.lr_shape(hr_shape, cfg))
+    return td.DegradeDraws(
+        blur=bool(jax.random.uniform(keys[0]) < cfg.p_gauss_blur),
+        ksize=cfg.gauss_ksizes[k_idx],
+        sigma=float(jax.random.uniform(keys[2], minval=cfg.sigma_range[0],
+                                       maxval=cfg.sigma_range[1])),
+        motion=bool(jax.random.uniform(keys[3]) < cfg.p_motion_blur),
+        motion_size=cfg.motion_ksizes[m_idx],
+        interp=int(jax.random.randint(keys[5], (), 0, 4)),
+        noise=bool(jax.random.uniform(keys[6]) < cfg.p_noise),
+        noise_std=float(jax.random.uniform(keys[7], minval=cfg.noise_range[0],
+                                           maxval=cfg.noise_range[1])),
+        noise_tensor=torch.from_numpy(np.array(noise)))
+
+
+def _covering_seeds(n_max=200):
+    """The first seeds whose draws, together, take every branch."""
+    want = ({("blur", k) for k in (3, 5, 7)} | {("motion", k) for k in (5, 7, 9)}
+            | {("interp", i) for i in range(4)} | {("noise", b) for b in (0, 1)}
+            | {("blur", 0), ("motion", 0)})
+    seeds = []
+    for s in range(n_max):
+        d = jax_draws(jax.random.PRNGKey(s), HR_SHAPE)
+        got = {("blur", d.ksize if d.blur else 0),
+               ("motion", d.motion_size if d.motion else 0),
+               ("interp", d.interp), ("noise", int(d.noise))}
+        if got & want:
+            seeds.append(s)
+            want -= got
+        if not want:
+            return seeds
+    raise AssertionError(f"branches not covered: {want}")
+
+
+SEEDS = _covering_seeds()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_core_on_jax_draws_equals_jax(seed):
+    hr = np.random.default_rng(seed).random(HR_SHAPE).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    want, w_idx = jd.degrade_image_core(jnp.asarray(hr), key)
+    got, g_idx = td.degrade_image_core(torch.from_numpy(hr),
+                                       jax_draws(key, HR_SHAPE))
+    assert g_idx == int(w_idx)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (16, 20, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+def test_the_seeds_cover_every_branch():
+    seen = set()
+    for s in SEEDS:
+        d = jax_draws(jax.random.PRNGKey(s), HR_SHAPE)
+        seen |= {("blur", d.ksize if d.blur else 0),
+                 ("motion", d.motion_size if d.motion else 0),
+                 ("interp", d.interp), ("noise", int(d.noise))}
+    assert {("blur", k) for k in (0, 3, 5, 7)} <= seen
+    assert {("motion", k) for k in (0, 5, 7, 9)} <= seen
+    assert {("interp", i) for i in range(4)} <= seen
+    assert {("noise", 0), ("noise", 1)} <= seen
+
+
+def test_quarter_scale_on_jax_draws_equals_jax():
+    """The x0.25 degradation of a 64^2 image (the commands' HR/LR layout)."""
+    cfg_j, cfg_t = jd.DegradeConfig(scale_factor=0.25), td.DegradeConfig(
+        scale_factor=0.25)
+    hr = np.random.default_rng(9).random((64, 64, 3)).astype(np.float32)
+    for s in SEEDS[:4]:
+        key = jax.random.PRNGKey(s)
+        want, _ = jd.degrade_image_core(jnp.asarray(hr), key, cfg_j)
+        got, _ = td.degrade_image_core(torch.from_numpy(hr),
+                                       jax_draws(key, hr.shape, cfg_t), cfg_t)
+        assert tuple(got.shape) == (16, 16, 3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL)
+
+
+def test_blur_kernels_and_reflect_padding_equal_jax():
+    img = np.random.default_rng(2).random((9, 11, 3)).astype(np.float32) * 255
+    for k, sigma in ((3, 0.9), (5, 1.5), (7, 2.0)):
+        kj = jd._gauss_kernel1d(k, jnp.float32(sigma))
+        kt = td._gauss_kernel1d(k, float(np.float32(sigma)), "cpu")
+        np.testing.assert_allclose(kt.numpy(), np.asarray(kj), rtol=0, atol=1e-7)
+        want = jd._sep_blur(jnp.asarray(img), kj, kj)
+        got = td._sep_blur(torch.from_numpy(img), kt, kt)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL * 255)
+
+
+def test_sample_draws_is_seeded_and_in_range():
+    cfg = td.DegradeConfig()
+    a = td.sample_draws(torch.Generator().manual_seed(3), HR_SHAPE, cfg)
+    b = td.sample_draws(torch.Generator().manual_seed(3), HR_SHAPE, cfg)
+    assert a.ksize == b.ksize and a.sigma == b.sigma and a.interp == b.interp
+    assert torch.equal(a.noise_tensor, b.noise_tensor)
+    draws = [td.sample_draws(torch.Generator().manual_seed(s), HR_SHAPE, cfg)
+             for s in range(64)]
+    for d in draws:
+        assert d.ksize in cfg.gauss_ksizes and d.motion_size in cfg.motion_ksizes
+        assert 0.8 <= d.sigma <= 2.0 and 2.0 <= d.noise_std <= 10.0
+        assert tuple(d.noise_tensor.shape) == (16, 20, 3)
+    assert {d.interp for d in draws} == {0, 1, 2, 3}
+    assert {d.blur for d in draws} == {d.noise for d in draws} == {False, True}
+
+
+def test_degrade_image_wraps_the_draws_and_the_core():
+    hr = np.random.default_rng(4).random(HR_SHAPE).astype(np.float32)
+    lr, name = td.degrade_image(hr, apply_jpeg=False, seed=5)
+    d = td.sample_draws(torch.Generator().manual_seed(5), HR_SHAPE)
+    want, idx = td.degrade_image_core(torch.from_numpy(hr), d)
+    assert isinstance(lr, np.ndarray) and name == td._INTERP_NAMES[idx]
+    np.testing.assert_array_equal(lr, want.numpy())
+    lr_t, name_t = td.degrade_image(torch.from_numpy(hr),
+                                    torch.Generator().manual_seed(5),
+                                    apply_jpeg=False)
+    assert isinstance(lr_t, torch.Tensor) and name_t == name
+    np.testing.assert_array_equal(lr_t.numpy(), lr)
+    assert lr.min() >= 0.0 and lr.max() <= 1.0
+
+
+def test_jpeg_stage_raises_naming_the_missing_encoder():
+    hr = np.zeros(HR_SHAPE, np.float32)
+    with pytest.raises(NotImplementedError, match="JPEG encoder"):
+        td.degrade_image(hr)
+    with pytest.raises(NotImplementedError, match="apply_jpeg=False"):
+        td.degrade_image(hr, apply_jpeg=True)

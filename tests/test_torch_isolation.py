@@ -1,6 +1,6 @@
 """The port stands alone: tpusr_torch and chip_smoke.py import no JAX, no
 flax and nothing of the JAX package, at import time or lazily; nor OpenCV,
-PIL or matplotlib, which the card's machine does not have."""
+PIL, matplotlib or scikit-learn, which the card's machine does not have."""
 
 import ast
 import pathlib
@@ -11,7 +11,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tpusr"}
-IMAGE_LIBS = {"cv2", "PIL", "matplotlib"}   # absent on the card's machine
+IMAGE_LIBS = {"cv2", "PIL", "matplotlib", "sklearn"}  # absent on the card's machine
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -54,7 +54,8 @@ def test_every_port_module_imports_without_jax():
             "tpusr_torch.models.esrgan", "tpusr_torch.models.api",
             "tpusr_torch.pipeline.inference", "tpusr_torch.pipeline.png",
             "tpusr_torch.pipeline.http_serving",
-            "tpusr_torch.cli.__main__"} <= mods
+            "tpusr_torch.cli.__main__", "tpusr_torch.data.loading",
+            "tpusr_torch.data.degrade", "tpusr_torch.utils"} <= mods
 
 
 @pytest.mark.parametrize("path", sorted(

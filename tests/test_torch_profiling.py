@@ -1,7 +1,8 @@
 """The port's profiling helpers (tpusr_torch/train/profiling.py) against the
 JAX package's (tpusr/train/profiling.py) on the CPU: the trace file, the
-steady-state timer's calls and its result, and the memory statistics where
-a device has none. Their card paths (CUDA events in the trace, the wait on
+steady-state timer's calls and its result, the memory statistics where
+a device has none, and the count of a trace's lost kernel records that the
+card checks read. Their card paths (CUDA events in the trace, the wait on
 the result's card, the allocator's figures) are in tests/test_torch_cuda.py."""
 
 import json
@@ -61,3 +62,26 @@ def test_device_memory_mb_is_zero_without_device_statistics():
                                                          "peak_mb": 0.0}
     if not torch.cuda.is_available():
         assert profiling.device_memory_mb() == want
+
+
+def test_trace_records_counts_the_lost_kernel_records():
+    """``chip_smoke.trace_records`` (what the card checks read from a
+    trace): launches inside the lead span count as the lead's, later ones as
+    the block's, and a launch whose correlation id has no kernel record is
+    lost; launches before the span and other runtime calls are ignored."""
+    from chip_smoke import trace_records
+
+    def launch(ts, c, name="cudaLaunchKernel"):
+        return {"cat": "cuda_runtime", "name": name, "ts": ts,
+                "args": {"correlation": c}}
+
+    def kernel(c):
+        return {"cat": "kernel", "name": "k", "ts": 0, "args": {"correlation": c}}
+    events = [
+        {"cat": "user_annotation", "name": "trace_lead", "ts": 10, "dur": 10},
+        launch(5, 1), launch(10, 2), launch(15, 3), launch(20, 4),
+        launch(25, 5), launch(30, 6), launch(35, 7, "cudaMemcpyAsync"),
+        launch(40, 8, "cudaLaunchKernelExC"),
+        kernel(1), kernel(3), kernel(4), kernel(5), kernel(8)]
+    assert trace_records(events, "trace_lead") == {
+        "lead": 3, "lead_lost": 1, "block": 3, "block_lost": 1}

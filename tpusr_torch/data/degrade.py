@@ -1,0 +1,165 @@
+"""Degradation model: HR -> (LR, interp_name) (port of
+``tpusr/data/degrade.py``; reference ``data/common_methods.py:51-100``).
+
+Gaussian blur (p=.7, k in {3,5,7}, sigma in [0.8,2.0]), horizontal motion
+blur (p=.3, k in {5,7,9}), downscale by ``scale_factor`` with a random
+interpolation from {bilinear, bicubic, area, lanczos4} (OpenCV's taps,
+``core/resize.py``), Gaussian noise (p=.7, sigma in [2,10] on the 0..255
+scale).
+
+The random draws are split from the arithmetic. ``sample_draws`` takes them
+from an explicit ``torch.Generator`` (torch cannot reproduce ``jax.random``
+streams); ``degrade_image_core`` takes them as arguments, so the same draws
+can be given to both packages, and computes only the branch that was drawn
+(the JAX core evaluates every variant and selects, an XLA device, not the
+semantics). The JPEG re-encode stage (``jpeg_roundtrip`` in the JAX package,
+``cv2.imencode``) needs a JPEG encoder, which the port does not have:
+``apply_jpeg=True`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpusr_torch.core.resize import resize
+from tpusr_torch.device import fp32_math
+
+_INTERP_NAMES = ("INTER_LINEAR", "INTER_CUBIC", "INTER_AREA", "INTER_LANCZOS4")
+_INTERP_METHODS = ("bilinear", "bicubic", "area", "lanczos4")
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradeConfig:
+    scale_factor: float = 0.5
+    p_gauss_blur: float = 0.7
+    p_motion_blur: float = 0.3
+    p_noise: float = 0.7
+    p_jpeg: float = 0.7
+    gauss_ksizes: tuple[int, ...] = (3, 5, 7)
+    motion_ksizes: tuple[int, ...] = (5, 7, 9)
+    sigma_range: tuple[float, float] = (0.8, 2.0)
+    noise_range: tuple[float, float] = (2.0, 10.0)
+    jpeg_q_range: tuple[int, int] = (20, 60)
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradeDraws:
+    """One image's random choices: Gaussian blur on/off, its kernel size and
+    sigma; motion blur on/off and its size; the interpolation (an index into
+    ``_INTERP_NAMES``); noise on/off, its std (0..255 scale) and the
+    standard-normal noise tensor of the LR's shape."""
+    blur: bool
+    ksize: int
+    sigma: float
+    motion: bool
+    motion_size: int
+    interp: int
+    noise: bool
+    noise_std: float
+    noise_tensor: torch.Tensor | None
+
+
+def lr_shape(hr_shape, cfg: DegradeConfig = DegradeConfig()) -> tuple:
+    """(h, w, c) of the LR image ``cfg`` makes from an HR of ``hr_shape``."""
+    h, w, c = hr_shape
+    return int(h * cfg.scale_factor), int(w * cfg.scale_factor), c
+
+
+def _uniform(g: torch.Generator, lo: float = 0.0, hi: float = 1.0) -> float:
+    u = torch.rand((), generator=g, device=g.device, dtype=torch.float32)
+    return float(lo + (hi - lo) * float(u))
+
+
+def _index(g: torch.Generator, n: int) -> int:
+    return int(torch.randint(n, (), generator=g, device=g.device))
+
+
+def sample_draws(generator: torch.Generator, hr_shape,
+                 cfg: DegradeConfig = DegradeConfig()) -> DegradeDraws:
+    """Draw one image's choices from ``generator``, in the JAX core's order;
+    the noise tensor lies on the generator's device."""
+    g = generator
+    blur = _uniform(g) < cfg.p_gauss_blur
+    ksize = cfg.gauss_ksizes[_index(g, len(cfg.gauss_ksizes))]
+    sigma = _uniform(g, *cfg.sigma_range)
+    motion = _uniform(g) < cfg.p_motion_blur
+    motion_size = cfg.motion_ksizes[_index(g, len(cfg.motion_ksizes))]
+    interp = _index(g, len(_INTERP_METHODS))
+    noise = _uniform(g) < cfg.p_noise
+    noise_std = _uniform(g, *cfg.noise_range)
+    noise_tensor = torch.randn(lr_shape(hr_shape, cfg), generator=g,
+                               device=g.device, dtype=torch.float32)
+    return DegradeDraws(blur, ksize, sigma, motion, motion_size, interp,
+                        noise, noise_std, noise_tensor)
+
+
+def _gauss_kernel1d(ksize: int, sigma: float, device) -> torch.Tensor:
+    """cv2.getGaussianKernel parity for the sigma>0 path, in float32."""
+    x = torch.arange(ksize, dtype=torch.float32, device=device) - (ksize - 1) / 2.0
+    s = torch.tensor(sigma, dtype=torch.float32, device=device)
+    k = torch.exp(-(x * x) / (2.0 * s * s))
+    return k / torch.sum(k)
+
+
+def _sep_blur(img: torch.Tensor, kv: torch.Tensor, kh: torch.Tensor
+              ) -> torch.Tensor:
+    """Separable blur of an (h, w, c) image with reflect-101 borders (cv2's
+    default; numpy's and F.pad's ``reflect``): the vertical taps, then the
+    horizontal ones, each channel on its own."""
+    c = img.shape[-1]
+    ph, pw = kv.shape[0] // 2, kh.shape[0] // 2
+    x = img.permute(2, 0, 1)[None]                      # (1, c, h, w)
+    x = F.pad(x, (pw, pw, ph, ph), mode="reflect")
+    x = F.conv2d(x, kv.view(1, 1, -1, 1).expand(c, 1, -1, 1), groups=c)
+    x = F.conv2d(x, kh.view(1, 1, 1, -1).expand(c, 1, 1, -1), groups=c)
+    return x[0].permute(1, 2, 0)
+
+
+def degrade_image_core(hr01: torch.Tensor, draws: DegradeDraws,
+                       cfg: DegradeConfig = DegradeConfig()):
+    """Degrade an (h, w, c) HR image in [0, 1] with the given draws (the JPEG
+    stage excluded). Returns (lr01, interp_idx), interp_idx indexing
+    ``_INTERP_NAMES``."""
+    fp32_math()
+    x = hr01.to(torch.float32) * 255.0
+    if draws.blur:
+        k = _gauss_kernel1d(draws.ksize, draws.sigma, x.device)
+        x = _sep_blur(x, k, k)
+    if draws.motion:
+        x = _sep_blur(x, torch.ones(1, device=x.device),
+                      torch.full((draws.motion_size,), 1.0 / draws.motion_size,
+                                 device=x.device))
+    out = lr_shape(tuple(hr01.shape), cfg)
+    lr = resize(x, out[:2], _INTERP_METHODS[draws.interp])
+    if draws.noise:
+        noise = draws.noise_tensor.to(lr.device, torch.float32) * draws.noise_std
+        lr = torch.clamp(lr + noise, 0.0, 255.0)
+    return torch.clamp(lr, 0.0, 255.0) / 255.0, draws.interp
+
+
+def degrade_image(hr01, generator: torch.Generator | None = None,
+                  cfg: DegradeConfig = DegradeConfig(),
+                  apply_jpeg: bool = True, seed: int | None = None):
+    """Full degradation (common_methods.py:51-100) without its JPEG stage.
+    ``hr01`` is an (h, w, c) numpy array or tensor in [0, 1]; the draws come
+    from ``generator`` (default: one on ``hr01``'s device seeded by
+    ``seed``, or 0). Returns (lr01, interp_name), lr01 of ``hr01``'s kind.
+    ``apply_jpeg=True`` (the JAX default) raises: the port has no JPEG
+    encoder, so callers pass ``apply_jpeg=False``."""
+    if apply_jpeg:
+        raise NotImplementedError(
+            "degrade_image(apply_jpeg=True): the JPEG re-encode stage needs a "
+            "JPEG encoder (cv2.imencode in the JAX package), which the port "
+            "does not have; pass apply_jpeg=False")
+    is_numpy = not isinstance(hr01, torch.Tensor)
+    x = torch.as_tensor(np.asarray(hr01, np.float32)) if is_numpy else hr01
+    if generator is None:
+        generator = torch.Generator(device=x.device).manual_seed(
+            0 if seed is None else seed)
+    draws = sample_draws(generator, tuple(x.shape), cfg)
+    lr01, idx = degrade_image_core(x.to(generator.device), draws, cfg)
+    return (lr01.cpu().numpy() if is_numpy else lr01), _INTERP_NAMES[idx]

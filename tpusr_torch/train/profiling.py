@@ -3,8 +3,9 @@
 allocator statistics.
 
 - ``trace(log_dir)`` records the host and, on a card, the device's kernels
-  while its block runs, and writes one Chrome trace (viewable in Perfetto or
-  ``chrome://tracing``) into ``log_dir``.
+  while its block runs (after a lead of tiny kernels, see ``trace``), and
+  writes one Chrome trace (viewable in Perfetto or ``chrome://tracing``)
+  into ``log_dir``.
 - ``time_compiled(fn, *args)`` keeps the JAX name: the port compiles nothing
   per call, so it times steady-state calls after ``warmup`` of them,
   waiting for the device that holds the result at both ends.
@@ -21,11 +22,24 @@ import time
 import torch
 
 
+# tiny kernels ``trace`` launches before the block on a card, inside a
+# ``TRACE_LEAD_NAME`` span of the trace (see there)
+TRACE_LEAD_KERNELS = 256
+TRACE_LEAD_NAME = "trace_lead"
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the block (CPU, and CUDA where
-    a card is present) and write it to ``log_dir/trace.json``."""
-    from torch.profiler import ProfilerActivity, profile
+    a card is present) and write it to ``log_dir/trace.json``.
+
+    On the H100 the profiler has lost the kernel records of the first
+    launches of a session (their launch records stay) late in a long
+    process. So on a card the trace opens with ``TRACE_LEAD_KERNELS``
+    one-element adds in a span named ``TRACE_LEAD_NAME``, which take that
+    loss, and the block's own kernels are all in the trace; the lead's
+    missing records measure the loss."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -33,6 +47,12 @@ def trace(log_dir: str):
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=activities)
     prof.start()
+    if torch.cuda.is_available():
+        with record_function(TRACE_LEAD_NAME):
+            lead = torch.zeros(1, device="cuda")
+            for _ in range(TRACE_LEAD_KERNELS):
+                lead.add_(1.0)
+            torch.cuda.synchronize()
     try:
         yield prof
     finally:
