@@ -163,7 +163,26 @@ its own lines:
    memory, no plain twin on the card, every trained state finite; the
    pipeline's EDSR SR of its first batch against K2's twin (every launch
    within ``k2_forward_bound``, the SR at ``SR_ATOL``); and one
-   ``python -m tpusr_torch.cli train-edsr --help`` subprocess.
+   ``python -m tpusr_torch.cli train-edsr --help`` subprocess;
+19. the parallelism layer (``DistSlice``, ``tpusr_torch/dist``), after
+   phase 17 on the gate's trained weights: at NCCL world size 1, 20
+   data-parallel EDSR x4 steps (median ms beside phase 14's), DP VGG16
+   with dropout, the DP GAN step, the shipped mode DP at batch 16 with 3
+   pad rows, ``super_resolve_full_image(mesh=)`` of g8x4 x4 at 128^2 (halo
+   slabs, the ring) and the PP step of 16 blocks in 1 stage at 4
+   microbatches, each against its unsharded run, with their launches; every
+   halo-slab and PP-microbatch K2 launch held against the twin; then 2 gloo
+   ranks sharing the card (DP EDSR x4 gradients, the served classes, TP on
+   a (1, 2) mesh: forward and step, each TP shape held), which carry no
+   send/recv of CUDA tensors, so PP and SP over 2 ranks run in the CPU
+   tests only (a line says so); K2 at the new shapes beside ``F.conv2d``.
+
+``python3 chip_smoke.py --dist-cards N`` (N cards) runs only the
+parallelism layer over N NCCL ranks, one card each: DP EDSR x4 at a global
+batch of 16 and of 16 a rank (the gradient all-reduce timed alone), the PP
+step over N stages, full-image SR of g8x4 x4 and g32x23 x2 with the rows
+split (per-rank peak; g32x23 held as ``check_chaotic_generator`` holds the
+dense one), then ``tpusr_torch.entry.dryrun_multichip(N)``.
 
 Phase 8 also prints which stage of the fused f32 SR first differs between
 an image alone (N = 1) and the same image in the batch of 16, each stage
@@ -4109,6 +4128,746 @@ def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- dist
+
+@dataclass(frozen=True)
+class DistSlice:
+    """The parallelism layer (``tpusr_torch/dist``) at full width on one
+    card: NCCL at world size 1 for every path (the data-parallel trainers at
+    ``TrainSlice``'s and ``GanSlice``'s shapes, the shipped serving mode on
+    the gate's trained weights at batch 16 with 3 pad rows, full-image SR
+    of ESRGAN g8 x4 at 128^2 with its rows split and the ring, the PP train
+    step of EDSR x4 with 16 blocks in 1 stage at 4 microbatches), then 2
+    gloo ranks sharing the card for what gloo carries on CUDA tensors."""
+    dp_steps: int = 20
+    vgg_steps: int = 3
+    gan_steps: int = 3
+    n_valid: int = 13
+    pp_micro: int = 4
+    sp_lr: int = 128
+    sp_scale: int = 4
+    ranks: int = 2
+
+
+# gloo's collectives that take CUDA tensors on the card (a probe run on the
+# H100: all_reduce, broadcast, all_gather, all_gather_into_tensor,
+# reduce_scatter_tensor, all_to_all_single); send/recv and
+# batch_isend_irecv are refused ("Bad address")
+GLOO_CUDA_CARRIES = ("all_reduce", "broadcast", "all_gather")
+GLOO_CPU_ONLY = ("PP (pipeline hops: batch_isend_irecv)",
+                 "SP (halo exchanges and the ring: batch_isend_irecv)")
+
+
+def hold_train_calls(tag: str, calls: list) -> dict:
+    """Every distinct (shape, relu) of the K2 training convs ``k2_train_io``
+    recorded: the forward against the twin within ``k2_forward_bound``, and
+    dX, dW, db by ``k2_backward_case`` (no dX where Cin is 3: the data).
+    Returns the worst shares with the shapes held."""
+    from tpusr_torch.core.conv3x3 import (conv3x3_bias_act,
+                                          conv3x3_bias_act_plain)
+    worst, seen = new_worst(), {}
+    worst["fwd_err"] = 0.0
+    for x, kernel, bias, relu, dy in calls:
+        key = ((*x.shape, kernel.shape[-1]), relu)
+        if key in seen or dy is None:
+            continue
+        seen[key] = True
+        with torch.no_grad():
+            y = conv3x3_bias_act(x.contiguous(), kernel, bias, relu)
+            err = (y - conv3x3_bias_act_plain(x, kernel, bias, relu)).abs()
+            bnd = k2_forward_bound(x, kernel, bias)
+        check(bool((err.double() <= bnd).all()),
+              f"{tag}: K2 forward at {key} beyond k2_forward_bound")
+        worst["fwd_err"] = max(worst["fwd_err"], float(err.max()))
+        k2_backward_case(f"{tag} {key}", x, dy, kernel, bias, relu,
+                         key[0][3] != 3, worst)
+    worst["shapes"] = sorted(seen)
+    return worst
+
+
+def dist_gloo_rank(rank: int, world: int, init_file: str, out_dir: str,
+                   spec: dict) -> None:
+    """One of ``DistSlice.ranks`` processes sharing card 0 over gloo: the DP
+    EDSR x4 step (loss, every gradient leaf), the shipped mode served DP on
+    the gate's weights, and TP on a (1, 2) mesh (EDSR x4 forward and one
+    step), each against the same call unsharded on this rank, with the main
+    runs' launch counts and plain-twin calls, and every new-shape K2 launch
+    held against the twin."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from tpusr_torch.dist import make_mesh, make_tp_mesh, shard_params_tp
+    from tpusr_torch.dist.tp import tp_apply
+    from tpusr_torch.models import EDSR, VGG16Classifier
+    from tpusr_torch.pipeline import make_serving_pipeline
+    from tpusr_torch.train import SupervisedSRTrainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    dev = torch.device("cuda", 0)
+    out = {"counts": {}, "plain": {}}
+    try:
+        mesh = make_mesh(device=dev)
+        t = TrainSlice()
+        g = torch.Generator(device=dev).manual_seed(spec["seed"] + 20)
+        lr, hr = sr_pairs(g, t.batch, t, dev)
+
+        def edsr():
+            return EDSR(scale_factor=t.scale, num_res_blocks=t.blocks,
+                        num_filters=t.filters, device=dev,
+                        generator=torch.Generator().manual_seed(spec["seed"]))
+
+        def counted(name, fn):
+            with count_plain_calls() as plain:
+                reset_counts()
+                res = fn()
+                torch.cuda.synchronize()
+                out["counts"][name] = read_counts()
+            out["plain"][name] = plain.n
+            return res
+
+        # DP EDSR x4: the loss and every gradient leaf
+        def grads(m):
+            tr = SupervisedSRTrainer(edsr(), learning_rate=1e-4, mesh=m,
+                                     device=dev)
+            loss, _, gr = tr.value_and_grad(tr.init_state(), lr, hr)
+            return float(loss), gr
+        loss_dp, g_dp = counted("dp_step", lambda: grads(mesh))
+        loss_1, g_1 = grads(None)
+        out["dp"] = {"loss": loss_dp, "loss_single": loss_1,
+                     "grad_share": max(
+                         float((g_dp[k] - g_1[k]).abs().max()
+                               / g_1[k].abs().max().clamp_min(1e-30))
+                         for k in g_1)}
+        del g_dp, g_1
+
+        # the shipped mode, DP, on the gate's trained weights
+        weights = torch.load(spec["weights"], map_location=dev)
+        cfg = Slice()
+        sr_model = EDSR(scale_factor=cfg.scale, device=dev)
+        sr_model.load_state_dict(weights["edsr"])
+        clf = VGG16Classifier(num_classes=2, device=dev)
+        clf.load_state_dict(weights["clf"])
+        served = {}
+        for name, m in (("dp_serve", mesh), ("single", None)):
+            pipe = make_serving_pipeline(
+                sr_model, clf, lr_hw=(cfg.lr, cfg.lr), scale=cfg.scale,
+                patch=cfg.patch, stride=cfg.stride, sr_mode="f32",
+                clf_mode="cascade_int8", calib_patches=weights["calib"],
+                cascade_escalate_frac=cfg.frac,
+                cascade_escalate_score="vote_frac",
+                cascade_guard_threshold=cfg.guard, mesh=m, device=dev)
+            run = (lambda p=pipe: p(weights["lr"], n_valid=spec["n_valid"]))
+            _, cls, _ = counted(name, run) if m is not None else run()
+            served[name] = cls.cpu().tolist()
+            served[name + "_trips"] = pipe.cascade_votes.guard_trips
+        out["served"] = served
+        del weights
+
+        # TP on (1, 2): EDSR x4 forward and one train step
+        tp_mesh = make_tp_mesh(1, world, device=dev)
+        model = edsr()
+        params = shard_params_tp(tp_mesh, dict(model.named_parameters()))
+        with torch.no_grad():
+            y_tp = counted("tp_forward",
+                           lambda: tp_apply(tp_mesh, model, params, lr))
+            y_1 = model(lr)
+            with k2_against_twin() as k2c:
+                tp_apply(tp_mesh, model, params, lr)
+        out["tp_forward"] = {"err": float((y_tp - y_1).abs().max()),
+                             "launches_held": len(k2c.rows),
+                             "all_within": all(r[4] for r in k2c.rows),
+                             "shapes": sorted({(r[0], r[1]) for r in k2c.rows}),
+                             "worst_share": max(r[2] / r[3] for r in k2c.rows
+                                                if r[3] > 0)}
+
+        def tp_step(m):
+            tr = SupervisedSRTrainer(edsr(), learning_rate=1e-4, mesh=m,
+                                     device=dev)
+            st = tr.init_state()
+            if m is not None:
+                st = shard_params_tp(m, st)
+            return float(tr.train_step(st, lr, hr)[1]["loss"])
+        out["tp_step"] = {"loss": counted("tp_step", lambda: tp_step(tp_mesh)),
+                          "loss_single": tp_step(None)}
+        with k2_train_io() as io:
+            tp_step(tp_mesh)
+        out["tp_backward"] = hold_train_calls("tp", io.calls)
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_ranks_on_card(d: DistSlice, cfg: Slice, trained: dict, dev,
+                       seed: int, card: str) -> dict:
+    """``dist_gloo_rank`` on ``d.ranks`` processes sharing card 0; they load
+    the kernels ``phase_build`` built and build none."""
+    import tempfile
+
+    from tpusr_torch.dist.bootstrap import spawn
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    try:
+        lr = trained["lr_eval"][:cfg.batch].contiguous()
+        with torch.no_grad():
+            sr = trained["edsr"](lr[:2])
+        calib = sr[:, :cfg.patch, :cfg.patch].contiguous()
+        path = os.path.join(work, "weights.pt")
+        torch.save({"edsr": trained["edsr"].state_dict(),
+                    "clf": trained["clf"].state_dict(), "lr": lr,
+                    "calib": calib}, path)
+        t0 = time.perf_counter()
+        spawn(dist_gloo_rank, d.ranks, (d.ranks, os.path.join(work, "init"),
+                                        work, {"seed": seed, "weights": path,
+                                               "n_valid": d.n_valid}))
+        res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+               for r in range(d.ranks)]
+        wall = time.perf_counter() - t0
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    t = TrainSlice()
+    n_fwd = len(edsr_train_layers(t))
+    for r, o in enumerate(res):
+        tag = f"[dist-gloo rank {r}/{d.ranks}]"
+        dp = o["dp"]
+        check(abs(dp["loss"] - dp["loss_single"]) <= 1e-5 * dp["loss_single"],
+              f"{tag} DP loss {dp['loss']} != single {dp['loss_single']}")
+        check(dp["grad_share"] <= GRAD_RTOL, f"{tag} DP gradient differs from "
+              f"the single-rank one by {dp['grad_share']:.3g} of its max")
+        check(o["served"]["dp_serve"] == o["served"]["single"],
+              f"{tag} DP served classes {o['served']}")
+        check(o["served"]["dp_serve_trips"] == o["served"]["single_trips"],
+              f"{tag} guard trips differ")
+        tf = o["tp_forward"]
+        check(tf["all_within"], f"{tag} a TP K2 launch beyond its bound")
+        check(tf["err"] <= SR_ATOL, f"{tag} TP forward max|err| {tf['err']}")
+        ts = o["tp_step"]
+        check(abs(ts["loss"] - ts["loss_single"]) <= 1e-4,
+              f"{tag} TP step loss {ts['loss']} != {ts['loss_single']}")
+        check(all(v == 0 for v in o["plain"].values()),
+              f"{tag} plain twins called on the card: {o['plain']}")
+        want_dp = launches_want(conv3x3_bias_act=2 * n_fwd - 1)
+        check(o["counts"]["dp_step"] == want_dp,
+              f"{tag} DP step launches {o['counts']['dp_step']}")
+        check(o["counts"]["tp_forward"]["conv3x3_bias_act"] == n_fwd,
+              f"{tag} TP forward launches {o['counts']['tp_forward']}")
+        print(f"{tag} {card}: DP EDSR x{t.scale} step at batch {t.batch} "
+              f"({t.batch // d.ranks} rows a rank): loss {dp['loss']:.6f} vs "
+              f"{dp['loss_single']:.6f} unsharded, gradients within "
+              f"{dp['grad_share']:.2g} of their max (tolerance {GRAD_RTOL}); "
+              f"the shipped mode DP at batch {cfg.batch}, n_valid "
+              f"{d.n_valid}: classes {o['served']['dp_serve']} == unsharded, "
+              f"guard trips {o['served']['dp_serve_trips']}; TP (1, "
+              f"{d.ranks}) EDSR forward max|err| {tf['err']:.3g} (SR_ATOL "
+              f"{SR_ATOL}), {tf['launches_held']} K2 launches held within "
+              f"k2_forward_bound (worst share {tf['worst_share']:.3g}), TP step "
+              f"loss {ts['loss']:.6f} vs {ts['loss_single']:.6f}; backward at "
+              f"{len(o['tp_backward']['shapes'])} TP shapes: dX share "
+              f"{o['tp_backward']['dx_share']:.3g}, dW {o['tp_backward']['dw']:.2g}"
+              f", db {o['tp_backward']['db']:.2g}; launches {o['counts']}; "
+              f"peak {o['peak_gb']:.2f} GB")
+    print(f"[dist-gloo] {d.ranks} gloo ranks sharing card 0 carried "
+          f"{', '.join(GLOO_CUDA_CARRIES)} on CUDA tensors; run on CPU ranks "
+          f"in the tests only (tests/test_torch_dist_pp.py, "
+          f"test_torch_dist_spatial.py): {'; '.join(GLOO_CPU_ONLY)}; wall "
+          f"{wall:.1f} s with the ranks' start")
+    return {"counts": res[0]["counts"], "tp_shapes": res[0]["tp_forward"]["shapes"],
+            "tp_backward": res[0]["tp_backward"]}
+
+
+def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
+               trained: dict, train_step_ms: float) -> dict:
+    """The parallelism layer on the card: NCCL at world size 1 for every
+    path, then ``gloo_ranks_on_card``; every new K2 shape (the PP
+    microbatch, the halo slabs, TP's Cout 32) held against the twin and
+    timed beside ``F.conv2d``."""
+    import torch.distributed as dist
+
+    from tpusr_torch.dist import (make_mesh, make_pp_mesh, make_pp_train_step)
+    from tpusr_torch.models import (EDSR, ESRGANDiscriminator, ESRGANGenerator,
+                                    VGG16Classifier, VGG19Features)
+    from tpusr_torch.pipeline import make_serving_pipeline
+    from tpusr_torch.pipeline.inference import super_resolve_full_image
+    from tpusr_torch.train import (ClassifierTrainer, ESRGANTrainer,
+                                   SupervisedSRTrainer)
+
+    t, gs = TrainSlice(), GanSlice()
+    t0 = time.perf_counter()
+    mesh = make_mesh(device=dev)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"mesh on {dist.get_backend()} at world {dist.get_world_size()}")
+    launches, out = {}, {}
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    pool_lr, pool_hr = sr_pairs(g, t.pool, t, dev)
+    sel = torch.randint(0, t.pool, (d.dp_steps, t.batch), generator=g,
+                        device=dev)
+    n_fwd = len(edsr_train_layers(t))
+
+    def edsr():
+        return EDSR(scale_factor=t.scale, num_res_blocks=t.blocks,
+                    num_filters=t.filters, device=dev,
+                    generator=torch.Generator().manual_seed(seed))
+
+    with count_plain_calls() as plain:
+        # ---- DP EDSR x4: 20 steps, the first against the unsharded step
+        dp = SupervisedSRTrainer(edsr(), learning_rate=1e-4, mesh=mesh,
+                                 device=dev)
+        single = SupervisedSRTrainer(edsr(), learning_rate=1e-4, device=dev)
+        loss_dp, _, g_dp = dp.value_and_grad(dp.init_state(), pool_lr[sel[0]],
+                                             pool_hr[sel[0]])
+        loss_1, _, g_1 = single.value_and_grad(single.init_state(),
+                                               pool_lr[sel[0]], pool_hr[sel[0]])
+        share = max(float((g_dp[k] - g_1[k]).abs().max()
+                          / g_1[k].abs().max().clamp_min(1e-30)) for k in g_1)
+        check(abs(float(loss_dp) - float(loss_1)) <= 1e-5 * float(loss_1)
+              and share <= GRAD_RTOL, f"DP step vs unsharded: loss "
+              f"{float(loss_dp)} vs {float(loss_1)}, gradient share {share}")
+        del g_dp, g_1
+        state = dp.init_state()
+        reset_counts()
+
+        def step(i):
+            nonlocal state
+            state, m = dp.train_step(state, pool_lr[sel[i]], pool_hr[sel[i]])
+            return m["loss"]
+        losses, ms = timed_steps(step, d.dp_steps)
+        launches["dist_train"] = read_counts()
+        check(launches["dist_train"] == launches_want(
+            conv3x3_bias_act=d.dp_steps * (2 * n_fwd - 1)),
+              f"DP EDSR launches {launches['dist_train']}")
+        losses = [float(v) for v in losses]
+        check(all(math.isfinite(v) for v in losses) and
+              np.mean(losses[-5:]) < losses[0], f"DP EDSR losses {losses}")
+        dp_ms = float(np.median(ms))
+        # the same steps unsharded, right after: the mesh's cost on one card
+        st1 = single.init_state()
+        _, ms1 = timed_steps(lambda i: single.train_step(
+            st1, pool_lr[sel[i]], pool_hr[sel[i]])[1]["loss"], d.dp_steps)
+        one_ms = float(np.median(ms1))
+        out.update(dp_step_ms=dp_ms, unsharded_step_ms=one_ms)
+        del state, dp, single, st1
+        print(f"[dist] {card}: NCCL world 1: DP EDSR x{t.scale} step median "
+              f"{dp_ms:.3f} ms (CUDA events, {d.dp_steps} steps), the same "
+              f"steps unsharded right after {one_ms:.3f} ms ({dp_ms - one_ms:+.3f}"
+              f" ms: the mesh's cost on one card), phase_train's "
+              f"{train_step_ms:.3f} ms; first step loss "
+              f"{float(loss_dp):.6f} == unsharded {float(loss_1):.6f}, "
+              f"gradients within {share:.2g} of their max; {2 * n_fwd - 1} K2 "
+              f"launches a step")
+
+        # ---- DP VGG16 with dropout, batch 64
+        clf_x = smooth_images(g, t.vgg_batch, t.vgg_patch, 3, dev) / 255.0
+        clf_y = (clf_x.mean(dim=(1, 2, 3)) > clf_x.mean()).to(torch.int32)
+
+        def vgg_losses(m):
+            tr = ClassifierTrainer(VGG16Classifier(
+                num_classes=2, device=dev,
+                generator=torch.Generator().manual_seed(seed + 1)),
+                learning_rate=2e-4, mesh=m, device=dev)
+            st = tr.init_state()
+            return [float(tr.train_step(st, clf_x, clf_y, i)[1]["loss"])
+                    for i in range(d.vgg_steps)]
+        vl_dp, vl_1 = vgg_losses(mesh), vgg_losses(None)
+        check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(vl_dp, vl_1)),
+              f"DP VGG16 losses {vl_dp} vs {vl_1}")
+        print(f"[dist] {card}: DP VGG16 {d.vgg_steps} steps at batch "
+              f"{t.vgg_batch} with dropout: losses {vl_dp} == unsharded")
+
+        # ---- DP GAN at GanSlice's shapes
+        gp_lr, gp_hr = sr_pairs(g, gs.batch, gs, dev)
+        gp_lr, gp_hr = gp_lr * 2 - 1, gp_hr * 2 - 1
+
+        def gan(m):
+            def gen(k):
+                return torch.Generator().manual_seed(seed * 100 + 60 + k)
+            tr = ESRGANTrainer(
+                ESRGANGenerator(gs.scale, gs.growth, gs.rrdb, device=dev,
+                                generator=gen(1)),
+                ESRGANDiscriminator(device=dev, generator=gen(2)),
+                VGG19Features(device=dev, generator=gen(3)), mesh=m,
+                device=dev)
+            st = tr.init_state()
+            return [{k: float(v) for k, v in tr.train_step(st, gp_lr, gp_hr)[1]
+                     .items()} for _ in range(d.gan_steps)]
+        reset_counts()
+        gan_dp = gan(mesh)
+        launches["dist_gan"] = read_counts()
+        gan_1 = gan(None)
+        per_gan = 2 * esrgan_launches(gs.rrdb, gs.scale) - 1
+        check(launches["dist_gan"] == launches_want(
+            conv3x3_bias_act=d.gan_steps * per_gan),
+              f"DP GAN launches {launches['dist_gan']}")
+        for a, b in zip(gan_dp, gan_1):
+            check(all(abs(a[k] - b[k]) <= 1e-5 * abs(b[k]) for k in b),
+                  f"DP GAN step {a} vs {b}")
+        print(f"[dist] {card}: DP GAN g{gs.growth}x{gs.rrdb} x{gs.scale} batch "
+              f"{gs.batch}: {d.gan_steps} steps == unsharded (g_loss "
+              f"{[round(v['g_loss'], 4) for v in gan_dp]}), {per_gan} K2 a step")
+
+        # ---- the shipped mode DP on the gate's weights, 3 pad rows
+        lr_b = trained["lr_eval"][:cfg.batch].contiguous()
+        with torch.no_grad():
+            sr2 = trained["edsr"](lr_b[:2])
+        calib = sr2[:, :cfg.patch, :cfg.patch].contiguous()
+        pipes = {name: make_serving_pipeline(
+            trained["edsr"], trained["clf"], lr_hw=(cfg.lr, cfg.lr),
+            scale=cfg.scale, patch=cfg.patch, stride=cfg.stride, sr_mode="f32",
+            clf_mode="cascade_int8", calib_patches=calib,
+            cascade_escalate_frac=cfg.frac, cascade_escalate_score="vote_frac",
+            cascade_guard_threshold=cfg.guard, mesh=m, device=dev)
+            for name, m in (("dp", mesh), ("single", None))}
+        reset_counts()
+        sr_dp, cls_dp, conf_dp = pipes["dp"](lr_b, n_valid=d.n_valid)
+        sync()
+        launches["dist_serve"] = read_counts()
+        _, cls_1, conf_1 = pipes["single"](lr_b, n_valid=d.n_valid)
+        check(torch.equal(cls_dp, cls_1) and float((conf_dp - conf_1).abs()
+                                                   .max()) <= 1e-4,
+              f"DP served classes {cls_dp.tolist()} vs {cls_1.tolist()}")
+        check(launches["dist_serve"]["conv3x3_bias_act"] > 0
+              and launches["dist_serve"]["conv3x3_int8_requant"] > 0,
+              f"DP serving launches {launches['dist_serve']}")
+        print(f"[dist] {card}: the shipped mode DP at batch {cfg.batch} "
+              f"(n_valid {d.n_valid}) on the gate's weights: classes "
+              f"{cls_dp.tolist()} == unsharded, guard trips "
+              f"{pipes['dp'].cascade_votes.guard_trips}; launches "
+              f"{launches['dist_serve']}")
+        del pipes, sr_dp
+
+        # ---- full-image SR, rows split (world 1: halo rows are zeros)
+        gen = ESRGANGenerator(d.sp_scale, gs.growth, gs.rrdb, device=dev,
+                              generator=torch.Generator().manual_seed(seed + 7))
+        sp_img = smooth_images(g, 1, d.sp_lr, 3, dev)[0] / 255.0
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        sr_sp, met = super_resolve_full_image(gen, sp_img, mesh=mesh)
+        launches["dist_full_image"] = read_counts()
+        sp_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        n_esr = esrgan_launches(gs.rrdb, d.sp_scale)
+        check(launches["dist_full_image"] == launches_want(
+            conv3x3_bias_act=n_esr), f"SP launches {launches['dist_full_image']}")
+        sr_blk, _ = super_resolve_full_image(gen, sp_img)
+        sp_err = float(np.abs(sr_sp - sr_blk).max())
+        tol = 0.5 * n_esr * K2_ATOL
+        check(np.isfinite(sr_sp).all() and sp_err <= tol,
+              f"SP full image vs blockwise: {sp_err} > {tol}")
+        out["sp"] = {"ms": met["time_sec"] * 1e3, "peak_gb": sp_peak}
+        print(f"[dist] {card}: full-image SR ESRGAN g{gs.growth}x{gs.rrdb} "
+              f"x{d.sp_scale} at {d.sp_lr}^2 with the rows split (NCCL world "
+              f"1, the ring at both attention sites): {n_esr} K2 launches on "
+              f"halo slabs, {met['time_sec'] * 1e3:.1f} ms, peak "
+              f"{sp_peak:.2f} GB; max|SR - blockwise SR| {sp_err:.3g} "
+              f"(tolerance {tol:.3g}: 1/2 x launches x K2_ATOL)")
+
+        # ---- PP: 16 blocks in 1 stage, 4 microbatches
+        pp_model = edsr().trainable()
+        pp_mesh = make_pp_mesh(1, device=dev)
+        step = make_pp_train_step(pp_model, pp_mesh, n_micro=d.pp_micro,
+                                  learning_rate=1e-4)
+        params = {k: v.detach() for k, v in pp_model.named_parameters()}
+        reset_counts()
+        pp_loss, pp_g = step.value_and_grad(params, pool_lr[sel[0]],
+                                            pool_hr[sel[0]])
+        sync()
+        launches["dist_pp"] = read_counts()
+        dense = SupervisedSRTrainer(edsr(), learning_rate=1e-4, device=dev)
+        d_loss, _, d_g = dense.value_and_grad(dense.init_state(),
+                                              pool_lr[sel[0]], pool_hr[sel[0]])
+        pp_share = max(float((pp_g[k] - d_g[k]).abs().max()
+                             / d_g[k].abs().max().clamp_min(1e-30)) for k in d_g)
+        check(abs(float(pp_loss) - float(d_loss)) <= 1e-5 * float(d_loss)
+              and pp_share <= GRAD_RTOL, f"PP step vs dense: loss "
+              f"{float(pp_loss)} vs {float(d_loss)}, gradient share {pp_share}")
+        pp_ms = time_ms(lambda: step(params, pool_lr[sel[0]], pool_hr[sel[0]]),
+                        min_total_ms=100.0, max_iters=5)
+        print(f"[dist] {card}: PP EDSR x{t.scale} {t.blocks} blocks in 1 stage, "
+              f"{d.pp_micro} microbatches of {t.batch // d.pp_micro}: loss "
+              f"{float(pp_loss):.6f} == dense {float(d_loss):.6f}, gradients "
+              f"within {pp_share:.2g} of their max; step {pp_ms:.2f} ms; "
+              f"launches {launches['dist_pp']}")
+        del pp_g, d_g
+    check(plain.n == 0, f"plain twins called on the card's dist paths: "
+                        f"{plain.by_twin}")
+    torch.cuda.empty_cache()
+
+    # ---- the new K2 shapes against the twin (outside the counted runs)
+    with k2_train_io() as io:
+        step.value_and_grad(params, pool_lr[sel[0]], pool_hr[sel[0]])
+    pp_calls = [c for c in io.calls if c[0].shape[0] == t.batch // d.pp_micro]
+    pp_held = hold_train_calls("pp", pp_calls)
+    del io, pp_calls, params
+    with k2_against_twin() as k2c:
+        super_resolve_full_image(gen, sp_img, mesh=mesh)
+    dist.destroy_process_group()
+    check(len(k2c.rows) == n_esr and all(r[4] for r in k2c.rows),
+          f"a halo-slab K2 launch beyond k2_forward_bound: "
+          f"{[r for r in k2c.rows if not r[4]]}")
+    halo_shapes = {(r[0], r[1]) for r in k2c.rows}
+    print(f"[dist] {card}: every K2 launch of the split full image ({n_esr}, "
+          f"{len(halo_shapes)} halo-slab shapes) within k2_forward_bound "
+          f"(worst share {max(r[2] / r[3] for r in k2c.rows if r[3]):.3g}); "
+          f"the PP microbatch convs at {len(pp_held['shapes'])} shapes: "
+          f"forward max|err| {pp_held['fwd_err']:.3g}, dX share "
+          f"{pp_held['dx_share']:.3g}, dW {pp_held['dw']:.2g}, db "
+          f"{pp_held['db']:.2g}")
+    del gen
+    torch.cuda.empty_cache()
+
+    gloo = gloo_ranks_on_card(d, cfg, trained, dev, seed, card)
+    for name, c in gloo["counts"].items():
+        launches[f"dist_gloo_{name}"] = c
+    shapes = ({s for s in halo_shapes}
+              | {s for s in gloo["tp_shapes"] if s[0][-1] != 3}
+              | {(s[0], s[1]) for s in pp_held["shapes"]})
+    times = k2_shape_times(shapes, dev)
+    for (shape, relu), v in sorted(times.items()):
+        print(f"[dist-K2] {card}: {shape} relu={relu}: K2 {v['ms']:.4f} ms, "
+              f"twin {v['plain_ms']:.4f}, F.conv2d {v['library_ms']:.4f}, "
+              f"bound {v['bound_ms']:.4f} ({v['bound_by']}), max|err| vs twin "
+              f"{v['err']:.3g}")
+    out.update(launches=launches, k2_times={str(k): v for k, v in times.items()},
+               wall_s=time.perf_counter() - t0)
+    print(f"[dist] phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def dist_card_rank(rank: int, world: int, init_file: str, out_dir: str,
+                   spec: dict) -> None:
+    """One rank of ``phase_dist_cards``, on card ``rank`` over NCCL: DP EDSR
+    x4 at a global batch of 16 and of 16 a rank, the PP step over ``world``
+    stages, full-image SR of g8x4 x4 and g32x23 x2 with the rows split; each
+    against the unsharded run, with step times, per-rank peaks and the
+    gradient all-reduce alone."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from tpusr_torch.dist import (full_image_esrgan_sr, make_mesh,
+                                  make_pp_mesh, make_pp_train_step)
+    from tpusr_torch.dist.mesh import (all_gather_cat, all_reduce_flat,
+                                       axis_ranks)
+    from tpusr_torch.dist.spatial import halo_convs, ring_attention
+    from tpusr_torch.models import EDSR, ESRGANGenerator
+    from tpusr_torch.train import SupervisedSRTrainer
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world, device_id=dev,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {}
+    try:
+        mesh = make_mesh(device=dev)
+        t, seed = TrainSlice(), spec["seed"]
+        g = torch.Generator(device=dev).manual_seed(seed + 20)
+        pool_lr, pool_hr = sr_pairs(g, 16 * world, t, dev)
+
+        def edsr():
+            return EDSR(scale_factor=t.scale, num_res_blocks=t.blocks,
+                        num_filters=t.filters, device=dev,
+                        generator=torch.Generator().manual_seed(seed))
+
+        # ---- DP: strong (global 16) and weak (16 a rank) scaling
+        for name, n in (("dp16", 16), ("dp_weak", 16 * world)):
+            lr, hr = pool_lr[:n], pool_hr[:n]
+            dp = SupervisedSRTrainer(edsr(), learning_rate=1e-4, mesh=mesh,
+                                     device=dev)
+            single = SupervisedSRTrainer(edsr(), learning_rate=1e-4,
+                                         device=dev)
+            loss, _, gd = dp.value_and_grad(dp.init_state(), lr, hr)
+            loss1, _, g1 = single.value_and_grad(single.init_state(), lr, hr)
+            share = max(float((gd[k] - g1[k]).abs().max()
+                              / g1[k].abs().max().clamp_min(1e-30)) for k in g1)
+            flat = list(gd.values())
+            # fixed counts: every rank must run the same collectives
+            _, ar = timed_steps(lambda i: all_reduce_flat(
+                flat, mesh.get_group("data")), 20)
+            ar_ms = float(np.median(ar))
+            state = dp.init_state()
+
+            def step(i, state=state, dp=dp, lr=lr, hr=hr):
+                return dp.train_step(state, lr, hr)[1]["loss"]
+            dist.barrier()
+            _, ms = timed_steps(step, 20)
+            st1 = single.init_state()
+            _, ms1 = timed_steps(lambda i: single.train_step(st1, lr, hr)[1]
+                                 ["loss"], 10)
+            out[name] = {"loss": float(loss), "loss_single": float(loss1),
+                         "grad_share": share, "step_ms": float(np.median(ms)),
+                         "single_ms": float(np.median(ms1)),
+                         "allreduce_ms": ar_ms,
+                         "grad_mb": sum(v.numel() for v in flat) * 4 / 1e6}
+            del dp, single, gd, g1, flat, state
+
+        # ---- PP over `world` stages, 4 microbatches of 4
+        model = edsr().trainable()
+        step = make_pp_train_step(model, make_pp_mesh(world, device=dev),
+                                  n_micro=4)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        lr, hr = pool_lr[:16], pool_hr[:16]
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss, gp = step.value_and_grad(params, lr, hr)
+        pp_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        dense = SupervisedSRTrainer(edsr(), learning_rate=1e-4, device=dev)
+        loss1, _, g1 = dense.value_and_grad(dense.init_state(), lr, hr)
+        share = max(float((gp[k] - g1[k]).abs().max()
+                          / g1[k].abs().max().clamp_min(1e-30)) for k in g1)
+        dist.barrier()
+        _, pp_times = timed_steps(lambda i: step(params, lr, hr), 10)
+        pp_ms = float(np.median(pp_times))
+        out["pp"] = {"loss": float(loss), "loss_single": float(loss1),
+                     "grad_share": share, "step_ms": pp_ms, "peak_gb": pp_peak}
+        del gp, g1, dense, model, params
+        torch.cuda.empty_cache()
+
+        # ---- SP: g8x4 x4 at 128^2, then g32x23 x2 at 128^2
+        img = smooth_images(torch.Generator(device=dev).manual_seed(seed + 7),
+                            1, 128, 3, dev) / 255.0 * 2 - 1
+        ranks, me = axis_ranks(mesh, "data"), rank
+        rows = 128 // world
+        for name, (scale, growth, rrdb) in (("sp_g8", (4, 8, 4)),
+                                            ("sp_g32", (2, 32, 23))):
+            gen = ESRGANGenerator(scale, growth, rrdb, device=dev,
+                                  generator=torch.Generator().manual_seed(seed))
+            full_image_esrgan_sr(gen, img, mesh)   # NCCL's p2p set-up
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            dist.barrier()
+            t0 = time.perf_counter()
+            sr = full_image_esrgan_sr(gen, img, mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            launches = read_counts()["conv3x3_bias_act"]
+            rec = {"ms": ms, "peak_gb": peak, "launches": launches}
+            gen.attention_block_size = 4096
+            if name == "sp_g8":
+                with torch.no_grad():
+                    dense_sr = gen(img)
+                rec["err"] = float((sr - dense_sr).abs().max())
+            else:
+                # held as check_chaotic_generator holds the dense one: the
+                # trunk (first order) against the twin's, the tail from the
+                # twin's trunk against float64 (mean distance at most
+                # TAIL_F64_RATIO x the twin's)
+                with torch.no_grad():
+                    x = img[:, me * rows:(me + 1) * rows].contiguous()
+                    with halo_convs(gen, ranks, me):
+                        t_sp = gen.trunk(x)
+                    t_sp = all_gather_cat(t_sp, None, world, 1)
+                    with models_on_k2_twin():
+                        t_tw = gen.trunk(img)
+
+                    def ring(gg, ff, hf):
+                        return ring_attention(gg, ff, hf, ranks, me)
+                    gen.attention_block_size, gen.attention_fn = None, ring
+                    with halo_convs(gen, ranks, me):
+                        tail_sp = gen.tail(t_tw[:, me * rows:(me + 1) * rows]
+                                           .contiguous())
+                    gen.attention_fn = None
+                    tail_sp = all_gather_cat(tail_sp, None, world, 1)
+                rec["trunk_err"] = float((t_sp - t_tw).abs().max())
+                rec["trunk_tol"] = (2 + 15 * rrdb) * K2_ATOL
+                if rank == 0:
+                    gen.attention_block_size = 4096
+                    with torch.no_grad(), models_on_k2_twin():
+                        tail_tw = gen.tail(t_tw)
+                        gen.double()
+                        tail_64 = gen.tail(t_tw.double())
+                        gen.float()
+                    rec["tail_mean_sp"] = float((tail_sp.double() - tail_64)
+                                                .abs().mean())
+                    rec["tail_mean_twin"] = float((tail_tw.double() - tail_64)
+                                                  .abs().mean())
+                    rec["out_vs_twin_trunk_tail"] = float(
+                        (sr - tail_tw).abs().max())
+            out[name] = rec
+            del gen, sr
+            torch.cuda.empty_cache()
+        dist.barrier()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_cards(n: int, seed: int, card: str) -> None:
+    """``n`` ranks, one card each, over NCCL (``dist_card_rank``), then
+    ``entry.dryrun_multichip(n)`` on the same cards (the six checks with
+    PP and SP over NCCL's send/recv, and the 2-process bootstrap)."""
+    import shutil
+    import tempfile
+
+    from tpusr_torch.dist.bootstrap import spawn
+    from tpusr_torch.entry import dryrun_multichip
+
+    check(torch.cuda.device_count() >= n,
+          f"--dist-cards {n}: {torch.cuda.device_count()} cards")
+    work = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        t0 = time.perf_counter()
+        spawn(dist_card_rank, n, (n, os.path.join(work, "init"), work,
+                                  {"seed": seed}), timeout_s=420)
+        res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+               for r in range(n)]
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t = TrainSlice()
+    for r, o in enumerate(res):
+        tag = f"[dist-cards rank {r}/{n}] {card}"
+        for name in ("dp16", "dp_weak", "pp"):
+            v = o[name]
+            check(abs(v["loss"] - v["loss_single"]) <= 1e-5 * v["loss_single"]
+                  and v["grad_share"] <= GRAD_RTOL, f"{tag} {name}: {v}")
+        for name in ("dp16", "dp_weak"):
+            v = o[name]
+            print(f"{tag}: DP EDSR x{t.scale} at a global batch of "
+                  f"{16 if name == 'dp16' else 16 * n} ({(16 if name == 'dp16' else 16 * n) // n} a rank): "
+                  f"step median {v['step_ms']:.3f} ms (CUDA events, 20 steps) "
+                  f"against {v['single_ms']:.3f} ms for the whole batch on one "
+                  f"card; the gradient all-reduce alone ({v['grad_mb']:.2f} MB) "
+                  f"{v['allreduce_ms']:.4f} ms; loss {v['loss']:.6f} == "
+                  f"{v['loss_single']:.6f}, gradients within "
+                  f"{v['grad_share']:.2g} of their max")
+        v = o["pp"]
+        print(f"{tag}: PP over {n} stages ({t.blocks // n} blocks each), 4 "
+              f"microbatches of 4: step {v['step_ms']:.2f} ms, peak "
+              f"{v['peak_gb']:.2f} GB; loss {v['loss']:.6f} == dense "
+              f"{v['loss_single']:.6f}, gradients within {v['grad_share']:.2g}")
+        g8 = o["sp_g8"]
+        tol = 0.5 * g8["launches"] * K2_ATOL
+        check(g8["err"] <= tol, f"{tag} SP g8: {g8['err']} > {tol}")
+        g32 = o["sp_g32"]
+        check(g32["trunk_err"] <= g32["trunk_tol"],
+              f"{tag} SP g32 trunk {g32['trunk_err']} > {g32['trunk_tol']}")
+        if r == 0:
+            check(g32["tail_mean_sp"] <= TAIL_F64_RATIO * g32["tail_mean_twin"],
+                  f"{tag} SP g32 tail: {g32}")
+        print(f"{tag}: full image SR, {128 // n} of 128 rows a rank: g8x4 x4 "
+              f"{g8['ms']:.1f} ms, peak {g8['peak_gb']:.2f} GB, "
+              f"{g8['launches']} K2 on halo slabs, max|SR - dense| "
+              f"{g8['err']:.3g} (tolerance {tol:.3g}); g32x23 x2 "
+              f"{g32['ms']:.1f} ms, peak {g32['peak_gb']:.2f} GB a rank, trunk "
+              f"against the twin's {g32['trunk_err']:.3g} (tolerance "
+              f"{g32['trunk_tol']:.3g})"
+              + (f", tail from the twin's trunk: mean distance from float64 "
+                 f"{g32['tail_mean_sp']:.4g} against the dense twin's "
+                 f"{g32['tail_mean_twin']:.4g} (held at most "
+                 f"{TAIL_F64_RATIO:g}x)" if r == 0 else ""))
+    print(f"[dist-cards] {n} NCCL ranks, one card each: wall {wall:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_multichip(n, device="cuda")
+    print(f"[dist-cards] dryrun_multichip({n}) on {n} cards: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
     rec = {"name": name, "route": "cuda",
            "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
@@ -4151,6 +4910,9 @@ def inference_record(tot) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-cards", type=int, default=0,
+                    help="run only the parallelism layer over N cards, one "
+                         "NCCL rank each (phase_dist_cards)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -4167,6 +4929,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     cfg = Slice()
+    if args.dist_cards:
+        try:
+            card = phase_environment()
+            phase_build()
+            phase_dist_cards(args.dist_cards, args.seed, card)
+        except CheckFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     try:
         card = phase_environment()
         phase_build()
@@ -4195,6 +4970,9 @@ def main() -> int:
                                    card)
         serve = phase_serve(GateSlice(), cfg, dev, args.seed, sync, card,
                             trained)
+        torch.cuda.empty_cache()
+        dist_res = phase_dist(DistSlice(), cfg, dev, args.seed, sync, card,
+                              trained, train["edsr_step_ms"])
         del trained
         torch.cuda.empty_cache()
         commands = phase_commands(CommandsSlice(), dev, args.seed, sync, card)
@@ -4230,6 +5008,11 @@ def main() -> int:
                       "tpusr/models/edsr_quant.py:117", dequant_launches, dq,
                       None),
     ]
+    k2_rec["dist"] = {          # phase_dist: K2 at the new shapes
+        "dp_step_ms": dist_res["dp_step_ms"],
+        "unsharded_step_ms": dist_res["unsharded_step_ms"],
+        "train_step_ms": train["edsr_step_ms"], "sp": dist_res["sp"],
+        "shapes": dist_res["k2_times"]}
     k2_rec["inference"] = {     # phase_inference, per path
         path: {"launches": n, **inference_record(inference["k2"][path])}
         for path, n in inference["launches"].items() if n}
@@ -4249,7 +5032,9 @@ def main() -> int:
                if rec["name"] == "conv3x3_bias_act_bf16" else {}),
             **({f"commands_{c.replace('-', '_')}": n[rec["name"]]
                 for c, n in commands.items()}
-               if rec["name"] in ("conv3x3_bias_act", "nlm_denoise") else {})}
+               if rec["name"] in ("conv3x3_bias_act", "nlm_denoise") else {}),
+            **{path: n.get(rec["name"], 0)
+               for path, n in dist_res["launches"].items()}}
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

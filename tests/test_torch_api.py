@@ -140,7 +140,9 @@ def test_paths_not_ported_yet_raise_naming_their_item(tmp_path):
     with pytest.raises(NotImplementedError, match="download"):
         FineTunedVGG16(device="cpu").setup_model(
             input_shape=(32, 32, 3), imagenet_weights_path="w.npz")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a mesh is taken now (tests/test_torch_dist_*.py); what is not a
+    # DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         EDSR(mesh=object(), device="cpu").setup_model(num_res_blocks=1,
                                                       num_filters=8)
     with pytest.raises(FileNotFoundError):

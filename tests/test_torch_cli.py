@@ -193,10 +193,19 @@ def test_commands_not_ported_exit_naming_what_they_lack(argv, match):
 
 
 @pytest.mark.parametrize("cmd", TRAIN_COMMANDS)
-def test_data_parallel_exits_naming_item_8(data, tmp_path, cmd):
-    with pytest.raises(SystemExit, match="--data-parallel .*item 8"):
-        tcli.main(train_argv(cmd, data, tmp_path / "o") + ["--data-parallel",
-                                                          "--device", "cpu"])
+def test_data_parallel_exits_naming_item_8(data, tmp_path, cmd, monkeypatch):
+    """--data-parallel is ported: in one process it trains over a world-1
+    mesh and writes the command's checkpoint (its loss equal to the run
+    without it over 2 ranks under torchrun: tests/test_torch_dist_entry.py;
+    the trainers' DP steps equal to unsharded ones:
+    tests/test_torch_dist_sharding.py)."""
+    narrow_models(monkeypatch)
+    path = tcli.main(train_argv(cmd, data, tmp_path / "dp")
+                     + ["--data-parallel", "--device", "cpu"])
+    with open(path + ".meta.json") as f:
+        ev = json.load(f)["eval"]
+    assert ev and all(np.isfinite(v) for v in ev.values()
+                      if isinstance(v, float)), ev
 
 
 def test_vgg19_weights_exit_naming_item_10(data, tmp_path):

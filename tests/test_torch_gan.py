@@ -361,7 +361,9 @@ def test_bf16_step(case):
 
 
 def test_mesh_raises_naming_its_item(case):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # data parallelism is ported (tests/test_torch_dist_sharding.py); a
+    # mesh that is not a DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _port(case, mesh=object())
     with pytest.raises(ValueError, match="bfloat16"):
         _port(case, compute_dtype="float16")
@@ -525,5 +527,5 @@ def test_esrgan_facade_paths_not_ported_raise(tmp_path):
     m.trained = True
     with pytest.raises(NotImplementedError, match="item 10"):
         m.save_h5(str(tmp_path), "t")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ESRGAN(mesh=object(), device="cpu").setup_model(**kw)

@@ -135,7 +135,9 @@ def test_largest_divisor_matches_jax():
 
 
 def test_full_image_sr_refuses_a_mesh_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the mesh path is ported (tests/test_torch_dist_spatial.py); what is
+    # not a DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         inference.super_resolve_full_image(object(), np.zeros((4, 4, 3)),
                                            mesh=object())
 

@@ -167,15 +167,15 @@ def test_per_patch_f32_matches_jax():
 
 def test_factory_defaults_and_refusals_match_jax(slice_inputs):
     """make_serving_pipeline takes JAX's parameter names and defaults (int8
-    SR, int8 shared trunk, 'conf' cascade score, no guard); ``mesh`` is not
-    ported and ``device`` is the port's own. Missing calibration input and
-    unknown modes raise as JAX's do."""
+    SR, int8 shared trunk, 'conf' cascade score, no guard, no mesh);
+    ``device`` is the port's own. Missing calibration input and unknown
+    modes raise as JAX's do."""
     def defaults(fn, skip):
         return {k: p.default for k, p in inspect.signature(fn).parameters.items()
                 if p.default is not p.empty and k != skip}
 
     assert defaults(make_serving_pipeline, "device") == defaults(
-        jax_make_pipeline, "mesh")
+        jax_make_pipeline, None)
     sv, cv, _, calib = slice_inputs
     edsr = edsr_from_flax(sv, SCALE, device="cpu")
     vgg = vgg16_from_flax(cv, device="cpu")

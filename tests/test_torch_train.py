@@ -558,14 +558,16 @@ def test_compute_dtype_other_than_f32_and_bf16_raises():
 
 # ------------------------------------------------ what is not in this slice
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 8")])
+# the mesh is ported (tests/test_torch_dist_*.py): what is not a DeviceMesh
+# is refused
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "DeviceMesh")])
 def test_options_of_later_slices_raise(kw, item):
     model = SRCNN(f1=4, f2=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         SupervisedSRTrainer(model, device="cpu", **kw)
     vgg = VGG16Classifier(widths=(4, 4, 4, 4, 4), dense_units=4,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         ClassifierTrainer(vgg, device="cpu", **kw)
 
 

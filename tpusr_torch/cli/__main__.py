@@ -19,11 +19,16 @@ trainers and facades; checkpoints are the port's own
 JAX commands write and no figures: the JAX commands draw theirs with
 matplotlib, which the port does not use.
 
+``--data-parallel`` on the four ``train-*`` commands trains over a 'data'
+mesh of every rank (``tpusr_torch.dist``): one rank alone, or N ranks under
+torchrun (``torchrun --nproc-per-node N -m tpusr_torch.cli train-edsr
+--data-parallel ...``), one card each; only rank 0 writes the checkpoint
+and its logs.
+
 ``preprocess`` (a video decoder), ``convert`` (Keras ``.h5`` interop, ROADMAP
 queue 1 item 10) and ``eda`` (matplotlib, pandas, lpips) are listed with
 their JAX flags and exit with a message naming what they lack, as does
-``--data-parallel`` (item 8) and ``train-esrgan --vgg19-weights`` (a Keras
-``.h5`` import, item 10).
+``train-esrgan --vgg19-weights`` (a Keras ``.h5`` import, item 10).
 """
 
 from __future__ import annotations
@@ -34,14 +39,12 @@ import glob
 import json
 import math
 import os
-import sys
 
 import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 GATE_FILE = "GATE_torch.json"    # the port's gate verdict, on the H100
-_ITEM_8 = "ROADMAP queue 1, item 8: parallelism"
 _ITEM_10 = "ROADMAP queue 1, item 10: Keras and Orbax interop"
 NO_FIGURES = ("figures are not drawn: the JAX command draws them with "
               "matplotlib, which the port does not use")
@@ -61,10 +64,15 @@ def _device(args):
             f"CPU (the kernels' plain PyTorch twins)") from None
 
 
-def _no_data_parallel(args):
-    if getattr(args, "data_parallel", False):
-        raise SystemExit(f"tpusr_torch {args.cmd}: --data-parallel is not "
-                         f"ported yet ({_ITEM_8})")
+def _mesh(args, dev):
+    """``--data-parallel``: a 'data' mesh over every rank (torchrun's, or
+    this process alone), as the JAX command's ``make_mesh()``."""
+    if not args.data_parallel:
+        return None
+    from tpusr_torch.dist import bootstrap, make_mesh
+
+    bootstrap.initialize(device=dev)
+    return make_mesh(device=dev)
 
 
 def _split_indices(n: int, test_size: float, seed: int):
@@ -99,10 +107,13 @@ def _save_run(out_dir, name, state, history, eval_metrics, tt, mt, arch=None):
     facades rebuild the trained architecture from the checkpoint (the JAX
     command writes none, and its ESRGAN checkpoint does not restore into
     the facade's default architecture)."""
+    from tpusr_torch.dist.mesh import is_writer
     from tpusr_torch.train import save_checkpoint
     from tpusr_torch.train.logging import MetricsLogger, jsonl_to_csv
 
     ts = _timestamp()
+    if not is_writer():  # under --data-parallel only rank 0 writes
+        return os.path.abspath(os.path.join(out_dir, f"{name}_{ts}"))
     meta = {
         "eval": eval_metrics,
         "history": history,
@@ -140,6 +151,9 @@ def _maybe_resume(args, trainer, init_state_args):
     template = trainer.init_state(*init_state_args)
     state = restore_checkpoint(os.path.dirname(os.path.abspath(path)),
                                os.path.basename(path), template)
+    if trainer.mesh is not None:  # --data-parallel: rank 0's copy everywhere
+        from tpusr_torch.dist import replicate
+        replicate(trainer.mesh, state)
     print(f"resumed from {path}")
     return state
 
@@ -226,15 +240,15 @@ def cmd_train_srcnn(args):
     from tpusr_torch.models.srcnn import SRCNN
     from tpusr_torch.train import SupervisedSRTrainer
 
-    _no_data_parallel(args)
     dev = _device(args)
+    mesh = _mesh(args, dev)
     cfg = SRCNNConfig(batch_size=args.batch_size, epochs=args.epochs,
                       learning_rate=args.lr)
     x, y, hr_hw = _load_sr_patches(args, "srcnn", cfg.patch_size, cfg.stride, 1)
     x_tr, y_tr, x_va, y_va, x_te, y_te = _split(x, y)
     trainer = SupervisedSRTrainer(
         SRCNN(f1=cfg.f1, f2=cfg.f2, device=dev, generator=_seeded()),
-        learning_rate=cfg.learning_rate,
+        learning_rate=cfg.learning_rate, mesh=mesh,
         compute_dtype=_compute_dtype(args), device=dev)
     res = trainer.fit(x_tr, y_tr, x_va, y_va, batch_size=cfg.batch_size,
                       epochs=cfg.epochs, es_patience=cfg.es_patience,
@@ -254,8 +268,8 @@ def cmd_train_edsr(args):
     from tpusr_torch.models.edsr import EDSR
     from tpusr_torch.train import SupervisedSRTrainer
 
-    _no_data_parallel(args)
     dev = _device(args)
+    mesh = _mesh(args, dev)
     # --lr replaces EDSRConfig's 5e-5, as in the JAX command
     cfg = EDSRConfig(batch_size=args.batch_size, epochs=args.epochs,
                      learning_rate=args.lr, scale_factor=args.scale)
@@ -268,7 +282,7 @@ def cmd_train_edsr(args):
                  device=dev, generator=_seeded())
     trainer = SupervisedSRTrainer(
         model, learning_rate=cfg.learning_rate, clipnorm=cfg.clipnorm,
-        compute_dtype=_compute_dtype(args), device=dev)
+        mesh=mesh, compute_dtype=_compute_dtype(args), device=dev)
     res = trainer.fit(x_tr, y_tr, x_va, y_va, batch_size=cfg.batch_size,
                       epochs=cfg.epochs, es_patience=cfg.es_patience,
                       plateau_patience=cfg.plateau_patience,
@@ -293,13 +307,13 @@ def cmd_train_esrgan(args):
     from tpusr_torch.models.vgg import VGG19Features
     from tpusr_torch.train import ESRGANTrainer
 
-    _no_data_parallel(args)
     if args.vgg19_weights:
         raise SystemExit(
             f"tpusr_torch train-esrgan: --vgg19-weights {args.vgg19_weights} "
             f"is a Keras .h5 import, which is not ported yet ({_ITEM_10}); "
             f"without it VGG19 is drawn from its seeded initialiser")
     dev = _device(args)
+    mesh = _mesh(args, dev)
     # --lr sets the generator LR; the discriminator keeps the reference's
     # 10:1 G:D ratio (ESRGAN_model.py:176-195: 1e-4 / 1e-5)
     cfg = ESRGANConfig(batch_size=args.batch_size, epochs=args.epochs,
@@ -319,7 +333,7 @@ def cmd_train_esrgan(args):
     vgg = VGG19Features(device=dev, generator=torch.Generator().manual_seed(0))
     trainer = ESRGANTrainer(gen, disc, vgg, g_lr=cfg.g_lr, d_lr=cfg.d_lr,
                             decay_steps=cfg.decay_steps,
-                            decay_rate=cfg.decay_rate,
+                            decay_rate=cfg.decay_rate, mesh=mesh,
                             compute_dtype=_compute_dtype(args), device=dev)
     res = trainer.fit(x_tr, y_tr, x_va, y_va, epochs=cfg.epochs,
                       batch_size=cfg.batch_size, save_dir=args.preview_dir,
@@ -345,8 +359,8 @@ def cmd_train_vgg16(args):
     from tpusr_torch.models.vgg import VGG16Classifier
     from tpusr_torch.train import ClassifierTrainer
 
-    _no_data_parallel(args)
     dev = _device(args)
+    mesh = _mesh(args, dev)
     cfg = VGG16Config(batch_size=args.batch_size, epochs=args.epochs,
                       patch_size=args.patch_size, stride=args.stride)
     x, y = load_defects_dataset_as_patches(args.hr_dir,
@@ -362,7 +376,7 @@ def cmd_train_vgg16(args):
                         dropout_rate=cfg.dropout_rate,
                         dense_units=cfg.dense_units, device=dev,
                         generator=_seeded()),
-        learning_rate=cfg.learning_rate, trainable_predicate=pred,
+        learning_rate=cfg.learning_rate, mesh=mesh, trainable_predicate=pred,
         compute_dtype=_compute_dtype(args), device=dev)
     res = trainer.fit(x_tr, y_tr, x_va, y_va, batch_size=cfg.batch_size,
                       epochs=cfg.epochs,
@@ -704,6 +718,8 @@ def cmd_serve(args):
 
 DEVICE_HELP = ("torch device to run on (default cuda; cpu runs the kernels' "
                "plain PyTorch twins)")
+DP_HELP = ("data-parallel over every rank: this process alone, or each rank "
+           "of torchrun --nproc-per-node N")
 
 
 def build_parser():
@@ -752,7 +768,7 @@ def build_parser():
         sp.add_argument("--epochs", type=int, default=50)
         sp.add_argument("--lr", type=float, default=1e-4)
         sp.add_argument("--data-parallel", action="store_true",
-                        help=f"not ported yet ({_ITEM_8})")
+                        help=DP_HELP)
         sp.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (f32 master params/loss)")
         sp.add_argument("--resume", default=None,
@@ -782,8 +798,7 @@ def build_parser():
     sp.add_argument("--epochs", type=int, default=50)
     sp.add_argument("--patch-size", type=int, default=96)
     sp.add_argument("--stride", type=int, default=48)
-    sp.add_argument("--data-parallel", action="store_true",
-                    help=f"not ported yet ({_ITEM_8})")
+    sp.add_argument("--data-parallel", action="store_true", help=DP_HELP)
     sp.add_argument("--bf16", action="store_true",
                     help="bfloat16 compute (f32 master params/loss)")
     sp.add_argument("--resume", default=None,
@@ -906,9 +921,10 @@ def build_parser():
 
 
 def main(argv=None):
+    """Run one command; returns what it returns (a checkpoint path, ...)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    main()  # exit status 0; a failed command raises or exits non-zero

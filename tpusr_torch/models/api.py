@@ -22,6 +22,10 @@ and export and Orbax checkpoint directories (ROADMAP queue 1, item 10: they
 need h5py and tensorflow, which the card's machine lacks), and ImageNet
 weights (``imagenet_weights_path``, ``vgg19_weights_path``: they need a
 download).
+
+``mesh`` (a ``DeviceMesh``, ``tpusr_torch.dist``) goes to the trainers and
+to full-image SR, as in JAX; under it a restored checkpoint is broadcast
+from rank 0, and only rank 0 writes one.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from torch.func import functional_call
 
 from tpusr_torch.config import RANDOM_SEED
 from tpusr_torch.device import resolve_device
+from tpusr_torch.dist.mesh import replicate
 from tpusr_torch.models.edsr import EDSR as EDSRModule
 from tpusr_torch.models.esrgan import ESRGANDiscriminator, ESRGANGenerator
 from tpusr_torch.models.srcnn import SRCNN
@@ -64,8 +69,9 @@ def _saved_arch(pretrained_path):
     return (meta or {}).get("arch")
 
 
-def _restore(state, pretrained_path):
-    """``state`` restored from the port's checkpoint at ``pretrained_path``."""
+def _restore(state, pretrained_path, mesh=None):
+    """``state`` restored from the port's checkpoint at ``pretrained_path``;
+    under a ``mesh`` every rank then holds rank 0's copy (broadcast)."""
     if pretrained_path is None or not os.path.exists(pretrained_path):
         raise FileNotFoundError(
             f"Pretrained model file not found at {pretrained_path}")
@@ -77,8 +83,11 @@ def _restore(state, pretrained_path):
             f"{pretrained_path}: a directory is an Orbax checkpoint of the JAX "
             f"package, which the port does not read yet ({_ITEM_10}); the "
             f"port's checkpoints are files")
-    return restore_checkpoint(os.path.dirname(pretrained_path) or ".",
-                              os.path.basename(pretrained_path), state)
+    state = restore_checkpoint(os.path.dirname(pretrained_path) or ".",
+                               os.path.basename(pretrained_path), state)
+    if mesh is not None:
+        replicate(mesh, state)
+    return state
 
 
 def _no_h5_export():
@@ -148,7 +157,7 @@ class SRCNNModel(_Facade):
                                            device=self.device)
         self.state = self.trainer.init_state()
         if from_pretrained:
-            self.state = _restore(self.state, pretrained_path)
+            self.state = _restore(self.state, pretrained_path, self.mesh)
             self._trained = True
 
     def fit(self, X_train, Y_train, X_val, Y_val, batch_size=16, epochs=50):
@@ -230,7 +239,7 @@ class EDSR(_Facade):
                                            device=self.device)
         self.state = self.trainer.init_state()
         if from_pretrained:
-            self.state = _restore(self.state, pretrained_path)
+            self.state = _restore(self.state, pretrained_path, self.mesh)
             self.trained = True
 
     def fit(self, X_train, Y_train, X_val, Y_val, batch_size=16, epochs=300):
@@ -339,7 +348,8 @@ class ESRGAN(_Facade):
                     f"generator and discriminator is not ported yet "
                     f"({_ITEM_10})")
             # the port's checkpoint holds the whole GANState
-            self.state = _restore(self.state, generator_pretrained_path)
+            self.state = _restore(self.state, generator_pretrained_path,
+                                   self.mesh)
             self.trained = True
 
     def network(self) -> torch.nn.Module:
@@ -456,7 +466,7 @@ class FineTunedVGG16(_Facade):
                                          device=self.device)
         self.state = self.trainer.init_state()
         if from_pretrained:
-            self.state = _restore(self.state, pretrained_path)
+            self.state = _restore(self.state, pretrained_path, self.mesh)
             self.trained = True
 
     def fit(self, X_train, y_train, X_val, y_val, batch_size=32, epochs=50,

@@ -116,13 +116,16 @@ class EDSR(nn.Module):
                  ) -> torch.Tensor:
         """Head, residual blocks, body conv and the global skip, in x's
         dtype, with ``params`` from ``conv_params`` (by default the
-        module's own weights in their dtype: float32, or the bf16 training
+        modules' own weights in their dtype: float32, or the bf16 training
         forward's casts)."""
         if params is None:
-            params = self.conv_params(self.head.kernel.dtype)
-
-        def conv(name, t, relu=False):
-            return conv3x3(t, *params[name], relu)
+            # the modules themselves, so forward hooks (dist.tp_modules) see
+            # every conv
+            def conv(name, t, relu=False):
+                return self.get_submodule(name)(t, relu)
+        else:
+            def conv(name, t, relu=False):
+                return conv3x3(t, *params[name], relu)
 
         head = y = conv("head", x)
         for i in range(self.num_res_blocks):

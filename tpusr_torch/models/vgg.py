@@ -115,29 +115,40 @@ class VGG16Classifier(nn.Module):
         self.to(dev)
 
     def _dropout(self, x: torch.Tensor, train: bool,
-                 generator: torch.Generator | None) -> torch.Tensor:
+                 generator: torch.Generator | None,
+                 rows: tuple[int, int] | None = None) -> torch.Tensor:
         """flax ``Dropout``: keep where a uniform draw from ``generator`` is
         below 1 - rate, scaled by 1 / (1 - rate). ``F.dropout`` takes no
-        generator."""
+        generator. ``rows`` (lo, n): ``x`` is rows [lo, lo + len(x)) of a
+        batch of n, and keeps those rows of the batch's mask (JAX draws one
+        mask for the global batch)."""
         if not train or self.dropout_rate <= 0:
             return x
         if generator is None:
             raise ValueError("VGG16Classifier: train=True needs a generator "
                              "for the dropout masks")
         keep_prob = 1.0 - self.dropout_rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        if rows is None:
+            keep = torch.rand(x.shape, generator=generator, device=x.device)
+        else:
+            lo, n = rows
+            keep = torch.rand((n,) + x.shape[1:], generator=generator,
+                              device=x.device)[lo:lo + x.shape[0]]
+        keep = keep < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
         """(N, H, W, 3) [0, 1] patches -> (N, classes) softmax probs; with
-        ``train``, dropout masks drawn from ``generator``."""
+        ``train``, dropout masks drawn from ``generator`` (``rows``: see
+        ``_dropout``)."""
         x = self.vgg16(x.permute(0, 3, 1, 2))
         x = x.mean(dim=(2, 3))                       # GlobalAveragePooling2D
-        x = self._dropout(x, train, generator)
+        x = self._dropout(x, train, generator, rows)
         x = F.relu(self.fc1(x))
-        x = self._dropout(x, train, generator)
+        x = self._dropout(x, train, generator, rows)
         return torch.softmax(self.predictions(x), dim=-1)
 
 

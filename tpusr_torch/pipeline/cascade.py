@@ -10,6 +10,15 @@ Differences from the JAX version, none of which changes a result:
   batch) where JAX has a ``lax.cond``;
 - the vote function is an object that records the last escalation set and
   counts guard trips, so a caller can see what the cascade did.
+
+Under a mesh (``shard``, a ``dist.mesh.BatchShard``: this rank's rows of
+the global batch) the escalation still ranks the GLOBAL batch, as
+``lax.top_k`` does over a sharded batch in JAX: the ranks all-gather the
+scores, take one stable global ranking (the lower global index first on
+ties), and each re-classifies the escalated images it holds. ``n_valid``
+masks by global row, across shard borders. The guard's canary is a global
+reduction (the disagreements summed over the ranks, over K), and a trip
+re-serves every rank's rows per patch.
 """
 
 from __future__ import annotations
@@ -52,11 +61,14 @@ class CascadeVotes:
         order."""
         return per_patch_int8_probs(self.qtree, images, self.patch, self.stride)
 
-    def __call__(self, images: torch.Tensor, n_valid=None):
+    def __call__(self, images: torch.Tensor, n_valid=None, shard=None):
+        """(classes, confidences) of ``images``: the whole batch, or this
+        rank's rows of it with ``shard``."""
         q = self.qtree
         if images.dtype != torch.int8:
             images = quantize_input(q, images)
-        n, h, w, _ = images.shape
+        n_local, h, w, _ = images.shape
+        lo, n = (0, n_local) if shard is None else (shard.lo, shard.n)
         pad_h, pad_w = pad_amounts(h, w, self.patch, self.stride)
         nh, nw = patch_grid_size(h + pad_h, w + pad_w, self.patch, self.stride)
 
@@ -71,13 +83,21 @@ class CascadeVotes:
         else:
             score = conf_t
         if n_valid is not None:  # pad rows must never win escalation slots
-            real = torch.arange(n, device=score.device) < n_valid
+            real = torch.arange(lo, lo + n_local, device=score.device) < n_valid
             score = torch.where(real, score, torch.full_like(score, math.inf))
+        if shard is not None:
+            score = shard.gather(score)
 
         k = max(1, min(n, math.ceil(n * self.escalate_frac - 1e-9)))
         idx = torch.sort(score, stable=True).indices[:k]  # k lowest, ties low-index first
         self.last_escalated = idx
-        cls_p, conf_p = _vote(self.per_patch_probs(images.index_select(0, idx)))
+        if shard is not None:   # the escalated images this rank holds
+            idx = idx[(idx >= lo) & (idx < lo + n_local)] - lo
+        if len(idx):
+            cls_p, conf_p = _vote(self.per_patch_probs(
+                images.index_select(0, idx)))
+        else:
+            cls_p, conf_p = cls_t[:0], conf_t[:0]
         classes = cls_t.index_copy(0, idx, cls_p)
         confs = conf_t.index_copy(0, idx, conf_p)
         if self.guard_threshold is None:
@@ -86,7 +106,11 @@ class CascadeVotes:
         # trunk-collapse guard: the escalated subset carries both vote sets,
         # so their disagreement estimates the trunk's batch flip rate; past
         # the threshold the whole batch is served from the per-patch path
-        canary = (cls_p != cls_t.index_select(0, idx)).float().mean()
+        flips = (cls_p != cls_t.index_select(0, idx)).float()
+        if shard is None:
+            canary = flips.mean()
+        else:
+            canary = shard.sum(flips.sum()) / k
         if bool(canary >= self.guard_threshold):
             self.guard_trips += 1
             return _vote(self.per_patch_probs(images))

@@ -1,8 +1,8 @@
 """LR -> SR -> patch-vote defect classification (port of
 ``tpusr/pipeline/defect_pipeline.py``: ``_vote``, ``make_patch_classifier``,
 ``classify_defects``, ``FusedSRClassifyPipeline`` with its per-patch, trunk
-and cascade branches, ``classify_chunks`` and ``throughput``,
-``make_serving_pipeline`` for every SR and classifier mode but ``mesh``, and
+and cascade branches, ``classify_chunks``, ``throughput`` and ``mesh``,
+``make_serving_pipeline`` for every SR and classifier mode, and
 ``run_defect_detection_comparison``).
 
 PyTorch runs eagerly, so the pipeline is a sequence of launches on one stream
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from tpusr_torch.core.pad import pad_amounts
 from tpusr_torch.core.patches import patch_grid_size
 from tpusr_torch.device import resolve_device
+from tpusr_torch.dist.mesh import axis_size, batch_shard, check_mesh
 from tpusr_torch.metrics.image import psnr as psnr_fn, ssim as ssim_fn
 from tpusr_torch.models.block1 import extract_patches_reference
 from tpusr_torch.models.layers import pixel_shuffle
@@ -81,18 +82,28 @@ class FusedSRClassifyPipeline:
       a per-patch classifier that extracts the patches itself (the int8
       path, whose block 1 K3 fuses with the extraction);
     - ``trunk_probs(images)``: (N, H, W, 3) -> (N, n_patches, classes);
-    - ``cascade_votes(images, n_valid)`` -> (classes, confidences).
+    - ``cascade_votes(images, n_valid)`` -> (classes, confidences) (under
+      a mesh, also ``shard=``: ``CascadeVotes``).
     ``pre_quant`` maps the SR batch to the classifier's input dtype before
     patch extraction. ``classify_chunks`` > 1 runs the per-patch stage
     (``clf_apply`` or ``per_patch_probs``) over that many image sub-batches
     in turn: the same results with a smaller patch working set. Runs on
     ``device`` (CUDA unless ``device="cpu"``).
+
+    ``mesh`` (a ``DeviceMesh`` with a 'data' axis): the pipeline is called
+    on every rank with the same global batch; when the axis divides the
+    batch each rank runs its rows (the cascade ranks the global batch, see
+    ``pipeline.cascade``) and the SR, classes and confidences come back
+    all-gathered; otherwise every rank runs the whole batch, as JAX shards
+    only a divisible batch.
     """
 
     def __init__(self, sr_apply, clf_apply=None, lr_hw: tuple[int, int] = None,
                  scale: int = None, patch: int = 96, stride: int | None = None,
                  classify_chunks: int = 1, pre_quant=None, trunk_probs=None,
-                 cascade_votes=None, per_patch_probs=None, device=None):
+                 cascade_votes=None, per_patch_probs=None, mesh=None,
+                 device=None):
+        check_mesh(mesh)
         if sum(x is not None for x in (clf_apply, per_patch_probs, trunk_probs,
                                        cascade_votes)) != 1:
             raise ValueError("pass exactly one of clf_apply / per_patch_probs "
@@ -104,6 +115,7 @@ class FusedSRClassifyPipeline:
             raise ValueError(f"classify_chunks must be >= 1, got "
                              f"{classify_chunks}")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.lr_hw = tuple(lr_hw)
         self.scale = scale
         self.patch = patch
@@ -139,13 +151,17 @@ class FusedSRClassifyPipeline:
         return torch.cat([self._classify_block(block)
                           for block in srq.split(n // chunks)])
 
-    def run(self, lr_batch: torch.Tensor, n_valid: int):
-        """The pipeline on a device batch. Rows >= ``n_valid`` are batch
+    def run(self, lr_batch: torch.Tensor, n_valid: int, shard=None):
+        """The pipeline on a device batch (this rank's rows of the global
+        batch with ``shard``). Rows >= ``n_valid`` (global rows) are batch
         padding; only the cascade consumes it."""
         sr = self.sr_apply(lr_batch)
         srq = self.pre_quant(sr) if self.pre_quant is not None else sr
         if self.cascade_votes is not None:
-            classes, confs = self.cascade_votes(srq, n_valid)
+            if shard is None:
+                classes, confs = self.cascade_votes(srq, n_valid)
+            else:
+                classes, confs = self.cascade_votes(srq, n_valid, shard=shard)
             return sr, classes, confs
         if self.trunk_probs is not None:
             probs = self.trunk_probs(srq)
@@ -159,8 +175,14 @@ class FusedSRClassifyPipeline:
         pipeline's device."""
         x = torch.as_tensor(lr_batch, dtype=torch.float32,
                             device=self.device).contiguous()
+        n = x.shape[0]
+        n_valid = n if n_valid is None else int(n_valid)
         with torch.inference_mode():
-            return self.run(x, x.shape[0] if n_valid is None else int(n_valid))
+            if self.mesh is None or n % axis_size(self.mesh, "data"):
+                return self.run(x, n_valid)
+            shard = batch_shard(self.mesh, n)
+            out = self.run(shard.take(x), n_valid, shard)
+            return tuple(shard.gather(t) for t in out)
 
     def throughput(self, lr_batch, iters: int = 10) -> float:
         """Steady-state images/sec of the pipeline: the host clock over
@@ -191,7 +213,7 @@ def make_serving_pipeline(edsr, clf, lr_hw: tuple[int, int], scale: int,
                           cascade_escalate_frac: float = 0.25,
                           cascade_escalate_score: str = "conf",
                           cascade_guard_threshold: float | None = None,
-                          device=None) -> FusedSRClassifyPipeline:
+                          mesh=None, device=None) -> FusedSRClassifyPipeline:
     """Serving pipeline from an ``EDSR`` and a ``VGG16Classifier`` module,
     with the JAX factory's modes and defaults (int8 SR, int8 shared trunk).
     The shipped mode (bench.py ``DEFAULT_MODE``) is ``sr_mode="f32",
@@ -209,6 +231,8 @@ def make_serving_pipeline(edsr, clf, lr_hw: tuple[int, int], scale: int,
               per patch, scored by ``cascade_escalate_score`` ('conf' or
               'vote_frac'); ``cascade_guard_threshold`` arms the
               trunk-collapse guard.
+    ``mesh``: the pipeline runs data-parallel (``FusedSRClassifyPipeline``);
+    the int8 calibration runs whole on every rank.
     The modules are moved to ``device`` (CUDA unless ``device="cpu"``).
     """
     from tpusr_torch.models.edsr_fast import make_fused_sr_apply
@@ -276,7 +300,7 @@ def make_serving_pipeline(edsr, clf, lr_hw: tuple[int, int], scale: int,
 
     pipe = FusedSRClassifyPipeline(
         sr_apply, lr_hw=lr_hw, scale=scale, patch=patch, stride=stride,
-        pre_quant=pre_quant, device=dev, **stage)
+        pre_quant=pre_quant, mesh=mesh, device=dev, **stage)
     pipe.qtree = qtree
     return pipe
 

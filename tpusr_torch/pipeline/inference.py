@@ -27,6 +27,8 @@ from tpusr_torch.core.pad import pad_amounts, reflect_pad_hw
 from tpusr_torch.core.patches import overlap_add, patch_grid_size, patchify
 from tpusr_torch.core.resize import resize
 from tpusr_torch.device import resolve_device
+from tpusr_torch.dist.mesh import axis_size, check_mesh
+from tpusr_torch.dist.spatial import full_image_esrgan_sr
 from tpusr_torch.train.callbacks import _device_memory_info, _mb, _synchronize
 
 
@@ -164,34 +166,41 @@ def super_resolve_full_image(generator, lr_img, mesh=None,
     The whole (h, w, 3) [0, 1] image goes through ``generator`` (an
     ``ESRGANGenerator``, which holds its weights: the JAX function's
     ``variables`` argument has no counterpart) on the generator's device.
-    The dense self-attention map is O((HW)^2); here each attention site runs
-    the blockwise online-softmax form with the largest block <=
-    ``attention_block_size`` that divides the trunk's token count, O(HW *
-    block) memory.
+    The dense self-attention map is O((HW)^2); it is bounded by:
+
+    - no mesh: each attention site runs the blockwise online-softmax form
+      with the largest block <= ``attention_block_size`` that divides the
+      trunk's token count, O(HW * block) memory;
+    - ``mesh`` (a ``DeviceMesh``; called on every rank with the same image):
+      the image's rows split over ``axis`` with ring attention over the
+      split token axis (``dist.spatial.full_image_esrgan_sr``) when the axis
+      divides h; otherwise the path without a mesh, as in JAX.
 
     Returns (sr image as a numpy array in [0, 1], metrics dict) with the
-    fields of ``super_resolve_image``. ``mesh`` (the JAX package's spatial
-    sharding with ring attention, ``dist/spatial.py``) is not ported yet.
+    fields of ``super_resolve_image``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "super_resolve_full_image(mesh=...): spatial sharding with ring "
-            "attention is not ported yet (ROADMAP queue 1, item 8: "
-            "parallelism)")
+    check_mesh(mesh)
     dev = _net_device(generator, None)
     lr = _lr_tensor(lr_img, dev)
     x = lr[None] * 2.0 - 1.0
     h, w = int(lr.shape[0]), int(lr.shape[1])
-    block = _largest_divisor_at_most(h * w, attention_block_size)
 
-    def fn(xb):
-        with torch.inference_mode():
-            return generator(xb)
-
-    saved = generator.attention_block_size, generator.attention_fn
-    generator.attention_block_size, generator.attention_fn = block, None
-    try:
+    if mesh is not None and h % axis_size(mesh, axis) == 0:
+        def fn(xb):
+            with torch.inference_mode():
+                return full_image_esrgan_sr(generator, xb, mesh, axis)
         sr, metrics = _timed_call(fn, x)
-    finally:
-        generator.attention_block_size, generator.attention_fn = saved
+    else:
+        block = _largest_divisor_at_most(h * w, attention_block_size)
+
+        def fn(xb):
+            with torch.inference_mode():
+                return generator(xb)
+
+        saved = generator.attention_block_size, generator.attention_fn
+        generator.attention_block_size, generator.attention_fn = block, None
+        try:
+            sr, metrics = _timed_call(fn, x)
+        finally:
+            generator.attention_block_size, generator.attention_fn = saved
     return ((sr[0] + 1.0) / 2.0).clamp(0.0, 1.0).cpu().numpy(), metrics

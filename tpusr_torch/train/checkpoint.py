@@ -4,7 +4,8 @@
 
 The files are the port's own format: ``directory/name`` holds the tree's
 leaves by path, on the host; ``directory/name.meta.json`` the metadata.
-Orbax and ``.h5`` interop are not ported yet.
+Orbax and ``.h5`` interop are not ported yet. In a process group only rank
+0 writes (``dist.is_writer``); the other ranks return the same path.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from tpusr_torch.dist.mesh import is_writer
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -83,6 +86,8 @@ def save_checkpoint(directory: str, name: str, tree: Any,
                     metadata: dict | None = None) -> str:
     """Save a tree under directory/name (overwrites); returns the path."""
     path = os.path.abspath(os.path.join(directory, name))
+    if not is_writer():
+        return path
     return _write(path, _host_snapshot(tree), metadata)
 
 
@@ -119,8 +124,12 @@ def save_checkpoint_async(directory: str, name: str, tree: Any,
     Call ``handle.wait()`` before relying on the file (e.g. at fit end).
     """
     path = os.path.abspath(os.path.join(directory, name))
-    leaves = _host_snapshot(tree)
     handle = AsyncSaveHandle()
+    if not is_writer():
+        handle._path = path
+        handle._done.set()
+        return handle
+    leaves = _host_snapshot(tree)
 
     def work():
         try:

@@ -28,6 +28,16 @@ Adam's moments, every loss term, the metrics and the discriminator with its
 power iteration stay float32. ``remat=True`` runs the generator's forward
 under ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of it in the G
 loss).
+
+``mesh`` (a ``DeviceMesh`` with a 'data' axis): every rank is called with
+the same global batch and takes its rows; each loss term is a mean over the
+batch, so a rank's term over its rows, divided by the 'data' size, sums over
+the ranks to the global mean. The D and G gradients, the losses and the
+metrics are all-reduced over 'data'. The spectral-norm ``u`` vectors take
+their power step from the weights alone, so they stay equal on every rank.
+A validation batch that the 'data' size does not divide (the partial tail)
+runs replicated, as in JAX. Only rank 0 writes checkpoints, the preview PNGs
+and the epoch lines.
 """
 
 from __future__ import annotations
@@ -41,13 +51,15 @@ from torch.func import functional_call
 
 from tpusr_torch.data.prefetch import prefetch_iterator
 from tpusr_torch.device import resolve_device
+from tpusr_torch.dist.mesh import (all_reduce_flat, axis_size, batch_shard,
+                                   check_mesh, has_axis, is_writer, replicate)
 from tpusr_torch.metrics.image import psnr as psnr_fn, ssim as ssim_fn
 from tpusr_torch.models.vgg import preprocess_caffe
 from tpusr_torch.pipeline.png import encode_png_u8
 from tpusr_torch.train.callbacks import EpochMemoryTracker, EpochTimeTracker
 from tpusr_torch.train.checkpoint import save_checkpoint_async
 from tpusr_torch.train.trainer import (_f32, _take, adam_update, cast_in,
-                                       compute_dtype_of, no_mesh, remat_call)
+                                       compute_dtype_of, remat_call)
 
 _EPS = 1e-7  # keras binary_crossentropy prob clipping
 
@@ -127,7 +139,8 @@ class ESRGANTrainer:
                  perc_weight=1.0, pixel_weight=100.0, spec_weight=1.0,
                  mesh=None, remat: bool = False, compute_dtype="float32",
                  device=None):
-        no_mesh(mesh)
+        check_mesh(mesh)
+        self.mesh = mesh
         self.generator = generator
         self.discriminator = discriminator
         self.vgg_features = vgg_features
@@ -167,9 +180,12 @@ class ESRGANTrainer:
         d_params = leaves(disc.named_parameters())
         d_spectral = {k: b.detach().to(self.device, torch.float32, copy=True)
                       for k, b in disc.named_buffers()}
-        return GANState(g_params=g_params, d_params=d_params,
-                        d_spectral=d_spectral, g_opt=_adam_state(g_params),
-                        d_opt=_adam_state(d_params), step=0)
+        state = GANState(g_params=g_params, d_params=d_params,
+                         d_spectral=d_spectral, g_opt=_adam_state(g_params),
+                         d_opt=_adam_state(d_params), step=0)
+        if self.mesh is not None:
+            replicate(self.mesh, state)
+        return state
 
     # ---- the networks ------------------------------------------------------
     def _generate(self, g_params: dict, lr: torch.Tensor) -> torch.Tensor:
@@ -239,12 +255,38 @@ class ESRGANTrainer:
                 "ssim": torch.mean(ssim_fn(hr01, fake01))}
 
     # ---- steps -------------------------------------------------------------
+    def _shard(self, n: int, divisible_only: bool = False):
+        """This rank's rows of a global batch of ``n`` (None without a
+        'data' axis, or, with ``divisible_only``, when the axis does not
+        divide ``n``: such a batch runs replicated)."""
+        if not has_axis(self.mesh, "data"):
+            return None
+        if divisible_only and n % axis_size(self.mesh, "data"):
+            return None
+        return batch_shard(self.mesh, n, "data")
+
+    @staticmethod
+    def _reduce(shard, scalars: dict, grads: list = ()):
+        """``scalars`` (each a rank's mean over its rows) and ``grads``
+        summed over the 'data' ranks, the means divided by their count
+        first; as they are without a shard."""
+        if shard is None:
+            return scalars, list(grads)
+        keys = list(scalars)
+        out = all_reduce_flat([scalars[k] / shard.size for k in keys]
+                              + list(grads), shard.group)
+        return dict(zip(keys, out[:len(keys)])), out[len(keys):]
+
     def train_step(self, state: GANState, lr: torch.Tensor,
                    hr: torch.Tensor):
-        """One D update and one G update on a batch in [-1, 1]; returns
-        the state (updated in place) and the step's metrics on the
+        """One D update and one G update on a global batch in [-1, 1];
+        returns the state (updated in place) and the step's metrics on the
         device."""
         lr, hr = lr.to(self.device), hr.to(self.device)
+        shard = self._shard(lr.shape[0])
+        if shard is not None:
+            lr, hr = shard.take(lr), shard.take(hr)
+        scale = 1.0 if shard is None else 1.0 / shard.size
         d_names, g_names = list(state.d_params), list(state.g_params)
         with torch.enable_grad():
             # JAX computes the generator's output twice, in the D loss and
@@ -254,30 +296,42 @@ class ESRGANTrainer:
             d_loss = self.d_loss(state.d_params, state.d_spectral,
                                  fake.detach(), hr)
             d_grads = torch.autograd.grad(
-                d_loss, [state.d_params[k] for k in d_names])
-        adam_update(state.d_opt, state.d_params, d_names, list(d_grads),
+                d_loss if shard is None else d_loss * scale,
+                [state.d_params[k] for k in d_names])
+        d_m, d_grads = self._reduce(shard, {"d_loss": d_loss.detach()},
+                                    d_grads)
+        adam_update(state.d_opt, state.d_params, d_names, d_grads,
                     self.d_sched(state.d_opt["count"]))
         # the G loss through the updated D, which takes no gradient here
         d_now = {k: v.detach() for k, v in state.d_params.items()}
         with torch.enable_grad():
             g_loss, _aux = self._g_terms(fake, d_now, state.d_spectral, hr)
             g_grads = torch.autograd.grad(
-                g_loss, [state.g_params[k] for k in g_names])
-        adam_update(state.g_opt, state.g_params, g_names, list(g_grads),
+                g_loss if shard is None else g_loss * scale,
+                [state.g_params[k] for k in g_names])
+        with torch.no_grad():
+            metrics = {"g_loss": g_loss.detach(),
+                       **self._image_metrics(hr, fake)}
+        metrics, g_grads = self._reduce(shard, metrics, g_grads)
+        adam_update(state.g_opt, state.g_params, g_names, g_grads,
                     self.g_sched(state.g_opt["count"]))
         state.step += 1
-        with torch.no_grad():
-            metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
-                       **self._image_metrics(hr, fake)}
-        return state, metrics
+        return state, {"g_loss": metrics["g_loss"], "d_loss": d_m["d_loss"],
+                       "psnr": metrics["psnr"], "ssim": metrics["ssim"]}
 
     def val_step(self, state: GANState, lr: torch.Tensor,
                  hr: torch.Tensor) -> dict:
+        """The G loss, PSNR and SSIM of a global batch; sharded over 'data'
+        when the axis divides it, else replicated."""
         with torch.no_grad():
             lr, hr = lr.to(self.device), hr.to(self.device)
+            shard = self._shard(lr.shape[0], divisible_only=True)
+            if shard is not None:
+                lr, hr = shard.take(lr), shard.take(hr)
             g_loss, aux = self.g_loss_components(
                 state.g_params, state.d_params, state.d_spectral, lr, hr)
-            return {"g_loss": g_loss, **self._image_metrics(hr, aux["fake"])}
+            return self._reduce(shard, {
+                "g_loss": g_loss, **self._image_metrics(hr, aux["fake"])})[0]
 
     def _val_batches(self, x, y, batch_size, normalize):
         """Yield (n_real, xb, yb) including the partial tail (the
@@ -373,7 +427,7 @@ class ESRGANTrainer:
                 val_m = {f"val_{k}": v for k, v in self._val_metrics(
                     state, x_val, y_val, batch_size, normalize).items()}
 
-            if save_dir is not None:
+            if save_dir is not None and is_writer():
                 self._save_sr_grid(state, preview, save_dir, epoch + 1,
                                    normalize)
             if (checkpoint_dir is not None and checkpoint_every > 0
@@ -394,7 +448,7 @@ class ESRGANTrainer:
                 epoch_losses.setdefault(k, []).append(v)
             epoch_losses.setdefault("g_lr", []).append(self.g_sched(state.step))
             epoch_losses.setdefault("d_lr", []).append(self.d_sched(state.step))
-            if verbose:
+            if verbose and is_writer():
                 msg = (f"epoch {epoch + 1}/{epochs} g={train_m['g_loss']:.3f} "
                        f"d={train_m['d_loss']:.3f} psnr={train_m['psnr']:.2f} "
                        f"ssim={train_m['ssim']:.4f}")

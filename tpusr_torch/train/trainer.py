@@ -33,6 +33,19 @@ JAX's ``jax.checkpoint`` of the forward; JAX's ``ClassifierTrainer`` has no
 forward again there (``torch.utils.checkpoint``, non-reentrant): the same
 gradients, bit for bit, for the memory of the activations, and on a card
 one K2 launch more per conv.
+
+``mesh`` (a ``DeviceMesh`` with a 'data' axis, ``tpusr_torch.dist``):
+every rank is called with the same global batch and takes its rows. The
+loss and every metric are the global weighted means: each rank sums
+``w * value`` over its rows, divides by the global ``sum(w)`` (the padded
+trailing batch's mask counts once), and the ranks all-reduce those sums,
+not their own means. The gradients are all-reduced over 'data' before
+``clip_by_global_norm`` and Adam, so every rank takes the same step. With a
+'model' axis the state may hold output-channel shards
+(``dist.shard_params_tp``): the sharded modules gather their channels in
+the forward, the clip's norm sums the shards over 'model', and a
+checkpoint holds the shards gathered whole. Only rank 0 writes
+checkpoints, metric logs and the epoch lines.
 """
 
 from __future__ import annotations
@@ -49,6 +62,10 @@ from tpusr_torch.bridge import flax_path
 from tpusr_torch.data.augment import random_augment_batch
 from tpusr_torch.data.prefetch import prefetch_iterator
 from tpusr_torch.device import resolve_device
+from tpusr_torch.dist.mesh import (all_reduce_flat, axis_index, batch_shard,
+                                   check_mesh, has_axis, is_writer, replicate)
+from tpusr_torch.dist.tp import (full_param, gather_params_tp,
+                                 sharded_names, tp_modules)
 from tpusr_torch.metrics.image import psnr as psnr_fn, ssim as ssim_fn
 from tpusr_torch.train.callbacks import (EarlyStopping, EpochMemoryTracker,
                                          EpochTimeTracker, ReduceLROnPlateau)
@@ -73,13 +90,6 @@ class FitResult:
     time_tracker: EpochTimeTracker
     memory_tracker: EpochMemoryTracker
     state: TrainState
-
-
-def no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: data-parallel training is not ported yet (ROADMAP queue 1, "
-            "item 8: parallelism)")
 
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -131,15 +141,25 @@ def _take(a, sel: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a)[sel]).to(device)
 
 
-def _wmean(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.sum(v * w) / torch.sum(w)
+def _wmean(v: torch.Tensor, w: torch.Tensor, denom=None) -> torch.Tensor:
+    """sum(v * w) / denom; ``denom`` defaults to sum(w) (a rank's rows of
+    a global batch pass the global sum)."""
+    return torch.sum(v * w) / (torch.sum(w) if denom is None else denom)
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> list:
+def clip_by_global_norm(grads: list, max_norm: float, sharded=None,
+                        group=None) -> list:
     """optax's ``clip_by_global_norm``: every leaf ``(g / |g|) * max_norm``
     where the global norm |g| over all leaves is at least ``max_norm``
-    (``clip_grad_norm_`` divides by |g| + 1e-6 instead)."""
-    g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+    (``clip_grad_norm_`` divides by |g| + 1e-6 instead). ``sharded[i]``
+    marks leaf i as a tensor-parallel shard, whose squares are summed over
+    ``group`` (the 'model' ranks)."""
+    sq = [torch.sum(g * g) for g in grads]
+    if sharded is not None and any(sharded):
+        part = torch.stack([q for q, s in zip(sq, sharded) if s]).sum()
+        torch.distributed.all_reduce(part, group=group)
+        sq = [q for q, s in zip(sq, sharded) if not s] + [part]
+    g_norm = torch.sqrt(torch.stack(sq).sum())
     trigger = g_norm < max_norm
     return [torch.where(trigger, g, (g / g_norm) * max_norm) for g in grads]
 
@@ -184,10 +204,11 @@ class SupervisedSRTrainer:
     def __init__(self, model, learning_rate=1e-4, clipnorm=None, mesh=None,
                  loss: str = "mse", remat: bool = False,
                  compute_dtype="float32", device=None):
-        no_mesh(mesh)
+        check_mesh(mesh)
         if loss not in ("mse", "mae"):
             raise ValueError(f"Unsupported loss {loss!r}: 'mse' or 'mae'")
         self.model = model
+        self.mesh = mesh
         self.base_lr = learning_rate
         self.clipnorm = clipnorm
         self.loss_name = loss
@@ -215,52 +236,101 @@ class SupervisedSRTrainer:
         opt = {"count": 0,
                "mu": {k: torch.zeros_like(params[k]) for k in train},
                "nu": {k: torch.zeros_like(params[k]) for k in train}}
-        return TrainState(params=params, opt_state=opt, lr=_f32(self.base_lr))
+        state = TrainState(params=params, opt_state=opt, lr=_f32(self.base_lr))
+        if self.mesh is not None:
+            replicate(self.mesh, state)
+        return state
 
     def _apply(self, params: dict, x: torch.Tensor, **kwargs) -> torch.Tensor:
         """The model on ``params`` and ``x`` cast to the compute dtype; its
-        output cast to float32."""
+        output cast to float32. Shards of a 'model' axis run as
+        ``dist.tp_modules`` says."""
         dt = self.compute_dtype
-        params = {k: cast_in(v, dt) for k, v in params.items()}
-        return functional_call(self.model, params, (cast_in(x, dt),),
-                               kwargs).float()
+        cast = {k: cast_in(v, dt) for k, v in params.items()}
 
-    def _loss(self, params, x, y, w, step):
-        """(loss, prediction) of a weighted batch."""
+        def run():
+            return functional_call(self.model, cast, (cast_in(x, dt),),
+                                   kwargs).float()
+        if not has_axis(self.mesh, "model"):
+            return run()
+        with tp_modules(self.model, params, self.mesh):
+            return run()
+
+    def _shard(self, n: int):
+        """This rank's rows of a global batch of ``n`` (None without a
+        'data' axis)."""
+        if not has_axis(self.mesh, "data"):
+            return None
+        return batch_shard(self.mesh, n, "data")
+
+    def _loss(self, params, x, y, w, step, denom=None, rows=None):
+        """(loss, prediction) of a weighted batch: the weighted mean over
+        ``denom`` (default sum(w)); ``rows`` (lo, n) places a rank's rows
+        in the global batch."""
         pred = remat_call(lambda: self._apply(params, x), self.remat)
         d = pred - y
         per = (d * d) if self.loss_name == "mse" else d.abs()
-        return _wmean(per.mean(dim=tuple(range(1, per.dim()))), w), pred
+        return _wmean(per.mean(dim=tuple(range(1, per.dim()))), w, denom), pred
 
-    def _metrics(self, loss, pred, y, w) -> dict:
+    def _metrics(self, loss, pred, y, w, denom) -> dict:
         with torch.no_grad():
             pred = pred.detach()
-            return {"loss": loss.detach(), "psnr": _wmean(psnr_fn(y, pred), w),
-                    "ssim": _wmean(ssim_fn(y, pred), w), "n": torch.sum(w)}
+            return {"loss": loss.detach(),
+                    "psnr": _wmean(psnr_fn(y, pred), w, denom),
+                    "ssim": _wmean(ssim_fn(y, pred), w, denom)}
+
+    def _step(self, state: TrainState, x, y, w, step, grad: bool):
+        """Loss, metrics and (with ``grad``) the trainable parameters'
+        gradients of a global batch: this rank's rows, the sums
+        all-reduced over 'data'."""
+        denom = torch.sum(w)
+        shard = self._shard(x.shape[0])
+        rows = None
+        if shard is not None:
+            x, y, w = shard.take(x), shard.take(y), shard.take(w)
+            rows = (shard.lo, shard.n)
+        names = [k for k, v in state.params.items() if v.requires_grad]
+        grads = []
+        with torch.set_grad_enabled(grad):
+            loss, pred = self._loss(state.params, x, y, w, step, denom, rows)
+            if grad:
+                grads = list(torch.autograd.grad(
+                    loss, [state.params[k] for k in names]))
+        metrics = self._metrics(loss, pred, y, w, denom)
+        if shard is not None:
+            keys = list(metrics)
+            sums = all_reduce_flat([metrics[k] for k in keys] + grads,
+                                   shard.group)
+            metrics = dict(zip(keys, sums[:len(keys)]))
+            grads = sums[len(keys):]
+        if grad and self.clipnorm is not None:
+            sharded = None
+            if has_axis(self.mesh, "model"):
+                shards = sharded_names(self.model, state.params)
+                sharded = [k in shards for k in names]
+            grads = clip_by_global_norm(
+                grads, self.clipnorm, sharded,
+                self.mesh.get_group("model") if sharded else None)
+        metrics["n"] = denom
+        return metrics, dict(zip(names, grads)), pred
 
     def value_and_grad(self, state: TrainState, x, y, w=None, step: int = 0):
-        """(loss, prediction, {name: gradient}) of one batch, for the
-        trainable parameters (clipped when ``clipnorm`` is set)."""
+        """(loss, prediction, {name: gradient}) of one global batch, for
+        the trainable parameters (clipped when ``clipnorm`` is set); under a
+        mesh the prediction is this rank's rows."""
         if w is None:
             w = self._ones_weights(x.shape[0])
-        names = [k for k, v in state.params.items() if v.requires_grad]
-        with torch.enable_grad():
-            loss, pred = self._loss(state.params, x, y, w, step)
-            grads = list(torch.autograd.grad(loss, [state.params[k] for k in names]))
-        if self.clipnorm is not None:
-            grads = clip_by_global_norm(grads, self.clipnorm)
-        return loss, pred, dict(zip(names, grads))
+        metrics, grads, pred = self._step(state, x, y, w, step, True)
+        return metrics["loss"], pred, grads
 
     def _train_step_w(self, state: TrainState, x, y, w, step: int = 0):
-        loss, pred, grads = self.value_and_grad(state, x, y, w, step)
+        metrics, grads, _ = self._step(state, x, y, w, step, True)
         adam_update(state.opt_state, state.params, list(grads),
                     list(grads.values()), state.lr)
-        return state, self._metrics(loss, pred, y, w)
+        return state, metrics
 
     def _eval_step_w(self, state: TrainState, x, y, w) -> dict:
-        with torch.no_grad():
-            loss, pred = self._loss(state.params, x, y, w, None)
-        return self._metrics(loss, pred, y, w)
+        return self._step(state, x, y, w, None, False)[0]
 
     # unweighted public steps (tests / direct users)
     def train_step(self, state, x, y):
@@ -365,11 +435,11 @@ class SupervisedSRTrainer:
                 history[f"val_{k}"].append(v)
             history["lr"].append(state.lr)
             history["epoch_time_sec"].append(tt.epoch_times_sec[-1])
-            if metrics_logger is not None:
+            if metrics_logger is not None and is_writer():
                 metrics_logger.log_epoch(epoch, {
                     **train_m, **{f"val_{k}": v for k, v in val_m.items()},
                     "lr": state.lr, "epoch_time_sec": tt.epoch_times_sec[-1]})
-            if verbose:
+            if verbose and is_writer():
                 print(fmt_line(epoch, train_m, val_m, state))
 
             if (checkpoint_dir is not None and checkpoint_every > 0
@@ -381,8 +451,11 @@ class SupervisedSRTrainer:
                 if ckpt_handle is not None:
                     ckpt_handle.wait()
                 ep = checkpoint_offset + epoch + 1
+                whole = state
+                if has_axis(self.mesh, "model"):    # the shards, gathered
+                    whole = gather_params_tp(self.mesh, state, self.model)
                 ckpt_handle = save_checkpoint_async(
-                    checkpoint_dir, f"epoch_{ep:04d}", state,
+                    checkpoint_dir, f"epoch_{ep:04d}", whole,
                     metadata={"epoch": ep, "val_loss": val_m["loss"]})
             state.lr = _f32(plateau.update(val_m["loss"], state.lr))
             if early.update(val_m["loss"], state.params):
@@ -431,29 +504,37 @@ class ClassifierTrainer(SupervisedSRTrainer):
         super().__init__(model, learning_rate=learning_rate, mesh=mesh,
                          compute_dtype=compute_dtype, device=device)
 
-    def _loss(self, params, x, y, w, step):
+    def _loss(self, params, x, y, w, step, denom=None, rows=None):
         """(cross-entropy on log(clip(probs, 1e-7, 1)) + the Keras L2 penalty
         on the Dense-256 kernel, probs); ``step`` None is the eval forward
-        (no dropout)."""
+        (no dropout). A rank's rows (``rows``) keep their rows of the
+        global batch's dropout masks, and the penalty is added on the first
+        'data' rank only, so the all-reduced sums count it once."""
         if step is None:
             probs = self._apply(params, x)
         else:
             gen = _seeded_generator(self.device, self.dropout_seed, step)
-            probs = self._apply(params, x, train=True, generator=gen)
+            probs = self._apply(params, x, train=True, generator=gen,
+                                rows=rows)
         # minimum/maximum, not clamp: softmax saturates to exactly 1.0 in
         # fp32, where jnp.clip's gradient is 0.5 and clamp's 1
         clipped = torch.minimum(torch.maximum(probs, probs.new_tensor(1e-7)),
                                 probs.new_ones(()))
         ce = -torch.log(clipped).gather(1, y.long()[:, None])[:, 0]
-        loss = _wmean(ce, w)
-        if self.l2_reg > 0:
-            loss = loss + self.l2_reg * torch.sum(params["fc1.weight"] ** 2)
+        loss = _wmean(ce, w, denom)
+        first = rows is None or axis_index(self.mesh, "data") == 0
+        if self.l2_reg > 0 and first:
+            kernel = params["fc1.weight"]
+            if has_axis(self.mesh, "model"):
+                kernel = full_param(params, "fc1.weight", self.model,
+                                    self.mesh)
+            loss = loss + self.l2_reg * torch.sum(kernel ** 2)
         return loss, probs
 
-    def _metrics(self, loss, probs, y, w) -> dict:
+    def _metrics(self, loss, probs, y, w, denom) -> dict:
         with torch.no_grad():
-            acc = _wmean((probs.argmax(-1) == y.long()).float(), w)
-            return {"loss": loss.detach(), "accuracy": acc, "n": torch.sum(w)}
+            acc = _wmean((probs.argmax(-1) == y.long()).float(), w, denom)
+            return {"loss": loss.detach(), "accuracy": acc}
 
     def _train_step_w(self, state, x, y, w, step: int = 0,
                       augment: bool = False):
