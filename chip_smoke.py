@@ -146,7 +146,7 @@ its own lines:
    99%, request latency p50/p99 on the client's clock, requests/s, batches
    formed, mean fill, queue wait and batch time; 8 /sr answers byte for
    byte the pipeline's direct SR of the image beside 15 other eval images;
-   400 for a non-image and a JPEG body, 404 for another path; the
+   400 for a non-image and a truncated JPEG body, 404 for another path; the
    command's exit after its last request;
 18. the reference's commands (``CommandsSlice``) on its own dataset
    layout, made on the card: 16 HR print surfaces of 512^2 (the gate's hard
@@ -175,7 +175,28 @@ its own lines:
    ranks sharing the card (DP EDSR x4 gradients, the served classes, TP on
    a (1, 2) mesh: forward and step, each TP shape held), which carry no
    send/recv of CUDA tensors, so PP and SP over 2 ranks run in the CPU
-   tests only (a line says so); K2 at the new shapes beside ``F.conv2d``.
+   tests only (a line says so); K2 at the new shapes beside ``F.conv2d``;
+20. the ``eda`` command (``EdaSlice``): the baseline JPEG decoder against
+   cv2's decode of every committed fixture (``tests/data/jpeg``: sha256 and
+   PNG twins; a progressive JPEG refused) and timed at 128^2 and 512^2; 16
+   HR 512^2 / LR 128^2 surfaces made as phase 18 makes them plus the
+   committed JPEG pair, ``python -m tpusr_torch.cli eda`` in process with
+   LPIPS-alex on seeded random weights: no kernel launched, no plain twin,
+   both CSVs finite and whole, the pick by LPIPS, the card's rows against a
+   CPU run of three pairs (rtol 1e-4, LPIPS within 1e-4), ms per pair split
+   into decode, LPIPS and the rest;
+21. the uncomposed polyphase SR path (``PolySlice``,
+   ``edsr_fast.make_poly_sr_apply``): EDSR x4 at full width on 16 LR 128^2
+   images in f32 and bf16, 36 launches a forward (K2 or K2-bf16), every
+   launch within its bound of the twin (``k2_forward_bound``, bf16
+   ``k2_bf16_tolerance``), f32 at ``SR_ATOL`` of ``edsr.forward``, bf16 by
+   PSNR, each timed beside the fused path; K2's ms at the path's shapes
+   beside ``F.conv2d``;
+22. Winograd F(2x2, 3x3) (``WinogradSlice``, ``core/winograd.py``) at VGG16
+   blocks 2-4 on 64 patches of 96^2: f32 against a float64 conv and int8
+   against the exact conv of its int8 input, each within
+   ``winograd_bounds``, timed beside ``F.conv2d`` fp32 and the direct int8
+   dequant conv (the TPU's negative result, measured on the card).
 
 ``python3 chip_smoke.py --dist-cards N`` (N cards) runs only the
 parallelism layer over N NCCL ranks, one card each: DP EDSR x4 at a global
@@ -186,7 +207,7 @@ dense one), then ``tpusr_torch.entry.dryrun_multichip(N)``.
 
 Phase 8 also prints which stage of the fused f32 SR first differs between
 an image alone (N = 1) and the same image in the batch of 16, each stage
-run on shared inputs (``sr_stage_diffs``). Each path (8-18) is driven with
+run on shared inputs (``sr_stage_diffs``). Each path (8-21) is driven with
 the launch counts set to 0 just before it and read just after. Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
@@ -198,8 +219,10 @@ one GAN step's at g8x4 with ``launches`` over the GAN path (and the g32x23
 step's times); K2-bf16's record a ``train`` object, one bf16 GAN step's; every record's
 ``gate_launches`` counts the serving gate's run, ``launches_by_path``
 every path's launches by name; K2's record carries an ``inference`` object,
-its ms, bound and ``F.conv2d`` ms summed over each SR path's launches) and
-the
+its ms, bound and ``F.conv2d`` ms summed over each SR path's launches, and
+a ``poly`` object, phase 21's launches, forward ms beside the fused path's
+and K2's sums at its shapes; ``launches_by_path`` also has ``eda`` and
+``poly``) and the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
@@ -1677,7 +1700,8 @@ class k2_against_twin:
     """While open, every K2 launch of the models' convs also runs the plain
     twin on the same input; ``rows`` holds, per launch, the conv's shape (N,
     H, W, Cin, Cout), its ReLU, max |K2 - twin|, the largest per-output
-    ``k2_forward_bound`` and whether every output lies within it."""
+    bound (``k2_forward_bound``; ``k2_bf16_tolerance`` for a K2-bf16
+    launch) and whether every output lies within it."""
 
     def __enter__(self):
         from tpusr_torch.core.conv3x3 import conv3x3_bias_act_plain
@@ -1687,8 +1711,10 @@ class k2_against_twin:
 
         def call(x, k, b, relu=False):
             y = self._orig(x, k, b, relu)
-            err = (y - conv3x3_bias_act_plain(x, k, b, relu)).abs().double()
-            bnd = k2_forward_bound(x, k, b)
+            yp = conv3x3_bias_act_plain(x, k, b, relu)
+            err = (y.double() - yp.double()).abs()
+            bnd = (k2_bf16_tolerance(x, k, y, yp) if x.dtype == torch.bfloat16
+                   else k2_forward_bound(x, k, b))
             self.rows.append(((*x.shape, k.shape[-1]), bool(relu),
                               float(err.max()), float(bnd.max()),
                               bool((err <= bnd).all())))
@@ -3703,7 +3729,7 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
               f"pipeline's direct SR of the image beside 15 other eval images "
               f"({sr_diff_alone} of {n_sr} differ from the SR of the image "
               f"alone, N = 1, which the server never runs); 400 for a "
-              f"non-image and a JPEG body, 404 for /nope; exited after "
+              f"non-image and a truncated JPEG body, 404 for /nope; exited after "
               f"{n_post} POSTs; no plain twin on the card")
         print(f"[serve] {card}: where a batch's time goes: the pipeline "
               f"on one request padded to {cfg.batch} {pipe_ms:.2f} ms (host "
@@ -4868,6 +4894,466 @@ def phase_dist_cards(n: int, seed: int, card: str) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------- the EDA
+
+@dataclass(frozen=True)
+class EdaSlice:
+    """The ``eda`` command on the reference's dataset shape: ``images`` HR
+    ``size``^2 / LR ``size``/4 PNG pairs made on the card as
+    ``phase_commands`` makes its surfaces, plus the committed JPEG pair
+    (``tests/data/jpeg/eda_{hr,lr}.jpg``, 128^2 / 32^2); LPIPS-alex on
+    seeded random weights; ``cpu_pairs`` PNG pairs and the JPEG pair run
+    again on the CPU to hold the card's rows."""
+    images: int = 16
+    size: int = 512
+    cpu_pairs: int = 2
+    seed: int = 900              # the surfaces' draws: --seed plus this
+
+
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+EDA_RTOL, EDA_LPIPS_ATOL = 1e-4, 1e-4
+
+
+def random_lpips_npz(path: str, seed: int) -> str:
+    """An LPIPS-alex bundle of N(0, 0.1) weights and |N(0, 0.1)| heads in
+    the official layout (``tools/lpips_weights.expected_shapes``)."""
+    from tpusr_torch.tools.lpips_weights import expected_shapes
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, shape in expected_shapes().items():
+        a = rng.standard_normal(shape).astype(np.float32) * 0.1
+        flat[key] = np.abs(a) if key.startswith("lin") else a
+    np.savez(path, **flat)
+    return path
+
+
+def check_jpeg_fixtures(sync) -> dict:
+    """The baseline JPEG decoder against cv2's decode of every committed
+    fixture (its sha256, and its PNG where one is kept), the progressive one
+    refused; the decode's host ms at 128^2 and 512^2 (best of 3)."""
+    import hashlib
+
+    from tpusr_torch.pipeline.jpeg import decode_jpeg_u8
+    from tpusr_torch.pipeline.png import decode_png_u8
+    with open(os.path.join(JPEG_FIXTURES, "decoded.json")) as f:
+        decoded = json.load(f)
+    for name, want in decoded.items():
+        with open(os.path.join(JPEG_FIXTURES, f"{name}.jpg"), "rb") as f:
+            got = decode_jpeg_u8(f.read())
+        check(list(got.shape) == want["shape"] and hashlib.sha256(
+            got.tobytes()).hexdigest() == want["sha256"],
+            f"JPEG fixture {name}: the decode differs from cv2's")
+        twin = os.path.join(JPEG_FIXTURES, f"{name}.png")
+        if os.path.exists(twin):
+            with open(twin, "rb") as f:
+                check(np.array_equal(decode_png_u8(f.read()), got),
+                      f"JPEG fixture {name}: differs from its cv2 PNG")
+    with open(os.path.join(JPEG_FIXTURES, "progressive.jpg"), "rb") as f:
+        body = f.read()
+    try:
+        decode_jpeg_u8(body)
+        check(False, "a progressive JPEG was decoded")
+    except ValueError as e:
+        check("progressive JPEG" in str(e), f"progressive JPEG refused as {e}")
+    ms = {}
+    for name in ("eda_hr", "q90_512"):
+        with open(os.path.join(JPEG_FIXTURES, f"{name}.jpg"), "rb") as f:
+            body = f.read()
+        ms[name] = min(host_ms(lambda: decode_jpeg_u8(body), sync)
+                       for _ in range(3))
+    return {"n": len(decoded), "ms_128": ms["eda_hr"], "ms_512": ms["q90_512"]}
+
+
+def phase_eda(e: EdaSlice, dev, seed: int, sync, card: str) -> dict:
+    """``python -m tpusr_torch.cli eda`` in process on the card: the
+    CSVs and the scenario pick, the launches (none: the EDA runs cuDNN and
+    torch ops), the card's rows against the CPU's on a few pairs, and ms per
+    pair split into decode, LPIPS and the rest."""
+    import csv
+    import pickle
+    import shutil
+    import tempfile
+
+    from tpusr_torch.cli.__main__ import main as cli_main
+    from tpusr_torch.data import eda as teda
+    from tpusr_torch.metrics.lpips import load_lpips_npz
+
+    t_phase = time.perf_counter()
+    jpeg = check_jpeg_fixtures(sync)
+    work = tempfile.mkdtemp(prefix="chip_smoke_eda_")
+    try:
+        data = os.path.join(work, "data")
+        write_reference_dataset(data, CommandsSlice(images=e.images,
+                                                    size=e.size),
+                                seed + e.seed, dev, maps=True)
+        for sub, name in (("HR", "eda_hr"), ("LR", "eda_lr")):
+            shutil.copy(os.path.join(JPEG_FIXTURES, f"{name}.jpg"),
+                        os.path.join(data, sub, "jpeg_pair.jpg"))
+        npz = random_lpips_npz(os.path.join(work, "lpips_alex.npz"), seed)
+        imap_path = os.path.join(data, "interp_map.pkl")
+        out = os.path.join(work, "eda")
+        timings, result = {}, {}
+
+        def keep(orig):
+            def run(*a, **kw):
+                result["rows"], result["gd"] = orig(*a, **kw)
+                return result["rows"], result["gd"]
+            return run
+
+        def timed(orig):
+            return lambda *a, **kw: orig(*a, **{**kw, "timings": timings})
+
+        reset_counts()
+        with count_plain_calls() as plain, patched(
+                teda, run_eda_pipeline=keep, collect_metrics=timed):
+            sync()
+            t0 = time.perf_counter()
+            cli_main(["eda", "--hr-dir", os.path.join(data, "HR"),
+                      "--lr-dir", os.path.join(data, "LR"), "--out", out,
+                      "--interp-map", imap_path, "--lpips-weights", npz,
+                      "--device", "cuda"])
+            sync()
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(counts == launches_want(), f"kernels launched by the EDA: "
+                                         f"{counts}")
+        check(plain.n == 0, f"plain twins on the card in the EDA: "
+                            f"{plain.by_twin}")
+        rows, gd = result["rows"], result["gd"]
+        n = e.images + 1
+        check(len(rows) == n == gd["count"], f"EDA rows {len(rows)} != {n}")
+        with open(os.path.join(out, "eda_metrics.csv"), newline="") as f:
+            table = list(csv.reader(f))
+        check(table[0] == list(rows[0]) and len(table) == n + 1,
+              "eda_metrics.csv: header or rows")
+        bad = [(r[0], k, v) for r in table[1:] for k, v in zip(table[0], r)
+               if k != "filename" and not math.isfinite(float(v))]
+        check(not bad, f"non-finite EDA values: {bad[:4]}")
+        with open(os.path.join(out, "eda_summary.csv"), newline="") as f:
+            summary = list(csv.reader(f))
+        check(summary[0] == ["", *teda.SUMMARY_COLUMNS]
+              and len(summary) == len(rows[0]), "eda_summary.csv: its shape")
+        for key in ("lr_fft_sum", "hr_fft_sum", "grad_hr_sum", "glcm_sum"):
+            check(np.isfinite(gd[key]).all(), f"gd[{key}] not finite")
+        sc = gd["scenarios"]
+        check(sc["key"] == "lpips" and len(sc["best"]) == len(sc["worst"]) == 1,
+              f"scenario pick {sc}")
+
+        # the card's rows against a CPU run of the same pairs
+        cpu = os.path.join(work, "cpu")
+        names = ["jpeg_pair.jpg"] + sorted(
+            f for f in os.listdir(os.path.join(data, "HR"))
+            if f.endswith(".png"))[:e.cpu_pairs]
+        for sub in ("HR", "LR"):
+            os.makedirs(os.path.join(cpu, sub))
+            for name in names:
+                shutil.copy(os.path.join(data, sub, name),
+                            os.path.join(cpu, sub, name))
+        with open(imap_path, "rb") as f:
+            imap = pickle.load(f)
+        cpu_rows, _ = teda.collect_metrics(
+            os.path.join(cpu, "LR"), os.path.join(cpu, "HR"), interp_map=imap,
+            lpips_net=load_lpips_npz(npz, device="cpu"), device="cpu")
+        by_name = {r["filename"]: r for r in rows}
+        worst_rel, worst_lpips = 0.0, 0.0
+        for want in cpu_rows:
+            got = by_name[want["filename"]]
+            for k, w in want.items():
+                if k == "filename":
+                    continue
+                d = abs(got[k] - w)
+                if k == "lpips":
+                    worst_lpips = max(worst_lpips, d)
+                    check(d <= EDA_LPIPS_ATOL, f"LPIPS of {want['filename']} on "
+                          f"the card {got[k]} against the CPU's {w}")
+                else:
+                    worst_rel = max(worst_rel, d / max(abs(w), 1e-9))
+                    check(math.isclose(got[k], w, rel_tol=EDA_RTOL,
+                                       abs_tol=1e-9),
+                          f"EDA {k} of {want['filename']}: card {got[k]}, "
+                          f"CPU {w}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    med = {k: float(np.median(v)) for k, v in timings.items()}
+    print(f"[eda] {card}: `python -m tpusr_torch.cli eda` on {e.images} PNG "
+          f"pairs of {e.size}^2/{e.size // 4}^2 and 1 JPEG pair of 128^2/32^2 "
+          f"({n} rows, LPIPS-alex on seeded random weights): {wall:.2f} s, "
+          f"median per pair: decode {med['decode']:.2f} ms, LPIPS "
+          f"{med['lpips']:.2f} ms, the rest {med['rest']:.2f} ms; no kernel "
+          f"launched, no plain twin; eda_metrics.csv and eda_summary.csv "
+          f"finite; best/worst by LPIPS {sc['best']} / {sc['worst']}")
+    print(f"[eda] the card's rows against the CPU's on {len(cpu_rows)} pairs "
+          f"(JPEG pair included): largest relative difference "
+          f"{worst_rel:.3g} (held at {EDA_RTOL:g}), LPIPS {worst_lpips:.3g} "
+          f"(held at {EDA_LPIPS_ATOL:g}); the JPEG decoder equal to cv2 on "
+          f"{jpeg['n']} fixtures, a progressive JPEG refused; decode "
+          f"{jpeg['ms_128']:.1f} ms at 128^2, {jpeg['ms_512']:.1f} ms at "
+          f"512^2 (host); the phase {time.perf_counter() - t_phase:.2f} s "
+          f"(the surfaces made on the card and the CPU run included)")
+    return {"launches": counts, "wall_s": wall, "per_pair_ms": med,
+            "jpeg": jpeg}
+
+
+# ------------------------------------------------- the polyphase SR path
+
+@dataclass(frozen=True)
+class PolySlice:
+    """The uncomposed polyphase SR path (``edsr_fast.make_poly_sr_apply``):
+    EDSR x4 at full width on a batch of LR images, f32 and bf16."""
+    lr: int = 128
+    batch: int = 16
+    blocks: int = 16
+    filters: int = 64
+
+
+def poly_launches(p: PolySlice) -> int:
+    """K2 launches of one polyphase x4 forward: the head, two per residual
+    block, the body, up0 and up1 (the refactored tail is ``F.conv2d``)."""
+    return 1 + 2 * p.blocks + 1 + 2
+
+
+def phase_poly(p: PolySlice, dev, seed: int, sync, card: str) -> dict:
+    """``make_poly_sr_apply`` in f32 and bf16 against ``edsr.forward`` (f32
+    at ``SR_ATOL``, bf16 by PSNR), each launch counted and held against its
+    twin (f32 by ``k2_forward_bound``, bf16 by ``k2_bf16_tolerance``), timed
+    beside the fused path; K2's ms at the path's shapes beside
+    ``F.conv2d``."""
+    from tpusr_torch.models.edsr import EDSR
+    from tpusr_torch.models.edsr_fast import (make_fused_sr_apply,
+                                              make_poly_sr_apply)
+    from tpusr_torch.models.layers import pixel_shuffle
+
+    edsr = EDSR(scale_factor=4, num_res_blocks=p.blocks,
+                num_filters=p.filters, device=dev,
+                generator=torch.Generator().manual_seed(seed + 14))
+    g = torch.Generator(device=dev).manual_seed(seed + 15)
+    x = smooth_images(g, p.batch, p.lr, 3, dev) / 255.0
+    want = poly_launches(p)
+    res, launches, shapes = {}, {}, {}
+    with torch.inference_mode():
+        ref = edsr(x)
+        for dtype, name in ((torch.float32, "conv3x3_bias_act"),
+                            (torch.bfloat16, "conv3x3_bias_act_bf16")):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            fn, r = make_poly_sr_apply(edsr, dtype)
+            fused, s = make_fused_sr_apply(edsr, dtype)
+            fn(x)
+            sync()
+            with count_plain_calls() as plain:
+                reset_counts()
+                y = fn(x)
+                sync()
+                counts = read_counts()
+            check(counts == launches_want(**{name: want}),
+                  f"poly {tag} launches {counts}, want {want} of {name}")
+            check(plain.n == 0, f"plain twins on the card: {plain.by_twin}")
+            launches[name] = counts[name]
+            sr = pixel_shuffle(y, r).float()
+            check(tuple(sr.shape) == (p.batch, 4 * p.lr, 4 * p.lr, 3)
+                  and bool(torch.isfinite(sr).all()), f"poly {tag} SR shape")
+            with k2_against_twin() as k2c:
+                fn(x)
+            check(len(k2c.rows) == want and all(r_[4] for r_ in k2c.rows),
+                  f"poly {tag}: a K2 launch beyond its bound against the twin "
+                  f"({sum(not r_[4] for r_ in k2c.rows)} of {len(k2c.rows)})")
+            fused_sr = pixel_shuffle(fused(x), s).float()
+            if dtype == torch.float32:
+                err = float((sr - ref).abs().max())
+                check(err <= SR_ATOL, f"poly f32 SR vs edsr.forward {err}")
+                for shape, relu, *_ in k2c.rows:
+                    shapes[(shape, relu)] = shapes.get((shape, relu), 0) + 1
+                quality = f"max|SR - edsr.forward| {err:.3g}"
+            else:
+                db, fused_db = psnr_db(sr, ref), psnr_db(fused_sr, ref)
+                check(db >= BF16_SR_MIN_PSNR, f"poly bf16 SR PSNR {db:.2f} dB")
+                quality = (f"PSNR against the f32 forward {db:.2f} dB (fused "
+                           f"bf16 {fused_db:.2f})")
+            res[tag] = {"ms": time_ms(lambda: fn(x)),
+                        "fused_ms": time_ms(lambda: fused(x))}
+            print(f"[poly] {card}: {tag} make_poly_sr_apply, EDSR x4 "
+                  f"{p.blocks}x{p.filters} on {p.batch} LR {p.lr}^2: "
+                  f"{counts[name]} {name} launches, each within its bound of "
+                  f"the twin (largest err {max(r_[2] for r_ in k2c.rows):.3g}, "
+                  f"bound {max(r_[3] for r_ in k2c.rows):.3g}); {quality}; "
+                  f"{res[tag]['ms']:.3f} ms a forward against the fused "
+                  f"path's {res[tag]['fused_ms']:.3f} ms (CUDA events)")
+            del y, sr, fused_sr
+    times = k2_shape_times({k: None for k in shapes}, dev)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "err": 0.0, "t_ops": 0.0, "t_bytes": 0.0}
+    for key_, t in times.items():
+        n = shapes[key_]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[key] += n * t[key]
+        tot["t_" + ("ops" if t["bound_by"] == "operations" else "bytes")] += \
+            n * t["bound_ms"]
+        tot["err"] = max(tot["err"], t["err"])
+        print(f"[poly-K2] {str(key_[0]):26s} relu={int(key_[1])} x{n}: kernel "
+              f"{t['ms']:.4f} ms  F.conv2d fp32 {t['library_ms']:.4f} ms  twin "
+              f"{t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms")
+    print(f"[poly-K2] {card}: {want} launches a forward, kernel "
+          f"{tot['ms']:.3f} ms, F.conv2d fp32 {tot['library_ms']:.3f} ms, "
+          f"bound {tot['bound_ms']:.3f} ms "
+          f"({100 * tot['bound_ms'] / tot['ms']:.1f}%)")
+    del edsr, x, ref
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": res, "k2": tot}
+
+
+# ---------------------------------------------------------------- Winograd
+
+@dataclass(frozen=True)
+class WinogradSlice:
+    """Winograd F(2x2, 3x3) (``core/winograd.py``) at VGG16's block-2 to
+    block-4 convs on ``patches`` patches of ``patch``^2, every output held
+    against float64 at the batch that is timed."""
+    patches: int = 64
+    patch: int = 96
+    s_x: float = 0.05
+
+
+def _winograd64(x: torch.Tensor, wt: torch.Tensor, bt: torch.Tensor,
+                at: torch.Tensor) -> torch.Tensor:
+    """A^T [ (B^T d B) .* W ] A summed over input channels, in float64:
+    x (B, H, W, K), wt (4, 4, K, N), the 4x4 ``bt`` and 2x4 ``at`` given, so
+    that their magnitudes can stand in for them."""
+    xp = F.pad(x.double(), (0, 0, 1, 1, 1, 1))
+    d = xp.unfold(1, 4, 2).unfold(2, 4, 2)            # (B, th, tw, K, 4, 4)
+    u = torch.einsum("ai,btwkij,cj->btwkac", bt, d, bt)
+    y = torch.einsum("btwkac,ackn->btwacn", u, wt.double())
+    y = torch.einsum("ea,btwacn,fc->btwefn", at, y, at)
+    b, th, tw, _, _, n = y.shape
+    return y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * th, 2 * tw, n)
+
+
+def winograd_bounds(x: torch.Tensor, k: torch.Tensor, xq: torch.Tensor,
+                    s_x: float, wq: torch.Tensor, rescale: torch.Tensor):
+    """Per-output bounds (float64) on the distance of the port's Winograd
+    results from the exact conv:
+
+    - f32 (x, k): ``2 (K + 16) 2^-24 S``, S = |A|^T [(|B|^T |d| |B|) .*
+      (|G| |g| |G|^T)] |A|: the fp32 sums of the input transform (3 adds),
+      the weight transform (~4), the products, the K-term GEMM and the
+      9-term output transform, doubled as K2's bound is;
+    - int8 (xq scaled by s_x, k): ``s_x |A|^T [ |uq - u| |Wq| + |u| |Wq - W|
+      ] |A|`` summed over channels, u = B^T d B exact, uq its requantised
+      grid value (x4), W = G g G^T, Wq = wq * rescale / (4 s_x), plus 16
+      2^-24 of the same sum on |uq||Wq| for the float rescale and output
+      transform."""
+    from tpusr_torch.core import winograd as wg
+    dev = x.device
+    bt, g, at = (torch.from_numpy(m).double().to(dev)
+                 for m in (wg._BT, wg._G, wg._AT))
+    kk = k.double()
+    w_abs = torch.einsum("ai,ijkn,bj->abkn", g.abs(), kk.abs(), g.abs())
+    s_f32 = _winograd64(x.abs(), w_abs, bt.abs(), at.abs())
+    f32 = 2 * (x.shape[-1] + 16) * 2.0 ** -24 * s_f32
+    # int8: the exact transform u, its requantised value, the two weights
+    xp = F.pad(xq.double(), (0, 0, 1, 1, 1, 1))
+    d = xp.unfold(1, 4, 2).unfold(2, 4, 2)
+    u = torch.einsum("ai,btwkij,cj->btwkac", bt, d, bt)
+    uq = 4 * wg._requant_u4(u.round().to(torch.int32)).double()
+    w_exact = torch.einsum("ai,ijkn,bj->abkn", g, kk, g)
+    wq_real = (wq.double() * rescale.double() / (4 * s_x)).reshape(
+        4, 4, *wq.shape[1:])
+
+    def assemble(a, w):
+        y = torch.einsum("btwkac,ackn->btwacn", a, w)
+        y = torch.einsum("ea,btwacn,fc->btwefn", at.abs(), y, at.abs())
+        b, th, tw, _, _, n = y.shape
+        return y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * th, 2 * tw, n)
+
+    int8 = s_x * (assemble((uq - u).abs(), wq_real.abs())
+                  + assemble(u.abs(), (wq_real - w_exact).abs())
+                  + 16 * 2.0 ** -24 * assemble(uq.abs(), wq_real.abs()))
+    return f32, int8
+
+
+def phase_winograd(w: WinogradSlice, dev, seed: int, card: str) -> dict:
+    """f32 Winograd against a float64 conv and int8 Winograd against the
+    exact conv of its int8 input, each within ``winograd_bounds``, and the
+    int8 result's distance from the direct int8 dequant conv; each timed
+    (CUDA events) beside ``F.conv2d`` fp32 (TF32 off) and the direct int8
+    conv at every distinct conv shape of VGG16 blocks 2-4."""
+    from tpusr_torch.core import winograd as wg
+    from tpusr_torch.core.conv3x3 import (conv3x3_int8_dequant,
+                                          pack_int8_kernel)
+    shapes = vgg_conv_shapes(w.patches, w.patch // 2, (64, 128, 256, 512, 512),
+                             first_block=2)[:8]
+    uses = {}
+    for s in shapes:
+        uses[s] = uses.get(s, 0) + 1
+    g = torch.Generator(device=dev).manual_seed(seed + 16)
+    tot = {"f32": 0.0, "conv2d": 0.0, "int8": 0.0, "direct_int8": 0.0}
+    for shape, n_use in uses.items():
+        n, h, wd, cin, cout = shape
+        x = torch.randn((n, h, wd, cin), generator=g, device=dev)
+        k = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+             * math.sqrt(2.0 / (9 * cin)))
+        k_oihw = k.permute(3, 2, 0, 1).contiguous()
+        x_nchw = x.permute(0, 3, 1, 2)
+        xq = torch.randint(-127, 128, (n, h, wd, cin), generator=g,
+                           device=dev, dtype=torch.int8)
+        wq, rescale = wg.quantize_winograd_weights(k, wg.int8_u_scales(w.s_x))
+        check(wq.device == rescale.device == x.device,
+              "quantize_winograd_weights left the kernel's device")
+        bnd32, bnd8 = winograd_bounds(x, k, xq, w.s_x, wq, rescale)
+        # f32 against the float64 conv, within its derived bound, on the
+        # whole batch that is timed below
+        y64 = F.conv2d(x_nchw.double(), k_oihw.double(),
+                       padding=1).permute(0, 2, 3, 1)
+        d32 = (wg.winograd_conv(x, k).double() - y64).abs()
+        err_c = float((F.conv2d(x_nchw, k_oihw, padding=1).permute(
+            0, 2, 3, 1).double() - y64).abs().max())
+        check(bool((d32 <= bnd32).all()),
+              f"Winograd f32 at {shape}: {int((d32 > bnd32).sum())} outputs "
+              f"beyond the derived bound")
+        # int8 against the exact conv of the int8 input, within its bound
+        y8_64 = F.conv2d(xq.permute(0, 3, 1, 2).double() * w.s_x,
+                         k_oihw.double(), padding=1).permute(0, 2, 3, 1)
+        y_w8 = wg.winograd_conv_int8(xq, w.s_x, wq, rescale)
+        d8 = (y_w8.double() - y8_64).abs()
+        check(bool((d8 <= bnd8).all()),
+              f"Winograd int8 at {shape}: {int((d8 > bnd8).sum())} outputs "
+              f"beyond the derived bound")
+        # the direct int8 conv (per-channel weights, bf16 out) beside it
+        ws = (k.abs().amax(dim=(0, 1, 2)) / 127.0).clamp_min(1e-12)
+        kq = (k / ws).round().clamp(-127, 127).to(torch.int8)
+        kp = pack_int8_kernel(kq)
+        rs, zero = (w.s_x * ws).float(), torch.zeros(cout, device=dev)
+        y_d8 = conv3x3_int8_dequant(xq, kq, rs, zero, kp).float()
+        err8 = float((y_w8 - y_d8).abs().max())
+        scale8 = float(y_d8.abs().max())
+        err_w, scale = float(d32.max()), float(y64.abs().max())
+        t = {"f32": time_ms(lambda: wg.winograd_conv(x, k), min_total_ms=10.0),
+             "conv2d": time_ms(lambda: F.conv2d(x_nchw, k_oihw, padding=1),
+                               min_total_ms=10.0),
+             "int8": time_ms(lambda: wg.winograd_conv_int8(xq, w.s_x, wq,
+                                                           rescale),
+                             min_total_ms=10.0),
+             "direct_int8": time_ms(lambda: conv3x3_int8_dequant(
+                 xq, kq, rs, zero, kp), min_total_ms=10.0)}
+        for key in tot:
+            tot[key] += n_use * t[key]
+        print(f"[winograd] {str(shape):26s} x{n_use}: f32 {t['f32']:.4f} ms "
+              f"(max|err| {err_w:.3g} from float64, largest bound "
+              f"{float(bnd32.max()):.3g}, F.conv2d's err {err_c:.3g}, max|y| "
+              f"{scale:.3g}) against F.conv2d fp32 {t['conv2d']:.4f} ms; "
+              f"int8 {t['int8']:.4f} ms (max|err| {float(d8.max()):.3g}, "
+              f"largest bound {float(bnd8.max()):.3g}; {err8:.3g} from the "
+              f"direct int8 conv's bf16 output, max {scale8:.3g}) against the "
+              f"direct int8 dequant conv {t['direct_int8']:.4f} ms")
+        del x, xq, y64, y8_64, y_w8, y_d8, bnd32, bnd8, d32, d8
+    torch.cuda.empty_cache()
+    print(f"[winograd] {card}: VGG16 blocks 2-4 ({len(shapes)} convs) on "
+          f"{w.patches} patches of {w.patch}^2: f32 Winograd {tot['f32']:.3f} "
+          f"ms against F.conv2d fp32 {tot['conv2d']:.3f} ms "
+          f"({tot['f32'] / tot['conv2d']:.2f}x); int8 Winograd "
+          f"{tot['int8']:.3f} ms against the direct int8 conv "
+          f"{tot['direct_int8']:.3f} ms ({tot['int8'] / tot['direct_int8']:.2f}x)")
+    return tot
+
+
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
     rec = {"name": name, "route": "cuda",
            "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
@@ -4976,6 +5462,10 @@ def main() -> int:
         del trained
         torch.cuda.empty_cache()
         commands = phase_commands(CommandsSlice(), dev, args.seed, sync, card)
+        torch.cuda.empty_cache()
+        eda = phase_eda(EdaSlice(), dev, args.seed, sync, card)
+        poly = phase_poly(PolySlice(), dev, args.seed, sync, card)
+        phase_winograd(WinogradSlice(), dev, args.seed, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5013,6 +5503,13 @@ def main() -> int:
         "unsharded_step_ms": dist_res["unsharded_step_ms"],
         "train_step_ms": train["edsr_step_ms"], "sp": dist_res["sp"],
         "shapes": dist_res["k2_times"]}
+    k2_rec["poly"] = {          # phase_poly: the uncomposed polyphase path
+        "launches": poly["launches"]["conv3x3_bias_act"],
+        "forward_ms": poly["ms"]["f32"]["ms"],
+        "fused_forward_ms": poly["ms"]["f32"]["fused_ms"],
+        "bf16_forward_ms": poly["ms"]["bf16"]["ms"],
+        "fused_bf16_forward_ms": poly["ms"]["bf16"]["fused_ms"],
+        **inference_record(poly["k2"])}
     k2_rec["inference"] = {     # phase_inference, per path
         path: {"launches": n, **inference_record(inference["k2"][path])}
         for path, n in inference["launches"].items() if n}
@@ -5034,7 +5531,9 @@ def main() -> int:
                 for c, n in commands.items()}
                if rec["name"] in ("conv3x3_bias_act", "nlm_denoise") else {}),
             **{path: n.get(rec["name"], 0)
-               for path, n in dist_res["launches"].items()}}
+               for path, n in dist_res["launches"].items()},
+            "eda": eda["launches"].get(rec["name"], 0),
+            "poly": poly["launches"].get(rec["name"], 0)}
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

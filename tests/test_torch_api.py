@@ -137,9 +137,11 @@ def test_paths_not_ported_yet_raise_naming_their_item(tmp_path):
                           **kw)       # a directory: an Orbax checkpoint
         with pytest.raises(NotImplementedError, match="item 10"):
             m.save_h5(str(tmp_path), "t")
-    with pytest.raises(NotImplementedError, match="download"):
+    # ImageNet weights load from a converted .npz
+    # (tests/test_torch_imagenet_weights.py); a Keras .h5 names the item
+    with pytest.raises(NotImplementedError, match="item 10"):
         FineTunedVGG16(device="cpu").setup_model(
-            input_shape=(32, 32, 3), imagenet_weights_path="w.npz")
+            input_shape=(32, 32, 3), imagenet_weights_path="w.h5")
     # a mesh is taken now (tests/test_torch_dist_*.py); what is not a
     # DeviceMesh is refused
     with pytest.raises(TypeError, match="DeviceMesh"):

@@ -12,8 +12,12 @@ package's (``tpusr/cli/__main__.py``) on the CPU (``--device cpu``).
   confidences and PSNR/SSIM within 1e-4;
 - the port's own chain ``train-*`` -> ``pipeline`` on the trained
   checkpoints, ``--resume`` continuing Adam's step count, and the commands
-  that exit with a message (no card, ``--data-parallel``,
-  ``--vgg19-weights``, ``preprocess``, ``convert``, ``eda``).
+  that exit with a message (no card, ``--vgg19-weights``, ``preprocess``,
+  ``convert``);
+- ``eda`` writes the JAX command's ``eda_metrics.csv`` and
+  ``eda_summary.csv`` (numerically at rtol 1e-4, LPIPS within 1e-5, on the
+  same LPIPS npz), and the loaders read baseline JPEG pairs as the JAX
+  loaders read them with cv2, bit for bit.
 
 The data is the JAX CLI tests' fixture: 4 HR/LR PNG pairs of 48^2/24^2.
 The networks are narrowed in both packages (``narrow_models``).
@@ -32,7 +36,7 @@ import torch
 
 import tpusr.cli.__main__ as jcli
 import tpusr_torch.cli.__main__ as tcli
-from test_torch_data import _write_pairs
+from test_torch_data import RESIZE_ATOL, _write_pairs
 from test_torch_fixtures import NARROW_WIDTHS
 
 RTOL = 1e-4
@@ -185,8 +189,7 @@ def test_a_command_refuses_to_run_without_a_card(data, tmp_path, monkeypatch,
     (["preprocess", "--video", "v.mp4", "--hr-dir", "h", "--lr-dir", "l"],
      "video decoder"),
     (["convert", "--model", "edsr", "--src", "x.h5"], "item 10"),
-    (["eda", "--hr-dir", "h", "--lr-dir", "l"], "matplotlib, .*pandas.*LPIPS"),
-], ids=["preprocess", "convert", "eda"])
+], ids=["preprocess", "convert"])
 def test_commands_not_ported_exit_naming_what_they_lack(argv, match):
     with pytest.raises(SystemExit, match=match):
         tcli.main(argv)
@@ -455,3 +458,80 @@ def test_resume_continues_the_optimizer_step_count(data, tmp_path,
     # periodic numbering continues from the resumed point's epoch
     assert os.path.exists(tmp_path / "a" / "epoch_0002")
 
+
+
+# ------------------------------------------------------------------- eda
+
+def test_eda_command_writes_the_jax_commands_csvs(tmp_path, monkeypatch):
+    from test_torch_eda import (JAX_FIGURES, assert_csv_close, random_lpips_npz,
+                                write_eda_pairs)
+    import tpusr.data.eda as jeda
+
+    root = write_eda_pairs(str(tmp_path / "ds"), n=4)
+    npz = random_lpips_npz(tmp_path / "lpips.npz", seed=3)
+    # the JAX command sets the variable itself; monkeypatch restores it
+    monkeypatch.setenv("TPUSR_LPIPS_WEIGHTS", npz)
+    monkeypatch.setattr(jeda, "_lpips_mod", None)
+    monkeypatch.setattr(jeda, "_LPIPS_JAX_W", None)
+    for name in (*JAX_FIGURES, "save_visual_example"):
+        monkeypatch.setattr(jeda, name, lambda *a, **k: None)
+    common = ["--hr-dir", os.path.join(root, "HR"), "--lr-dir",
+              os.path.join(root, "LR"), "--interp-map",
+              os.path.join(root, "imap.pkl"), "--lpips-weights", npz,
+              "--limit", "3"]
+    jcli.main(["eda", *common, "--out", str(tmp_path / "jax")])
+    assert tcli.main(["eda", *common, "--out", str(tmp_path / "port"),
+                      "--device", "cpu"]) == str(tmp_path / "port")
+    for name in ("eda_metrics.csv", "eda_summary.csv"):
+        assert_csv_close(tmp_path / "port" / name, tmp_path / "jax" / name)
+    with open(tmp_path / "port" / "eda_metrics.csv") as f:
+        assert len(f.read().splitlines()) == 4       # --limit 3 and a header
+
+
+def test_eda_command_refuses_to_run_without_a_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        tcli.main(["eda", "--hr-dir", "h", "--lr-dir", "l", "--out",
+                   str(tmp_path / "o")])
+    assert not (tmp_path / "o").exists()
+    sp = _subparsers(tcli.build_parser())["eda"]
+    assert {a.dest: a.default for a in sp._actions}["device"] == "cuda"
+
+
+def test_loaders_read_baseline_jpeg_pairs_as_jax(tmp_path):
+    """The same pairs as JPEG (4:2:0, quality 90): the port's loaders give
+    the JAX loaders' arrays bit for bit (the decode equals cv2's)."""
+    import pickle
+
+    import cv2
+
+    import tpusr.data.loading as jl
+    import tpusr_torch.data.loading as tl
+
+    (tmp_path / "png").mkdir()
+    src = _write_pairs(tmp_path / "png")
+    for d in ("HR", "LR"):
+        (tmp_path / d).mkdir()
+        for f in os.listdir(src / d):
+            img = cv2.imread(str(src / d / f))
+            cv2.imwrite(str(tmp_path / d / f.replace(".png", ".jpg")), img,
+                        [cv2.IMWRITE_JPEG_QUALITY, 90])
+    with open(src / "cmap.pkl", "rb") as f:
+        cmap = {n.replace(".png", ".jpg"): c for n, c in pickle.load(f).items()}
+    with open(tmp_path / "cmap.pkl", "wb") as f:
+        pickle.dump(cmap, f)
+    hr, lr = str(tmp_path / "HR"), str(tmp_path / "LR")
+    kw = dict(mode="scale", patch_size=12, stride=6, scale_factor=2)
+    for g, w in zip(tl.load_dataset_as_patches(hr, lr, **kw),
+                    jl.load_dataset_as_patches(hr, lr, **kw)):
+        np.testing.assert_array_equal(g, w)
+    # srcnn mode resizes the float LR: within the float resize's tolerance
+    kw = dict(mode="srcnn", patch_size=16, stride=8, scale_factor=2)
+    gx, gy, *g_hw = tl.load_dataset_as_patches(hr, lr, **kw)
+    wx, wy, *w_hw = jl.load_dataset_as_patches(hr, lr, **kw)
+    assert g_hw == w_hw
+    np.testing.assert_array_equal(gy, wy)
+    np.testing.assert_allclose(gx, wx, rtol=0, atol=RESIZE_ATOL)
+    for g, w in zip(tl.load_predictions_dataset(lr, hr, str(tmp_path / "cmap.pkl")),
+                    jl.load_predictions_dataset(lr, hr, str(tmp_path / "cmap.pkl"))):
+        np.testing.assert_array_equal(g, w)

@@ -722,7 +722,7 @@ def test_super_resolve_image_on_k2_matches_the_twin(cuda):
 def test_http_tier_on_the_card_answers_each_kind(cuda):
     """make_http_server over a narrow per_patch_int8 pipeline on the card:
     /healthz, /classify, /sr (equal byte for byte to the pipeline's SR of the
-    served batch) and /classify_sr answer, a JPEG body gets 400; K2, K1 and
+    served batch) and /classify_sr answer, a truncated JPEG body gets 400; K2, K1 and
     K3 launch and no plain twin runs."""
     import json
     import threading

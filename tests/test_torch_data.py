@@ -283,15 +283,16 @@ def test_argument_checks_raise_as_jax(pairs, tmp_path, case):
 
 @pytest.mark.parametrize("fmt", ["jpg", "bmp", "tiff"])
 def test_a_file_of_another_format_raises_naming_it(pairs, tmp_path, fmt):
-    """A non-PNG file the loader reaches raises, naming the file and its
-    format; it is not skipped (which would change the pairs and the
-    split)."""
+    """A file the loader reaches and cannot decode (a BMP, a TIFF, a
+    progressive JPEG) raises, naming the file and its format; it is not
+    skipped (which would change the pairs and the split)."""
     hr_dir = tmp_path / "HR"
     hr_dir.mkdir()
     for f in os.listdir(pairs / "HR"):
         (hr_dir / f).write_bytes((pairs / "HR" / f).read_bytes())
     bad = hr_dir / f"s_001.{fmt}"
-    cv2.imwrite(str(bad), np.zeros((48, 48, 3), np.uint8))
+    cv2.imwrite(str(bad), np.zeros((48, 48, 3), np.uint8),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1] if fmt == "jpg" else [])
     os.remove(hr_dir / "s_001.png")
     name = {"jpg": "JPEG", "bmp": "BMP", "tiff": "TIFF"}[fmt]
     with open(tmp_path / "c.pkl", "wb") as f:

@@ -518,7 +518,9 @@ def test_esrgan_facade_paths_not_ported_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 10"):
         m.setup_model(from_trained=True, generator_pretrained_path=str(h5),
                       discriminator_pretrained_path=str(h5), **kw)
-    with pytest.raises(NotImplementedError, match="download"):
+    # an .npz loads (tests/test_torch_imagenet_weights.py); a Keras .h5
+    # names the HDF5 item
+    with pytest.raises(NotImplementedError, match="item 10"):
         m.setup_model(vgg19_weights_path="vgg19.h5", **kw)
     with pytest.raises(FileNotFoundError):
         m.setup_model(from_trained=True,

@@ -256,18 +256,83 @@ def test_every_endpoint_and_status_code(nets):
         both = json.loads(body)
         assert status == 200 and both["class"] == r["class"]
         assert base64.b64decode(both["sr_png_base64"]) == sr_png
-        # 400: not an image, a JPEG, a wrong LR size
+        # 400: not an image, a progressive JPEG, a GIF, a wrong LR size
         status, _, body = _request(served.base + "/classify", b"not an image")
         assert status == 400 and json.loads(body)["type"] == "ValueError"
-        ok, jpg = cv2.imencode(".jpg", (lr[0] * 255).astype(np.uint8))
+        ok, jpg = cv2.imencode(".jpg", (lr[0] * 255).astype(np.uint8),
+                               [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
         status, _, body = _request(served.base + "/sr", jpg.tobytes())
-        assert status == 400 and "JPEG" in json.loads(body)["error"]
+        assert status == 400 and "progressive JPEG" in json.loads(body)["error"]
+        status, _, body = _request(served.base + "/sr", b"GIF89a" + b"\0" * 16)
+        assert status == 400 and "GIF" in json.loads(body)["error"]
         status, _, body = _request(served.base + "/classify",
                                    png.encode_png(np.zeros((LR + 1, LR, 3))))
         assert status == 400 and "expected" in json.loads(body)["error"]
         # 404: any other path, POST or GET
         assert _request(served.base + "/nope", req)[0] == 404
         assert _request(served.base + "/nope")[0] == 404
+    finally:
+        served.close()
+
+
+@pytest.mark.parametrize("sampling", ["444", "420"])
+def test_a_jpeg_body_is_served_as_its_cv2_decode(nets, sampling):
+    """A baseline JPEG request body answers 200 with the classes, the
+    confidences and the SR of its cv2 decode sent as a PNG."""
+    sv, cv, lr = nets
+    factor = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+              "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420}[sampling]
+    served = _Served(make_http_server, _port_server(sv, cv))
+    try:
+        for img in lr[:3]:
+            rgb = (img * 255).astype(np.uint8)
+            ok, jpg = cv2.imencode(".jpg", rgb[..., ::-1], [
+                cv2.IMWRITE_JPEG_QUALITY, 85,
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor])
+            assert ok
+            twin = png.encode_png_u8(_cv2_rgb(jpg.tobytes()))
+            for path in ("/classify", "/sr"):
+                got = _request(served.base + path, jpg.tobytes())
+                want = _request(served.base + path, twin)
+                assert got[0] == want[0] == 200
+                assert got[2] == want[2]
+    finally:
+        served.close()
+
+
+def test_a_body_of_another_size_is_refused_from_its_header(monkeypatch):
+    """A JPEG or PNG whose header declares another size than the LR size
+    answers 400 before any of its data is decoded: a body of a few hundred
+    bytes that declares a huge frame costs the server nothing."""
+    from tpusr_torch.pipeline import jpeg
+    scans = []
+
+    def no_scan(*a):
+        scans.append(1)
+        raise AssertionError("a scan was decoded")
+    monkeypatch.setattr(jpeg, "_decode_scan", no_scan)
+    monkeypatch.setattr(png, "_unfilter", no_scan)
+
+    def never(imgs):
+        raise AssertionError("no request reaches the pipeline")
+
+    served = _Served(make_http_server, PipelineServer(never, batch_size=1))
+    try:
+        ok, jpg = cv2.imencode(".jpg", np.zeros((16, 16), np.uint8))
+        assert ok
+        i = jpg.tobytes().index(b"\xff\xc0")
+        for h, w, what in ((65535, 65535, "over 2^30 pixels"),
+                           (8192, 8192, f"expected {LR}x{LR} LR input"),
+                           (LR + 1, LR, f"expected {LR}x{LR} LR input")):
+            body = (jpg.tobytes()[:i + 5] + struct.pack(">HH", h, w)
+                    + jpg.tobytes()[i + 9:])
+            status, _, reply = _request(served.base + "/classify", body)
+            assert status == 400 and what in json.loads(reply)["error"]
+        status, _, reply = _request(served.base + "/sr", png.encode_png_u8(
+            np.zeros((8192, 8, 3), np.uint8)))
+        assert status == 400
+        assert f"expected {LR}x{LR} LR input" in json.loads(reply)["error"]
+        assert not scans
     finally:
         served.close()
 

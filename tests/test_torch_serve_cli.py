@@ -178,9 +178,10 @@ def test_gate_note_reads_the_ports_gate_report():
 
 
 def test_calib_dir_reads_its_pngs_beside_files_of_other_formats(tmp_path):
-    """``--calib-dir`` reads ``*.png`` alone: a JPEG beside the PNGs is left
-    out instead of stopping the command. The PNGs are read as the JAX
-    command reads them with cv2: at the LR size exactly, resized with
+    """``--calib-dir`` reads ``*.png``, ``*.jpg`` and ``*.jpeg`` sorted
+    together, as the JAX command lists them, and leaves a file of another
+    extension out. The images are read as the JAX command reads them with
+    cv2: a JPEG bit for bit, at the LR size exactly, resized with
     ``INTER_AREA`` within one 8-bit level (cv2 rounds a tie up, the port to
     even)."""
     cv2 = pytest.importorskip("cv2")
@@ -195,14 +196,18 @@ def test_calib_dir_reads_its_pngs_beside_files_of_other_formats(tmp_path):
     assert ok
     (tmp_path / "a.jpg").write_bytes(jpg.tobytes())
     (tmp_path / "b.jpeg").write_bytes(jpg.tobytes())
+    cv2.imwrite(str(tmp_path / "d.bmp"), imgs[0])
     got = _read_calib_dir(str(tmp_path), (LR, LR))
-    assert got.shape == (2, LR, LR, 3) and got.dtype == np.float32
-    np.testing.assert_array_equal(got[0], imgs[0] / np.float32(255.0))
+    assert got.shape == (4, LR, LR, 3) and got.dtype == np.float32
+    jpg_rgb = cv2.imdecode(jpg, cv2.IMREAD_COLOR)[..., ::-1]
+    for i in (0, 1):      # a.jpg, b.jpeg
+        np.testing.assert_array_equal(got[i], jpg_rgb / np.float32(255.0))
+    np.testing.assert_array_equal(got[2], imgs[0] / np.float32(255.0))
     want = cv2.resize(imgs[1], (LR, LR), interpolation=cv2.INTER_AREA)
-    np.testing.assert_allclose(got[1] * 255.0, want, atol=1.0 + 1e-4)
+    np.testing.assert_allclose(got[3] * 255.0, want, atol=1.0 + 1e-4)
 
-    only_jpg = tmp_path / "jpg"
-    only_jpg.mkdir()
-    (only_jpg / "a.jpg").write_bytes(jpg.tobytes())
-    with pytest.raises(SystemExit, match="no PNG images"):
-        _read_calib_dir(str(only_jpg), (LR, LR))
+    only_bmp = tmp_path / "bmp"
+    only_bmp.mkdir()
+    cv2.imwrite(str(only_bmp / "a.bmp"), imgs[0])
+    with pytest.raises(SystemExit, match="no images"):
+        _read_calib_dir(str(only_bmp), (LR, LR))

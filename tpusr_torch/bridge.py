@@ -211,3 +211,50 @@ def esrgan_discriminator_from_flax(params: dict, spectral: dict, device=None):
     sd.update({k: _tensor(v) for k, v in _flatten(spectral).items()})
     model.load_state_dict(sd, strict=True)
     return model.to(resolve_device(device))
+
+
+def lpips_alex_from_arrays(flat: dict, device=None):
+    """An LPIPS-alex bundle (``conv{i}/kernel`` HWIO, ``conv{i}/bias``,
+    ``lin{i}/weight``; ``tpusr_torch.tools.lpips_weights``) ->
+    ``tpusr_torch.metrics.lpips.LPIPSAlex``."""
+    from tpusr_torch.metrics.lpips import LPIPSAlex
+    from tpusr_torch.tools.lpips_weights import validate
+
+    validate(flat)
+    model = LPIPSAlex(device="cpu")
+    sd = {}
+    for i in range(1, 6):
+        sd[f"conv{i}.weight"] = hwio_to_oihw(_tensor(flat[f"conv{i}/kernel"]))
+        sd[f"conv{i}.bias"] = _tensor(flat[f"conv{i}/bias"])
+        sd[f"lin{i}"] = _tensor(flat[f"lin{i}/weight"])
+    model.load_state_dict(sd, strict=True)
+    return model.to(resolve_device(device))
+
+
+def vgg_backbone_from_arrays(model, layers: dict, backbone_key: str,
+                             source: str = "weights") -> None:
+    """Write {layer: {'kernel': HWIO, 'bias': ...}} (a converted ImageNet
+    ``.npz``, ``tools/imagenet_weights.py``) into ``model``'s
+    ``backbone_key`` convs (OIHW ``nn.Conv2d``), in place. Every layer must
+    exist in the backbone at its shape."""
+    backbone = getattr(model, backbone_key)
+    with torch.no_grad():
+        for layer, leaves in layers.items():
+            conv = backbone[layer] if layer in backbone else None
+            if conv is None:
+                raise ValueError(f"{source}: unexpected layer {layer} for "
+                                 f"backbone {backbone_key}")
+            for leaf, arr in leaves.items():
+                t = _tensor(arr)
+                if leaf == "kernel":
+                    dst, t = conv.weight, hwio_to_oihw(t)
+                elif leaf == "bias":
+                    dst = conv.bias
+                else:
+                    raise ValueError(f"{source}: unexpected leaf {layer}/{leaf}")
+                if t.shape != dst.shape:
+                    want = oihw_to_hwio(dst) if leaf == "kernel" else dst
+                    raise ValueError(f"{source}:{layer}/{leaf}: shape "
+                                     f"{tuple(np.shape(arr))}, the model "
+                                     f"wants {tuple(want.shape)}")
+                dst.copy_(t.to(dst.device, dst.dtype))

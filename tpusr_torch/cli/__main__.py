@@ -8,13 +8,14 @@ the reference's notebook flows, and the serving tier.
     python -m tpusr_torch.cli train-vgg16  --hr-dir HR --class-map c.pkl ...
     python -m tpusr_torch.cli pipeline     --lr-dir LRp --hr-dir HRp --class-map c.pkl ...
     python -m tpusr_torch.cli serve        --edsr-ckpt E --vgg16-ckpt V [...]
+    python -m tpusr_torch.cli eda          --hr-dir HR --lr-dir LR --out eda/
 
 Every command takes the JAX command's flags and defaults, plus ``--device``
 (default ``cuda``): with no card and no ``--device cpu`` a command exits
 with a message; it never falls back to the CPU. The flows are the JAX
 package's (load -> split(seed 42) -> train -> evaluate -> checkpoint +
-metrics JSON), on the port's loaders (``data/loading.py``: PNG only), its
-trainers and facades; checkpoints are the port's own
+metrics JSON), on the port's loaders (``data/loading.py``: PNG and baseline
+JPEG), its trainers and facades; checkpoints are the port's own
 (``train/checkpoint.py``). ``classic`` and ``pipeline`` write the JSON the
 JAX commands write and no figures: the JAX commands draw theirs with
 matplotlib, which the port does not use.
@@ -25,9 +26,10 @@ torchrun (``torchrun --nproc-per-node N -m tpusr_torch.cli train-edsr
 --data-parallel ...``), one card each; only rank 0 writes the checkpoint
 and its logs.
 
-``preprocess`` (a video decoder), ``convert`` (Keras ``.h5`` interop, ROADMAP
-queue 1 item 10) and ``eda`` (matplotlib, pandas, lpips) are listed with
-their JAX flags and exit with a message naming what they lack, as does
+``eda`` runs the dataset EDA (``data/eda.py``) on the card and writes its
+CSVs, without the JAX command's figures. ``preprocess`` (a video decoder)
+and ``convert`` (Keras ``.h5`` interop, ROADMAP queue 1 item 10) are listed
+with their JAX flags and exit with a message naming what they lack, as does
 ``train-esrgan --vgg19-weights`` (a Keras ``.h5`` import, item 10).
 """
 
@@ -45,7 +47,8 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 GATE_FILE = "GATE_torch.json"    # the port's gate verdict, on the H100
-_ITEM_10 = "ROADMAP queue 1, item 10: Keras and Orbax interop"
+_ITEM_10 = ("ROADMAP queue 1, item 10: a Keras-HDF5 codec of the port's own, "
+            "with Keras and Orbax interop")
 NO_FIGURES = ("figures are not drawn: the JAX command draws them with "
               "matplotlib, which the port does not use")
 
@@ -545,10 +548,19 @@ def cmd_convert(args):
 
 
 def cmd_eda(args):
-    raise SystemExit(
-        "tpusr_torch eda: not ported — the EDA pipeline draws with "
-        "matplotlib, tabulates with pandas and scores LPIPS with the lpips "
-        "weights, none of which the port uses; run `python -m tpusr.cli eda`")
+    """The dataset EDA (``data/eda.py``) on the card: ``eda_metrics.csv``
+    and ``eda_summary.csv`` under ``--out``, the global panel's numbers and
+    the scenario pick printed; no figures. ``--lpips-weights`` (else
+    ``$TPUSR_LPIPS_WEIGHTS`` or ``weights/lpips_alex.npz``) fills the LPIPS
+    column. Returns the output directory."""
+    from tpusr_torch.data.eda import run_eda_pipeline
+
+    dev = _device(args)
+    run_eda_pipeline(args.lr_dir, args.hr_dir, args.out,
+                     interp_map_path=args.interp_map, limit=args.limit,
+                     lpips_weights=args.lpips_weights, device=dev)
+    print(f"[eda] wrote eda_metrics.csv and eda_summary.csv to {args.out}")
+    return args.out
 
 
 def _gate_certification_note(args) -> str | None:
@@ -592,25 +604,26 @@ def _gate_certification_note(args) -> str | None:
 
 
 def _read_calib_dir(calib_dir: str, lr_hw: tuple[int, int]):
-    """Up to 16 calibration PNGs (sorted by name) as an (N, h, w, 3)
-    float32 [0, 1] array, each resized to the LR size with OpenCV's
+    """Up to 16 calibration images (``*.png``, ``*.jpg`` and ``*.jpeg``,
+    sorted together by path, as the JAX command lists them) as an (N, h, w,
+    3) float32 [0, 1] array, each resized to the LR size with OpenCV's
     ``INTER_AREA`` weights (``core/resize.py``) and rounded back to uint8,
-    as the JAX command reads them with cv2. Only ``*.png`` is read: the
-    port's codec decodes PNG alone, where the JAX command also takes JPEG."""
+    as the JAX command reads them with cv2."""
     import torch
 
     from tpusr_torch.core.resize import resize
-    from tpusr_torch.pipeline.png import decode_png_u8
+    from tpusr_torch.pipeline.png import decode_image_u8
 
-    files = sorted(glob.glob(os.path.join(calib_dir, "*.png")))[:16]
+    files = sorted(f for ext in ("png", "jpg", "jpeg")
+                   for f in glob.glob(os.path.join(calib_dir, f"*.{ext}")))[:16]
     if not files:
-        raise SystemExit(f"--calib-dir {calib_dir}: no PNG images")
+        raise SystemExit(f"--calib-dir {calib_dir}: no images")
     imgs = []
     for f in files:
         with open(f, "rb") as fh:
             body = fh.read()
         try:
-            u8 = decode_png_u8(body)
+            u8 = decode_image_u8(body)
         except ValueError as e:
             raise SystemExit(f"--calib-dir: unreadable image {f} ({e})") from None
         if u8.shape[:2] != lr_hw:
@@ -908,14 +921,18 @@ def build_parser():
                          "the kernels' plain PyTorch twins)")
     sp.set_defaults(fn=cmd_serve)
 
-    sp = sub.add_parser("eda", help="not ported: the EDA pipeline needs "
-                        "matplotlib, pandas and lpips")
+    sp = sub.add_parser("eda", help="dataset EDA: per-pair metrics and "
+                        "their summary as CSV (no figures)")
     sp.add_argument("--hr-dir", required=True)
     sp.add_argument("--lr-dir", required=True)
     sp.add_argument("--out", default="eda_results")
     sp.add_argument("--interp-map", default=None)
     sp.add_argument("--limit", type=int, default=None)
-    sp.add_argument("--lpips-weights", default=None)
+    sp.add_argument("--lpips-weights", default=None,
+                    help="provisioned lpips_alex .npz "
+                         "(tpusr_torch.tools.lpips_weights); fills the LPIPS "
+                         "column and picks the scenarios by LPIPS")
+    sp.add_argument("--device", default="cuda", help=DEVICE_HELP)
     sp.set_defaults(fn=cmd_eda)
     return p
 

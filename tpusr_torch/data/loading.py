@@ -13,7 +13,8 @@ reference's semantics (``SRModels/loading_methods.py``):
 The JAX package decodes with ``cv2.imread`` and resizes with ``cv2.resize``.
 The port has no image library: it decodes PNG with ``pipeline/png.py``
 (what ``cv2.imread(IMREAD_COLOR)`` gives for 8- and 16-bit, gray, palette
-and alpha PNGs) and resizes with ``core/resize.py``'s cv2 taps, plus a
+and alpha PNGs) and baseline JPEG with ``pipeline/jpeg.py`` (bit for bit
+what cv2 gives, EXIF orientation applied) and resizes with ``core/resize.py``'s cv2 taps, plus a
 private ``INTER_NEAREST``. A file of another format that a loader reaches
 raises, naming the file and its format: skipping it would change the pairs
 and the split. Patches are cut with one numpy view per image.
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from tpusr_torch.core.resize import resize
-from tpusr_torch.pipeline.png import decode_png_u8, image_format
+from tpusr_torch.pipeline.png import decode_image_u8, image_format
 
 _IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tiff")
 
@@ -62,20 +63,22 @@ def get_all_image_paths(root: str) -> list[str]:
 
 
 def imread_rgb_u8(path: str) -> np.ndarray:
-    """A PNG file as (h, w, 3) uint8 RGB, what ``cv2.imread(IMREAD_COLOR)``
-    and the BGR->RGB swap give; any other file raises ``ValueError`` naming
-    it and its format."""
+    """A PNG or baseline JPEG file as (h, w, 3) uint8 RGB, what
+    ``cv2.imread(IMREAD_COLOR)`` and the BGR->RGB swap give; any other file
+    raises ``ValueError`` naming it and its format."""
     with open(path, "rb") as f:
         body = f.read()
     fmt = image_format(body)
-    if fmt != "PNG":
+    if fmt not in ("PNG", "JPEG"):
         raise ValueError(
-            f"{path}: a {fmt} image; the port's loaders decode PNG only"
-            if fmt else f"Failed to read image: {path} (not a PNG)")
+            f"{path}: a {fmt} image; the port's loaders decode PNG and "
+            f"baseline JPEG only" if fmt
+            else f"Failed to read image: {path} (not a PNG or JPEG)")
     try:
-        return decode_png_u8(body)
+        return decode_image_u8(body)
     except ValueError as e:
-        raise ValueError(f"Failed to read image: {path} ({e})") from None
+        raise ValueError(f"{path}: a {fmt} image the port cannot decode "
+                         f"({e})") from None
 
 
 def _imread_rgb01(path: str) -> np.ndarray:

@@ -17,11 +17,13 @@ parameters (by the module's parameter names) it trains, restores and saves;
 facade's state is the GAN trainer's whole ``GANState``). Checkpoints are the
 port's own (``train/checkpoint.py``), with the JAX facades' ``arch``
 metadata, so ``from_pretrained``/``from_trained`` rebuilds the saved
-architecture whatever the setup arguments. Not ported: Keras ``.h5`` import
-and export and Orbax checkpoint directories (ROADMAP queue 1, item 10: they
-need h5py and tensorflow, which the card's machine lacks), and ImageNet
-weights (``imagenet_weights_path``, ``vgg19_weights_path``: they need a
-download).
+architecture whatever the setup arguments. ImageNet weights
+(``imagenet_weights_path`` of ``FineTunedVGG16``, ``vgg19_weights_path`` of
+``ESRGAN``) load from a converted ``.npz``
+(``tools/imagenet_weights.py``), as in JAX. Not ported: Keras ``.h5`` import
+and export, an ``.h5`` ImageNet file and Orbax checkpoint directories
+(ROADMAP queue 1, item 10: they need h5py and tensorflow, which the card's
+machine lacks).
 
 ``mesh`` (a ``DeviceMesh``, ``tpusr_torch.dist``) goes to the trainers and
 to full-image SR, as in JAX; under it a restored checkpoint is broadcast
@@ -51,9 +53,11 @@ from tpusr_torch.pipeline.inference import (srcnn_super_resolve,
 from tpusr_torch.train.checkpoint import (load_metadata, restore_checkpoint,
                                           save_checkpoint)
 from tpusr_torch.train.gan import ESRGANTrainer
+from tpusr_torch.tools.imagenet_weights import load_backbone_weights
 from tpusr_torch.train.trainer import ClassifierTrainer, SupervisedSRTrainer
 
-_ITEM_10 = "ROADMAP queue 1, item 10: Keras and Orbax interop, beside convert"
+_ITEM_10 = ("ROADMAP queue 1, item 10: a Keras-HDF5 codec of the port's own, "
+            "with Keras and Orbax interop, beside convert")
 
 
 def _is_h5(path):
@@ -109,12 +113,6 @@ def module_with_params(module: torch.nn.Module, params: dict
         for name, p in out.named_parameters():
             p.copy_(params[name])
     return out
-
-
-def _no_imagenet_weights(arg: str):
-    return NotImplementedError(
-        f"{arg}: the converted Keras ImageNet weights need a download, so "
-        f"their loader is not ported")
 
 
 class _Facade:
@@ -315,8 +313,6 @@ class ESRGAN(_Facade):
                 output_shape = (input_shape[0] * scale_factor,
                                 input_shape[1] * scale_factor,
                                 input_shape[2])
-        if vgg19_weights_path:
-            raise _no_imagenet_weights("vgg19_weights_path")
         self.scale_factor = scale_factor
         self.output_shape = tuple(output_shape)
         self._arch = {"scale_factor": scale_factor,
@@ -332,6 +328,8 @@ class ESRGAN(_Facade):
         # the JAX facade draws VGG19 from PRNGKey(0)
         self.vgg_model = VGG19Features(
             device=self.device, generator=torch.Generator().manual_seed(0))
+        if vgg19_weights_path:
+            load_backbone_weights(self.vgg_model, vgg19_weights_path, "vgg19")
         self.trainer = ESRGANTrainer(self.generator, self.discriminator,
                                      self.vgg_model, mesh=self.mesh,
                                      compute_dtype=compute_dtype,
@@ -439,14 +437,14 @@ class FineTunedVGG16(_Facade):
                 f"Unsupported loss {loss!r}: only "
                 "'sparse_categorical_crossentropy' is implemented "
                 "(the reference compiles exactly this, VGG16_model.py:102)")
-        if imagenet_weights_path:
-            raise _no_imagenet_weights("imagenet_weights_path")
         self.input_shape = tuple(input_shape)
         self._arch = {"input_shape": list(self.input_shape),
                       "num_classes": num_classes, "dropout_rate": dropout_rate}
         self.module = VGG16Classifier(num_classes=num_classes,
                                       dropout_rate=dropout_rate,
                                       device=self.device, generator=_seeded())
+        if imagenet_weights_path:
+            load_backbone_weights(self.module, imagenet_weights_path, "vgg16")
         pred = None
         if not base_trainable:
             pred = lambda path: path[0] != "vgg16"  # noqa: E731

@@ -8,19 +8,20 @@ simultaneous requests.
 
 Endpoints:
   GET  /healthz     -> {"status": "ok", "config": {...}}
-  POST /classify    -> {"class": int, "confidence": float}; body = a PNG LR
-                       image of the configured LR size
+  POST /classify    -> {"class": int, "confidence": float}; body = a PNG or
+                       JPEG LR image of the configured LR size
   POST /sr          -> PNG body of the super-resolved image
   POST /classify_sr -> JSON with class/confidence + base64 PNG of the SR
 
 Status codes: 400 for a body that does not decode or an LR image of the
-wrong size, 504 when the batcher misses ``request_timeout``, 500 for a
+wrong size (refused from its header, before its data is decoded), 504 when the batcher misses ``request_timeout``, 500 for a
 pipeline fault, 404 for any other path.
 
 Two things differ from the JAX server. The codec: it decodes any format
-OpenCV reads, the port only PNG (``pipeline/png.py``), since the card's
-machine has no image library; a JPEG or other body gets a 400 that names
-its format. The listen backlog: 128, where the standard library's 5 (the
+OpenCV reads, the port PNG (``pipeline/png.py``) and baseline JPEG
+(``pipeline/jpeg.py``, equal to OpenCV's decode), since the card's machine
+has no image library; a progressive or other JPEG the decoder refuses, or a
+body of another format, gets a 400 that names what it is. The listen backlog: 128, where the standard library's 5 (the
 JAX server's) leaves a client beyond the fifth waiting connection to the
 kernel's SYN retry, about a second later. Stand it up with ``python -m tpusr_torch.cli serve
 --edsr-ckpt ... --vgg16-ckpt ...``.
@@ -34,7 +35,7 @@ import threading
 from concurrent.futures import TimeoutError as FutTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from tpusr_torch.pipeline.png import decode_png, encode_png
+from tpusr_torch.pipeline.png import decode_image, encode_png
 
 
 class _Server(ThreadingHTTPServer):
@@ -98,7 +99,8 @@ def make_http_server(pipeline_server, lr_hw: tuple[int, int],
         def _handle_post(self):
             try:
                 length = int(self.headers.get("Content-Length", "0"))
-                img = decode_png(self.rfile.read(length))
+                img = decode_image(self.rfile.read(length),
+                                   expected_hw=lr_hw)
                 if img.shape[:2] != tuple(lr_hw):
                     raise ValueError(f"expected {lr_hw[0]}x{lr_hw[1]} LR "
                                      f"input, got {img.shape[0]}x{img.shape[1]}")

@@ -14,8 +14,10 @@ library is installed, so it carries its own codec:
   0), the IDAT compressed by ``zlib`` at level 1, after the JAX server's
   rounding ``clip(x * 255 + 0.5, 0, 255)``.
 
-Anything else (JPEG, GIF, BMP, TIFF, WebP, an interlaced PNG, another bit
-depth) raises ``ValueError`` naming what it is.
+Anything else (GIF, BMP, TIFF, WebP, an interlaced PNG, another bit depth)
+raises ``ValueError`` naming what it is. ``decode_image_u8`` and
+``decode_image`` take a PNG or a JPEG, dispatching on the magic bytes; a JPEG
+goes to ``pipeline/jpeg.py``'s baseline decoder.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from tpusr_torch.pipeline.jpeg import MAX_PIXELS, decode_jpeg_u8
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -110,13 +114,15 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png_u8(body: bytes) -> np.ndarray:
-    """PNG bytes -> (h, w, 3) uint8 RGB (see the module docstring)."""
+def decode_png_u8(body: bytes,
+                  expected_hw: tuple[int, int] | None = None) -> np.ndarray:
+    """PNG bytes -> (h, w, 3) uint8 RGB (see the module docstring). With
+    ``expected_hw``, an image of another size is refused before its data is
+    inflated; the data is inflated only as far as the image needs."""
     fmt = image_format(body)
     if fmt != "PNG":
-        raise ValueError(
-            f"request body is a {fmt} image; this server decodes PNG only"
-            if fmt else "request body is not a decodable image (PNG expected)")
+        raise ValueError(f"a {fmt} image, not a PNG" if fmt else
+                         "request body is not a decodable image (PNG expected)")
     header = palette = None
     idat = []
     for ctype, data in _chunks(body):
@@ -140,10 +146,20 @@ def decode_png_u8(body: bytes) -> np.ndarray:
                          f"not supported (8 or 16; palettes 8)")
     if color == 3 and palette is None:
         raise ValueError("palette PNG without a PLTE chunk")
+    if width * height > MAX_PIXELS:
+        raise ValueError(f"PNG of {height}x{width} is over 2^30 pixels "
+                         f"(OpenCV's limit)")
+    if expected_hw is not None and (height, width) != tuple(expected_hw):
+        raise ValueError(f"expected {expected_hw[0]}x{expected_hw[1]} LR "
+                         f"input, got a {height}x{width} PNG")
     ch = _CHANNELS[color]
     bpp = ch * depth // 8
+    need = height * (width * bpp + 1)
     try:
-        raw = zlib.decompress(b"".join(idat))
+        z = zlib.decompressobj()
+        raw = z.decompress(b"".join(idat), need)
+        if len(raw) < need and not z.eof:
+            raise zlib.error("incomplete or truncated stream")
     except zlib.error as e:
         raise ValueError(f"PNG image data does not inflate: {e}") from None
     rows = _unfilter(raw, height, width * bpp, bpp)
@@ -163,6 +179,30 @@ def decode_png_u8(body: bytes) -> np.ndarray:
 def decode_png(body: bytes) -> np.ndarray:
     """PNG bytes -> (h, w, 3) float32 RGB in [0, 1]."""
     return decode_png_u8(body).astype(np.float32) / 255.0
+
+
+def decode_image_u8(body: bytes,
+                    expected_hw: tuple[int, int] | None = None) -> np.ndarray:
+    """PNG or JPEG bytes -> (h, w, 3) uint8 RGB, what ``cv2.imdecode(
+    IMREAD_COLOR)`` and the BGR->RGB swap give; another format raises
+    ``ValueError`` naming it. ``expected_hw`` refuses an image whose header
+    declares another size before its data is decoded (a JPEG's EXIF
+    orientation may still transpose it: check the result's shape too)."""
+    fmt = image_format(body)
+    if fmt == "PNG":
+        return decode_png_u8(body, expected_hw)
+    if fmt == "JPEG":
+        return decode_jpeg_u8(body, expected_hw)
+    raise ValueError(
+        f"request body is a {fmt} image; this server decodes PNG and "
+        f"baseline JPEG only" if fmt else
+        "request body is not a decodable image (PNG or JPEG expected)")
+
+
+def decode_image(body: bytes,
+                 expected_hw: tuple[int, int] | None = None) -> np.ndarray:
+    """PNG or JPEG bytes -> (h, w, 3) float32 RGB in [0, 1]."""
+    return decode_image_u8(body, expected_hw).astype(np.float32) / 255.0
 
 
 def _chunk(ctype: bytes, data: bytes) -> bytes:
