@@ -196,7 +196,21 @@ its own lines:
    blocks 2-4 on 64 patches of 96^2: f32 against a float64 conv and int8
    against the exact conv of its int8 input, each within
    ``winograd_bounds``, timed beside ``F.conv2d`` fp32 and the direct int8
-   dequant conv (the TPU's negative result, measured on the card).
+   dequant conv (the TPU's negative result, measured on the card);
+23. the Keras ``.h5`` codec (``H5Slice``, ``train/hdf5.py``,
+   ``keras_export.py``, ``keras_import.py``) at full width: the committed
+   fixtures (``tests/data/keras``) read without h5py, equal to the manifest
+   h5py wrote; EDSR x4, the g32x23 generator and the discriminator at 96^2,
+   SRCNN and VGG16 through ``save_h5`` and ``from_pretrained``/
+   ``from_trained`` on the ``.h5``, their outputs (the generator's trunk
+   and SR, the discriminator's logits and ``u``) torch.equal to the
+   source's; the shipped mode served on the imported EDSR and VGG16 (K1,
+   K2, K3 held to their twins); ``cli convert`` of the four models,
+   checkpoint -> ``.h5`` -> checkpoint, every tensor equal; ``train-esrgan
+   --vgg19-weights`` on a VGG19 notop ``.h5`` against the same weights as
+   ``.npz`` (first step's losses equal; K2 forward and dX held as in 18);
+   the ImageNet tool's ``.h5`` -> ``.npz``; each file's size, write and
+   read ms.
 
 ``python3 chip_smoke.py --dist-cards N`` (N cards) runs only the
 parallelism layer over N NCCL ranks, one card each: DP EDSR x4 at a global
@@ -207,8 +221,9 @@ dense one), then ``tpusr_torch.entry.dryrun_multichip(N)``.
 
 Phase 8 also prints which stage of the fused f32 SR first differs between
 an image alone (N = 1) and the same image in the batch of 16, each stage
-run on shared inputs (``sr_stage_diffs``). Each path (8-21) is driven with
-the launch counts set to 0 just before it and read just after. Before the last line it prints one JSON object with a
+run on shared inputs (``sr_stage_diffs``). Each path (8-23) is driven with
+the launch counts set to 0 just before it and read just after (23: each
+of its main-path runs, summed). Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
 dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
@@ -221,8 +236,8 @@ step's times); K2-bf16's record a ``train`` object, one bf16 GAN step's; every r
 every path's launches by name; K2's record carries an ``inference`` object,
 its ms, bound and ``F.conv2d`` ms summed over each SR path's launches, and
 a ``poly`` object, phase 21's launches, forward ms beside the fused path's
-and K2's sums at its shapes; ``launches_by_path`` also has ``eda`` and
-``poly``) and the
+and K2's sums at its shapes; ``launches_by_path`` also has ``eda``,
+``poly`` and ``h5``) and the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
@@ -5354,6 +5369,488 @@ def phase_winograd(w: WinogradSlice, dev, seed: int, card: str) -> dict:
     return tot
 
 
+# ---------------------------------------------------------------------- h5
+
+@dataclass(frozen=True)
+class H5Slice:
+    """``phase_h5``'s sizes: every network at the reference's full widths
+    (EDSR x4 16x64, ESRGAN g32x23 x4, the discriminator at 96^2, SRCNN
+    96/32, VGG16 with its 256-unit head) through the port's Keras ``.h5``
+    export and import."""
+    lr: int = 128                # EDSR x4 SR: 16 LR 128^2
+    batch: int = 16
+    growth: int = 32             # the reference's generator: g32 x 23 RRDB
+    rrdb: int = 23
+    gen_lr: int = 32             # g32x23 x4 SR: 2 LR 32^2 (dense attention)
+    gen_batch: int = 2
+    disc_hw: int = 96
+    patch: int = 96              # SRCNN's and VGG16's inputs
+    vgg_seed: int = 19           # the VGG19/VGG16 notop files' draws: --seed plus
+    notop_seed: int = 16
+
+
+KERAS_FIXTURES = os.path.join(REPO, "tests", "data", "keras")
+
+
+def check_keras_fixtures() -> int:
+    """Every committed Keras fixture read by the port's codec: each
+    dataset's sha256 and each attribute's type and decoded value equal to
+    the manifest h5py wrote beside them. Returns the records held."""
+    from tpusr_torch.train import hdf5
+
+    with open(os.path.join(KERAS_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    n = 0
+    for name, want in manifest["files"].items():
+        got = hdf5.describe(os.path.join(KERAS_FIXTURES, name))
+        bad = [w["path"] for g, w in zip(got, want) if g != w]
+        check(got == want, f"{name}: the codec's view differs from h5py's "
+                           f"at {bad[:3] or 'its length'}")
+        n += len(want)
+    return n
+
+
+def write_vgg_notop(path: str, backbone) -> None:
+    """A VGG base's weights as the official Keras ``*_notop.h5`` releases
+    lay them out (``save_weights``: layer groups at the root with the input
+    and pool layers weightless, fixed-length name lists, weight names
+    ``block1_conv1/kernel:0``), written by the port's codec."""
+    from tpusr_torch.train import hdf5
+
+    names, prev = ["input_1"], None
+    for layer in backbone.keys():
+        if prev and prev[:6] != layer[:6]:
+            names.append(f"{prev[:6]}_pool")
+        names.append(layer)
+        prev = layer
+    names.append(f"{prev[:6]}_pool")
+    with hdf5.File(path, "w") as f:
+        f.attrs["layer_names"] = np.array([n.encode() for n in names])
+        f.attrs["backend"] = np.bytes_(b"tensorflow")
+        f.attrs["keras_version"] = np.bytes_(b"2.2.4")
+        for name in names:
+            g = f.create_group(name)
+            if name not in backbone:
+                g.attrs["weight_names"] = []
+                continue
+            wn = [f"{name}/kernel:0", f"{name}/bias:0"]
+            g.attrs["weight_names"] = np.array([w.encode() for w in wn])
+            conv = backbone[name]
+            g.create_dataset(wn[0], data=conv.weight.detach().permute(
+                2, 3, 1, 0).cpu().numpy())
+            g.create_dataset(wn[1], data=conv.bias.detach().cpu().numpy())
+
+
+def backbone_arrays(backbone) -> dict:
+    """{'<layer>/kernel' (HWIO), '<layer>/bias': array} of a VGG base."""
+    out = {}
+    for name, conv in backbone.items():
+        out[f"{name}/kernel"] = conv.weight.detach().permute(
+            2, 3, 1, 0).cpu().numpy()
+        out[f"{name}/bias"] = conv.bias.detach().cpu().numpy()
+    return out
+
+
+def checkpoint_leaves_equal(a: str, b: str) -> tuple[bool, int]:
+    """(every leaf of two checkpoints equal, the leaves compared)."""
+    la = torch.load(a, map_location="cpu", weights_only=True)
+    lb = torch.load(b, map_location="cpu", weights_only=True)
+    same = la.keys() == lb.keys() and all(
+        torch.equal(la[k], lb[k]) if isinstance(la[k], torch.Tensor)
+        else la[k] == lb[k] for k in la)
+    return same, len(la)
+
+
+def phase_h5(s: H5Slice, cfg: Slice, dev, seed: int, sync, card: str) -> dict:
+    """The Keras ``.h5`` codec of the port (``train/hdf5.py``,
+    ``keras_export.py``, ``keras_import.py``) at full width: the committed
+    fixtures read without h5py; each facade's seeded weights saved by
+    ``save_h5`` and set up again from the file, then run on the card
+    beside the source (EDSR x4, the g32x23 generator's trunk and SR and the
+    discriminator at 96^2 with its ``u``, SRCNN, VGG16): equal bit for bit;
+    the shipped mode served on the imported EDSR and VGG16 against the
+    source's (K1, K2, K3 each held to its twin); ``cli convert`` of the four
+    checkpoints to ``.h5`` and back, every tensor equal; ``train-esrgan
+    --vgg19-weights`` on a VGG19 notop ``.h5`` against the same weights as
+    ``.npz``; the ImageNet tool's ``.h5`` -> ``.npz``. Each main-path run is
+    driven with the launch counts set to 0 just before it and read just
+    after, summed under ``h5``. Returns those launches."""
+    import shutil
+    import tempfile
+
+    from tpusr_torch.cli.__main__ import main as cli_main
+    from tpusr_torch.config import ESRGANConfig
+    from tpusr_torch.core.patches import patchify
+    from tpusr_torch.models.api import (EDSR as EDSRFacade, ESRGAN,
+                                        FineTunedVGG16, SRCNNModel)
+    from tpusr_torch.models.edsr_fast import make_fused_sr_apply
+    from tpusr_torch.models.layers import pixel_shuffle
+    from tpusr_torch.models.vgg import VGG16Classifier, VGG19Features
+    from tpusr_torch.pipeline import make_serving_pipeline
+    from tpusr_torch.train import hdf5, keras_import
+    from tpusr_torch.train import gan as gan_mod
+    from torch.func import functional_call
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in read_counts()}
+
+    def main_path(fn):
+        reset_counts()
+        out = fn()
+        sync()
+        for k, v in read_counts().items():
+            total[k] += v
+        return out
+
+    def host(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def equal_params(a: dict, b: dict) -> bool:
+        return a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                            for k in a)
+
+    files = []                  # (name, path, write ms)
+    n_records = check_keras_fixtures()
+    print(f"[h5] the {n_records} records of the committed Keras fixtures "
+          f"(tests/data/keras, written by JAX's exporters with Keras 3) read "
+          f"by the port's codec equal to h5py's manifest: every dataset's "
+          f"sha256, every attribute's type and value")
+    work = tempfile.mkdtemp(prefix="chip_smoke_h5_")
+    rng = np.random.default_rng(seed + 15)
+    try:
+        # ---- EDSR x4, 16 blocks of 64 ----
+        src = EDSRFacade(device=dev)
+        src.setup_model(scale_factor=cfg.scale, num_res_blocks=cfg.blocks,
+                        num_filters=cfg.filters)
+        src.trained = True
+        h5, w_ms = host(lambda: src.save_h5(work, "h5"))
+        files.append((f"EDSR x{cfg.scale} {cfg.blocks}x{cfg.filters}", h5,
+                      w_ms))
+        dst = EDSRFacade(device=dev)
+        dst.setup_model(scale_factor=cfg.scale, num_res_blocks=cfg.blocks,
+                        num_filters=cfg.filters, from_pretrained=True,
+                        pretrained_path=h5)
+        check(equal_params(dst.state.params, src.state.params),
+              "EDSR: the imported weights differ from the saved ones")
+        x = torch.as_tensor(rng.random((s.batch, s.lr, s.lr, 3),
+                                       dtype=np.float32), device=dev)
+        edsr_src, edsr_dst = src.network(), dst.network()
+        with torch.inference_mode():
+            a = main_path(lambda: edsr_src(x))
+            b = main_path(lambda: edsr_dst(x))
+            with k2_against_twin() as k2c:
+                edsr_dst(x[:2])
+        check(torch.equal(a, b), "EDSR: the imported model's SR differs")
+        check(len(k2c.rows) == 2 * cfg.blocks + 5 and all(r[4] for r in k2c.rows),
+              f"EDSR: K2 beyond its bound against the twin at "
+              f"{[r[0] for r in k2c.rows if not r[4]]}")
+        print(f"[h5] EDSR x{cfg.scale} ({cfg.blocks} blocks, {cfg.filters} "
+              f"filters): save_h5 -> setup_model(from_pretrained=.h5): "
+              f"weights equal, the SR of {s.batch} x {s.lr}^2 on K2 "
+              f"torch.equal to the source's {tuple(a.shape)}; its "
+              f"{len(k2c.rows)} K2 launches within their per-output bound "
+              f"of the twin (largest err {max(r[2] for r in k2c.rows):.3g})")
+
+        # ---- ESRGAN g32x23 x4 and the discriminator at 96^2 ----
+        kw = dict(scale_factor=4, growth_channels=s.growth,
+                  num_rrdb_blocks=s.rrdb,
+                  input_shape=(s.disc_hw // 4, s.disc_hw // 4, 3),
+                  output_shape=(s.disc_hw, s.disc_hw, 3))
+        esrc = ESRGAN(device=dev)
+        esrc.setup_model(**kw)
+        esrc.trained = True
+        (g_h5, d_h5), w_ms = host(lambda: esrc.save_h5(work, "h5"))
+        with hdf5.File(g_h5) as f:
+            members = len(f["model_weights"])
+            config_bytes = len(f.attrs["model_config"].encode("utf-8"))
+        gan_tag = f"g{s.growth}x{s.rrdb} x4"
+        files += [(f"ESRGAN generator {gan_tag} (write: both files)", g_h5,
+                   w_ms), (f"ESRGAN discriminator {s.disc_hw}^2", d_h5, None)]
+        edst = ESRGAN(device=dev)
+        edst.setup_model(from_trained=True, generator_pretrained_path=g_h5,
+                         discriminator_pretrained_path=d_h5, **kw)
+        for tree in ("g_params", "d_params", "d_spectral"):
+            check(equal_params(getattr(edst.state, tree),
+                               getattr(esrc.state, tree)),
+                  f"ESRGAN: the imported {tree} differ from the saved ones")
+        lr = torch.as_tensor(rng.random((s.gen_batch, s.gen_lr, s.gen_lr, 3),
+                                        dtype=np.float32) * 2 - 1, device=dev)
+        g_src, g_dst = esrc.network(), edst.network()
+        with torch.inference_mode():
+            ta = main_path(lambda: g_src.trunk(lr))
+            tb = main_path(lambda: g_dst.trunk(lr))
+            sa = main_path(lambda: g_src.tail(ta))
+            sb = main_path(lambda: g_dst.tail(tb))
+            with k2_against_twin() as k2c:
+                g_dst(lr[:1])
+            hr = torch.as_tensor(rng.random((s.batch, s.disc_hw, s.disc_hw, 3),
+                                            dtype=np.float32), device=dev)
+            da = functional_call(esrc.discriminator,
+                                 {**esrc.state.d_params,
+                                  **esrc.state.d_spectral}, (hr,))
+            db = functional_call(edst.discriminator,
+                                 {**edst.state.d_params,
+                                  **edst.state.d_spectral}, (hr,))
+        n_gen = esrgan_launches(s.rrdb, 4)
+        check(torch.equal(ta, tb) and torch.equal(sa, sb),
+              "ESRGAN: the imported generator's trunk or SR differs")
+        check(torch.equal(da, db), "ESRGAN: the imported discriminator's "
+                                   "logits differ")
+        check(len(k2c.rows) == n_gen and all(r[4] for r in k2c.rows),
+              f"ESRGAN: K2 beyond its bound against the twin at "
+              f"{[r[0] for r in k2c.rows if not r[4]]}")
+        print(f"[h5] ESRGAN {gan_tag}: "
+              f"the generator's file has {members} members in model_weights "
+              f"(a group B-tree of depth {1 + (members > 256)}) and a "
+              f"model_config of {config_bytes} bytes; from_trained on the two "
+              f"files: g_params, d_params and the spectral u equal; the trunk "
+              f"{tuple(ta.shape)} and the SR {tuple(sa.shape)} of "
+              f"{s.gen_batch} x {s.gen_lr}^2 torch.equal to the source's; its "
+              f"{len(k2c.rows)} K2 launches within their per-output bound of "
+              f"the twin; the discriminator's {s.batch} logits at "
+              f"{s.disc_hw}^2 torch.equal")
+
+        # ---- SRCNN 96/32 and the VGG16 classifier ----
+        outs = {}
+        for tag, facade, setup in (
+                ("SRCNN 96/32", SRCNNModel, {}),
+                ("VGG16 classifier", FineTunedVGG16,
+                 {"input_shape": (s.patch, s.patch, 3)})):
+            fsrc = facade(device=dev)
+            fsrc.setup_model(**setup)
+            fsrc.trained = fsrc._trained = True
+            path, w_ms = host(lambda: fsrc.save_h5(work, "h5"))
+            files.append((tag, path, w_ms))
+            fdst = facade(device=dev)
+            fdst.setup_model(from_pretrained=True, pretrained_path=path,
+                             **setup)
+            check(equal_params(fdst.state.params, fsrc.state.params),
+                  f"{tag}: the imported weights differ")
+            xi = torch.as_tensor(rng.random((s.batch, s.patch, s.patch, 3),
+                                            dtype=np.float32), device=dev)
+            with torch.inference_mode():
+                ya = fsrc.network()(xi)
+                yb = fdst.network()(xi)
+            check(torch.equal(ya, yb), f"{tag}: the imported model's output "
+                                       f"differs")
+            outs[tag] = (fsrc, fdst, tuple(ya.shape))
+        print(f"[h5] SRCNN (96/32) and the VGG16 classifier: save_h5 -> "
+              f"from_pretrained: weights equal, outputs "
+              f"{outs['SRCNN 96/32'][2]} and probabilities "
+              f"{outs['VGG16 classifier'][2]} torch.equal to the source's")
+
+        # ---- the shipped mode on the imported EDSR and VGG16 ----
+        vgg_src, vgg_dst, _ = outs["VGG16 classifier"]
+        gain = rng.uniform(0.05, 1.0, (cfg.batch + 4, 1, 1, 1)).astype(np.float32)
+        imgs = torch.as_tensor(rng.random((cfg.batch + 4, cfg.lr, cfg.lr, 3),
+                                          dtype=np.float32) * gain, device=dev)
+        batch, calib_lr = imgs[:cfg.batch], imgs[cfg.batch:]
+        fn, r = make_fused_sr_apply(edsr_src)
+        with torch.inference_mode():
+            calib = patchify(pixel_shuffle(fn(calib_lr), r), cfg.patch,
+                             cfg.stride)
+            calib = calib.reshape((-1,) + calib.shape[2:])[:64]
+
+        def build(edsr, vgg):
+            return make_serving_pipeline(
+                edsr, vgg, (cfg.lr, cfg.lr), cfg.scale, patch=cfg.patch,
+                stride=cfg.stride, sr_mode="f32", clf_mode="cascade_int8",
+                calib_patches=calib, cascade_escalate_frac=cfg.frac,
+                cascade_escalate_score="vote_frac",
+                cascade_guard_threshold=cfg.guard, device=dev)
+
+        p_src = build(edsr_src, vgg_src.network())
+        p_dst = build(edsr_dst, vgg_dst.network())
+        with torch.inference_mode():
+            sr_a, cls_a, conf_a = p_src(batch, n_valid=cfg.batch)
+            before = dict(total)
+            sr_b, cls_b, conf_b = main_path(lambda: p_dst(batch,
+                                                          n_valid=cfg.batch))
+            served = {k: total[k] - before[k] for k in total}
+            sr_err = float((sr_b[:2] - plain_edsr(edsr_dst, batch[:2]))
+                           .abs().max())
+            srq = p_dst.pre_quant(sr_b)
+            with on_plain_twins():
+                cls_p, conf_p = p_dst.cascade_votes(srq, cfg.batch)
+        check(torch.equal(sr_a, sr_b) and torch.equal(cls_a, cls_b)
+              and torch.equal(conf_a, conf_b),
+              "the shipped mode on the imported weights differs from the "
+              "source's")
+        check(sr_err <= SR_ATOL, f"shipped mode SR vs plain chained EDSR: "
+                                 f"{sr_err}")
+        check(torch.equal(cls_p, cls_b) and torch.equal(conf_p, conf_b),
+              "the imported cascade on K1's and K3's twins differs")
+        check(all(served[k] > 0 for k in ("conv3x3_int8_requant",
+                                           "conv3x3_bias_act", "block1_int8")),
+              f"the shipped mode launched {served}")
+        print(f"[h5] the shipped mode (f32 SR -> cascade_int8 vote_frac "
+              f"{cfg.frac}, guard {cfg.guard}) on the imported EDSR and "
+              f"VGG16, one batch of {cfg.batch}: classes {cls_b.tolist()} and "
+              f"confidences torch.equal to the source weights'; launches "
+              f"{served}; SR vs plain chained EDSR max|err| {sr_err:.3g} "
+              f"(SR_ATOL {SR_ATOL}); the cascade on K1's and K3's twins equal")
+        del p_src, p_dst, srq
+
+        # ---- cli convert: checkpoint -> .h5 -> checkpoint, the four ----
+        ck = os.path.join(work, "ck")
+        sources = {"edsr": src.save(ck, "src"), "srcnn":
+                   outs["SRCNN 96/32"][0].save(ck, "src"),
+                   "vgg16": vgg_src.save(ck, "src"),
+                   "esrgan": esrc.save(ck, "src")}
+        args = {"edsr": ["--scale", str(cfg.scale), "--blocks",
+                         str(cfg.blocks), "--filters", str(cfg.filters)],
+                "srcnn": [], "vgg16": ["--input-hw", str(s.patch)],
+                "esrgan": ["--scale", "4", "--growth", str(s.growth),
+                           "--rrdb-blocks", str(s.rrdb), "--patch-size",
+                           str(s.disc_hw // 4)]}
+        out = subprocess.run(
+            [sys.executable, "-m", "tpusr_torch.cli", "convert", "--model",
+             "edsr", "--src", sources["edsr"], "--out",
+             os.path.join(work, "h5c"), "--timestamp", "c1", *args["edsr"]],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"`python -m tpusr_torch.cli convert`: "
+                                   f"{out.stderr[-400:]}")
+        lines = []
+        for model, ckpt in sources.items():
+            if model == "edsr":
+                h5_out = os.path.join(work, "h5c", "EDSR_x4_c1.h5")
+            else:
+                h5_out = cli_main(["convert", "--model", model, "--src", ckpt,
+                                   "--out", os.path.join(work, "h5c"),
+                                   "--timestamp", "c1", *args[model]])
+            extra = []
+            if model == "esrgan":
+                h5_out, disc = h5_out
+                extra = ["--disc", disc]
+            back = cli_main(["convert", "--model", model, "--src", h5_out,
+                             "--out", os.path.join(work, "ckc"),
+                             "--timestamp", "c2", *args[model], *extra])
+            same, n = checkpoint_leaves_equal(ckpt, back)
+            check(same, f"convert {model}: the checkpoint after .h5 differs "
+                        f"from the first")
+            lines.append(f"{model} {n} tensors")
+        print(f"[h5] `python -m tpusr_torch.cli convert` (EDSR, a subprocess) "
+              f"and cli.main convert: checkpoint -> .h5 -> checkpoint, every "
+              f"tensor of the last equal to the first: {', '.join(lines)}; "
+              f"ESRGAN back through --disc")
+        del esrc, edst, g_src, g_dst, outs, vgg_src, vgg_dst
+        torch.cuda.empty_cache()
+
+        # ---- train-esrgan --vgg19-weights <.h5> against the .npz ----
+        es = ESRGANConfig()      # the command's generator (g8x4)
+        vgg19 = VGG19Features(device=dev, generator=torch.Generator()
+                              .manual_seed(seed + s.vgg_seed))
+        v19_h5 = os.path.join(work, "vgg19_notop.h5")
+        _, w_ms = host(lambda: write_vgg_notop(v19_h5, vgg19.vgg19))
+        v19_npz = os.path.join(work, "vgg19.npz")
+        np.savez(v19_npz, **backbone_arrays(vgg19.vgg19))
+        c = CommandsSlice()
+        data = os.path.join(work, "data")
+        write_reference_dataset(data, c, seed + c.train_seed, dev, maps=True)
+        first_metrics, lines = [], []
+        for weights in (v19_h5, v19_npz):
+            argv = ["train-esrgan", "--hr-dir", os.path.join(data, "HR"),
+                    "--lr-dir", os.path.join(data, "LR"), "--scale", "4",
+                    "--epochs", "1", "--out", os.path.join(
+                        work, os.path.basename(weights) + "_run"),
+                    "--vgg19-weights", weights]
+            got_metrics = []
+
+            def keep(orig):
+                def step(trainer, *a, **k):
+                    state, metrics = orig(trainer, *a, **k)
+                    if not got_metrics:
+                        got_metrics.append({n: v.detach().clone()
+                                            for n, v in metrics.items()})
+                    return state, metrics
+                return step
+
+            with (first_train_step() as first, split_sizes() as sp,
+                  count_plain_calls() as plain,
+                  patched(gan_mod.ESRGANTrainer, train_step=keep)):
+                if weights == v19_h5:
+                    _, run_s = host(lambda: main_path(lambda: cli_main(argv)))
+                    got = read_counts()
+                else:
+                    cli_main(argv)
+            check(plain.n == 0, f"train-esrgan: plain twins on the card "
+                                f"{plain.by_twin}")
+            first_metrics.append(got_metrics[0])
+            if weights == v19_h5:
+                (sizes,) = sp.sizes
+                want_k2 = k2_command_launches(
+                    sizes, 16, 1, 2 * esrgan_launches(es.num_rrdb_blocks, 4) - 1,
+                    esrgan_launches(es.num_rrdb_blocks, 4), True)
+                check(got == launches_want(conv3x3_bias_act=want_k2),
+                      f"train-esrgan --vgg19-weights: launches {got}, "
+                      f"expected {want_k2} K2")
+                tr, w, xb, yb = first.got
+                check(equal_params(tr.vgg_params, dict(
+                    vgg19.named_parameters())),
+                      "train-esrgan: the trainer's VGG19 is not the .h5's")
+                p = w["g_params"]
+                line = command_step_against_twin(
+                    "train-esrgan --vgg19-weights", gan_train_layers(GanSlice(
+                        lr=xb.shape[1], scale=4, batch=xb.shape[0]),
+                        es.growth_channels, es.num_rrdb_blocks), p,
+                    lambda: tr._generate(p, xb),
+                    lambda: tr.g_loss_components(
+                        p, w["d_params"], w["d_spectral"], xb, yb)[0])
+                del first.got, tr, w, xb, yb, p
+        a, b = first_metrics
+        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+              "train-esrgan: the first step's losses with the .h5 differ from "
+              "the .npz's")
+        print(f"[h5] train-esrgan --scale 4 --epochs 1 --vgg19-weights <VGG19 "
+              f"notop .h5 written by the port's codec> on {c.images} pairs of "
+              f"{c.size}^2 in {run_s / 1e3:.1f} s: the trainer's VGG19 is the "
+              f"file's, the first step's losses "
+              + ", ".join(f"{k} {float(v):.6g}" for k, v in a.items())
+              + f" equal to a run on the same weights as .npz; K2 "
+              f"{got['conv3x3_bias_act']} launches; {line}")
+
+        # ---- the ImageNet tool: a VGG16 notop .h5 -> .npz ----
+        vgg16 = VGG16Classifier(num_classes=2, device=dev,
+                                generator=torch.Generator().manual_seed(
+                                    seed + s.notop_seed))
+        v16_h5 = os.path.join(work, "vgg16_notop.h5")
+        write_vgg_notop(v16_h5, vgg16.vgg16)
+        v16_npz = os.path.join(work, "vgg16_imagenet.npz")
+        out = subprocess.run(
+            [sys.executable, "-m", "tpusr_torch.tools.imagenet_weights",
+             "--arch", "vgg16", "--src", v16_h5, "--out", v16_npz],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0 and "validated vgg16 (13 conv layers)"
+              in out.stdout, f"imagenet_weights: {out.stderr[-400:]}")
+        want = backbone_arrays(vgg16.vgg16)
+        with np.load(v16_npz) as z:
+            check(set(z.files) == set(want) | {"__arch__"}
+                  and all(np.array_equal(z[k], v) for k, v in want.items()),
+                  "imagenet_weights: the .npz differs from the .h5's arrays")
+        print(f"[h5] `python -m tpusr_torch.tools.imagenet_weights --arch "
+              f"vgg16` on a VGG16 notop .h5 ({os.path.getsize(v16_h5) / 1e6:.1f}"
+              f" MB): validated, the .npz's 26 arrays equal to the file's")
+        files += [("VGG19 notop", v19_h5, w_ms),
+                  ("VGG16 notop", v16_h5, None)]
+        for tag, path, w_ms in files:
+            # read: the codec opens the file and reads every layer's
+            # weights (keras_layer_weights), as each importer does first
+            _, r_ms = host(lambda: keras_import.keras_layer_weights(path))
+            print(f"[h5] {card}: {tag}: {os.path.getsize(path) / 1e6:.2f} MB, "
+                  f"write {'-' if w_ms is None else f'{w_ms:.1f}'} ms, read "
+                  f"{r_ms:.1f} ms (host clock)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ms = (time.perf_counter() - t_phase) * 1e3
+    print(f"[h5] {card}: phase_h5 {ms:.0f} ms; launches under h5 {total}")
+    check(all(total[k] > 0 for k in ("conv3x3_int8_requant",
+                                     "conv3x3_bias_act", "block1_int8")),
+          f"phase_h5: K1, K2 and K3 must each launch: {total}")
+    return {"launches": total, "ms": ms}
+
+
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
     rec = {"name": name, "route": "cuda",
            "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
@@ -5466,6 +5963,8 @@ def main() -> int:
         eda = phase_eda(EdaSlice(), dev, args.seed, sync, card)
         poly = phase_poly(PolySlice(), dev, args.seed, sync, card)
         phase_winograd(WinogradSlice(), dev, args.seed, card)
+        torch.cuda.empty_cache()
+        h5 = phase_h5(H5Slice(), cfg, dev, args.seed, sync, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5533,7 +6032,8 @@ def main() -> int:
             **{path: n.get(rec["name"], 0)
                for path, n in dist_res["launches"].items()},
             "eda": eda["launches"].get(rec["name"], 0),
-            "poly": poly["launches"].get(rec["name"], 0)}
+            "poly": poly["launches"].get(rec["name"], 0),
+            "h5": h5["launches"].get(rec["name"], 0)}
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

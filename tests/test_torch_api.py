@@ -2,12 +2,19 @@
 ``tests/test_api.py`` drives the JAX ones: setup -> fit -> evaluate ->
 super_resolve / classify -> save -> restore through the ``arch`` sidecar into
 a facade set up with other defaults; each inference method equal to the
-function it wraps called directly; the paths not ported yet raise
-``NotImplementedError`` naming their ROADMAP item."""
+function it wraps called directly; Keras ``.h5`` export and import against
+the JAX package's importers; an Orbax directory refused, naming the JAX
+``convert`` route."""
 
 import numpy as np
 import pytest
 import torch
+
+import jax
+from test_torch_fixtures import vgg_layers, write_notop_h5
+from tpusr.models.vgg import load_keras_h5_weights as jload_h5
+from tpusr.train import keras_import as jki
+from tpusr_torch.bridge import to_flax_tree
 
 from tpusr_torch.models.api import (EDSR, FineTunedVGG16, SRCNNModel,
                                     _saved_arch, augment_classification_set,
@@ -124,24 +131,44 @@ def test_vgg16_facade_lifecycle_and_arch_restore(tmp_path):
 
 
 def test_paths_not_ported_yet_raise_naming_their_item(tmp_path):
-    h5 = tmp_path / "model.h5"
-    h5.write_bytes(b"")
-    for facade, kw in ((SRCNNModel, {}), (EDSR, {"num_res_blocks": 1,
-                                                 "num_filters": 8}),
-                       (FineTunedVGG16, {"input_shape": (32, 32, 3)})):
+    """Each facade's ``save_h5`` writes what JAX's importer reads back as
+    the facade's weights, and ``from_pretrained`` on that ``.h5`` restores
+    them; an Orbax directory is refused naming the JAX ``convert`` route;
+    a Keras notop ``.h5`` of ImageNet weights loads as JAX's loader does."""
+    cases = ((SRCNNModel, {}, lambda t, p: jki.import_srcnn(t, p)),
+             (EDSR, {"num_res_blocks": 1, "num_filters": 8},
+              lambda t, p: jki.import_edsr(t, p, num_res_blocks=1)),
+             (FineTunedVGG16, {"input_shape": (32, 32, 3)},
+              lambda t, p: jki.import_vgg16_classifier(t, p)))
+    for facade, kw, jax_import in cases:
         m = facade(device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            m.setup_model(from_pretrained=True, pretrained_path=str(h5), **kw)
-        with pytest.raises(NotImplementedError, match="item 10"):
+        m.setup_model(**kw)
+        g = torch.Generator().manual_seed(7)
+        with torch.no_grad():
+            for v in m.state.params.values():     # non-zero biases too
+                v.add_(0.01 * torch.randn(v.shape, generator=g))
+        m.trained = m._trained = True
+        h5 = m.save_h5(str(tmp_path), "t")
+        tree = to_flax_tree(m.state.params)
+        back = jax.tree.map(np.asarray, jax_import(
+            jax.tree.map(np.zeros_like, tree), h5))
+        assert jax.tree.all(jax.tree.map(np.array_equal, back, tree))
+        m2 = facade(device="cpu")
+        m2.setup_model(from_pretrained=True, pretrained_path=h5, **kw)
+        assert _params_equal(m2.state.params, m.state.params)
+        with pytest.raises(NotImplementedError, match="tpusr.cli convert"):
             m.setup_model(from_pretrained=True, pretrained_path=str(tmp_path),
                           **kw)       # a directory: an Orbax checkpoint
-        with pytest.raises(NotImplementedError, match="item 10"):
-            m.save_h5(str(tmp_path), "t")
-    # ImageNet weights load from a converted .npz
-    # (tests/test_torch_imagenet_weights.py); a Keras .h5 names the item
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FineTunedVGG16(device="cpu").setup_model(
-            input_shape=(32, 32, 3), imagenet_weights_path="w.h5")
+    layers = vgg_layers("vgg16", seed=1)
+    notop = write_notop_h5(tmp_path / "vgg16_notop.h5", layers)
+    m = FineTunedVGG16(device="cpu")
+    m.setup_model(input_shape=(32, 32, 3), imagenet_weights_path=notop)
+    template = {"vgg16": {n: {k: np.zeros_like(a) for k, a in v.items()}
+                          for n, v in layers.items()}}
+    want = jload_h5(template, notop, "vgg16")["vgg16"]
+    got = to_flax_tree(m.state.params)["vgg16"]
+    assert all(np.array_equal(got[n][k], np.asarray(want[n][k]))
+               for n in want for k in ("kernel", "bias"))
     # a mesh is taken now (tests/test_torch_dist_*.py); what is not a
     # DeviceMesh is refused
     with pytest.raises(TypeError, match="DeviceMesh"):

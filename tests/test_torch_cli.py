@@ -188,7 +188,8 @@ def test_a_command_refuses_to_run_without_a_card(data, tmp_path, monkeypatch,
 @pytest.mark.parametrize("argv,match", [
     (["preprocess", "--video", "v.mp4", "--hr-dir", "h", "--lr-dir", "l"],
      "video decoder"),
-    (["convert", "--model", "edsr", "--src", "x.h5"], "item 10"),
+    (["convert", "--model", "esrgan", "--src", "ckpt", "--disc", "d.h5"],
+     "--disc only applies"),
 ], ids=["preprocess", "convert"])
 def test_commands_not_ported_exit_naming_what_they_lack(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -211,10 +212,46 @@ def test_data_parallel_exits_naming_item_8(data, tmp_path, cmd, monkeypatch):
                       if isinstance(v, float)), ev
 
 
-def test_vgg19_weights_exit_naming_item_10(data, tmp_path):
-    with pytest.raises(SystemExit, match="--vgg19-weights .*item 10"):
-        tcli.main(train_argv("train-esrgan", data, tmp_path / "o")
-                  + ["--vgg19-weights", "vgg19.h5", "--device", "cpu"])
+def test_vgg19_weights_exit_naming_item_10(data, tmp_path, monkeypatch):
+    """``train-esrgan --vgg19-weights`` takes the Keras notop ``.h5``: the
+    perceptual VGG19 the trainer gets holds what JAX's loader reads from
+    it, and the run equals one on the same weights as a converted
+    ``.npz``."""
+    import tpusr_torch.train as ttrain
+    from tpusr.models.vgg import load_keras_h5_weights as jload_h5
+    from test_torch_fixtures import vgg_layers, write_notop_h5
+
+    narrow_models(monkeypatch)
+    layers = vgg_layers("vgg19", 7, NARROW_WIDTHS)
+    h5 = write_notop_h5(tmp_path / "vgg19_notop.h5", layers)
+    npz = str(tmp_path / "vgg19.npz")
+    np.savez(npz, **{f"{n}/{k}": a for n, v in layers.items()
+                     for k, a in v.items()})
+    seen = []
+
+    def trainer(gen, disc, vgg, **kw):
+        seen.append({k: v.detach().clone() for k, v in vgg.named_parameters()})
+        return real(gen, disc, vgg, **kw)
+
+    real = ttrain.ESRGANTrainer
+    monkeypatch.setattr(ttrain, "ESRGANTrainer", trainer)
+    evals = []
+    for i, weights in enumerate((h5, npz)):
+        path = tcli.main(train_argv("train-esrgan", data, tmp_path / f"o{i}")
+                         + ["--vgg19-weights", weights, "--device", "cpu"])
+        with open(path + ".meta.json") as f:
+            evals.append(json.load(f)["eval"])
+    assert evals[0] == evals[1]
+    template = {"vgg19": {n: {k: np.zeros_like(a) for k, a in v.items()}
+                          for n, v in layers.items()}}
+    want = jload_h5(template, h5, "vgg19")["vgg19"]
+    for n, leaves in want.items():
+        np.testing.assert_array_equal(
+            seen[0][f"vgg19.{n}.weight"].permute(2, 3, 1, 0).numpy(),
+            np.asarray(leaves["kernel"]))
+        np.testing.assert_array_equal(seen[0][f"vgg19.{n}.bias"].numpy(),
+                                      np.asarray(leaves["bias"]))
+    assert all(torch.equal(seen[0][k], seen[1][k]) for k in seen[0])
 
 
 # -------------------------------------------------------------- classic
@@ -344,8 +381,8 @@ def test_pipeline_equals_jax_on_the_same_weights(data, tmp_path, monkeypatch,
             "bilinear,bicubic,area,lanczos4,lanczos"]
 
     def ckpts(paths):
-        # the JAX command reads a discriminator path only beside a Keras
-        # .h5 generator; the port says that it ignores it
+        # both commands read a discriminator path only beside a Keras .h5
+        # generator; beside a checkpoint it goes unused in both
         return ["--vgg16-ckpt", paths["vgg16"], "--edsr-ckpt", paths["edsr"],
                 "--srcnn-ckpt", paths["srcnn"], "--esrgan-ckpt",
                 paths["esrgan"], "--esrgan-disc-ckpt", paths["esrgan"]]
@@ -355,7 +392,7 @@ def test_pipeline_equals_jax_on_the_same_weights(data, tmp_path, monkeypatch,
                      + ["--out", str(tmp_path / "t"), "--device", "cpu"])
     out = capsys.readouterr().out
     assert "figures are not drawn" in out and "edsr: inference_time_sec" in out
-    assert "--esrgan-disc-ckpt" in out and "is ignored" in out
+    assert "--esrgan-disc-ckpt" not in out     # no longer a notice: as JAX
     want = json.load(open(tmp_path / "j" / "pipeline_results.json"))
     got = json.load(open(tmp_path / "t" / "pipeline_results.json"))
     assert list(got) == list(want) == ["bilinear", "bicubic", "area",

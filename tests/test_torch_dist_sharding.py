@@ -21,7 +21,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from test_torch_fixtures import edsr_tree, to_flax_tree, to_numpy, vgg16_tree
+from test_torch_fixtures import edsr_tree, to_numpy, vgg16_tree
+from tpusr_torch.bridge import to_flax_tree
 from torch_dist_ranks import dp_suite, run_ranks
 from tpusr.dist import make_mesh as jax_make_mesh, shard_batch as jax_shard
 from tpusr.models import SRCNN as JaxSRCNN

@@ -17,6 +17,7 @@ Tolerances, each stated where it is used:
 - bf16 steps: ``BF16_DEPTH * 2^-8`` relative (see ``test_bf16_step``).
 """
 
+import functools
 import types
 
 import jax
@@ -27,10 +28,14 @@ import pytest
 import torch
 
 import tpusr.train.gan as jgan
-from test_torch_fixtures import to_flax_tree
+from test_torch_cli import narrow_models
+from test_torch_fixtures import NARROW_WIDTHS, vgg_layers, write_notop_h5
 from tpusr.models.esrgan import ESRGANDiscriminator as JaxDisc
 from tpusr.models.esrgan import ESRGANGenerator as JaxGen
 from tpusr.models.vgg import VGG19Features as JaxVGG19
+from tpusr.models.vgg import load_keras_h5_weights as jload_h5
+from tpusr.train import keras_import as jki
+from tpusr_torch.bridge import esrgan_generator_to_flax, to_flax_tree
 from tpusr_torch.bridge import (esrgan_discriminator_from_flax,
                                 esrgan_generator_from_flax,
                                 vgg19_features_from_flax)
@@ -509,25 +514,49 @@ def test_esrgan_facade_lifecycle_and_round_trip(tmp_path):
     np.testing.assert_array_equal(m2.super_resolve_full_image(lr_img)[0], full)
 
 
-def test_esrgan_facade_paths_not_ported_raise(tmp_path):
-    h5 = tmp_path / "g.h5"
-    h5.write_bytes(b"")
+def test_esrgan_facade_paths_not_ported_raise(tmp_path, monkeypatch):
+    """The facade's ``save_h5`` (generator + discriminator) read back by
+    JAX's importers as the facade's weights and ``u``; ``from_trained`` on
+    the two files restores them; a missing discriminator or generator is a
+    FileNotFoundError; a VGG19 notop ``.h5`` loads as JAX's loader does."""
+    narrow_models(monkeypatch)
     m = ESRGAN(device="cpu")
     kw = dict(growth_channels=4, num_rrdb_blocks=1, input_shape=(8, 8, 3),
               output_shape=(16, 16, 3))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        m.setup_model(from_trained=True, generator_pretrained_path=str(h5),
-                      discriminator_pretrained_path=str(h5), **kw)
-    # an .npz loads (tests/test_torch_imagenet_weights.py); a Keras .h5
-    # names the HDF5 item
-    with pytest.raises(NotImplementedError, match="item 10"):
-        m.setup_model(vgg19_weights_path="vgg19.h5", **kw)
+    m.setup_model(**kw)
+    m.trained = True
+    g_h5, d_h5 = m.save_h5(str(tmp_path), "t")
+    g_tree = esrgan_generator_to_flax(m.state.g_params)
+    d_tree, s_tree = (to_flax_tree(m.state.d_params),
+                      to_flax_tree(m.state.d_spectral))
+    zeros = functools.partial(jax.tree.map, np.zeros_like)
+    back_g = jki.import_esrgan_generator(zeros(g_tree), g_h5)
+    back_d, back_s = jki.import_esrgan_discriminator(zeros(d_tree),
+                                                     zeros(s_tree), d_h5)
+    for got, want in ((back_g, g_tree), (back_d, d_tree), (back_s, s_tree)):
+        assert jax.tree.all(jax.tree.map(
+            lambda a, b: np.array_equal(np.asarray(a), b), got, want))
+    m2 = ESRGAN(device="cpu")
+    m2.setup_model(from_trained=True, generator_pretrained_path=g_h5,
+                   discriminator_pretrained_path=d_h5, **kw)
+    for tree in ("g_params", "d_params", "d_spectral"):
+        a, b = getattr(m2.state, tree), getattr(m.state, tree)
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a), tree
+    with pytest.raises(FileNotFoundError, match="Discriminator"):
+        m2.setup_model(from_trained=True, generator_pretrained_path=g_h5,
+                       **kw)
     with pytest.raises(FileNotFoundError):
         m.setup_model(from_trained=True,
                       generator_pretrained_path=str(tmp_path / "none"), **kw)
-    m.setup_model(**kw)
-    m.trained = True
-    with pytest.raises(NotImplementedError, match="item 10"):
-        m.save_h5(str(tmp_path), "t")
+    layers = vgg_layers("vgg19", 2, NARROW_WIDTHS)
+    notop = write_notop_h5(tmp_path / "vgg19_notop.h5", layers)
+    m.setup_model(vgg19_weights_path=notop, **kw)
+    template = {"vgg19": {n: {k: np.zeros_like(a) for k, a in v.items()}
+                          for n, v in layers.items()}}
+    want = jload_h5(template, notop, "vgg19")["vgg19"]
+    got = to_flax_tree(dict(m.vgg_model.named_parameters()))["vgg19"]
+    assert all(np.array_equal(got[n][k], np.asarray(want[n][k]))
+               for n in want for k in ("kernel", "bias"))
     with pytest.raises(TypeError, match="DeviceMesh"):
         ESRGAN(mesh=object(), device="cpu").setup_model(**kw)

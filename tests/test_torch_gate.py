@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from test_torch_edsr_quant import BAND_ATOL, BAND_MIN_PSNR
-from test_torch_fixtures import to_flax_tree, to_numpy
+from test_torch_fixtures import to_numpy
+from tpusr_torch.bridge import to_flax_tree
 import tpusr.models.vgg as jvgg
 import tpusr.tools.serving_gate as jsg
 from tpusr.models import edsr_quant as jeq

@@ -1,6 +1,7 @@
-"""The port's ImageNet-weights tool (``tpusr_torch/tools/imagenet_weights.py``,
-its ``.npz`` half) and the facades that load it, against the JAX package's
-on seeded random bundles in the converted layout (no download).
+"""The port's ImageNet-weights tool (``tpusr_torch/tools/imagenet_weights.py``)
+and the facades that load it, against the JAX package's on seeded random
+bundles in the converted layout and on Keras notop ``.h5`` files written
+here in the official releases' layout (no download).
 
 Tolerances: the loaded backbone equals the bundle exactly (HWIO -> OIHW);
 ``FineTunedVGG16`` logits and the ``ESRGAN`` facade's VGG19 features within
@@ -19,9 +20,11 @@ from torch.func import functional_call
 import jax
 import jax.numpy as jnp
 from test_torch_cli import narrow_models
-from test_torch_fixtures import NARROW_WIDTHS, vgg16_tree
+from test_torch_fixtures import (NARROW_WIDTHS, vgg16_tree, vgg_layers,
+                                 write_notop_h5)
 from tpusr.models.vgg import VGG16Classifier as JaxVGG16Classifier
 from tpusr.models.vgg import VGG19Features as JaxVGG19Features
+from tpusr.models.vgg import load_keras_h5_weights as jload_h5
 from tpusr.tools import imagenet_weights as jtool
 from tpusr_torch.bridge import vgg16_from_flax
 from tpusr_torch.models.api import ESRGAN, FineTunedVGG16
@@ -33,16 +36,10 @@ ATOL = 1e-5
 def _bundle(path, arch, widths=None, seed=0):
     """A converted bundle (``block{b}_conv{c}/kernel`` HWIO and ``/bias``)
     of random weights; at ``widths`` per block when given."""
-    rng = np.random.default_rng(seed)
-    flat, cin = {"__arch__": np.asarray(arch)}, 3
-    for b, n, f in tool._CFGS[arch]:
-        f = widths[b - 1] if widths else f
-        for c in range(1, n + 1):
-            flat[f"block{b}_conv{c}/kernel"] = (rng.standard_normal(
-                (3, 3, cin, f)) * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
-            flat[f"block{b}_conv{c}/bias"] = (
-                rng.standard_normal(f) * 0.1).astype(np.float32)
-            cin = f
+    flat = {"__arch__": np.asarray(arch)}
+    for name, leaves in vgg_layers(arch, seed, widths).items():
+        for leaf, a in leaves.items():
+            flat[f"{name}/{leaf}"] = a
     np.savez(path, **flat)
     return str(path)
 
@@ -126,15 +123,63 @@ def test_a_layer_the_backbone_lacks_or_a_wrong_shape_raises(tmp_path, monkeypatc
     m.setup_model(input_shape=(32, 32, 3), imagenet_weights_path=npz16)
 
 
-def test_hdf5_paths_raise_naming_the_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10: a Keras-HDF5"):
-        tool.h5_backbone_arrays("w.h5")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tool.convert("vgg16", "w.h5", str(tmp_path / "o.npz"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tool.load_backbone_weights(None, "w.h5", "vgg16")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tool.main(["--arch", "vgg16", "--src", "w.h5"])
+def test_hdf5_paths_raise_naming_the_item(tmp_path, monkeypatch):
+    """The ``.h5`` half against JAX's on a notop file in the official
+    layout: ``h5_backbone_arrays`` gives JAX's arrays, ``convert`` JAX's
+    ``.npz``, ``main`` validates it (and refuses a wrong architecture as
+    JAX does), and ``load_backbone_weights`` fills the backbone as JAX's
+    does a flax tree."""
+    narrow_models(monkeypatch)
+    layers = vgg_layers("vgg16", seed=3)
+    h5 = write_notop_h5(tmp_path / "vgg16_notop.h5", layers)
+    got, want = tool.h5_backbone_arrays(h5), jtool.h5_backbone_arrays(h5)
+    assert got.keys() == want.keys() == layers.keys()
+    for name in want:
+        for leaf in ("kernel", "bias"):
+            assert np.array_equal(got[name][leaf], want[name][leaf])
+            assert np.array_equal(got[name][leaf], layers[name][leaf])
+    tool.convert("vgg16", h5, str(tmp_path / "port.npz"))
+    jtool.convert("vgg16", h5, str(tmp_path / "jax.npz"))
+    with np.load(tmp_path / "port.npz") as a, np.load(tmp_path / "jax.npz") as b:
+        assert a.files == b.files
+        assert all(np.array_equal(a[k], b[k]) for k in a.files)
+    tool.main(["--arch", "vgg16", "--src", h5])
+    for main in (tool.main, jtool.main):
+        with pytest.raises(ValueError, match="vgg19: missing conv layers"):
+            main(["--arch", "vgg19", "--src", h5])
+    narrow = write_notop_h5(tmp_path / "narrow.h5",
+                            vgg_layers("vgg16", 4, NARROW_WIDTHS))
+    m = FineTunedVGG16(device="cpu")
+    m.setup_model(input_shape=(32, 32, 3), imagenet_weights_path=narrow)
+    tree = {"vgg16": {n: {k: np.zeros_like(a) for k, a in leaves.items()}
+                      for n, leaves in vgg_layers("vgg16", 4,
+                                                  NARROW_WIDTHS).items()}}
+    for name, leaves in jload_h5(tree, narrow, "vgg16")["vgg16"].items():
+        np.testing.assert_array_equal(
+            m.state.params[f"vgg16.{name}.weight"].permute(2, 3, 1, 0).numpy(),
+            np.asarray(leaves["kernel"]))
+        np.testing.assert_array_equal(
+            m.state.params[f"vgg16.{name}.bias"].numpy(),
+            np.asarray(leaves["bias"]))
+
+
+def test_keras1_weight_names_do_what_jax_does(tmp_path):
+    """A notop file with Keras 1 names (``block1_conv1_W_1:0``, no '/'):
+    JAX's ``h5_backbone_arrays`` keys each array by its whole name under the
+    layer, and ``validate`` then finds no 'kernel' (KeyError); the port
+    does the same (a fault of the reference, ROADMAP queue 3)."""
+    h5 = write_notop_h5(tmp_path / "keras1.h5", vgg_layers("vgg16", 5),
+                        keras1_names=True)
+    got, want = tool.h5_backbone_arrays(h5), jtool.h5_backbone_arrays(h5)
+    assert got.keys() == want.keys()
+    for name in want:
+        assert got[name].keys() == want[name].keys() == {
+            f"{name}_W_1", f"{name}_b_1"}
+        assert all(np.array_equal(got[name][k], want[name][k])
+                   for k in want[name])
+    for validate, arrays in ((tool.validate, got), (jtool.validate, want)):
+        with pytest.raises(KeyError, match="kernel"):
+            validate("vgg16", arrays)
 
 
 def test_manifest_is_the_jax_packages_and_hashes_match_jax(tmp_path):
@@ -146,11 +191,12 @@ def test_manifest_is_the_jax_packages_and_hashes_match_jax(tmp_path):
 
 def test_verify_official_checks_md5_and_records_sha256(tmp_path, monkeypatch,
                                                        capsys):
-    """On a copy of the manifest whose md5 is this file's: the check
-    passes, ``--record-sha256`` writes the sha256 once, then holds the file
-    to it; another file fails on md5. No HDF5 is read."""
+    """On a copy of the manifest whose md5 is this file's (a notop file in
+    the official layout, seeded weights): the check passes and ``main``
+    validates the file, ``--record-sha256`` writes the sha256 once, then
+    holds the file to it; another file fails on md5."""
     f = tmp_path / "vgg16_notop.h5"
-    f.write_bytes(b"not really an h5, only hashed")
+    write_notop_h5(f, vgg_layers("vgg16", seed=6))
     manifest = tmp_path / "manifest.json"
     shutil.copy(tool.MANIFEST, manifest)
     data = json.loads(manifest.read_text())

@@ -1,6 +1,8 @@
 """The port stands alone: tpusr_torch and chip_smoke.py import no JAX, no
 flax and nothing of the JAX package, at import time or lazily; nor OpenCV,
-PIL, matplotlib or scikit-learn, which the card's machine does not have."""
+PIL, matplotlib or scikit-learn, nor h5py, TensorFlow or Keras (the port
+reads and writes Keras files with its own codec), which the card's machine
+does not have."""
 
 import ast
 import pathlib
@@ -12,6 +14,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tpusr"}
 IMAGE_LIBS = {"cv2", "PIL", "matplotlib", "sklearn"}  # absent on the card's machine
+HDF5_LIBS = {"h5py", "tensorflow", "keras"}            # absent there too
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -37,7 +40,7 @@ def test_every_port_module_imports_without_jax():
         "'tpusr_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN | IMAGE_LIBS!r})\n"
+        f"{FORBIDDEN | IMAGE_LIBS | HDF5_LIBS!r})\n"
         "assert not bad, bad\n"
         "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -59,7 +62,9 @@ def test_every_port_module_imports_without_jax():
             "tpusr_torch.pipeline.jpeg", "tpusr_torch.metrics.lpips",
             "tpusr_torch.tools.lpips_weights", "tpusr_torch.data.eda",
             "tpusr_torch.data._cv_ops", "tpusr_torch.tools.imagenet_weights",
-            "tpusr_torch.models.edsr_fast", "tpusr_torch.core.winograd"} <= mods
+            "tpusr_torch.models.edsr_fast", "tpusr_torch.core.winograd",
+            "tpusr_torch.train.hdf5", "tpusr_torch.train.keras_import",
+            "tpusr_torch.train.keras_export"} <= mods
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -76,3 +81,11 @@ def test_source_names_no_jax_import(path):
 def test_source_names_no_image_library(path):
     roots = _imported_roots(REPO / path)
     assert not roots & IMAGE_LIBS, (path, sorted(roots & IMAGE_LIBS))
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*(REPO / "tpusr_torch").rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_source_names_no_hdf5_or_keras_library(path):
+    roots = _imported_roots(REPO / path)
+    assert not roots & HDF5_LIBS, (path, sorted(roots & HDF5_LIBS))

@@ -21,15 +21,14 @@ import pytest
 import torch
 
 import tpusr.models.vgg as jvgg
-from test_torch_fixtures import (NARROW_WIDTHS, edsr_tree, to_flax_tree,
-                                 to_numpy, vgg16_tree)
+from test_torch_fixtures import NARROW_WIDTHS, edsr_tree, to_numpy, vgg16_tree
 from tpusr.models import EDSR as JaxEDSR
 from tpusr.models import SRCNN as JaxSRCNN
 from tpusr.models import VGG16Classifier as JaxVGG16
 from tpusr.train import ClassifierTrainer as JaxClassifierTrainer
 from tpusr.train import SupervisedSRTrainer as JaxSRTrainer
 from tpusr_torch.bridge import (edsr_from_flax, flax_path, srcnn_from_flax,
-                                vgg16_from_flax)
+                                to_flax_tree, vgg16_from_flax)
 from tpusr_torch.core import conv3x3
 from tpusr_torch.core.conv3x3 import conv3x3_bias_act_train
 from tpusr_torch.models import EDSR, SRCNN, VGG16Classifier

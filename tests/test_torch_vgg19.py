@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_fixtures import to_flax_tree
+from tpusr_torch.bridge import to_flax_tree
 from tpusr.models.vgg import VGG19Features as JaxVGG19
 from tpusr.models.vgg import _VGG19_CFG, _VGGBackbone
 from tpusr.models.vgg import preprocess_caffe as jax_preprocess_caffe

@@ -1,6 +1,8 @@
-"""flax param trees -> the port's modules and int8 trees.
+"""flax param trees <-> the port's modules, and flax trees -> int8 trees.
 
-The one place that converts layouts. A flax tree is a nested dict of arrays
+The one place that converts layouts, both ways (``*_from_flax`` into the
+port; ``to_flax_tree`` and the per-network ``*_to_flax`` out of it, for the
+Keras exporter and the tests). A flax tree is a nested dict of arrays
 (anything ``np.asarray`` takes); flax keeps NHWC activations, HWIO conv
 kernels and Dense kernels as (in, out). The port keeps HWIO where its own
 kernels take it (EDSR's and ESRGAN's K2 convs, the int8 tree's K1 weights, the
@@ -258,3 +260,36 @@ def vgg_backbone_from_arrays(model, layers: dict, backbone_key: str,
                                      f"{tuple(np.shape(arr))}, the model "
                                      f"wants {tuple(want.shape)}")
                 dst.copy_(t.to(dst.device, dst.dtype))
+
+
+# ------------------------------------------------------- the port -> flax
+def to_flax_tree(params: dict) -> dict:
+    """Port parameters (name -> tensor, as ``named_parameters``, a
+    ``state_dict`` or a trainer's ``TrainState.params`` hold them) -> a
+    nested flax tree of numpy arrays in flax's layouts: ``nn.Conv2d``'s
+    OIHW ``weight`` -> HWIO ``kernel``, ``nn.Linear``'s (out, in) ->
+    Dense's (in, out); every other leaf as it is."""
+    tree: dict = {}
+    for name, t in params.items():
+        a = t.detach().cpu()
+        if name.endswith(".weight"):
+            a = oihw_to_hwio(a) if a.dim() == 4 else dense_to_linear(a)
+        *path, leaf = flax_path(name)
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = a.numpy().copy()
+    return tree
+
+
+def esrgan_generator_to_flax(params: dict) -> dict:
+    """Generator parameters -> flax's tree: as ``to_flax_tree``, with the
+    attention's ``Conv1x1`` (Cin, Cout) matrices back to flax's
+    (1, 1, Cin, Cout) kernels."""
+    tree = to_flax_tree(params)
+    for name, node in tree.items():
+        if name.startswith("self_attention"):
+            for sub in node.values():
+                if sub["kernel"].ndim == 2:
+                    sub["kernel"] = sub["kernel"][None, None]
+    return tree

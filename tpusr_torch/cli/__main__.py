@@ -27,10 +27,10 @@ torchrun (``torchrun --nproc-per-node N -m tpusr_torch.cli train-edsr
 and its logs.
 
 ``eda`` runs the dataset EDA (``data/eda.py``) on the card and writes its
-CSVs, without the JAX command's figures. ``preprocess`` (a video decoder)
-and ``convert`` (Keras ``.h5`` interop, ROADMAP queue 1 item 10) are listed
-with their JAX flags and exit with a message naming what they lack, as does
-``train-esrgan --vgg19-weights`` (a Keras ``.h5`` import, item 10).
+CSVs, without the JAX command's figures. ``convert`` moves a model between
+the port's checkpoint and the reference's Keras ``.h5`` (the port's own
+HDF5 codec, ``train/hdf5.py``), both ways. ``preprocess`` (a video decoder)
+is listed with its JAX flags and exits with a message naming what it lacks.
 """
 
 from __future__ import annotations
@@ -47,8 +47,6 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 GATE_FILE = "GATE_torch.json"    # the port's gate verdict, on the H100
-_ITEM_10 = ("ROADMAP queue 1, item 10: a Keras-HDF5 codec of the port's own, "
-            "with Keras and Orbax interop")
 NO_FIGURES = ("figures are not drawn: the JAX command draws them with "
               "matplotlib, which the port does not use")
 
@@ -310,11 +308,8 @@ def cmd_train_esrgan(args):
     from tpusr_torch.models.vgg import VGG19Features
     from tpusr_torch.train import ESRGANTrainer
 
-    if args.vgg19_weights:
-        raise SystemExit(
-            f"tpusr_torch train-esrgan: --vgg19-weights {args.vgg19_weights} "
-            f"is a Keras .h5 import, which is not ported yet ({_ITEM_10}); "
-            f"without it VGG19 is drawn from its seeded initialiser")
+    from tpusr_torch.tools.imagenet_weights import load_backbone_weights
+
     dev = _device(args)
     mesh = _mesh(args, dev)
     # --lr sets the generator LR; the discriminator keeps the reference's
@@ -334,6 +329,8 @@ def cmd_train_esrgan(args):
     disc = ESRGANDiscriminator(device=dev, generator=g)
     # the JAX command draws VGG19 from PRNGKey(0)
     vgg = VGG19Features(device=dev, generator=torch.Generator().manual_seed(0))
+    if args.vgg19_weights:   # the Keras .h5 release, or its converted .npz
+        load_backbone_weights(vgg, args.vgg19_weights, "vgg19")
     trainer = ESRGANTrainer(gen, disc, vgg, g_lr=cfg.g_lr, d_lr=cfg.d_lr,
                             decay_steps=cfg.decay_steps,
                             decay_rate=cfg.decay_rate, mesh=mesh,
@@ -495,11 +492,6 @@ def cmd_pipeline(args):
         edsr_net = edsr.network()
         sr_methods["edsr"] = lambda x: torch.clamp(edsr_net(x), 0.0, 1.0)
         sidecars["edsr"] = args.edsr_ckpt
-    if args.esrgan_disc_ckpt:
-        print(f"pipeline: --esrgan-disc-ckpt {args.esrgan_disc_ckpt} is "
-              f"ignored: the port's ESRGAN checkpoint holds the discriminator "
-              f"(the JAX command reads it only beside a Keras .h5 generator, "
-              f"{_ITEM_10})")
     if args.esrgan_ckpt:
         esr = ESRGANFacade(device=dev)
         esr.setup_model(scale_factor=scale, from_trained=True,
@@ -542,9 +534,53 @@ def cmd_pipeline(args):
 
 
 def cmd_convert(args):
-    raise SystemExit(
-        f"tpusr_torch convert: the Keras .h5 and Orbax round trip is not "
-        f"ported yet ({_ITEM_10}: it needs h5py and tensorflow)")
+    """Move a model between the port's checkpoint and the reference's Keras
+    ``.h5`` (SRCNN_model.py:249-259, EDSR_model.py:317-330,
+    ESRGAN_model.py:981-996, VGG16_model.py:272-281), as the JAX command.
+
+    The direction is set by ``--src``: a ``.h5``/``.hdf5`` file is imported
+    and written as the port's checkpoint; anything else is read as the
+    port's checkpoint and exported to ``.h5`` (loadable with
+    ``keras.models.load_model``). Returns the written path(s)."""
+    from tpusr_torch.models.api import (EDSR, ESRGAN, FineTunedVGG16,
+                                        SRCNNModel)
+
+    to_ckpt = args.src.endswith((".h5", ".hdf5"))
+    ts = args.timestamp or _timestamp()
+    if not to_ckpt and args.model == "esrgan" and args.disc:
+        # checkpoint sources carry both G and D (plus the arch sidecar);
+        # a user-supplied --disc would be silently ignored — refuse instead
+        raise SystemExit("--disc only applies when --src is a Keras .h5 "
+                         "generator; checkpoint sources already contain the "
+                         "discriminator")
+    dev = _device(args)
+    if args.model == "srcnn":
+        m = SRCNNModel(device=dev)
+        m.setup_model(from_pretrained=True, pretrained_path=args.src)
+    elif args.model == "edsr":
+        m = EDSR(device=dev)
+        m.setup_model(scale_factor=args.scale, num_res_blocks=args.blocks,
+                      num_filters=args.filters, from_pretrained=True,
+                      pretrained_path=args.src)
+    elif args.model == "esrgan":
+        m = ESRGAN(device=dev)
+        hw = args.patch_size
+        m.setup_model(scale_factor=args.scale, growth_channels=args.growth,
+                      num_rrdb_blocks=args.rrdb_blocks,
+                      input_shape=(hw, hw, 3),
+                      output_shape=(hw * args.scale, hw * args.scale, 3),
+                      from_trained=True,
+                      generator_pretrained_path=args.src,
+                      discriminator_pretrained_path=args.disc)
+    else:  # vgg16
+        m = FineTunedVGG16(device=dev)
+        m.setup_model(input_shape=(args.input_hw, args.input_hw, 3),
+                      num_classes=args.num_classes,
+                      from_pretrained=True, pretrained_path=args.src)
+    path = m.save(args.out, ts) if to_ckpt else m.save_h5(args.out, ts)
+    shown = " + ".join(path) if isinstance(path, tuple) else path
+    print(f"Converted {args.src} -> {shown}")
+    return path
 
 
 def cmd_eda(args):
@@ -796,7 +832,8 @@ def build_parser():
             sp.add_argument("--scale", type=int, default=2)
         if "vgg19_weights" in extra:
             sp.add_argument("--vgg19-weights", default=None,
-                            help=f"a Keras .h5: not ported yet ({_ITEM_10})")
+                            help="VGG19 ImageNet weights: the Keras notop "
+                                 ".h5 release or its converted .npz")
         if "preview_dir" in extra:
             sp.add_argument("--preview-dir", default=None)
         sp.add_argument("--device", default="cuda", help=DEVICE_HELP)
@@ -838,31 +875,45 @@ def build_parser():
     sp.add_argument("--edsr-ckpt", default=None)
     sp.add_argument("--esrgan-ckpt", default=None)
     sp.add_argument("--esrgan-disc-ckpt", default=None,
-                    help="ignored: the port's ESRGAN checkpoint holds the "
-                         "discriminator (a Keras .h5 generator is not "
-                         "ported yet)")
+                    help="required when --esrgan-ckpt is a Keras .h5")
     sp.add_argument("--classic-methods",
                     default="bilinear,bicubic,area,lanczos4",
                     help="comma list of classic interpolators to compare")
     sp.add_argument("--device", default="cuda", help=DEVICE_HELP)
     sp.set_defaults(fn=cmd_pipeline)
 
-    sp = sub.add_parser("convert", help=f"not ported: Keras .h5 / Orbax "
-                        f"round trip ({_ITEM_10})")
+    sp = sub.add_parser("convert", help="a model between the port's "
+                        "checkpoint and the reference's Keras .h5, both ways")
     sp.add_argument("--model", required=True,
                     choices=("srcnn", "edsr", "esrgan", "vgg16"))
-    sp.add_argument("--src", required=True)
-    sp.add_argument("--disc", default=None)
+    sp.add_argument("--src", required=True,
+                    help="a Keras .h5 (imports to the port's checkpoint) or "
+                         "the port's checkpoint path (exports to .h5)")
+    sp.add_argument("--disc", default=None,
+                    help="discriminator .h5 (required for --model esrgan "
+                         "when --src is a generator .h5)")
     sp.add_argument("--out", default="checkpoints")
-    sp.add_argument("--timestamp", default=None)
-    sp.add_argument("--scale", type=int, default=2)
-    sp.add_argument("--blocks", type=int, default=16)
+    sp.add_argument("--timestamp", default=None,
+                    help="artifact timestamp suffix (default: now)")
+    sp.add_argument("--scale", type=int, default=2,
+                    help="SR scale (for .h5 sources only; checkpoints carry "
+                         "their architecture sidecar)")
+    sp.add_argument("--blocks", type=int, default=16,
+                    help="EDSR res blocks (needed for .h5 sources only; "
+                         "checkpoints carry their architecture sidecar)")
     sp.add_argument("--filters", type=int, default=64)
-    sp.add_argument("--growth", type=int, default=32)
-    sp.add_argument("--rrdb-blocks", type=int, default=23)
-    sp.add_argument("--patch-size", type=int, default=24)
-    sp.add_argument("--input-hw", type=int, default=96)
+    sp.add_argument("--growth", type=int, default=32,
+                    help="ESRGAN growth channels (.h5 sources only)")
+    sp.add_argument("--rrdb-blocks", type=int, default=23,
+                    help="ESRGAN RRDB block count (.h5 sources only)")
+    sp.add_argument("--patch-size", type=int, default=24,
+                    help="ESRGAN LR train-patch size (fixes the "
+                         "discriminator export geometry)")
+    sp.add_argument("--input-hw", type=int, default=96,
+                    help="VGG16 input H=W (the reference trains on 96x96 "
+                         "patches)")
     sp.add_argument("--num-classes", type=int, default=2)
+    sp.add_argument("--device", default="cuda", help=DEVICE_HELP)
     sp.set_defaults(fn=cmd_convert)
 
     sp = sub.add_parser("serve", help="HTTP serving tier: micro-batched "

@@ -17,13 +17,15 @@ parameters (by the module's parameter names) it trains, restores and saves;
 facade's state is the GAN trainer's whole ``GANState``). Checkpoints are the
 port's own (``train/checkpoint.py``), with the JAX facades' ``arch``
 metadata, so ``from_pretrained``/``from_trained`` rebuilds the saved
-architecture whatever the setup arguments. ImageNet weights
-(``imagenet_weights_path`` of ``FineTunedVGG16``, ``vgg19_weights_path`` of
-``ESRGAN``) load from a converted ``.npz``
-(``tools/imagenet_weights.py``), as in JAX. Not ported: Keras ``.h5`` import
-and export, an ``.h5`` ImageNet file and Orbax checkpoint directories
-(ROADMAP queue 1, item 10: they need h5py and tensorflow, which the card's
-machine lacks).
+architecture whatever the setup arguments. ``from_pretrained`` also takes
+a reference Keras ``.h5`` (imported weight for weight by
+``train/keras_import.py``), and ``save_h5`` exports one
+(``train/keras_export.py``), both through the port's own HDF5 codec.
+ImageNet weights (``imagenet_weights_path`` of ``FineTunedVGG16``,
+``vgg19_weights_path`` of ``ESRGAN``) load from the Keras ``.h5`` release or
+a converted ``.npz`` (``tools/imagenet_weights.py``), as in JAX. An Orbax
+directory (the JAX package's checkpoint) is refused: the JAX package's
+``convert`` writes it as a ``.h5``, which the port reads.
 
 ``mesh`` (a ``DeviceMesh``, ``tpusr_torch.dist``) goes to the trainers and
 to full-image SR, as in JAX; under it a restored checkpoint is broadcast
@@ -39,9 +41,10 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from tpusr_torch import bridge
 from tpusr_torch.config import RANDOM_SEED
 from tpusr_torch.device import resolve_device
-from tpusr_torch.dist.mesh import replicate
+from tpusr_torch.dist.mesh import is_writer, replicate
 from tpusr_torch.models.edsr import EDSR as EDSRModule
 from tpusr_torch.models.esrgan import ESRGANDiscriminator, ESRGANGenerator
 from tpusr_torch.models.srcnn import SRCNN
@@ -52,12 +55,10 @@ from tpusr_torch.pipeline.inference import (srcnn_super_resolve,
                                             super_resolve_image)
 from tpusr_torch.train.checkpoint import (load_metadata, restore_checkpoint,
                                           save_checkpoint)
+from tpusr_torch.train import keras_export, keras_import
 from tpusr_torch.train.gan import ESRGANTrainer
 from tpusr_torch.tools.imagenet_weights import load_backbone_weights
 from tpusr_torch.train.trainer import ClassifierTrainer, SupervisedSRTrainer
-
-_ITEM_10 = ("ROADMAP queue 1, item 10: a Keras-HDF5 codec of the port's own, "
-            "with Keras and Orbax interop, beside convert")
 
 
 def _is_h5(path):
@@ -79,14 +80,13 @@ def _restore(state, pretrained_path, mesh=None):
     if pretrained_path is None or not os.path.exists(pretrained_path):
         raise FileNotFoundError(
             f"Pretrained model file not found at {pretrained_path}")
-    if _is_h5(pretrained_path):
-        raise NotImplementedError(
-            f"{pretrained_path}: Keras .h5 import is not ported yet ({_ITEM_10})")
     if os.path.isdir(pretrained_path):
         raise NotImplementedError(
             f"{pretrained_path}: a directory is an Orbax checkpoint of the JAX "
-            f"package, which the port does not read yet ({_ITEM_10}); the "
-            f"port's checkpoints are files")
+            f"package, which the port does not read; write it as a Keras .h5 "
+            f"with the JAX package's `python -m tpusr.cli convert --model "
+            f"<model> --src {pretrained_path}` and pass the .h5 (the port's "
+            f"own checkpoints are files)")
     state = restore_checkpoint(os.path.dirname(pretrained_path) or ".",
                                os.path.basename(pretrained_path), state)
     if mesh is not None:
@@ -94,8 +94,22 @@ def _restore(state, pretrained_path, mesh=None):
     return state
 
 
-def _no_h5_export():
-    return NotImplementedError(f"Keras .h5 export is not ported yet ({_ITEM_10})")
+def _h5_found(path) -> bool:
+    """``path`` names a Keras ``.h5`` that exists (a missing one goes on to
+    ``_restore``'s FileNotFoundError)."""
+    return _is_h5(path) and os.path.exists(path)
+
+
+def _take(old: dict, new: dict) -> dict:
+    """``new``'s tensors under ``old``'s names, devices, dtypes and
+    trainable flags (a trainer state's parameters, after an import)."""
+    return {k: new[k].detach().to(v.device, v.dtype, copy=True)
+            .requires_grad_(v.requires_grad) for k, v in old.items()}
+
+
+def _h5_path(directory, name) -> str:
+    os.makedirs(directory, exist_ok=True)
+    return os.path.join(directory, f"{name}.h5")
 
 
 def _seeded() -> torch.Generator:
@@ -155,7 +169,13 @@ class SRCNNModel(_Facade):
                                            device=self.device)
         self.state = self.trainer.init_state()
         if from_pretrained:
-            self.state = _restore(self.state, pretrained_path, self.mesh)
+            if _h5_found(pretrained_path):
+                net = keras_import.import_srcnn(
+                    self.state.params, pretrained_path, device=self.device)
+                self.state.params = _take(self.state.params,
+                                          dict(net.named_parameters()))
+            else:
+                self.state = _restore(self.state, pretrained_path, self.mesh)
             self._trained = True
 
     def fit(self, X_train, Y_train, X_val, Y_val, batch_size=16, epochs=50):
@@ -196,7 +216,16 @@ class SRCNNModel(_Facade):
         return path
 
     def save_h5(self, directory, timestamp):
-        raise _no_h5_export()
+        """Export to the reference's Keras ``.h5`` format
+        (``SRCNN_{ts}.h5``, SRCNN_model.py:249-259): loadable with
+        ``keras.models.load_model`` and re-importable bit for bit."""
+        if not self._trained:
+            raise RuntimeError("Cannot save an untrained model.")
+        path = _h5_path(directory, f"SRCNN_{timestamp}")
+        if is_writer():
+            keras_export.export_srcnn(bridge.to_flax_tree(self.state.params),
+                                      path)
+        return path
 
 
 class EDSR(_Facade):
@@ -237,7 +266,15 @@ class EDSR(_Facade):
                                            device=self.device)
         self.state = self.trainer.init_state()
         if from_pretrained:
-            self.state = _restore(self.state, pretrained_path, self.mesh)
+            if _h5_found(pretrained_path):
+                net = keras_import.import_edsr(
+                    self.state.params, pretrained_path,
+                    num_res_blocks=num_res_blocks, scale_factor=scale_factor,
+                    res_scaling=res_scaling, device=self.device)
+                self.state.params = _take(self.state.params,
+                                          dict(net.named_parameters()))
+            else:
+                self.state = _restore(self.state, pretrained_path, self.mesh)
             self.trained = True
 
     def fit(self, X_train, Y_train, X_val, Y_val, batch_size=16, epochs=300):
@@ -280,7 +317,16 @@ class EDSR(_Facade):
         return path
 
     def save_h5(self, directory, timestamp):
-        raise _no_h5_export()
+        """Export to the reference's Keras ``.h5`` format
+        (``EDSR_x{s}_{ts}.h5``, EDSR_model.py:317-330)."""
+        if not self.trained:
+            raise RuntimeError("Cannot save an untrained model.")
+        path = _h5_path(directory, f"EDSR_x{self.scale_factor}_{timestamp}")
+        if is_writer():
+            keras_export.export_edsr(bridge.to_flax_tree(self.state.params),
+                                     path,
+                                     res_scaling=self._arch["res_scaling"])
+        return path
 
 
 class ESRGAN(_Facade):
@@ -341,13 +387,27 @@ class ESRGAN(_Facade):
                 raise FileNotFoundError("Generator pretrained path does not "
                                         f"exist: {generator_pretrained_path}")
             if _is_h5(generator_pretrained_path):
-                raise NotImplementedError(
-                    f"{generator_pretrained_path}: Keras .h5 import of the "
-                    f"generator and discriminator is not ported yet "
-                    f"({_ITEM_10})")
-            # the port's checkpoint holds the whole GANState
-            self.state = _restore(self.state, generator_pretrained_path,
-                                   self.mesh)
+                # the reference reloads BOTH networks to resume adversarial
+                # training (ESRGAN_model.py:137-149)
+                if (discriminator_pretrained_path is None
+                        or not os.path.exists(discriminator_pretrained_path)):
+                    raise FileNotFoundError(
+                        "Discriminator pretrained path does not exist: "
+                        f"{discriminator_pretrained_path}")
+                st = self.state
+                g = keras_import.import_esrgan_generator(
+                    st.g_params, generator_pretrained_path,
+                    device=self.device)
+                d = keras_import.import_esrgan_discriminator(
+                    st.d_params, st.d_spectral, discriminator_pretrained_path,
+                    device=self.device)
+                st.g_params = _take(st.g_params, dict(g.named_parameters()))
+                st.d_params = _take(st.d_params, dict(d.named_parameters()))
+                st.d_spectral = _take(st.d_spectral, dict(d.named_buffers()))
+            else:
+                # the port's checkpoint holds the whole GANState
+                self.state = _restore(self.state, generator_pretrained_path,
+                                      self.mesh)
             self.trained = True
 
     def network(self) -> torch.nn.Module:
@@ -408,7 +468,23 @@ class ESRGAN(_Facade):
         return path
 
     def save_h5(self, directory, timestamp):
-        raise _no_h5_export()
+        """Export generator + discriminator to the reference's two-file
+        Keras ``.h5`` format (``ESRGAN_{generator,discriminator}_x{s}_{ts}
+        .h5``, ESRGAN_model.py:981-996). Returns (gen_path, disc_path)."""
+        if not self.trained:
+            raise RuntimeError("Cannot save an untrained model.")
+        s, st = self.scale_factor, self.state
+        g_path = _h5_path(directory, f"ESRGAN_generator_x{s}_{timestamp}")
+        d_path = _h5_path(directory,
+                          f"ESRGAN_discriminator_x{s}_{timestamp}")
+        if is_writer():
+            keras_export.export_esrgan_generator(
+                bridge.esrgan_generator_to_flax(st.g_params), g_path)
+            keras_export.export_esrgan_discriminator(
+                bridge.to_flax_tree(st.d_params),
+                bridge.to_flax_tree(st.d_spectral), d_path,
+                input_hw=self.output_shape[0])
+        return g_path, d_path
 
 
 class FineTunedVGG16(_Facade):
@@ -464,7 +540,13 @@ class FineTunedVGG16(_Facade):
                                          device=self.device)
         self.state = self.trainer.init_state()
         if from_pretrained:
-            self.state = _restore(self.state, pretrained_path, self.mesh)
+            if _h5_found(pretrained_path):
+                net = keras_import.import_vgg16_classifier(
+                    self.state.params, pretrained_path, device=self.device)
+                self.state.params = _take(self.state.params,
+                                          dict(net.named_parameters()))
+            else:
+                self.state = _restore(self.state, pretrained_path, self.mesh)
             self.trained = True
 
     def fit(self, X_train, y_train, X_val, y_val, batch_size=32, epochs=50,
@@ -512,7 +594,16 @@ class FineTunedVGG16(_Facade):
         return path
 
     def save_h5(self, directory, timestamp):
-        raise _no_h5_export()
+        """Export to the reference's Keras ``.h5`` format
+        (``VGG16_{ts}.h5``, VGG16_model.py:272-281)."""
+        if not self.trained:
+            raise RuntimeError("Cannot save an untrained model.")
+        path = _h5_path(directory, f"VGG16_{timestamp}")
+        if is_writer():
+            keras_export.export_vgg16_classifier(
+                bridge.to_flax_tree(self.state.params), path,
+                input_shape=self.input_shape)
+        return path
 
 
 def augment_classification_set(x, y, seed=RANDOM_SEED, device=None):

@@ -13,8 +13,10 @@ Neither is a Pallas path in the JAX package, so both run PyTorch's own
 ``nn.Conv2d``/``nn.Linear`` (cuDNN, TF32 off). Their weights are in
 PyTorch's layouts (OIHW, Linear (out, in)); ``tpusr_torch.bridge`` converts a
 flax tree once. The public forwards take NHWC images, as the JAX models do.
-ImageNet weights need a download and are not loaded: the models run on
-their seeded initialisers.
+ImageNet weights (a download) load from the Keras ``.h5`` release
+(``load_keras_h5_weights``) or its converted ``.npz``
+(``tools/imagenet_weights.py``); without them the models run on their
+seeded initialisers.
 """
 
 from __future__ import annotations
@@ -172,3 +174,40 @@ class VGG19Features(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.vgg19(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def load_keras_h5_weights(model, h5_path: str, backbone_key: str):
+    """Import conv kernels/biases from a Keras VGG ``.h5`` into ``model``'s
+    ``backbone_key`` convs (``vgg16`` of a ``VGG16Classifier``, ``vgg19`` of
+    a ``VGG19Features``), in place, keyed by layer name (block{i}_conv{j});
+    returns the model. Every backbone layer must be found, at its shape."""
+    from tpusr_torch.bridge import oihw_to_hwio, vgg_backbone_from_arrays
+    from tpusr_torch.train.keras_import import (_layer_of, _leaf,
+                                                keras_layer_weights)
+
+    backbone = getattr(model, backbone_key)
+    layers = {}
+    for _lname, ws in keras_layer_weights(h5_path):
+        for wname, arr in ws:
+            layer = _layer_of(wname)
+            if layer in backbone and _leaf(wname) == "kernel":
+                bias = next((a for w2, a in ws
+                             if _layer_of(w2) == layer and _leaf(w2) == "bias"),
+                            None)
+                if bias is None:
+                    raise ValueError(f"{h5_path}: layer {layer!r} has a "
+                                     f"kernel but no bias")
+                want = tuple(oihw_to_hwio(backbone[layer].weight).shape)
+                if tuple(arr.shape) != want:
+                    raise ValueError(
+                        f"{h5_path}: shape mismatch at {layer}: h5 "
+                        f"{arr.shape} vs flax {want}")
+                layers[layer] = {"kernel": arr, "bias": bias}
+    missing = sorted(set(backbone.keys()) - set(layers))
+    if missing:
+        # an .h5 with unparsable names (or the wrong VGG variant) must not
+        # silently leave layers at random init
+        raise ValueError(
+            f"{h5_path}: no weights found for backbone layers {missing}")
+    vgg_backbone_from_arrays(model, layers, backbone_key, source=h5_path)
+    return model

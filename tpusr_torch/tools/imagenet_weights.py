@@ -1,26 +1,24 @@
 """Offline ImageNet weights for VGG16/VGG19 (port of
-``tpusr/tools/imagenet_weights.py``, its ``.npz`` half).
+``tpusr/tools/imagenet_weights.py``).
 
 The reference downloads Keras ImageNet weights for the classifier base
 (``VGG16_model.py:66-72``) and the ESRGAN perceptual extractor
-(``ESRGAN_model.py:379-399``). Provisioning is offline: the official Keras
-``*_notop.h5`` releases (``imagenet_manifest.json`` beside this file lists
-their names, URLs and hashes) are converted once to a validated ``.npz``
-with the JAX package's tool (``python -m tpusr.tools.imagenet_weights
---arch vgg16 --src ....h5 --out weights/vgg16_imagenet.npz``), and the
-port's facades load that ``.npz``:
-``FineTunedVGG16.setup_model(imagenet_weights_path=...)``,
-``ESRGAN.setup_model(vgg19_weights_path=...)``.
+(``ESRGAN_model.py:379-399``). Provisioning is offline: copy the official
+Keras ``*_notop.h5`` releases (``imagenet_manifest.json`` beside this file
+lists their names, URLs and hashes) next to the repo and either pass the
+``.h5`` directly (``FineTunedVGG16.setup_model(imagenet_weights_path=...)``,
+``ESRGAN.setup_model(vgg19_weights_path=...)``, ``train-esrgan
+--vgg19-weights``) or convert it once to a validated ``.npz``:
 
-The ``.npz`` layout is ``block{b}_conv{c}/kernel`` (HWIO) and ``/bias``;
+    python -m tpusr_torch.tools.imagenet_weights --arch vgg16 \
+        --src vgg16_weights_tf_dim_ordering_tf_kernels_notop.h5 \
+        --out weights/vgg16_imagenet.npz
+
+The ``.h5`` is read by the port's own HDF5 codec (``train/hdf5.py``). The
+``.npz`` layout is ``block{b}_conv{c}/kernel`` (HWIO) and ``/bias``;
 ``bridge.py`` writes it into the port's OIHW ``nn.Conv2d`` weights.
 ``--verify-official`` hashes a provisioned file against the manifest
 (``--record-sha256`` writes the sha256 into this package's copy of it).
-
-Reading the Keras ``.h5`` itself (``h5_backbone_arrays``, ``convert``, an
-``.h5`` passed to the facades or to ``main``) needs an HDF5 reader, which the
-card's machine lacks; those raise ``NotImplementedError`` naming the ROADMAP
-item.
 """
 
 from __future__ import annotations
@@ -32,8 +30,6 @@ import os
 
 import numpy as np
 
-HDF5_ITEM = ("ROADMAP queue 1, item 10: a Keras-HDF5 codec of the port's own "
-             "(no h5py on the card's machine)")
 MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "imagenet_manifest.json")
 
@@ -55,14 +51,18 @@ def expected_shapes(arch: str) -> dict[str, tuple]:
     return shapes
 
 
-def _no_hdf5(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: reading a Keras .h5 is not ported "
-                               f"({HDF5_ITEM}); convert it to .npz with "
-                               f"`python -m tpusr.tools.imagenet_weights`")
+def h5_backbone_arrays(h5_path: str) -> dict[str, dict[str, np.ndarray]]:
+    """{layer: {'kernel': ..., 'bias': ...}} from a Keras VGG .h5."""
+    from tpusr_torch.train.keras_import import (_layer_of, _leaf,
+                                                keras_layer_weights)
 
-
-def h5_backbone_arrays(h5_path: str):
-    raise _no_hdf5(h5_path)
+    out: dict[str, dict[str, np.ndarray]] = {}
+    for _lname, ws in keras_layer_weights(h5_path):
+        for wname, arr in ws:
+            layer = _layer_of(wname) or _lname
+            if layer.startswith("block") and "_conv" in layer:
+                out.setdefault(layer, {})[_leaf(wname)] = np.asarray(arr)
+    return out
 
 
 def validate(arch: str, layers: dict[str, dict[str, np.ndarray]]) -> None:
@@ -79,7 +79,16 @@ def validate(arch: str, layers: dict[str, dict[str, np.ndarray]]) -> None:
 
 
 def convert(arch: str, src_h5: str, out_npz: str) -> None:
-    raise _no_hdf5(src_h5)
+    """Validate a Keras VGG .h5 and save a flat .npz weight bundle."""
+    layers = h5_backbone_arrays(src_h5)
+    validate(arch, layers)
+    flat = {"__arch__": np.asarray(arch)}
+    for name, ws in layers.items():
+        flat[f"{name}/kernel"] = ws["kernel"]
+        flat[f"{name}/bias"] = ws["bias"]
+    os.makedirs(os.path.dirname(os.path.abspath(out_npz)) or ".", exist_ok=True)
+    np.savez(out_npz, **flat)
+    print(f"validated {arch} ({len(layers)} conv layers) -> {out_npz}")
 
 
 def npz_layers(npz_path: str) -> dict[str, dict[str, np.ndarray]]:
@@ -107,11 +116,13 @@ def load_npz_backbone(model, npz_path: str, backbone_key: str):
 
 
 def load_backbone_weights(model, path: str, backbone_key: str):
-    """Dispatch a backbone weight import: ``.npz`` (converted) is read,
-    a Keras ``.h5`` raises naming the HDF5 item."""
+    """Dispatch .h5 (Keras) / .npz (converted) backbone weight imports, in
+    place; returns the model."""
     if path.endswith(".npz"):
         return load_npz_backbone(model, path, backbone_key)
-    raise _no_hdf5(path)
+    from tpusr_torch.models.vgg import load_keras_h5_weights
+
+    return load_keras_h5_weights(model, path, backbone_key)
 
 
 def load_manifest() -> dict:
@@ -157,11 +168,12 @@ def verify_official(path: str, key: str, record_sha256: bool = False) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        description="Verify or validate VGG ImageNet weights for tpusr_torch")
+        description="Validate/convert Keras VGG ImageNet weights for "
+                    "tpusr_torch")
     p.add_argument("--arch", choices=("vgg16", "vgg19"), required=True)
     p.add_argument("--src", required=True, help="Keras .h5 (notop) weight file")
     p.add_argument("--out", default=None,
-                   help=".npz output (needs the .h5 reader: not ported)")
+                   help=".npz output; omit to validate only")
     p.add_argument("--verify-official", action="store_true",
                    help="check --src md5/sha256 against the manifest "
                         "(official releases only)")
@@ -173,12 +185,11 @@ def main(argv=None):
         key = f"{args.arch}_notop"
         got = verify_official(args.src, key, record_sha256=args.record_sha256)
         print(f"{args.src}: md5 OK ({got['md5']}), sha256 {got['sha256']}")
-        if not args.out:
-            return
     if args.out:
         convert(args.arch, args.src, args.out)
     else:
         validate(args.arch, h5_backbone_arrays(args.src))
+        print(f"{args.src}: valid {args.arch} backbone")
 
 
 if __name__ == "__main__":

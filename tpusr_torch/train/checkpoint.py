@@ -4,8 +4,11 @@
 
 The files are the port's own format: ``directory/name`` holds the tree's
 leaves by path, on the host; ``directory/name.meta.json`` the metadata.
-Orbax and ``.h5`` interop are not ported yet. In a process group only rank
-0 writes (``dist.is_writer``); the other ranks return the same path.
+Keras ``.h5`` interop lives in ``keras_import``/``keras_export`` (the
+port's own HDF5 codec, ``hdf5.py``). Orbax directories are the JAX
+package's format; the route from one into the port is the ``.h5`` that the
+JAX package's ``convert`` writes. In a process group only rank 0 writes
+(``dist.is_writer``); the other ranks return the same path.
 """
 
 from __future__ import annotations
