@@ -210,7 +210,16 @@ its own lines:
    --vgg19-weights`` on a VGG19 notop ``.h5`` against the same weights as
    ``.npz`` (first step's losses equal; K2 forward and dX held as in 18);
    the ImageNet tool's ``.h5`` -> ``.npz``; each file's size, write and
-   read ms.
+   read ms;
+24. ``preprocess`` (``PreprocessSlice``, ``data/video.py``): the JPEG
+   encoder's bytes, the MJPEG-AVI reader's rate, count and frames and
+   ``resize_u8`` on the card against the cv2 fixtures in
+   ``tests/data/video``; the crop, resize and degradation on the card
+   against the CPU on the same draws (the core within 1e-5, the PNGs equal
+   but where a value rounds apart at uint8); ``cli preprocess`` on the
+   1280x720 clip with ``--hr-size 512`` and without and on the odd-width
+   clip, timed per frame by stage; ``train-edsr --scale 2`` on its pairs
+   with its first step held against K2's twin.
 
 ``python3 chip_smoke.py --dist-cards N`` (N cards) runs only the
 parallelism layer over N NCCL ranks, one card each: DP EDSR x4 at a global
@@ -221,9 +230,10 @@ dense one), then ``tpusr_torch.entry.dryrun_multichip(N)``.
 
 Phase 8 also prints which stage of the fused f32 SR first differs between
 an image alone (N = 1) and the same image in the batch of 16, each stage
-run on shared inputs (``sr_stage_diffs``). Each path (8-23) is driven with
+run on shared inputs (``sr_stage_diffs``). Each path (8-24) is driven with
 the launch counts set to 0 just before it and read just after (23: each
-of its main-path runs, summed). Before the last line it prints one JSON object with a
+of its main-path runs, summed; 24: the training run, the only one that
+launches a kernel). Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
 dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
@@ -237,7 +247,7 @@ every path's launches by name; K2's record carries an ``inference`` object,
 its ms, bound and ``F.conv2d`` ms summed over each SR path's launches, and
 a ``poly`` object, phase 21's launches, forward ms beside the fused path's
 and K2's sums at its shapes; ``launches_by_path`` also has ``eda``,
-``poly`` and ``h5``) and the
+``poly``, ``h5`` and ``preprocess``) and the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
@@ -5851,6 +5861,469 @@ def phase_h5(s: H5Slice, cfg: Slice, dev, seed: int, sync, card: str) -> dict:
     return {"launches": total, "ms": ms}
 
 
+# --------------------------------------------------------------- preprocess
+
+VIDEO_FIXTURES = os.path.join(REPO, "tests", "data", "video")
+
+
+@dataclass(frozen=True)
+class PreprocessSlice:
+    """``preprocess`` on the committed clips (``tests/data/video``): a clip
+    at the size users record (1280x720 MJPEG, 10 fps, 40 frames of a print
+    moving over the bed) with ``--hr-size 512`` and without, the 59x80 clip
+    whose odd crop is trimmed (``--predictions``), then ``train-edsr
+    --scale 2`` for ``edsr_epochs`` on the 512^2 pairs."""
+    clip: str = "print_720p.avi"
+    odd_clip: str = "odd_59x80.avi"
+    hr_size: int = 512
+    edsr_epochs: int = 1
+    frame_stride: int = 5     # the 720p frames held to cv2's hashes
+    cpu_frames: tuple = (0, 10)   # degraded on the card and on the CPU
+    seed: int = 900
+
+
+def video_pattern(h: int, w: int, kind: str) -> np.ndarray:
+    """``tests/data/video/make_fixtures.py``'s ``pattern``: the resize
+    fixtures' inputs, rebuilt from integer arithmetic."""
+    y = np.arange(h, dtype=np.uint64)[:, None, None]
+    x = np.arange(w, dtype=np.uint64)[None, :, None]
+    c = np.arange(3, dtype=np.uint64)[None, None, :]
+    if kind == "noise":
+        v = (x * np.uint64(2654435761) + y * np.uint64(40503)
+             + c * np.uint64(97)) & np.uint64(0xFFFFFFFF)
+        v ^= v >> np.uint64(13)
+        v = (v * np.uint64(1274126177)) & np.uint64(0xFFFFFFFF)
+        v ^= v >> np.uint64(16)
+        return (v & np.uint64(255)).astype(np.uint8)
+    t = (x * np.uint64(5) + y * np.uint64(3) + c * np.uint64(70)) % np.uint64(510)
+    return np.abs(t.astype(np.int64) - 255).astype(np.uint8)
+
+
+def _sha(a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()
+                          if isinstance(a, np.ndarray) else a).hexdigest()
+
+
+def check_video_fixtures(p: PreprocessSlice, dev, sync, card: str) -> dict:
+    """The JPEG encoder's bytes, the AVI reader's rate, count and frames,
+    and ``resize_u8`` on the card against what OpenCV wrote into
+    ``tests/data/video`` (``manifest.json``)."""
+    from tpusr_torch.data import avi
+    from tpusr_torch.data._cv_ops import resize_u8
+    from tpusr_torch.pipeline.jpeg_encode import encode_jpeg_u8
+    from tpusr_torch.pipeline.png import decode_png_u8
+
+    with open(os.path.join(VIDEO_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+
+    def png(name):
+        with open(os.path.join(VIDEO_FIXTURES, name), "rb") as f:
+            return decode_png_u8(f.read())
+
+    n_enc = 0
+    for size, entry in manifest["encode"].items():
+        rgb = png(f"enc_{size}.png")
+        check(_sha(rgb) == entry["input_sha256"],
+              f"encoder fixture {size}: the input PNG reads differently")
+        for q, digest in entry["jpeg_sha256"].items():
+            got = encode_jpeg_u8(rgb, int(q))
+            check(_sha(got) == digest,
+                  f"JPEG encoder at {size} q{q}: bytes differ from "
+                  f"cv2.imencode's")
+            n_enc += 1
+    big = png("enc_256x256.png")
+    enc_ms = min(host_ms(lambda: encode_jpeg_u8(big, 40), sync)
+                 for _ in range(3))
+    print(f"[preprocess] {card}: JPEG encoder equal to cv2.imencode byte for "
+          f"byte on {n_enc} fixtures (5 sizes x q 1, 20, 37, 59, 75, 100); "
+          f"256^2 at q 40 in {enc_ms:.1f} ms (host)")
+
+    frames_held = 0
+    for name, entry in manifest["clips"].items():
+        video = avi.read_avi(os.path.join(VIDEO_FIXTURES, name))
+        check((len(video), video.fps) == (entry["frames"], entry["fps"]),
+              f"{name}: {len(video)} frames at {video.fps} fps, cv2 reads "
+              f"{entry['frames']} at {entry['fps']}")
+        idx = (range(0, len(video), p.frame_stride) if len(video) > 30
+               else range(len(video)))
+        idx = sorted(set(idx) | set(entry["png_frames"]))
+        for i in idx:
+            frame = video.frame(i)
+            check(_sha(frame) == entry["sha256"][i],
+                  f"{name} frame {i}: differs from cv2.VideoCapture's")
+            if i in entry["png_frames"]:
+                twin = png(f"{name[:-4]}_f{i}.png")
+                check(np.array_equal(twin, frame[..., ::-1]),
+                      f"{name} frame {i}: differs from its cv2 PNG")
+            frames_held += 1
+    video = avi.read_avi(os.path.join(VIDEO_FIXTURES, p.clip))
+    decode_ms = min(host_ms(lambda: video.frame(0), sync) for _ in range(2))
+    print(f"[preprocess] {card}: AVI reader: rate and frame count of "
+          f"{len(manifest['clips'])} clips equal to cv2's, {frames_held} frames "
+          f"equal to cv2.VideoCapture's (FFmpeg) by sha256; a 1280x720 frame "
+          f"decodes in {decode_ms:.0f} ms (host)")
+
+    counts = []
+    for case in manifest["resize"]:
+        img = video_pattern(*case["in"], case["kind"])
+        check(_sha(img) == case["input_sha256"],
+              f"resize fixture {case['in']}: the pattern differs")
+        got = resize_u8(torch.from_numpy(img).to(dev), tuple(case["out"]),
+                        case["method"]).cpu().numpy()
+        if case["port_mismatch"]:
+            want = png(case["png"])[..., ::-1]
+            n = int((got != want).sum())
+            d = int(np.abs(got.astype(int) - want).max())
+            check(n == case["port_mismatch"] and d <= 1,
+                  f"resize {case['method']} {case['in']} -> {case['out']}: "
+                  f"{n} values differ from cv2 (max {d}), "
+                  f"{case['port_mismatch']} recorded")
+            counts.append((case["in"], case["out"], n))
+        else:
+            check(_sha(got) == case["sha256"],
+                  f"resize {case['method']} {case['in']} -> {case['out']} "
+                  f"{case['kind']}: differs from cv2.resize")
+    print(f"[preprocess] {card}: resize_u8 on the card: {len(manifest['resize'])}"
+          f" cases; equal to cv2.resize on all but the x3 INTER_CUBIC ones, "
+          f"which differ where recorded (in, out, values): {counts}")
+    return {"encode_ms": enc_ms, "decode_ms": decode_ms}
+
+
+def _mcu_cover(diff: np.ndarray) -> np.ndarray:
+    """The pixels that a change of the True values of ``diff`` (h, w) can
+    move through a JPEG round trip: their 16x16 MCUs, and one pixel around
+    them (the decoder's triangle upsampling reads the next chroma
+    sample)."""
+    h, w = diff.shape
+    ph, pw = -(-h // 16) * 16, -(-w // 16) * 16
+    d = np.zeros((ph, pw), bool)
+    d[:h, :w] = diff
+    m = d.reshape(ph // 16, 16, pw // 16, 16).any(axis=(1, 3))
+    m = np.pad(np.repeat(np.repeat(m, 16, 0), 16, 1)[:h, :w], 1)
+    grown = m.copy()
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            grown[1:-1, 1:-1] |= m[1 + dy: h + 1 + dy, 1 + dx: w + 1 + dx]
+    return grown[1:-1, 1:-1]
+
+
+def card_against_cpu(p: PreprocessSlice, dev, card: str) -> dict:
+    """Frames of the clip cropped, resized and degraded on the card and on
+    the CPU with the same draws (from a CPU generator, moved to the card):
+    the crops equal, the degradation core within 1e-5, then the JPEG round
+    trip equal where the uint8 image fed to the encoder is (else confined
+    to the 16x16 blocks that hold a value that rounded apart, which is
+    counted); the extractor's PNGs from both devices: HR equal, LR equal
+    but where (or, after the JPEG stage, inside the blocks where) the core's
+    outputs rounded apart."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from tpusr_torch.data import _cv_ops as cv
+    from tpusr_torch.data import avi, degrade, video as tv
+    from tpusr_torch.data.degrade import (degrade_image_core, jpeg_roundtrip,
+                                          sample_draws)
+    from tpusr_torch.pipeline.png import decode_png_u8
+
+    clip = avi.read_avi(os.path.join(VIDEO_FIXTURES, p.clip))
+    frames = [clip.frame(i) for i in p.cpu_frames]
+    worst, apart, spread = 0.0, 0, 0
+    g = torch.Generator().manual_seed(p.seed)
+    for i, frame in zip(p.cpu_frames, frames):
+        crops = [cv.resize_u8(tv.smart_square_crop(torch.from_numpy(
+            frame).to(d)), (p.hr_size, p.hr_size), "area").cpu()
+            for d in (dev, torch.device("cpu"))]
+        check(torch.equal(*crops),
+              f"frame {i}: the crop + resize differs between card and CPU")
+        hr = crops[1].flip(-1).float() / 255.0
+        draws = dataclasses.replace(sample_draws(g, tuple(hr.shape)),
+                                    jpeg=True)
+        lr_dev, _ = degrade_image_core(hr.to(dev), draws)
+        lr_cpu, _ = degrade_image_core(hr, draws)
+        err = float((lr_dev.cpu() - lr_cpu).abs().max())
+        check(err <= 1e-5, f"frame {i}: the degradation core on the card "
+                           f"differs from the CPU's by {err} > 1e-5")
+        worst = max(worst, err)
+        u8 = [np.clip(t.cpu().numpy() * 255.0, 0, 255).round() for t in
+              (lr_dev, lr_cpu)]
+        diff = (u8[0] != u8[1]).any(-1)
+        apart += int(diff.sum())
+        out = [jpeg_roundtrip(t, draws.jpeg_quality).cpu().numpy()
+               for t in (lr_dev, lr_cpu)]
+        moved = (out[0] != out[1]).any(-1)
+        check(not (moved & ~_mcu_cover(diff)).any(),
+              f"frame {i}: the JPEG round trip differs outside the blocks "
+              f"whose encoder input rounded apart")
+        spread += int(moved.sum())
+    work = tempfile.mkdtemp(prefix="chip_smoke_preprocess_")
+    cores = {"cuda": [], "cpu": []}
+
+    def keep(d):
+        def wrap(orig):
+            def run(hr01, draws, *a, **kw):
+                lr, idx = orig(hr01, draws, *a, **kw)
+                cores[d].append((lr.cpu().numpy(), draws.jpeg))
+                return lr, idx
+            return run
+        return wrap
+
+    try:
+        for d in ("cuda", "cpu"):
+            with patched(degrade, degrade_image_core=keep(d)):
+                tv.create_hr_lr_images_from_frames(
+                    frames, 1.0, os.path.join(work, d, "HR"),
+                    os.path.join(work, d, "LR"), hr_size=p.hr_size,
+                    device=dev if d == "cuda" else "cpu",
+                    generator=torch.Generator().manual_seed(p.seed + 1))
+        png_apart = 0
+        names = sorted(os.listdir(os.path.join(work, "cpu", "HR")))
+        for name, (a_core, jpeg), (b_core, _) in zip(names, cores["cuda"],
+                                                     cores["cpu"]):
+            a, b = (decode_png_u8(open(os.path.join(work, d, "HR", name),
+                                       "rb").read()) for d in ("cuda", "cpu"))
+            check(np.array_equal(a, b), f"{name}: the HR PNG differs between "
+                                        f"card and CPU")
+            a, b = (decode_png_u8(open(os.path.join(work, d, "LR", name),
+                                       "rb").read()) for d in ("cuda", "cpu"))
+            rounded = (np.clip(a_core * 255.0, 0, 255).round()
+                       != np.clip(b_core * 255.0, 0, 255).round()).any(-1)
+            moved = (a != b).any(-1)
+            allowed = _mcu_cover(rounded) if jpeg else rounded
+            check(not (moved & ~allowed).any(),
+                  f"{name}: the LR PNG differs between card and CPU beyond "
+                  f"the values that rounded apart")
+            png_apart += int(moved.sum())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[preprocess] {card}: card against CPU on {len(frames)} frames of "
+          f"{p.clip} with the same draws: crop + INTER_AREA resize equal; "
+          f"the degradation core within {worst:.3g} (<= 1e-5); {apart} LR "
+          f"pixels rounded apart at uint8, the JPEG round trip differing at "
+          f"{spread} pixels, all inside their 16x16 blocks; the written PNGs: "
+          f"HR equal, LR differing at {png_apart} pixels, all where a value "
+          f"rounded apart (or inside its blocks after the JPEG stage)")
+    return {"core_err": worst, "u8_apart": apart, "png_apart": png_apart}
+
+
+class preprocess_stage_times:
+    """While open, time each stage of ``preprocess`` per call: the frame
+    decode, the crop, the resize, the JPEG round trip and the PNG writes on
+    the host clock (each ended by a device barrier), the degradation core
+    by CUDA events."""
+
+    STAGES = ("decode", "crop", "resize", "jpeg", "png")
+
+    def __init__(self, sync):
+        self.sync = sync
+
+    def __enter__(self):
+        from tpusr_torch.data import _cv_ops, avi, degrade, video
+        self.ms = {k: [] for k in self.STAGES}
+        self.events = []
+
+        def host(key):
+            def wrap(orig):
+                def run(*a, **kw):
+                    t0 = time.perf_counter()
+                    out = orig(*a, **kw)
+                    self.sync()
+                    self.ms[key].append((time.perf_counter() - t0) * 1e3)
+                    return out
+                return run
+            return wrap
+
+        def device(orig):
+            def run(*a, **kw):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = orig(*a, **kw)
+                ev[1].record()
+                self.events.append(ev)
+                return out
+            return run
+
+        self._p = [patched(avi, decode_mjpeg_frame=host("decode")),
+                   patched(video, smart_square_crop=host("crop"),
+                           encode_png_u8=host("png")),
+                   patched(_cv_ops, resize_u8=host("resize")),
+                   patched(degrade, degrade_image_core=device,
+                           jpeg_roundtrip=host("jpeg"))]
+        for q in self._p:
+            q.__enter__()
+        return self
+
+    def per_frame(self, frames: int) -> dict:
+        self.sync()
+        out = {k: sum(v) / frames for k, v in self.ms.items()}
+        out["degrade_device"] = sum(a.elapsed_time(b)
+                                    for a, b in self.events) / frames
+        return out
+
+    def __exit__(self, *exc):
+        for q in self._p[::-1]:
+            q.__exit__(*exc)
+
+
+def edsr_x2_train_layers(n: int, h: int, blocks: int, f: int) -> list:
+    """(conv, forward shape, relu) of every conv of an x2 EDSR's training
+    forward, in order (``edsr_train_layers`` at x2: one upsample conv)."""
+    out = [("head", (n, h, h, 3, f), False)]
+    for i in range(blocks):
+        out += [(f"res{i}.conv1", (n, h, h, f, f), True),
+                (f"res{i}.conv2", (n, h, h, f, f), False)]
+    return out + [("body", (n, h, h, f, f), False),
+                  ("up0", (n, h, h, f, 4 * f), False),
+                  ("tail", (n, 2 * h, 2 * h, f, 3), False)]
+
+
+def phase_preprocess(p: PreprocessSlice, dev, seed: int, sync,
+                     card: str) -> dict:
+    """The ``preprocess`` command on the card: the committed fixtures (the
+    encoder's bytes, the reader's frames, ``resize_u8``), the card against
+    the CPU on the same draws, then ``python -m tpusr_torch.cli
+    preprocess`` (in process) on the 720p clip with ``--hr-size`` and
+    without and on the odd clip, each stage timed per frame, then
+    ``train-edsr --scale 2`` on the pairs it wrote with its first step held
+    against K2's twin. The training run is driven with the launch counts
+    set to 0 just before it and read just after. Returns its launches."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from tpusr_torch.cli.__main__ import main as cli_main
+    from tpusr_torch.config import EDSRConfig
+    from tpusr_torch.pipeline.png import decode_png_u8
+
+    t_phase = time.perf_counter()
+    fixtures = check_video_fixtures(p, dev, sync, card)
+    parity = card_against_cpu(p, dev, card)
+    work = tempfile.mkdtemp(prefix="chip_smoke_preprocess_")
+    interp_names = {"INTER_LINEAR", "INTER_CUBIC", "INTER_AREA",
+                    "INTER_LANCZOS4"}
+    clip = os.path.join(VIDEO_FIXTURES, p.clip)
+    runs = {}
+    try:
+        for tag, extra, side in ((f"hr{p.hr_size}", ["--hr-size",
+                                                     str(p.hr_size)],
+                                  p.hr_size),
+                                 ("crop", [], 720)):
+            root = os.path.join(work, tag)
+            argv = ["preprocess", "--video", clip, "--hr-dir",
+                    os.path.join(root, "HR"), "--lr-dir",
+                    os.path.join(root, "LR"), "--interp-map",
+                    os.path.join(root, "interp_map.pkl"), "--class-map",
+                    os.path.join(root, "class_map.pkl"), "--class-id", "1",
+                    "--seed", str(seed), *extra, "--device", "cuda"]
+            with preprocess_stage_times(sync) as st:
+                reset_counts()
+                t0 = time.perf_counter()
+                cli_main(argv)
+                sync()
+                wall = time.perf_counter() - t0
+                got = read_counts()
+            check(got == launches_want(),
+                  f"preprocess {tag}: launched kernels {got}")
+            names = sorted(os.listdir(os.path.join(root, "HR")))
+            check(names == [f"sample_{i:05d}.png" for i in range(4)]
+                  and sorted(os.listdir(os.path.join(root, "LR"))) == names,
+                  f"preprocess {tag}: wrote {names}")
+            for name in names:
+                hr = decode_png_u8(open(os.path.join(root, "HR", name),
+                                        "rb").read())
+                lr = decode_png_u8(open(os.path.join(root, "LR", name),
+                                        "rb").read())
+                check(hr.shape == (side, side, 3)
+                      and lr.shape == (side // 2, side // 2, 3),
+                      f"preprocess {tag} {name}: HR {hr.shape} LR {lr.shape}")
+            imap = pickle.load(open(os.path.join(root, "interp_map.pkl"), "rb"))
+            cmap = pickle.load(open(os.path.join(root, "class_map.pkl"), "rb"))
+            check(sorted(imap) == names and set(imap.values()) <= interp_names
+                  and cmap == {n: 1 for n in names},
+                  f"preprocess {tag}: maps {imap} {cmap}")
+            ms = st.per_frame(len(names))
+            runs[tag] = {"wall_s": wall, "pairs": len(names), **ms}
+            print(f"[preprocess] {card}: preprocess {' '.join(extra) or '(no '
+                  f'--hr-size)'} --device cuda on {p.clip} (1280x720, 40 "
+                  f"frames at 10 fps): {len(names)} pairs of {side}^2 / "
+                  f"{side // 2}^2 in {wall:.2f} s; per frame: read + decode "
+                  f"{ms['decode']:.1f} ms, crop {ms['crop']:.1f} ms, resize "
+                  f"{ms['resize']:.1f} ms, degrade {ms['degrade_device']:.2f}"
+                  f" ms (device, CUDA events), JPEG round trip "
+                  f"{ms['jpeg']:.1f} ms, PNG write {ms['png']:.1f} ms "
+                  f"(host); interps {sorted(set(imap.values()))}")
+        root = os.path.join(work, "odd")
+        cli_main(["preprocess", "--video", os.path.join(VIDEO_FIXTURES,
+                                                        p.odd_clip),
+                  "--hr-dir", os.path.join(root, "HR"), "--lr-dir",
+                  os.path.join(root, "LR"), "--predictions", "--class-map",
+                  os.path.join(root, "p.pkl"), "--class-id", "2",
+                  "--device", "cuda"])
+        names = sorted(os.listdir(os.path.join(root, "HR")))
+        hr = decode_png_u8(open(os.path.join(root, "HR", names[0]), "rb").read())
+        check(len(names) == 2 and hr.shape == (58, 58, 3)
+              and pickle.load(open(os.path.join(root, "p.pkl"), "rb"))
+              == {n: 2 for n in names},
+              f"preprocess --predictions on {p.odd_clip}: {names} {hr.shape}")
+        print(f"[preprocess] {card}: preprocess --predictions on "
+              f"{p.odd_clip}: {len(names)} pairs, the 59^2 crop trimmed to "
+              f"58^2, the predictions class map written")
+
+        # train-edsr --scale 2 on the 512^2 pairs the command wrote
+        ed = EDSRConfig()
+        data = os.path.join(work, f"hr{p.hr_size}")
+        argv = ["train-edsr", "--hr-dir", os.path.join(data, "HR"),
+                "--lr-dir", os.path.join(data, "LR"), "--scale", "2",
+                "--epochs", str(p.edsr_epochs), "--out",
+                os.path.join(work, "ck"), "--device", "cuda"]
+        with (count_plain_calls() as plain, split_sizes() as sp,
+              first_train_step() as first):
+            reset_counts()
+            t0 = time.perf_counter()
+            path = cli_main(argv)
+            sync()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+        check(plain.n == 0, f"train-edsr: plain twins on the card "
+                            f"{plain.by_twin}")
+        (sizes,) = sp.sizes
+        per_step = (2 * (2 * ed.num_res_blocks + 4) - 1,
+                    2 * ed.num_res_blocks + 4)
+        want_k2 = k2_command_launches(sizes, 16, p.edsr_epochs, *per_step,
+                                      False)
+        check(got == launches_want(conv3x3_bias_act=want_k2),
+              f"train-edsr on the preprocess pairs: launches {got}, expected "
+              f"{want_k2} K2 and no other")
+        meta = json.load(open(path + ".meta.json"))
+        ev = meta["eval"]
+        check(math.isfinite(ev["loss"]) and math.isfinite(ev["psnr"]),
+              f"train-edsr on the preprocess pairs: eval {ev}")
+        tr, w, x, y = first.got
+        n, lr_side = x.shape[0], x.shape[1]
+        par = w["params"]
+        line = command_step_against_twin(
+            "train-edsr x2", edsr_x2_train_layers(n, lr_side,
+                                                  ed.num_res_blocks,
+                                                  ed.num_filters), par,
+            lambda: tr._apply(par, x),
+            lambda: tr._loss(par, x, y, tr._ones_weights(n), 0)[0])
+        del first.got, tr, w, x, y, par
+        print(f"[preprocess] {card}: train-edsr --scale 2 on the "
+              f"{p.hr_size}^2 pairs: split {sizes[0]}/{sizes[1]}/{sizes[2]} "
+              f"patches, {p.edsr_epochs} epoch in {wall:.1f} s, eval loss "
+              f"{ev['loss']:.5f}, PSNR {ev['psnr']:.2f} dB; K2 "
+              f"{got['conv3x3_bias_act']} launches ({per_step[0]} a train "
+              f"step, {per_step[1]} an eval step); {line}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ms = (time.perf_counter() - t_phase) * 1e3
+    print(f"[preprocess] {card}: phase_preprocess {ms:.0f} ms")
+    return {"launches": got, "runs": runs, "fixtures": fixtures,
+            "parity": parity, "ms": ms}
+
+
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
     rec = {"name": name, "route": "cuda",
            "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
@@ -5965,6 +6438,8 @@ def main() -> int:
         phase_winograd(WinogradSlice(), dev, args.seed, card)
         torch.cuda.empty_cache()
         h5 = phase_h5(H5Slice(), cfg, dev, args.seed, sync, card)
+        torch.cuda.empty_cache()
+        pre = phase_preprocess(PreprocessSlice(), dev, args.seed, sync, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6033,7 +6508,8 @@ def main() -> int:
                for path, n in dist_res["launches"].items()},
             "eda": eda["launches"].get(rec["name"], 0),
             "poly": poly["launches"].get(rec["name"], 0),
-            "h5": h5["launches"].get(rec["name"], 0)}
+            "h5": h5["launches"].get(rec["name"], 0),
+            "preprocess": pre["launches"].get(rec["name"], 0)}
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

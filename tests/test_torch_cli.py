@@ -12,8 +12,8 @@ package's (``tpusr/cli/__main__.py``) on the CPU (``--device cpu``).
   confidences and PSNR/SSIM within 1e-4;
 - the port's own chain ``train-*`` -> ``pipeline`` on the trained
   checkpoints, ``--resume`` continuing Adam's step count, and the commands
-  that exit with a message (no card, ``--vgg19-weights``, ``preprocess``,
-  ``convert``);
+  that exit with a message (no card, ``--vgg19-weights``, ``convert``), and
+  ``preprocess --predictions``;
 - ``eda`` writes the JAX command's ``eda_metrics.csv`` and
   ``eda_summary.csv`` (numerically at rtol 1e-4, LPIPS within 1e-5, on the
   same LPIPS npz), and the loaders read baseline JPEG pairs as the JAX
@@ -186,14 +186,32 @@ def test_a_command_refuses_to_run_without_a_card(data, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["preprocess", "--video", "v.mp4", "--hr-dir", "h", "--lr-dir", "l"],
-     "video decoder"),
     (["convert", "--model", "esrgan", "--src", "ckpt", "--disc", "d.h5"],
      "--disc only applies"),
-], ids=["preprocess", "convert"])
+], ids=["convert"])
 def test_commands_not_ported_exit_naming_what_they_lack(argv, match):
     with pytest.raises(SystemExit, match=match):
         tcli.main(argv)
+
+
+def test_preprocess_runs_the_prediction_variant(tmp_path, capsys):
+    """``preprocess --predictions`` on the committed 80x60 clip (the JAX
+    video tests' clip): cell 5's pairs and class map, no interpolation
+    map; against the JAX command in tests/test_torch_video.py."""
+    import pickle
+
+    clip = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "video", "clip_80x60.avi")
+    tcli.main(["preprocess", "--video", clip, "--hr-dir", str(tmp_path / "H"),
+               "--lr-dir", str(tmp_path / "L"), "--predictions",
+               "--class-map", str(tmp_path / "p.pkl"), "--class-id", "0",
+               "--frame-interval", "2", "--device", "cpu"])
+    assert "wrote 2 HR/LR pairs" in capsys.readouterr().out
+    names = sorted(os.listdir(tmp_path / "H"))
+    assert names == ["sample_00000.png", "sample_00001.png"]
+    assert sorted(os.listdir(tmp_path / "L")) == names
+    with open(tmp_path / "p.pkl", "rb") as f:
+        assert pickle.load(f) == {n: 0 for n in names}
 
 
 @pytest.mark.parametrize("cmd", TRAIN_COMMANDS)

@@ -8,6 +8,11 @@ noise), hands them to the port's core, and compares the LR images at atol
 1e-5 on [0, 1] (blur sums, the resize matrix products and the noise add in
 float32, in another order). The keys are chosen to cover every branch: each
 Gaussian size, each motion size, each interpolation, noise on and off.
+
+The JPEG stage takes JAX's ``split(fold_in(key, 7))`` draws too, so
+``degrade_image(apply_jpeg=True)`` runs on JAX's own choices; the port's
+encoder and decoder are held to cv2's bytes and pixels, so the round trip is
+equal wherever the uint8 image fed to the encoder is.
 """
 
 import jax
@@ -31,6 +36,7 @@ def jax_draws(key, hr_shape, cfg=td.DegradeConfig()) -> td.DegradeDraws:
     m_idx = int(jax.random.randint(keys[4], (), 0, len(cfg.motion_ksizes)))
     noise = jax.random.normal(jax.random.fold_in(key, 99),
                               td.lr_shape(hr_shape, cfg))
+    j1, j2 = jax.random.split(jax.random.fold_in(key, 7))
     return td.DegradeDraws(
         blur=bool(jax.random.uniform(keys[0]) < cfg.p_gauss_blur),
         ksize=cfg.gauss_ksizes[k_idx],
@@ -42,7 +48,10 @@ def jax_draws(key, hr_shape, cfg=td.DegradeConfig()) -> td.DegradeDraws:
         noise=bool(jax.random.uniform(keys[6]) < cfg.p_noise),
         noise_std=float(jax.random.uniform(keys[7], minval=cfg.noise_range[0],
                                            maxval=cfg.noise_range[1])),
-        noise_tensor=torch.from_numpy(np.array(noise)))
+        noise_tensor=torch.from_numpy(np.array(noise)),
+        jpeg=bool(float(jax.random.uniform(j1)) < cfg.p_jpeg),
+        jpeg_quality=int(jax.random.randint(j2, (), cfg.jpeg_q_range[0],
+                                            cfg.jpeg_q_range[1])))
 
 
 def _covering_seeds(n_max=200):
@@ -150,9 +159,80 @@ def test_degrade_image_wraps_the_draws_and_the_core():
     assert lr.min() >= 0.0 and lr.max() <= 1.0
 
 
-def test_jpeg_stage_raises_naming_the_missing_encoder():
-    hr = np.zeros(HR_SHAPE, np.float32)
-    with pytest.raises(NotImplementedError, match="JPEG encoder"):
-        td.degrade_image(hr)
-    with pytest.raises(NotImplementedError, match="apply_jpeg=False"):
-        td.degrade_image(hr, apply_jpeg=True)
+def _jpeg_seeds():
+    """The first seeds whose JPEG draws take the stage off once and on at
+    four qualities."""
+    off, on = [], {}
+    for s in range(100):
+        d = jax_draws(jax.random.PRNGKey(s), HR_SHAPE)
+        if d.jpeg and d.jpeg_quality not in on and len(on) < 4:
+            on[d.jpeg_quality] = s
+        elif not d.jpeg and not off:
+            off.append(s)
+        if off and len(on) == 4:
+            return off + sorted(on.values())
+    raise AssertionError("no JPEG seeds")
+
+
+JPEG_SEEDS = _jpeg_seeds()
+
+
+def _u8(lr01):
+    return np.clip(np.asarray(lr01) * 255.0, 0, 255).round().astype(np.uint8)
+
+
+@pytest.mark.parametrize("seed", JPEG_SEEDS)
+def test_degrade_image_with_jpeg_on_jax_draws_equals_jax(seed):
+    """``degrade_image(apply_jpeg=True)`` against JAX's on JAX's draws: first
+    the uint8 image the encoder is fed (the cores agree within 1e-5, which
+    can still round apart at a half level), then the round trip."""
+    hr = np.random.default_rng(seed).random(HR_SHAPE).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    draws = jax_draws(key, HR_SHAPE)
+    core_j, _ = jd.degrade_image_core(jnp.asarray(hr), key)
+    core_t, _ = td.degrade_image_core(torch.from_numpy(hr), draws)
+    n_apart = int((_u8(core_j) != _u8(core_t.numpy())).sum())
+    assert n_apart == 0, f"{n_apart} uint8 encoder inputs round apart"
+    want, w_name = jd.degrade_image(hr, key=key, apply_jpeg=True)
+    got, g_name = td.degrade_with_draws(torch.from_numpy(hr), draws,
+                                        apply_jpeg=True, to_numpy=True)
+    assert g_name == w_name and got.dtype == np.float32
+    if draws.jpeg:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_jpeg_seeds_take_the_stage_off_and_on_at_several_qualities():
+    draws = [jax_draws(jax.random.PRNGKey(s), HR_SHAPE) for s in JPEG_SEEDS]
+    assert [d.jpeg for d in draws].count(False) == 1
+    assert len({d.jpeg_quality for d in draws if d.jpeg}) == 4
+    assert all(20 <= d.jpeg_quality < 60 for d in draws)
+
+
+@pytest.mark.parametrize("quality", [20, 41, 59])
+def test_jpeg_roundtrip_equals_jax(quality):
+    lr = np.random.default_rng(quality).random((17, 23, 3)).astype(np.float32)
+    want = jd.jpeg_roundtrip(lr, quality)
+    got = td.jpeg_roundtrip(lr, quality)
+    np.testing.assert_array_equal(got, want)
+    got_t = td.jpeg_roundtrip(torch.from_numpy(lr), quality)
+    assert isinstance(got_t, torch.Tensor)
+    np.testing.assert_array_equal(got_t.numpy(), want)
+
+
+def test_sample_draws_takes_the_jpeg_draws_last():
+    cfg = td.DegradeConfig()
+    draws = [td.sample_draws(torch.Generator().manual_seed(s), HR_SHAPE, cfg)
+             for s in range(64)]
+    assert {d.jpeg for d in draws} == {False, True}
+    assert all(20 <= d.jpeg_quality < 60 for d in draws)
+    g = torch.Generator().manual_seed(7)
+    d = td.sample_draws(g, HR_SHAPE, cfg)
+    g2 = torch.Generator().manual_seed(7)
+    for n in (0, 3, 0, 0, 3, 4, 0, 0):     # the core's draws, in order
+        torch.rand((), generator=g2) if n == 0 else \
+            torch.randint(n, (), generator=g2)
+    torch.randn(td.lr_shape(HR_SHAPE, cfg), generator=g2)
+    assert d.jpeg == (float(torch.rand((), generator=g2)) < cfg.p_jpeg)
+    assert d.jpeg_quality == 20 + int(torch.randint(40, (), generator=g2))

@@ -237,36 +237,112 @@ def test_color_conversions_equal_cv2_on_every_triple():
 def _resize_pair(method, factor, seed, hw):
     img = np.random.default_rng(seed).integers(0, 256, (*hw, 3), dtype=np.uint8)
     h, w = hw
-    got = ops.resize_u8(torch.from_numpy(img), (h * factor, w * factor), method)
-    want = cv2.resize(img, (w * factor, h * factor),
-                      interpolation=CV2_INTERP[method])
+    oh, ow = int(h * factor), int(w * factor)
+    got = ops.resize_u8(torch.from_numpy(img), (oh, ow), method)
+    want = cv2.resize(img, (ow, oh), interpolation=CV2_INTERP[method])
     return got.numpy(), want
 
 
 @pytest.mark.parametrize("method,factor", [
     *((m, f) for m in CV2_INTERP for f in (2, 4)),
-    ("bilinear", 3), ("area", 3), ("lanczos4", 3)])
+    ("bilinear", 3), ("area", 3), ("lanczos4", 3), ("bicubic", 2.5)])
 def test_uint8_enlarging_resize_equals_cv2_at_integral_ratios(method, factor):
     """The EDA's alignment (LR 128^2 -> HR 512^2 in the reference's
-    dataset) at x2 and x4 for all four methods, x3 for three."""
+    dataset) at x2 and x4 for all four methods, x3 for three; bicubic, which
+    OpenCV hands to Intel IPP, at x2.5 too."""
     for hw in ((12, 12), (16, 9), (32, 32)):
-        got, want = _resize_pair(method, factor, factor, hw)
+        seed = factor if isinstance(factor, int) else int(10 * factor)
+        got, want = _resize_pair(method, factor, seed, hw)
         np.testing.assert_array_equal(got, want)
 
 
+# (hw, values that differ) of INTER_CUBIC at x3 on _resize_pair's images
+X3_CUBIC_MISMATCH = {(12, 12): 4, (16, 9): 2, (32, 32): 29}
+
+
 def test_uint8_bicubic_at_x3_differs_from_cv2_by_at_most_one_level():
-    """A known difference (ROADMAP queue 3): ``INTER_CUBIC`` at a ratio
-    whose phases are not dyadic (x3 here) differs from OpenCV by one level
-    on about 2% of the values; the taps are equal, so the difference is in
-    how OpenCV's SIMD path sums them. Recorded here so that a change
-    shows."""
-    diff, total = 0, 0
-    for hw in ((12, 12), (16, 9), (32, 32)):
+    """A known difference (ROADMAP queue 3): OpenCV sends uint8
+    ``INTER_CUBIC`` to Intel IPP, whose float arithmetic ``ipp_cubic``
+    follows; at x3, whose phases (1/3, 2/3) are not dyadic, IPP's order of
+    summation is not yet matched, and a few half-level ties round the
+    other way (35 of 35,424 values here; 717 before the IPP path). The
+    counts are recorded so that a change shows."""
+    for hw, count in X3_CUBIC_MISMATCH.items():
         got, want = _resize_pair("bicubic", 3, 3, hw)
         d = np.abs(got.astype(int) - want)
         assert d.max() <= 1
-        diff, total = diff + int((d > 0).sum()), total + d.size
-    assert 0 < diff <= 0.03 * total, (diff, total)
+        assert int((d > 0).sum()) == count, (hw, int((d > 0).sum()))
+
+
+@pytest.mark.parametrize("hw,out", [((4, 4), (12, 12)), ((3, 4), (9, 12)),
+                                    ((12, 12), (10, 30)), ((30, 30), (12, 12)),
+                                    ((12, 12), (37, 37))])
+def test_uint8_bicubic_routes_like_opencv(hw, out):
+    """IPP takes sources of at least 4x4, shrinking and mixed ratios too;
+    smaller sources stay on OpenCV's own fixed-point path."""
+    img = np.random.default_rng(sum(hw)).integers(0, 256, (*hw, 3), np.uint8)
+    got = ops.resize_u8(torch.from_numpy(img), out, "bicubic").numpy()
+    want = cv2.resize(img, out[::-1], interpolation=cv2.INTER_CUBIC)
+    np.testing.assert_array_equal(got, want)
+
+
+def _smooth(size):
+    yy, xx = np.mgrid[0:size, 0:size]
+    return np.stack([(127 + 120 * np.sin(xx / 7.0 + yy / 11.0 + k))
+                     for k in range(3)], -1).astype(np.uint8)
+
+
+@pytest.mark.parametrize("size,out", [(64, 32), (96, 48), (60, 48), (45, 15),
+                                      (60, 20), (607, 512), (720, 512),
+                                      (1080, 512)])
+def test_uint8_area_shrink_equals_cv2(size, out):
+    """``INTER_AREA`` shrinking (the preprocess command's ``--hr-size``):
+    ``resizeAreaFast`` at integral ratios, ``resizeArea`` otherwise, on
+    noise and on a smooth image."""
+    noise = np.random.default_rng(size).integers(0, 256, (size, size, 3),
+                                                  dtype=np.uint8)
+    for img in (noise, _smooth(size)):
+        got = ops.resize_u8(torch.from_numpy(img), (out, out), "area").numpy()
+        want = cv2.resize(img, (out, out), interpolation=cv2.INTER_AREA)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_uint8_area_shrink_of_unequal_sides_equals_cv2():
+    img = np.random.default_rng(1).integers(0, 256, (90, 64, 3), np.uint8)
+    for out in ((45, 32), (30, 40), (17, 23)):
+        got = ops.resize_u8(torch.from_numpy(img), out, "area").numpy()
+        want = cv2.resize(img, out[::-1], interpolation=cv2.INTER_AREA)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_resize_fixtures_hold_cv2s_outputs():
+    """The committed resize cases (``tests/data/video/manifest.json``, which
+    ``chip_smoke.py`` holds the card to): the inputs rebuilt from integer
+    arithmetic, the port's output against cv2's hash, or against cv2's PNG
+    with the recorded count where the two differ."""
+    import hashlib
+    import importlib.util
+    import json
+    import os
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "video")
+    spec = importlib.util.spec_from_file_location(
+        "video_fixtures", os.path.join(here, "make_fixtures.py"))
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    with open(os.path.join(here, "manifest.json")) as f:
+        cases = json.load(f)["resize"]
+    for case in cases:
+        img = fx.pattern(*case["in"], case["kind"])
+        assert hashlib.sha256(img.tobytes()).hexdigest() == case["input_sha256"]
+        got = ops.resize_u8(torch.from_numpy(img), tuple(case["out"]),
+                            case["method"]).numpy()
+        if case["port_mismatch"]:
+            want = cv2.imread(os.path.join(here, case["png"]))
+            assert int((got != want).sum()) == case["port_mismatch"], case
+        else:
+            assert hashlib.sha256(got.tobytes()).hexdigest() == case["sha256"]
 
 
 def test_float_ops_match_cv2():

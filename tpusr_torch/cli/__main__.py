@@ -1,6 +1,7 @@
 """Command-line entry points of the port (port of ``tpusr/cli/__main__.py``):
 the reference's notebook flows, and the serving tier.
 
+    python -m tpusr_torch.cli preprocess   --video v.avi --hr-dir HR --lr-dir LR ...
     python -m tpusr_torch.cli classic      --hr-dir HR --lr-dir LR --out results/
     python -m tpusr_torch.cli train-srcnn  --hr-dir HR --lr-dir LR --interp-map m.pkl ...
     python -m tpusr_torch.cli train-edsr   --hr-dir HR --lr-dir LR ...
@@ -29,8 +30,10 @@ and its logs.
 ``eda`` runs the dataset EDA (``data/eda.py``) on the card and writes its
 CSVs, without the JAX command's figures. ``convert`` moves a model between
 the port's checkpoint and the reference's Keras ``.h5`` (the port's own
-HDF5 codec, ``train/hdf5.py``), both ways. ``preprocess`` (a video decoder)
-is listed with its JAX flags and exits with a message naming what it lacks.
+HDF5 codec, ``train/hdf5.py``), both ways. ``preprocess`` turns an MJPEG
+AVI into the HR/LR PNG pairs and maps the other commands read
+(``data/video.py``: the port's AVI reader, crop and JPEG codec; the
+degradation on the card).
 """
 
 from __future__ import annotations
@@ -183,11 +186,28 @@ def _compute_dtype(args) -> str:
 
 
 def cmd_preprocess(args):
-    raise SystemExit(
-        "tpusr_torch preprocess: not ported — it decodes video frames "
-        "(cv2.VideoCapture) and crops them with OpenCV, and the port has no "
-        "video decoder; run `python -m tpusr.cli preprocess` to write the "
-        "HR/LR PNG pairs and maps the other commands read")
+    """Video -> HR/LR PNG pairs and the sidecar maps (preprocessing cells 2
+    and 5; ``--predictions`` takes cell 5's variant)."""
+    from tpusr_torch.data.video import (
+        create_hr_lr_images_from_video,
+        create_hr_lr_prediction_images_from_video)
+
+    dev = _device(args)
+    kwargs = dict(video_path=args.video, hr_dir=args.hr_dir,
+                  lr_dir=args.lr_dir, skip_seconds=args.skip_seconds,
+                  frame_interval_seconds=args.frame_interval,
+                  hr_size=args.hr_size, prefix=args.prefix, seed=args.seed,
+                  max_frames=args.max_frames, device=dev)
+    if args.predictions:
+        written = create_hr_lr_prediction_images_from_video(
+            class_id=args.class_id, predictions_class_map_path=args.class_map,
+            **kwargs)
+    else:
+        written = create_hr_lr_images_from_video(
+            interpolation_map_path=args.interp_map,
+            class_labels_map_path=args.class_map, class_id=args.class_id,
+            **kwargs)
+    print(f"wrote {len(written)} HR/LR pairs")
 
 
 def cmd_classic(args):
@@ -775,8 +795,8 @@ def build_parser():
     p = argparse.ArgumentParser(prog="tpusr_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sp = sub.add_parser("preprocess", help="not ported: video -> HR/LR PNG "
-                        "pairs needs a video decoder")
+    sp = sub.add_parser("preprocess", help="MJPEG AVI video -> HR/LR PNG "
+                        "pairs and the interpolation/class maps")
     sp.add_argument("--video", required=True)
     sp.add_argument("--hr-dir", required=True)
     sp.add_argument("--lr-dir", required=True)
@@ -790,6 +810,7 @@ def build_parser():
     sp.add_argument("--predictions", action="store_true")
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--max-frames", type=int, default=None)
+    sp.add_argument("--device", default="cuda", help=DEVICE_HELP)
     sp.set_defaults(fn=cmd_preprocess)
 
     sp = sub.add_parser("classic", help="rank the eight classic SR "

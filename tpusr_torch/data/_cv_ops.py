@@ -4,13 +4,23 @@ x86: integer results bit for bit, float results in float64.
 
 Images are (H, W, C) or (H, W) uint8 tensors in OpenCV's BGR order.
 
-- ``resize_u8``: ``cv2.resize`` of a uint8 image when enlarging, as
-  OpenCV's generic path computes it: taps from float32 coordinates without
-  clamping at the borders (indices replicate the edge), a horizontal pass of
-  integer taps (x 2048), and a vertical pass that is integer for
-  ``INTER_LANCZOS4``, OpenCV's float32 SIMD sum for ``INTER_CUBIC`` and its
-  16-bit ``mulhi`` SIMD sum for ``INTER_LINEAR``/``INTER_AREA``. Exact at
-  integral ratios; shrinking goes through ``core/resize.py`` and rounds.
+- ``resize_u8``: ``cv2.resize`` of a uint8 image as OpenCV 5 on x86
+  computes it, path by path. ``INTER_CUBIC`` from a source of at least
+  4x4 goes to Intel IPP (OpenCV's IPP HAL): float32 taps of the cubic
+  (B 0, C 0.75) from the double source coordinate, a horizontal float32
+  pass, a vertical pass whose products pair up with one fused
+  multiply-add each, round half to even (``ipp_cubic``). ``INTER_AREA``
+  shrinking both sides takes ``resizeAreaFast`` at integral ratios (the
+  integer cell sum, ``(s + 2) >> 2`` at x2, else ``s * (1/k^2)`` in
+  float32) and ``resizeArea`` otherwise (float32 cell weights summed row
+  by row in OpenCV's order). Other enlarging resizes take OpenCV's
+  generic path: taps from float32 coordinates without clamping at the
+  borders (indices replicate the edge), a horizontal pass of integer taps
+  (x 2048), and a vertical pass that is integer for ``INTER_LANCZOS4`` and
+  OpenCV's 16-bit ``mulhi`` SIMD sum for ``INTER_LINEAR``/``INTER_AREA``.
+  Shrinking with ``INTER_LINEAR`` or ``INTER_LANCZOS4`` goes through the
+  float filter of ``core/resize.py`` and rounds (not OpenCV's 8-bit path;
+  nothing in the port shrinks uint8 with them).
 - ``bgr2gray``, ``bgr2hsv_sv``: the fixed-point ``cvtColor`` (gray
   ``(B*3735 + G*19235 + R*9798 + 2^14) >> 15``, the 15-bit weights OpenCV
   4.x/5.x uses, not the 14-bit ``1868/9617/4899`` of its older releases; S
@@ -101,6 +111,98 @@ def _resize_taps(in_size: int, out_size: int, method: str):
     return idx, taps
 
 
+def _area_table(in_size: int, out_size: int, scale: float):
+    """OpenCV's ``computeResizeAreaTab``: per output, the (source index,
+    float32 weight) of each source sample its cell covers, in order, as
+    (out, k) arrays padded with weight 0."""
+    rows = []
+    for d in range(out_size):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, in_size - f1)
+        s1, s2 = math.ceil(f1), math.floor(f2)
+        s2 = min(s2, in_size - 1)
+        s1 = min(s1, s2)
+        taps = []
+        if s1 - f1 > 1e-3:
+            taps.append((s1 - 1, (s1 - f1) / cell))
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    k = max(len(r) for r in rows)
+    idx = np.zeros((out_size, k), np.int64)
+    wts = np.zeros((out_size, k), np.float32)
+    for d, taps in enumerate(rows):
+        for j, (i, a) in enumerate(taps):
+            idx[d, j], wts[d, j] = i, np.float32(a)
+    return idx, wts
+
+
+def _area_shrink(img: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """``INTER_AREA`` with both sides shrinking (``resizeAreaFast`` /
+    ``resizeArea``)."""
+    h, w, c = img.shape
+    sx, sy = 1.0 / (ow / w), 1.0 / (oh / h)
+    ix, iy = int(round(sx)), int(round(sy))
+    eps = np.finfo(np.float64).eps
+    if abs(sx - ix) < eps and abs(sy - iy) < eps:
+        s = img.to(torch.int32).reshape(oh, iy, ow, ix, c).sum((1, 3))
+        if (ix, iy) == (2, 2) and c in (1, 3, 4):
+            return ((s + 2) >> 2).to(torch.uint8)
+        v = s.to(torch.float32) * np.float32(1.0 / (ix * iy))
+        return torch.round(v).clamp(0, 255).to(torch.uint8)
+    dev = img.device
+    xi, xw = (torch.from_numpy(a).to(dev) for a in _area_table(w, ow, sx))
+    yi, yw = (torch.from_numpy(a).to(dev) for a in _area_table(h, oh, sy))
+    x = img.to(torch.float32)
+    buf = torch.zeros((h, ow, c), dtype=torch.float32, device=dev)
+    for j in range(xi.shape[1]):             # buf[dx] += S[si] * alpha
+        buf = buf + x[:, xi[:, j]] * xw[None, :, j, None]
+    acc = buf[yi[:, 0]] * yw[:, 0, None, None]
+    for j in range(1, yi.shape[1]):          # sum += beta * buf
+        acc = acc + buf[yi[:, j]] * yw[:, j, None, None]
+    return torch.round(acc).clamp(0, 255).to(torch.uint8)
+
+
+def _ipp_cubic_taps(in_size: int, out_size: int):
+    """(clamped source index (out, 4), float32 taps (out, 4)) of IPP's
+    cubic: the fraction of the double source coordinate in float32, the
+    outer taps as polynomials of it, the second as one minus the others."""
+    src = (np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5
+    x0 = np.floor(src).astype(np.int64)
+    t = (src - x0).astype(np.float32)
+    f = np.float32
+    t2 = t * t
+    t3 = t2 * t
+    w0 = f(-0.75) * t3 + f(1.5) * t2 + f(-0.75) * t
+    w2 = f(-1.25) * t3 + f(1.5) * t2 + f(0.75) * t
+    w3 = f(0.75) * t3 - f(0.75) * t2
+    w1 = f(1) - w0 - w2 - w3
+    idx = np.clip(x0[:, None] + np.arange(-1, 3), 0, in_size - 1)
+    return idx, np.stack([w0, w1, w2, w3], 1).astype(np.float32)
+
+
+def ipp_cubic(img: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """``INTER_CUBIC`` as IPP computes it for a uint8 image (see the module
+    docstring); shrinking too."""
+    h, w, c = img.shape
+    dev = img.device
+    xi, xw = (torch.from_numpy(a).to(dev) for a in _ipp_cubic_taps(w, ow))
+    yi, yw = (torch.from_numpy(a).to(dev) for a in _ipp_cubic_taps(h, oh))
+    p = img.to(torch.float32)[:, xi] * xw[None, :, :, None]   # (h, ow, 4, c)
+    hor = (p[:, :, 0] + p[:, :, 1]) + (p[:, :, 2] + p[:, :, 3])
+    rows = hor[yi]                                           # (oh, 4, ow, c)
+    b = yw[:, :, None, None]
+
+    def fma_pair(i, j):   # fma(r_i, b_i, r_j * b_j), rounded once
+        prod = (rows[:, j] * b[:, j]).double()
+        return (rows[:, i].double() * b[:, i].double() + prod).float()
+
+    v = fma_pair(0, 1) + fma_pair(2, 3)
+    return torch.round(v).clamp(0, 255).to(torch.uint8)
+
+
 def resize_u8(img: torch.Tensor, out_hw: tuple[int, int],
               method: str) -> torch.Tensor:
     """``cv2.resize`` of an (H, W, C) uint8 image to ``out_hw`` with one of
@@ -108,6 +210,10 @@ def resize_u8(img: torch.Tensor, out_hw: tuple[int, int],
     docstring)."""
     h, w, c = img.shape
     oh, ow = int(out_hw[0]), int(out_hw[1])
+    if method == "bicubic" and h >= 4 and w >= 4:
+        return ipp_cubic(img, oh, ow)
+    if method == "area" and oh <= h and ow <= w:
+        return _area_shrink(img, oh, ow)
     if oh < h or ow < w:
         # shrinking: the float filter, rounded (not OpenCV's 8-bit path)
         return _resize_f32(img.float(), (oh, ow), method).round().clamp(
@@ -318,3 +424,119 @@ def dilate(mask: torch.Tensor, size: int) -> torch.Tensor:
     """``cv2.dilate(mask, np.ones((size, size)))`` of a uint8 mask."""
     out = F.max_pool2d(mask[None, None].float(), size, 1, size // 2)
     return out[0, 0].to(torch.uint8)
+
+
+# ----------------------------------------------- threshold and contours
+def otsu_threshold(gray: torch.Tensor) -> tuple[float, torch.Tensor]:
+    """``cv2.threshold(gray, 0, 255, THRESH_BINARY + THRESH_OTSU)`` of an
+    (H, W) uint8 image: the threshold (the histogram on the image's device,
+    OpenCV's search over it in float64 on the host) and the uint8 mask, 255
+    where ``gray > threshold``."""
+    hist = torch.bincount(gray.reshape(-1).long(), minlength=256).cpu().numpy()
+    scale = 1.0 / gray.numel()
+    mu = float(np.dot(np.arange(256, dtype=np.float64), hist)) * scale
+    mu1 = q1 = 0.0
+    max_sigma = max_val = 0.0
+    eps = float(np.finfo(np.float32).eps)
+    for i in range(256):
+        p_i = hist[i] * scale
+        mu1 *= q1
+        q1 += p_i
+        q2 = 1.0 - q1
+        if min(q1, q2) < eps or max(q1, q2) > 1.0 - eps:
+            continue
+        mu1 = (mu1 + i * p_i) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma, max_val = sigma, float(i)
+    return max_val, (gray.to(torch.int32) > max_val).to(torch.uint8) * 255
+
+
+# OpenCV's chain-code directions: (dx, dy) of 0 = east, counter-clockwise
+_DIRS = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1), (1, 1))
+
+
+def _trace_outer(lab: np.ndarray, y: int, x: int) -> list:
+    """OpenCV's ``icvFetchContour`` of the outer border that starts at
+    (y, x) of the zero-framed label image ``lab`` (0 background, 1
+    unvisited foreground): marks the border's pixels (negative where the
+    pixel's east neighbour was seen to be background, else positive) and
+    returns its CHAIN_APPROX_SIMPLE points (x, y) in the framed image."""
+    width = lab.shape[1]
+    flat = lab.reshape(-1)
+    deltas = [dy * width + dx for dx, dy in _DIRS] * 2
+    i0 = y * width + x
+    s = 4
+    while True:
+        s = (s - 1) & 7
+        i1 = i0 + deltas[s]
+        if flat[i1] != 0 or s == 4:
+            break
+    if s == 4 and flat[i1] == 0:                 # a single pixel
+        flat[i0] = -2
+        return [(x, y)]
+    pts = []
+    px, py = x, y
+    i3, prev_s = i0, s ^ 4
+    while True:
+        s_end = s
+        while s < 15:
+            s += 1
+            i4 = i3 + deltas[s]
+            if flat[i4] != 0:
+                break
+        s &= 7
+        if 0 <= s - 1 < s_end:
+            flat[i3] = -2
+        elif flat[i3] == 1:
+            flat[i3] = 2
+        if s != prev_s:
+            pts.append((px, py))
+            prev_s = s
+        px += _DIRS[s][0]
+        py += _DIRS[s][1]
+        if i4 == i0 and i3 == i1:
+            return pts
+        i3 = i4
+        s = (s + 4) & 7
+
+
+def external_contours(mask: torch.Tensor) -> list[np.ndarray]:
+    """``cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)[0]`` of
+    an (H, W) mask (nonzero = foreground) as (n, 2) int64 arrays of (x, y),
+    in OpenCV's order. The border following is OpenCV's, on the host, over
+    the mask framed by a row and column of zeros; a border is traced when
+    its first pixel is met in raster order and the last traced pixel to
+    its left on that row is not one of an enclosing border (OpenCV's
+    ``lnbd`` test), so blobs inside holes are left out. OpenCV lists the
+    contours last found first."""
+    m = (mask != 0).cpu().numpy()
+    lab = np.zeros((m.shape[0] + 2, m.shape[1] + 2), np.int8)
+    lab[1:-1, 1:-1] = m
+    found = []
+    for y in np.nonzero(m.any(axis=1))[0] + 1:
+        row = lab[y]
+        starts = np.nonzero((row[1:] == 1) & (row[:-1] == 0))[0] + 1
+        for x in starts:
+            if row[x] != 1:
+                continue
+            marked = np.nonzero(np.abs(row[:x]) >= 2)[0]
+            if len(marked) and row[marked[-1]] > 0:
+                continue                          # inside a traced border
+            pts = np.asarray(_trace_outer(lab, int(y), int(x)), np.int64)
+            found.append(pts - 1)
+    return found[::-1]
+
+
+def contour_area(pts: np.ndarray) -> float:
+    """``cv2.contourArea``: the shoelace area of the polygon."""
+    x, y = pts[:, 0].astype(np.float64), pts[:, 1].astype(np.float64)
+    xp, yp = np.roll(x, 1), np.roll(y, 1)
+    return abs(float(np.sum(xp * y - yp * x)) * 0.5)
+
+
+def bounding_rect(pts: np.ndarray) -> tuple[int, int, int, int]:
+    """``cv2.boundingRect`` of a point set: (x, y, w, h)."""
+    lo, hi = pts.min(0), pts.max(0)
+    return int(lo[0]), int(lo[1]), int(hi[0] - lo[0] + 1), int(hi[1] - lo[1] + 1)

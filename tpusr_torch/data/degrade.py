@@ -12,9 +12,11 @@ from an explicit ``torch.Generator`` (torch cannot reproduce ``jax.random``
 streams); ``degrade_image_core`` takes them as arguments, so the same draws
 can be given to both packages, and computes only the branch that was drawn
 (the JAX core evaluates every variant and selects, an XLA device, not the
-semantics). The JPEG re-encode stage (``jpeg_roundtrip`` in the JAX package,
-``cv2.imencode``) needs a JPEG encoder, which the port does not have:
-``apply_jpeg=True`` raises.
+semantics). The JPEG re-encode stage (p=.7, q in [20, 60)) is a host codec,
+as in JAX: ``jpeg_roundtrip`` rounds the LR to uint8, encodes it with the
+port's encoder (``pipeline/jpeg_encode.py``, the bytes of
+``cv2.imencode``) and decodes it with the port's decoder
+(``pipeline/jpeg.py``, the pixels of ``cv2.imdecode``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch.nn.functional as F
 
 from tpusr_torch.core.resize import resize
 from tpusr_torch.device import fp32_math
+from tpusr_torch.pipeline.jpeg import decode_jpeg_u8
+from tpusr_torch.pipeline.jpeg_encode import encode_jpeg_u8
 
 _INTERP_NAMES = ("INTER_LINEAR", "INTER_CUBIC", "INTER_AREA", "INTER_LANCZOS4")
 _INTERP_METHODS = ("bilinear", "bicubic", "area", "lanczos4")
@@ -51,7 +55,8 @@ class DegradeDraws:
     """One image's random choices: Gaussian blur on/off, its kernel size and
     sigma; motion blur on/off and its size; the interpolation (an index into
     ``_INTERP_NAMES``); noise on/off, its std (0..255 scale) and the
-    standard-normal noise tensor of the LR's shape."""
+    standard-normal noise tensor of the LR's shape; the JPEG round trip
+    on/off and its quality."""
     blur: bool
     ksize: int
     sigma: float
@@ -61,6 +66,8 @@ class DegradeDraws:
     noise: bool
     noise_std: float
     noise_tensor: torch.Tensor | None
+    jpeg: bool = False
+    jpeg_quality: int = 0
 
 
 def lr_shape(hr_shape, cfg: DegradeConfig = DegradeConfig()) -> tuple:
@@ -80,7 +87,8 @@ def _index(g: torch.Generator, n: int) -> int:
 
 def sample_draws(generator: torch.Generator, hr_shape,
                  cfg: DegradeConfig = DegradeConfig()) -> DegradeDraws:
-    """Draw one image's choices from ``generator``, in the JAX core's order;
+    """Draw one image's choices from ``generator``, in JAX's order (the
+    core's, then the JPEG stage's: on/off, then the quality in [lo, hi));
     the noise tensor lies on the generator's device."""
     g = generator
     blur = _uniform(g) < cfg.p_gauss_blur
@@ -93,8 +101,11 @@ def sample_draws(generator: torch.Generator, hr_shape,
     noise_std = _uniform(g, *cfg.noise_range)
     noise_tensor = torch.randn(lr_shape(hr_shape, cfg), generator=g,
                                device=g.device, dtype=torch.float32)
+    jpeg = _uniform(g) < cfg.p_jpeg
+    lo, hi = cfg.jpeg_q_range
+    jpeg_quality = lo + _index(g, hi - lo)
     return DegradeDraws(blur, ksize, sigma, motion, motion_size, interp,
-                        noise, noise_std, noise_tensor)
+                        noise, noise_std, noise_tensor, jpeg, jpeg_quality)
 
 
 def _gauss_kernel1d(ksize: int, sigma: float, device) -> torch.Tensor:
@@ -141,25 +152,44 @@ def degrade_image_core(hr01: torch.Tensor, draws: DegradeDraws,
     return torch.clamp(lr, 0.0, 255.0) / 255.0, draws.interp
 
 
+def jpeg_roundtrip(lr01, quality: int):
+    """The JPEG re-encode (common_methods.py:94-99) of an (h, w, 3) RGB
+    image in [0, 1], on the host: rounded to uint8 as JAX rounds it,
+    encoded at ``quality`` and decoded. Returns float32 in [0, 1] of
+    ``lr01``'s kind (a tensor comes back on its device)."""
+    is_tensor = isinstance(lr01, torch.Tensor)
+    x = lr01.detach().cpu().numpy() if is_tensor else np.asarray(lr01)
+    u8 = np.clip(x * 255.0, 0, 255).round().astype(np.uint8)
+    out = decode_jpeg_u8(encode_jpeg_u8(u8, int(quality))).astype(
+        np.float32) / 255.0
+    return torch.from_numpy(out).to(lr01.device) if is_tensor else out
+
+
 def degrade_image(hr01, generator: torch.Generator | None = None,
                   cfg: DegradeConfig = DegradeConfig(),
                   apply_jpeg: bool = True, seed: int | None = None):
-    """Full degradation (common_methods.py:51-100) without its JPEG stage.
-    ``hr01`` is an (h, w, c) numpy array or tensor in [0, 1]; the draws come
-    from ``generator`` (default: one on ``hr01``'s device seeded by
-    ``seed``, or 0). Returns (lr01, interp_name), lr01 of ``hr01``'s kind.
-    ``apply_jpeg=True`` (the JAX default) raises: the port has no JPEG
-    encoder, so callers pass ``apply_jpeg=False``."""
-    if apply_jpeg:
-        raise NotImplementedError(
-            "degrade_image(apply_jpeg=True): the JPEG re-encode stage needs a "
-            "JPEG encoder (cv2.imencode in the JAX package), which the port "
-            "does not have; pass apply_jpeg=False")
+    """Full degradation (common_methods.py:51-100). ``hr01`` is an (h, w,
+    c) numpy array or tensor in [0, 1]; the draws come from ``generator``
+    (default: one on ``hr01``'s device seeded by ``seed``, or 0), the core
+    runs on the generator's device, and with ``apply_jpeg`` (the default,
+    as in JAX) the drawn JPEG round trip follows on the host. Returns
+    (lr01, interp_name), lr01 of ``hr01``'s kind."""
     is_numpy = not isinstance(hr01, torch.Tensor)
     x = torch.as_tensor(np.asarray(hr01, np.float32)) if is_numpy else hr01
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(
             0 if seed is None else seed)
     draws = sample_draws(generator, tuple(x.shape), cfg)
-    lr01, idx = degrade_image_core(x.to(generator.device), draws, cfg)
-    return (lr01.cpu().numpy() if is_numpy else lr01), _INTERP_NAMES[idx]
+    return degrade_with_draws(x.to(generator.device), draws, cfg, apply_jpeg,
+                              is_numpy)
+
+
+def degrade_with_draws(hr01: torch.Tensor, draws: DegradeDraws,
+                       cfg: DegradeConfig = DegradeConfig(),
+                       apply_jpeg: bool = True, to_numpy: bool = False):
+    """The core on ``hr01``'s device with ``draws``, then the JPEG stage
+    when drawn and ``apply_jpeg``. Returns (lr01, interp_name)."""
+    lr01, idx = degrade_image_core(hr01, draws, cfg)
+    if apply_jpeg and draws.jpeg:
+        lr01 = jpeg_roundtrip(lr01, draws.jpeg_quality)
+    return (lr01.cpu().numpy() if to_numpy else lr01), _INTERP_NAMES[idx]

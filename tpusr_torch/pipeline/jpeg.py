@@ -535,6 +535,26 @@ def decode_jpeg_u8(body: bytes,
     ``expected_hw``, a frame of another size (in either orientation, since
     the EXIF tag may transpose it) is refused before any table or scan is
     decoded."""
+    frame, orientation = parse_jpeg(body, expected_hw)
+    planes = [_upsample(c, frame) for c in frame.comps]
+    if len(planes) == 1:
+        rgb = np.repeat(planes[0][..., None], 3, axis=-1)
+    else:
+        y, cb, cr = planes
+        rgb = np.stack([y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16),
+                        y + _CB_B[cb]], axis=-1)
+    rgb = np.clip(rgb, 0, 255).astype(np.uint8)
+    return apply_orientation(rgb, orientation)
+
+
+def parse_jpeg(body: bytes, expected_hw: tuple[int, int] | None = None):
+    """Parse a baseline JPEG and Huffman-decode its scans: returns (frame,
+    EXIF orientation); each of ``frame.comps`` holds its quantised
+    coefficients ``coef`` ((rows, cols, 64) blocks in natural order) and its
+    table ``q`` (natural order), ``dh`` x ``dw`` of its samples are in the
+    image, and ``frame.max_h`` / ``frame.max_v`` over its ``h`` / ``v``
+    give its subsampling. Every refusal of ``decode_jpeg_u8`` is made
+    here."""
     if not body.startswith(SOI):
         raise ValueError("not a JPEG image (no SOI marker)")
     pos, frame, restart = 2, None, 0
@@ -617,15 +637,7 @@ def decode_jpeg_u8(body: bytes,
     if len(frame.comps) == 3 and _is_rgb(frame, jfif, adobe):
         raise ValueError("RGB JPEG (an Adobe transform of 0, or components "
                          "named R, G, B) is not supported (YCbCr only)")
-    planes = [_upsample(c, frame) for c in frame.comps]
-    if len(planes) == 1:
-        rgb = np.repeat(planes[0][..., None], 3, axis=-1)
-    else:
-        y, cb, cr = planes
-        rgb = np.stack([y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16),
-                        y + _CB_B[cb]], axis=-1)
-    rgb = np.clip(rgb, 0, 255).astype(np.uint8)
-    return apply_orientation(rgb, orientation)
+    return frame, orientation
 
 
 def _is_rgb(frame: _Frame, jfif: bool, adobe: int | None) -> bool:
