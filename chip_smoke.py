@@ -163,7 +163,12 @@ its own lines:
    memory, no plain twin on the card, every trained state finite; the
    pipeline's EDSR SR of its first batch against K2's twin (every launch
    within ``k2_forward_bound``, the SR at ``SR_ATOL``); and one
-   ``python -m tpusr_torch.cli train-edsr --help`` subprocess;
+   ``python -m tpusr_torch.cli train-edsr --help`` subprocess; ``classic``
+   and ``pipeline`` with their figures (``figure_stage``,
+   ``check_figures``): the JAX commands' files, each decoding at figsize x
+   dpi, no axes holding data blank, one colormapped panel equal to its
+   data mapped on the host, no kernel launched by the figure stage, its ms
+   per figure, the files' bytes and the device's share;
 19. the parallelism layer (``DistSlice``, ``tpusr_torch/dist``), after
    phase 17 on the gate's trained weights: at NCCL world size 1, 20
    data-parallel EDSR x4 steps (median ms beside phase 14's), DP VGG16
@@ -184,7 +189,7 @@ its own lines:
    LPIPS-alex on seeded random weights: no kernel launched, no plain twin,
    both CSVs finite and whole, the pick by LPIPS, the card's rows against a
    CPU run of three pairs (rtol 1e-4, LPIPS within 1e-4), ms per pair split
-   into decode, LPIPS and the rest;
+   into decode, LPIPS and the rest; its figures checked as phase 18's;
 21. the uncomposed polyphase SR path (``PolySlice``,
    ``edsr_fast.make_poly_sr_apply``): EDSR x4 at full width on 16 LR 128^2
    images in f32 and bf16, 36 launches a forward (K2 or K2-bf16), every
@@ -3927,6 +3932,251 @@ def k2_command_launches(sizes, bs: int, epochs: int, train_step: int,
             + -(-n_te // bs) * eval_step)
 
 
+# The JAX commands' figure files (tpusr/cli/__main__.py:162-183 for
+# classic, :463-500 for pipeline; tpusr/data/eda.py:519-565 for eda, whose
+# scenario dumps add <file> and advanced_<file> under
+# LPIPS_Scenarios/{best,worst}_scenarios for each pair it picks), written
+# here because the card's machine has no JAX
+CLASSIC_FIGURES = ("time_memory_summary.png", "psnr_ssim_summary.png",
+                   "speed_quality_3d.png", "error_metrics.png",
+                   "edge_metrics.png", "freq_dist_metrics.png",
+                   "algorithm_ranking.png")
+PIPELINE_FIGURES = ("cls_report_confusions.png", "cls_report_summary.png",
+                    "sr_confidence_panel.png", "confusion_matrices.png",
+                    "sr_metrics_panel.png", "sr_time_panel.png",
+                    "sr_memory_panel.png")
+EDA_FIGURES = ("advanced_global_panel.png", "distributions.png",
+               "artifact_color_histograms.png", "artifact_boxplots.png",
+               "channel_shape_bars.png", "correlation_matrix.png",
+               "scatter_relations.png")
+FIGURE_FUNCTIONS = {
+    "tpusr_torch.viz": (
+        "plot_time_memory_panels", "plot_psnr_ssim_panels",
+        "plot_speed_quality_tradeoff_3d", "plot_error_metrics_grid",
+        "plot_edge_metrics_grid", "plot_frequency_distribution_metrics_grid",
+        "plot_and_save_super_resolution_example",
+        "plot_and_save_ssim_similarity_maps", "show_algorithm_ranking",
+        "plot_sr_metrics", "plot_sr_time", "plot_sr_memory", "plot_confusion",
+        "plot_classification_reports_panel", "plot_4x3",
+        "plot_confidence_panel"),
+    "tpusr_torch.data.eda": (
+        "save_visual_example", "create_advanced_visualizations",
+        "artifact_color_histograms", "channel_shape_bars",
+        "create_global_advanced_visualizations", "basic_distributions",
+        "artifact_boxplots", "correlation_matrix", "scatter_relations")}
+
+
+def all_launches() -> dict:
+    """Every kernel's launch count: K1, K2 (f32, bf16), the dequant conv,
+    K3 and K4."""
+    from tpusr_torch.core import nlm
+    return {**read_counts(), **nlm.LAUNCHES}
+
+
+class figure_stage:
+    """While open, every figure function of ``FIGURE_FUNCTIONS`` (called
+    from outside another) and every ``Figure.savefig`` made outside them
+    (the pipeline's inline confusion grid) is a step of the figure stage:
+    timed between two synchronisations under a CUDA-only ``torch.profiler``
+    (``rows``: name, ms, device ms, kernels), with the launches of every
+    kernel counted across it (``launches``). ``figures`` keeps each saved
+    Figure with its file."""
+
+    def __init__(self, sync):
+        self.sync, self.rows, self.figures = sync, [], []
+        self.launches: dict = {}
+        self._depth = 0
+
+    def __enter__(self):
+        import importlib
+
+        from tpusr_torch.viz import figure as vf
+        self._undo = []
+        for modname, names in FIGURE_FUNCTIONS.items():
+            mod = importlib.import_module(modname)
+            for n in names:
+                self._undo.append((mod, n, getattr(mod, n)))
+                setattr(mod, n, self._step(n, getattr(mod, n)))
+        save = vf.Figure.savefig
+        stage = self
+
+        def savefig(fig, fname, dpi=None, **kw):
+            def run():
+                return save(fig, fname, dpi=dpi, **kw)
+            out = (run() if stage._depth else
+                   stage._step(f"savefig {os.path.basename(str(fname))}", run)())
+            stage.figures.append((fig, str(fname)))
+            return out
+        self._undo.append((vf.Figure, "savefig", save))
+        vf.Figure.savefig = savefig
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, orig in reversed(self._undo):
+            setattr(mod, n, orig)
+
+    def _step(self, name, fn):
+        def run(*a, **kw):
+            if self._depth:
+                return fn(*a, **kw)
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            self._depth += 1
+            try:
+                self.sync()
+                before = all_launches()
+                acts = ([ProfilerActivity.CUDA] if torch.cuda.is_available()
+                        else [ProfilerActivity.CPU])    # a CPU rehearsal
+                with profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    out = fn(*a, **kw)
+                    self.sync()
+                    ms = (time.perf_counter() - t0) * 1e3
+                after = all_launches()
+            finally:
+                self._depth -= 1
+            for k, v in after.items():
+                self.launches[k] = self.launches.get(k, 0) + v - before.get(k, 0)
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            self.rows.append((name, ms, sum(e.self_device_time_total
+                                            for e in kern) / 1e3,
+                              sum(e.count for e in kern)))
+            return out
+        return run
+
+    def total_ms(self) -> float:
+        return sum(r[1] for r in self.rows)
+
+    def device_ms(self) -> float:
+        return sum(r[2] for r in self.rows)
+
+
+def axes_has_data(ax) -> bool:
+    """Whether an Axes drew a finite value: a bar, a histogram count, an
+    image, a point or a line."""
+    for c in ax.calls:
+        if c.name == "imshow":
+            return True
+        if c.name in ("bar", "barh", "scatter", "plot", "hist", "boxplot"):
+            vals = (c.out["counts"] if c.name == "hist" else
+                    [s["med"] for s in c.out["stats"]] if c.name == "boxplot"
+                    else c.args[1])
+            v = vals.detach().cpu().numpy() if isinstance(
+                vals, torch.Tensor) else vals
+            if np.isfinite(np.asarray(v, np.float64)).any():
+                return True
+    return False
+
+
+def decode_figure(path: str) -> np.ndarray:
+    from tpusr_torch.pipeline.jpeg import decode_jpeg_u8
+    from tpusr_torch.pipeline.png import decode_png_u8
+    with open(path, "rb") as f:
+        body = f.read()
+    return (decode_jpeg_u8 if path.lower().endswith((".jpg", ".jpeg"))
+            else decode_png_u8)(body)
+
+
+def image_panel_against_host(fig, img: np.ndarray) -> tuple[str, float, float]:
+    """The first colormapped image panel of ``fig``: its data mapped through
+    the colormap on the host (``rgba_numpy``) and nearest-resampled into its
+    panel, against the panel's bytes from the device (the share equal, which
+    must be 1) and against the file's pixels there (alpha on white; the
+    share equal, 1 unless the figure writes text over the panel)."""
+    from tpusr_torch.viz import colormaps
+    from tpusr_torch.viz.render import nearest_index
+    for i, ax in enumerate(fig.axes):
+        for c in ax.calls:
+            if c.name != "imshow":
+                continue
+            data = c.args[0]
+            data = (data.detach().cpu().numpy() if isinstance(data, torch.Tensor)
+                    else np.asarray(data))
+            if data.ndim != 2:
+                continue
+            cm = colormaps.get_cmap(c.kwargs["cmap"] or "viridis")
+            src = cm.rgba_numpy(data, c.kwargs["vmin"], c.kwargs["vmax"])
+            y0, x0, h, w = c.out["panel"]
+            want = src[nearest_index(src.shape[0], h)][:, nearest_index(
+                src.shape[1], w)]
+            dev_share = float((c.out["panel_rgba"] == want).all(-1).mean())
+            a = want[..., 3:].astype(np.float64) / 255
+            rgb = np.rint(want[..., :3] * a + 255 * (1 - a)).astype(np.uint8)
+            file_share = float((img[y0:y0 + h, x0:x0 + w] == rgb).all(-1).mean())
+            texts = any(t.name == "text" for t in ax.calls)
+            check(dev_share == 1.0, f"image panel {i} ({cm.name}): the device's "
+                                    f"bytes differ from the host's mapping "
+                                    f"({dev_share:.6f} equal)")
+            check(file_share == 1.0 or (texts and file_share >= 0.8),
+                  f"image panel {i} ({cm.name}): {file_share:.6f} of its "
+                  f"pixels equal the host's mapping")
+            return f"axes {i} {cm.name} {h}x{w}", dev_share, file_share
+    return "", math.nan, math.nan
+
+
+def check_figures(tag: str, stage: figure_stage, out_dir: str, want: list,
+                  card: str) -> dict:
+    """The figure files under ``out_dir`` are the JAX command's ``want``;
+    each decodes with the port's own decoder at figsize x dpi; no axes
+    region is blank; one image panel equals its data mapped on the host;
+    no kernel was launched by the figure stage. Prints the stage's and each
+    figure's ms, the files' bytes and the device's share."""
+    files = sorted(os.path.relpath(os.path.join(r, f), out_dir)
+                   for r, _, fs in os.walk(out_dir) for f in fs
+                   if f.lower().endswith((".png", ".jpg", ".jpeg")))
+    check(files == sorted(want), f"{tag}: figure files {files}, the JAX "
+                                 f"command writes {sorted(want)}")
+    check(sorted(os.path.relpath(f, out_dir) for _, f in stage.figures)
+          == sorted(want), f"{tag}: figures saved {len(stage.figures)}")
+    sizes, panel = [], None
+    for fig, path in stage.figures:
+        img = decode_figure(path)
+        (_, dpi, nbytes), = [s for s in fig.saved if s[0] == path]
+        shape = (round(fig.figsize[1] * dpi), round(fig.figsize[0] * dpi), 3)
+        check(img.shape == shape, f"{tag}: {path} decodes to {img.shape}, "
+                                  f"figsize x dpi is {shape}")
+        for i, (ax, (x0, y0, x1, y1)) in enumerate(zip(fig.axes, fig.boxes)):
+            if all(c.name == "axis" for c in ax.calls):
+                continue            # a grid cell the figure leaves empty
+            # inside the frame where the axes holds finite data (JAX's
+            # figure too is empty there where every value is NaN), else
+            # the frame with its title and ticks
+            pad = 0 if axes_has_data(ax) else 3
+            region = img[max(y0 - pad, 0):y1 + pad, max(x0 - pad, 0):x1 + pad]
+            check(region.size > 0 and bool((region < 250).any()),
+                  f"{tag}: {os.path.basename(path)} axes {i} is blank")
+        if panel is None and path.lower().endswith(".png"):
+            where, dev_share, file_share = image_panel_against_host(fig, img)
+            if where:
+                panel = (os.path.relpath(path, out_dir), where, dev_share,
+                         file_share)
+        sizes.append((os.path.relpath(path, out_dir), shape[1], shape[0],
+                      nbytes))
+    launched = {k: v for k, v in stage.launches.items() if v}
+    check(not launched, f"{tag}: the figure stage launched {launched}")
+    total, busy = stage.total_ms(), stage.device_ms()
+    kernels = sum(r[3] for r in stage.rows)
+    print(f"[figures] {card}: {tag}: {len(stage.figures)} figures (the JAX "
+          f"command's files) in {total:.1f} ms (CUDA-only torch.profiler on; "
+          f"host clock, synchronised per figure), device busy {busy:.2f} ms "
+          f"= {100 * busy / total:.2f}% of the stage in {kernels} kernel "
+          f"launches (torch ops; K1-K4 and the dequant conv 0); per step: "
+          + "; ".join(f"{n} {ms:.1f} ms (device {d:.2f})"
+                      for n, ms, d, _ in stage.rows))
+    print(f"[figures] {tag}: files " + "; ".join(
+        f"{n} {w}x{h} {b} B" for n, w, h, b in sizes))
+    if panel is not None:
+        print(f"[figures] {tag}: {panel[0]} {panel[1]}: the device's bytes "
+              f"equal the host's colormap of its data in {panel[2]:.6f} of "
+              f"the panel, the file's pixels in {panel[3]:.6f}")
+    check(panel is not None, f"{tag}: no colormapped image panel in a PNG "
+                             f"figure")
+    return {"ms": total, "device_ms": busy, "figures": len(stage.figures),
+            "bytes": sum(s[3] for s in sizes),
+            "steps": [(n, ms, d) for n, ms, d, _ in stage.rows]}
+
+
 def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
     """The reference's commands through ``tpusr_torch.cli.__main__.main``, in
     process so that launches count: ``train-edsr`` (x4), ``train-srcnn``,
@@ -4004,7 +4254,7 @@ def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
             with (count_plain_calls() as plain, split_sizes() as sp,
-                  first_train_step() as first,
+                  first_train_step() as first, figure_stage(sync) as figs,
                   patched(defect_pipeline,
                           run_defect_detection_comparison=keep)):
                 reset_counts()
@@ -4095,6 +4345,17 @@ def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
                   f"{got['conv3x3_bias_act']} launches, K2-bf16 "
                   f"{got['conv3x3_bias_act_bf16']}, K4 {k4}; peak "
                   f"{peak_mb:.1f} MB")
+            if name in ("classic", "pipeline"):
+                fig = check_figures(name, figs, os.path.join(work, name), list(
+                    CLASSIC_FIGURES if name == "classic" else PIPELINE_FIGURES),
+                    card)
+                print(f"[figures] {name}: the command's K2 {want_k2} and K4 "
+                      f"{want_k4} launches as before the figures (held "
+                      f"above); its figure stage {fig['ms']:.1f} ms of its "
+                      f"{wall * 1e3:.0f} ms")
+            else:
+                check(not figs.figures, f"{name}: drew {len(figs.figures)} "
+                                        f"figures")
             if name in per_step:
                 tr, w, x, y = first.got
                 n, lr_side = x.shape[0], x.shape[1]
@@ -5030,7 +5291,8 @@ def phase_eda(e: EdaSlice, dev, seed: int, sync, card: str) -> dict:
 
         reset_counts()
         with count_plain_calls() as plain, patched(
-                teda, run_eda_pipeline=keep, collect_metrics=timed):
+                teda, run_eda_pipeline=keep, collect_metrics=timed), \
+                figure_stage(sync) as figs:
             sync()
             t0 = time.perf_counter()
             cli_main(["eda", "--hr-dir", os.path.join(data, "HR"),
@@ -5063,6 +5325,14 @@ def phase_eda(e: EdaSlice, dev, seed: int, sync, card: str) -> dict:
         sc = gd["scenarios"]
         check(sc["key"] == "lpips" and len(sc["best"]) == len(sc["worst"]) == 1,
               f"scenario pick {sc}")
+        want = list(EDA_FIGURES) + [
+            os.path.join("LPIPS_Scenarios", d, pre + os.path.basename(f))
+            for d, names in (("best_scenarios", sc["best"]),
+                             ("worst_scenarios", sc["worst"]))
+            for f in names for pre in ("", "advanced_")]
+        figures = check_figures("eda", figs, out, want, card)
+        print(f"[figures] eda: its figure stage {figures['ms']:.1f} ms of the "
+              f"command's {wall * 1e3:.0f} ms")
 
         # the card's rows against a CPU run of the same pairs
         cpu = os.path.join(work, "cpu")
@@ -5116,7 +5386,7 @@ def phase_eda(e: EdaSlice, dev, seed: int, sync, card: str) -> dict:
           f"512^2 (host); the phase {time.perf_counter() - t_phase:.2f} s "
           f"(the surfaces made on the card and the CPU run included)")
     return {"launches": counts, "wall_s": wall, "per_pair_ms": med,
-            "jpeg": jpeg}
+            "jpeg": jpeg, "figures": figures}
 
 
 # ------------------------------------------------- the polyphase SR path

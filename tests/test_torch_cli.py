@@ -72,14 +72,28 @@ def narrow_models(mp):
         mp.setattr(tapi, name, narrow)
 
 
-def no_jax_figures(mp):
-    """The JAX commands' matplotlib figures replaced by no-ops (the port
-    draws none)."""
-    import tpusr.viz as jviz
+def record_figures(mp):
+    """(the port's figures as it writes them, the JAX commands' matplotlib
+    figures recorded and not written): ``test_torch_viz``'s recorders."""
+    from test_torch_viz import MplRecorder, PortRecorder
 
-    for name in dir(jviz):
-        if name.startswith(("plot_", "show_")):
-            mp.setattr(jviz, name, lambda *a, **k: None)
+    return PortRecorder(mp), MplRecorder(mp)
+
+
+def saved_names(recorder, root) -> list[tuple[str, float]]:
+    """(file name under ``root``, dpi) of each saved figure, in order."""
+    return [(os.path.relpath(f, root), dpi) for _, f, dpi in recorder.saved]
+
+
+def assert_same_figure_files(port, mpl, port_root, jax_root):
+    """The port wrote the JAX command's figure files, in its order, at its
+    dpi and figure size; each decodes at figsize x dpi."""
+    from test_torch_viz import assert_file
+
+    assert saved_names(port, port_root) == saved_names(mpl, jax_root)
+    for (fig, f, dpi), (mf, _, _) in zip(port.saved, mpl.saved):
+        assert fig.figsize == tuple(mf.get_size_inches()), f
+        assert_file(f, fig, dpi)
 
 
 def train_argv(cmd, data, out, epochs=1):
@@ -275,12 +289,13 @@ def test_vgg19_weights_exit_naming_item_10(data, tmp_path, monkeypatch):
 # -------------------------------------------------------------- classic
 
 def test_classic_summary_equals_jax(data, tmp_path, monkeypatch, capsys):
-    no_jax_figures(monkeypatch)
+    port_figs, jax_figs = record_figures(monkeypatch)
     argv = ["classic", "--hr-dir", str(data / "HR"), "--lr-dir",
             str(data / "LR"), "--fraction", "1.0", "--limit", "3"]
     jcli.main(argv + ["--out", str(tmp_path / "j")])
     tcli.main(argv + ["--out", str(tmp_path / "t"), "--device", "cpu"])
-    assert "figures are not drawn" in capsys.readouterr().out
+    assert_same_figure_files(port_figs, jax_figs, tmp_path / "t", tmp_path / "j")
+    assert len(port_figs.saved) == 7
     want = json.load(open(tmp_path / "j" / "classic_summary.json"))
     got = json.load(open(tmp_path / "t" / "classic_summary.json"))
     assert sorted(got) == sorted(want) == ["ranked", "summary"]
@@ -383,7 +398,7 @@ def test_pipeline_equals_jax_on_the_same_weights(data, tmp_path, monkeypatch,
     import tpusr.pipeline as jpipe
 
     narrow_models(monkeypatch)
-    no_jax_figures(monkeypatch)
+    port_figs, jax_figs = record_figures(monkeypatch)
     jax_paths, port_paths = jax_and_port_checkpoints
     jax_results = {}
     jax_run = jpipe.run_defect_detection_comparison
@@ -409,7 +424,12 @@ def test_pipeline_equals_jax_on_the_same_weights(data, tmp_path, monkeypatch,
     port = tcli.main(base + ckpts(port_paths)
                      + ["--out", str(tmp_path / "t"), "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "figures are not drawn" in out and "edsr: inference_time_sec" in out
+    assert "edsr: inference_time_sec" in out
+    assert_same_figure_files(port_figs, jax_figs, tmp_path / "t", tmp_path / "j")
+    assert [n for n, _ in saved_names(port_figs, tmp_path / "t")] == [
+        "cls_report_confusions.png", "cls_report_summary.png",
+        "sr_confidence_panel.png", "confusion_matrices.png",
+        "sr_metrics_panel.png", "sr_time_panel.png", "sr_memory_panel.png"]
     assert "--esrgan-disc-ckpt" not in out     # no longer a notice: as JAX
     want = json.load(open(tmp_path / "j" / "pipeline_results.json"))
     got = json.load(open(tmp_path / "t" / "pipeline_results.json"))
@@ -518,7 +538,7 @@ def test_resume_continues_the_optimizer_step_count(data, tmp_path,
 # ------------------------------------------------------------------- eda
 
 def test_eda_command_writes_the_jax_commands_csvs(tmp_path, monkeypatch):
-    from test_torch_eda import (JAX_FIGURES, assert_csv_close, random_lpips_npz,
+    from test_torch_eda import (assert_csv_close, random_lpips_npz,
                                 write_eda_pairs)
     import tpusr.data.eda as jeda
 
@@ -528,8 +548,7 @@ def test_eda_command_writes_the_jax_commands_csvs(tmp_path, monkeypatch):
     monkeypatch.setenv("TPUSR_LPIPS_WEIGHTS", npz)
     monkeypatch.setattr(jeda, "_lpips_mod", None)
     monkeypatch.setattr(jeda, "_LPIPS_JAX_W", None)
-    for name in (*JAX_FIGURES, "save_visual_example"):
-        monkeypatch.setattr(jeda, name, lambda *a, **k: None)
+    port_figs, jax_figs = record_figures(monkeypatch)
     common = ["--hr-dir", os.path.join(root, "HR"), "--lr-dir",
               os.path.join(root, "LR"), "--interp-map",
               os.path.join(root, "imap.pkl"), "--lpips-weights", npz,
@@ -541,6 +560,9 @@ def test_eda_command_writes_the_jax_commands_csvs(tmp_path, monkeypatch):
         assert_csv_close(tmp_path / "port" / name, tmp_path / "jax" / name)
     with open(tmp_path / "port" / "eda_metrics.csv") as f:
         assert len(f.read().splitlines()) == 4       # --limit 3 and a header
+    assert_same_figure_files(port_figs, jax_figs, tmp_path / "port",
+                             tmp_path / "jax")
+    assert len(port_figs.saved) == 11   # global, the table's 6, 2 scenarios x 2
 
 
 def test_eda_command_refuses_to_run_without_a_card(tmp_path, monkeypatch):

@@ -31,10 +31,6 @@ INTERP = ("INTER_LINEAR", "INTER_CUBIC", "INTER_AREA", "INTER_LANCZOS4",
           "INTER_NEAREST")
 CV2_INTERP = {"bilinear": cv2.INTER_LINEAR, "bicubic": cv2.INTER_CUBIC,
               "area": cv2.INTER_AREA, "lanczos4": cv2.INTER_LANCZOS4}
-JAX_FIGURES = ("create_global_advanced_visualizations", "basic_distributions",
-               "artifact_color_histograms", "artifact_boxplots",
-               "channel_shape_bars", "correlation_matrix", "scatter_relations",
-               "create_advanced_visualizations")
 
 
 def _scene(rng, h, w):
@@ -418,17 +414,10 @@ def assert_csv_close(got_path, want_path):
 @pytest.mark.parametrize("with_lpips", [True, False], ids=["lpips", "no_lpips"])
 def test_run_eda_pipeline_csvs_and_pick_match_jax(ds, npz, tmp_path, monkeypatch,
                                                   with_lpips, capsys):
+    from test_torch_viz import MplRecorder, PortRecorder
+
     jax_with_lpips(monkeypatch, npz if with_lpips else None)
-    picked = {}
-
-    def record(lr_img, hr_img, output_path, lpips_val):
-        sub = os.path.basename(os.path.dirname(output_path))
-        picked.setdefault(sub.split("_")[0], []).append(
-            os.path.basename(output_path))
-
-    for name in JAX_FIGURES:
-        monkeypatch.setattr(jeda, name, lambda *a, **k: None)
-    monkeypatch.setattr(jeda, "save_visual_example", record)
+    port_figs, jax_figs = PortRecorder(monkeypatch), MplRecorder(monkeypatch)
     jeda.run_eda_pipeline(str(ds / "LR"), str(ds / "HR"), str(tmp_path / "jax"),
                           interp_map_path=str(ds / "imap.pkl"))
     rows, gd = teda.run_eda_pipeline(
@@ -437,10 +426,18 @@ def test_run_eda_pipeline_csvs_and_pick_match_jax(ds, npz, tmp_path, monkeypatch
         lpips_weights=npz if with_lpips else None, device="cpu")
     for name in ("eda_metrics.csv", "eda_summary.csv"):
         assert_csv_close(tmp_path / "port" / name, tmp_path / "jax" / name)
+    # the JAX pipeline's pick, read from the names of its scenario figures
+    picked = {}
+    for _, f, _ in jax_figs.saved:
+        sub, base = os.path.basename(os.path.dirname(f)), os.path.basename(f)
+        if sub.endswith("_scenarios") and not base.startswith("advanced_"):
+            picked.setdefault(sub.split("_")[0], []).append(base)
     sc = gd["scenarios"]
     assert sc["key"] == ("lpips" if with_lpips else "psnr")
     assert [os.path.basename(f) for f in sc["best"]] == picked["best"]
     assert [os.path.basename(f) for f in sc["worst"]] == picked["worst"]
+    assert ([os.path.relpath(f, tmp_path / "port") for _, f, _ in port_figs.saved]
+            == [os.path.relpath(f, tmp_path / "jax") for _, f, _ in jax_figs.saved])
     out = capsys.readouterr().out
     assert "mean LR spectrum (log)" in out and "LR colour noise" in out
     assert len(rows) == gd["count"] == 5

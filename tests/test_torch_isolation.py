@@ -1,8 +1,9 @@
 """The port stands alone: tpusr_torch and chip_smoke.py import no JAX, no
 flax and nothing of the JAX package, at import time or lazily; nor OpenCV,
-PIL, matplotlib or scikit-learn, nor h5py, TensorFlow or Keras (the port
-reads and writes Keras files with its own codec), which the card's machine
-does not have."""
+PIL, matplotlib, pandas or scikit-learn (the port draws its figures with
+its own writer, ``tpusr_torch/viz``), nor h5py, TensorFlow or Keras (the
+port reads and writes Keras files with its own codec), which the card's
+machine does not have."""
 
 import ast
 import pathlib
@@ -13,7 +14,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tpusr"}
-IMAGE_LIBS = {"cv2", "PIL", "matplotlib", "sklearn"}  # absent on the card's machine
+IMAGE_LIBS = {"cv2", "PIL", "matplotlib", "sklearn",   # absent on the card's
+              "pandas", "mpl_toolkits"}                  # machine
 HDF5_LIBS = {"h5py", "tensorflow", "keras"}            # absent there too
 
 
@@ -64,7 +66,10 @@ def test_every_port_module_imports_without_jax():
             "tpusr_torch.data._cv_ops", "tpusr_torch.tools.imagenet_weights",
             "tpusr_torch.models.edsr_fast", "tpusr_torch.core.winograd",
             "tpusr_torch.train.hdf5", "tpusr_torch.train.keras_import",
-            "tpusr_torch.train.keras_export"} <= mods
+            "tpusr_torch.train.keras_export", "tpusr_torch.viz",
+            "tpusr_torch.viz.figure", "tpusr_torch.viz.render",
+            "tpusr_torch.viz.colormaps", "tpusr_torch.viz.font",
+            "tpusr_torch.viz.classic_viz", "tpusr_torch.viz.dl_viz"} <= mods
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -89,3 +94,28 @@ def test_source_names_no_image_library(path):
 def test_source_names_no_hdf5_or_keras_library(path):
     roots = _imported_roots(REPO / path)
     assert not roots & HDF5_LIBS, (path, sorted(roots & HDF5_LIBS))
+
+
+def test_viz_exports_the_jax_viz_names():
+    """``tpusr_torch.viz`` exports the 16 names of ``tpusr/viz/__init__.py``
+    and ``classification_report_dict``, and imports no image, plotting or
+    dataframe library (run alone, in a fresh process)."""
+    names = sorted(n for n in _imported_names(REPO / "tpusr" / "viz" / "__init__.py"))
+    assert len(names) == 16
+    code = (
+        "import sys, tpusr_torch.viz as v\n"
+        f"missing = [n for n in {names + ['classification_report_dict']!r} "
+        "if not callable(getattr(v, n, None))]\n"
+        "assert not missing, missing\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN | IMAGE_LIBS | HDF5_LIBS!r})\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _imported_names(path: pathlib.Path) -> set[str]:
+    return {a.asname or a.name for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.ImportFrom) and node.level == 0
+            and node.module.startswith("tpusr.viz") for a in node.names}

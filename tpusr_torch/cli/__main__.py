@@ -18,8 +18,8 @@ package's (load -> split(seed 42) -> train -> evaluate -> checkpoint +
 metrics JSON), on the port's loaders (``data/loading.py``: PNG and baseline
 JPEG), its trainers and facades; checkpoints are the port's own
 (``train/checkpoint.py``). ``classic`` and ``pipeline`` write the JSON the
-JAX commands write and no figures: the JAX commands draw theirs with
-matplotlib, which the port does not use.
+JAX commands write and their figures, under the same names, through the
+port's figure writer (``tpusr_torch/viz``).
 
 ``--data-parallel`` on the four ``train-*`` commands trains over a 'data'
 mesh of every rank (``tpusr_torch.dist``): one rank alone, or N ranks under
@@ -28,7 +28,7 @@ torchrun (``torchrun --nproc-per-node N -m tpusr_torch.cli train-edsr
 and its logs.
 
 ``eda`` runs the dataset EDA (``data/eda.py``) on the card and writes its
-CSVs, without the JAX command's figures. ``convert`` moves a model between
+CSVs and the JAX command's figures. ``convert`` moves a model between
 the port's checkpoint and the reference's Keras ``.h5`` (the port's own
 HDF5 codec, ``train/hdf5.py``), both ways. ``preprocess`` turns an MJPEG
 AVI into the HR/LR PNG pairs and maps the other commands read
@@ -50,8 +50,6 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 GATE_FILE = "GATE_torch.json"    # the port's gate verdict, on the H100
-NO_FIGURES = ("figures are not drawn: the JAX command draws them with "
-              "matplotlib, which the port does not use")
 
 
 def _device(args):
@@ -212,11 +210,19 @@ def cmd_preprocess(args):
 
 def cmd_classic(args):
     """The classic-SR comparison over the HR/LR pairs (the reference's
-    ``super_resolucion_clasica`` notebook): ``classic_summary.json`` and the
-    ranking; no figures."""
+    ``super_resolucion_clasica`` notebook): ``classic_summary.json``, the
+    JAX command's seven figures and the ranking."""
     from tpusr_torch.classic.harness import (CLASSIC_ALGORITHMS,
+                                             RANKING_WEIGHTS,
                                              run_classic_comparison)
     from tpusr_torch.data.loading import get_all_image_paths, imread_rgb_u8
+    from tpusr_torch.viz import (plot_edge_metrics_grid,
+                                 plot_error_metrics_grid,
+                                 plot_frequency_distribution_metrics_grid,
+                                 plot_psnr_ssim_panels,
+                                 plot_speed_quality_tradeoff_3d,
+                                 plot_time_memory_panels,
+                                 show_algorithm_ranking)
 
     dev = _device(args)
     hr_d = {os.path.basename(p): p for p in get_all_image_paths(args.hr_dir)}
@@ -236,7 +242,29 @@ def cmd_classic(args):
         json.dump({"summary": summary,
                    "ranked": [[a, s] for a, s in ranked]}, f, indent=2,
                   default=float)
-    print(f"classic: {NO_FIGURES}")
+
+    colors = {"bilinear": "#4c72b0", "bicubic": "#55a868", "area": "#c44e52",
+              "lanczos": "#8172b2", "ibp": "#ccb974", "nlm": "#64b5cd",
+              "egi": "#8c8c8c", "freq": "#937860"}
+    out = args.out
+    plot_time_memory_panels(summary, CLASSIC_ALGORITHMS, colors,
+                            "Classical SR Profiling: Time & Memory",
+                            os.path.join(out, "time_memory_summary.png"))
+    plot_psnr_ssim_panels(summary, CLASSIC_ALGORITHMS, colors,
+                          "Classical SR: PSNR / SSIM",
+                          os.path.join(out, "psnr_ssim_summary.png"))
+    plot_speed_quality_tradeoff_3d(summary, CLASSIC_ALGORITHMS, colors,
+                                   results_dir=out)
+    plot_error_metrics_grid(summary, CLASSIC_ALGORITHMS, colors, results_dir=out)
+    plot_edge_metrics_grid(summary, CLASSIC_ALGORITHMS, colors, results_dir=out)
+    plot_frequency_distribution_metrics_grid(summary, CLASSIC_ALGORITHMS, colors,
+                                             results_dir=out)
+    show_algorithm_ranking(summary, maximize=["psnr_mean", "ssim_mean"],
+                           minimize=["time_mean", "memory_mean", "mae_mean",
+                                     "rmse_mean", "grad_mse_mean",
+                                     "kl_luma_mean", "kl_color_mean"],
+                           weights=RANKING_WEIGHTS, results_dir=out,
+                           colors_map=colors)
     for a, s in ranked:
         print(f"{a}: {s:.4f}")
 
@@ -468,9 +496,10 @@ def cmd_pipeline(args):
     """End-to-end LR -> SR (per method) -> classify comparison, the missing
     defect_detection_pipeline notebook (SURVEY §0): the classic
     interpolators plus any trained SRCNN/EDSR/ESRGAN checkpoints, each SR
-    classified by VGG16's patch votes. Writes ``pipeline_results.json`` and
-    prints each method's train-side and inference-side statistics (what the
-    JAX command plots); no figures."""
+    classified by VGG16's patch votes. Writes ``pipeline_results.json``, the
+    JAX command's figures (classification reports, confidence, the
+    confusion-matrix grid, SR metrics, time and memory), and prints each
+    method's train-side and inference-side statistics."""
     import torch
 
     from tpusr_torch.core.resize import resize
@@ -480,6 +509,10 @@ def cmd_pipeline(args):
                                         FineTunedVGG16, SRCNNModel)
     from tpusr_torch.pipeline import defect_pipeline
     from tpusr_torch.train.profiling import device_memory_mb
+    from tpusr_torch.viz import (plot_classification_reports_panel,
+                                 plot_confidence_panel, plot_confusion,
+                                 plot_sr_memory, plot_sr_metrics, plot_sr_time)
+    from tpusr_torch.viz.figure import subplots
 
     dev = _device(args)
     x_lr, x_hr, y = load_predictions_dataset(args.lr_dir, args.hr_dir,
@@ -536,10 +569,30 @@ def cmd_pipeline(args):
                        if kk not in ("predictions", "confidences",
                                      "confusion_matrix")}
                    for k, v in results.items()}, f, indent=2, default=float)
-    print(f"pipeline: {NO_FIGURES}")
-    # the statistics the JAX command's sr metrics / time / memory panels
-    # show: train-side from the checkpoint sidecars, inference-side measured
-    # in this run
+    names = list(results)
+    class_names = ["low_z_offset", "high_z_offset"]
+    plot_classification_reports_panel(
+        y, names, [results[n]["predictions"] for n in names],
+        class_names=class_names, save_dir=args.out)
+    plot_confidence_panel(y, names, [results[n]["predictions"] for n in names],
+                          [results[n]["confidences"] for n in names],
+                          save_dir=args.out)
+
+    # per-method confusion-matrix grid (deep_lerning_visualizations.py:213-228)
+    ncols = min(3, len(names))
+    nrows = (len(names) + ncols - 1) // ncols
+    fig, axes = subplots(nrows, ncols, figsize=(5 * ncols, 4.5 * nrows),
+                         squeeze=False)
+    for ax in axes.ravel()[len(names):]:
+        ax.axis("off")
+    for ax, n in zip(axes.ravel(), names):
+        plot_confusion(ax, results[n]["confusion_matrix"], class_names, n)
+    fig.tight_layout()
+    fig.savefig(os.path.join(args.out, "confusion_matrices.png"), dpi=150)
+
+    # sr metrics / time / memory panels: train-side stats from the checkpoint
+    # sidecars, inference-side stats measured in this run
+    metrics_per_model = {}
     for n, r in results.items():
         m = _ckpt_sidecar_metrics(sidecars[n]) if n in sidecars else {}
         m["inference_time_sec"] = r["time_sec"]
@@ -547,9 +600,13 @@ def cmd_pipeline(args):
                                             + mem_after["current_mb"])
         m["inference_mem_peak_mb"] = max(mem_before["peak_mb"],
                                          mem_after["peak_mb"])
+        metrics_per_model[n] = m
         print(f"{n}: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in m.items()))
+    plot_sr_metrics(names, metrics_per_model, save_dir=args.out)
+    plot_sr_time(names, metrics_per_model, save_dir=args.out)
+    plot_sr_memory(names, metrics_per_model, save_dir=args.out)
     return results
 
 
@@ -605,8 +662,8 @@ def cmd_convert(args):
 
 def cmd_eda(args):
     """The dataset EDA (``data/eda.py``) on the card: ``eda_metrics.csv``
-    and ``eda_summary.csv`` under ``--out``, the global panel's numbers and
-    the scenario pick printed; no figures. ``--lpips-weights`` (else
+    and ``eda_summary.csv`` under ``--out`` with the JAX command's figures,
+    the global panel's numbers and the scenario pick printed. ``--lpips-weights`` (else
     ``$TPUSR_LPIPS_WEIGHTS`` or ``weights/lpips_alex.npz``) fills the LPIPS
     column. Returns the output directory."""
     from tpusr_torch.data.eda import run_eda_pipeline
@@ -615,7 +672,8 @@ def cmd_eda(args):
     run_eda_pipeline(args.lr_dir, args.hr_dir, args.out,
                      interp_map_path=args.interp_map, limit=args.limit,
                      lpips_weights=args.lpips_weights, device=dev)
-    print(f"[eda] wrote eda_metrics.csv and eda_summary.csv to {args.out}")
+    print(f"[eda] wrote eda_metrics.csv, eda_summary.csv and the figures to "
+          f"{args.out}")
     return args.out
 
 
@@ -815,7 +873,7 @@ def build_parser():
 
     sp = sub.add_parser("classic", help="rank the eight classic SR "
                         "algorithms over HR/LR PNG pairs: classic_summary.json "
-                        "(no figures)")
+                        "and the figures")
     sp.add_argument("--hr-dir", required=True)
     sp.add_argument("--lr-dir", required=True)
     sp.add_argument("--out", default="classic_algorithms_results")
@@ -882,8 +940,8 @@ def build_parser():
     sp.set_defaults(fn=cmd_train_vgg16)
 
     sp = sub.add_parser("pipeline", help="LR -> SR (per method) -> "
-                        "classify comparison: pipeline_results.json (no "
-                        "figures)")
+                        "classify comparison: pipeline_results.json and "
+                        "the figures")
     sp.add_argument("--lr-dir", required=True)
     sp.add_argument("--hr-dir", required=True)
     sp.add_argument("--class-map", required=True)
@@ -994,7 +1052,7 @@ def build_parser():
     sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser("eda", help="dataset EDA: per-pair metrics and "
-                        "their summary as CSV (no figures)")
+                        "their summary as CSV, and the figures")
     sp.add_argument("--hr-dir", required=True)
     sp.add_argument("--lr-dir", required=True)
     sp.add_argument("--out", default="eda_results")

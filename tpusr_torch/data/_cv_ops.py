@@ -13,14 +13,16 @@ Images are (H, W, C) or (H, W) uint8 tensors in OpenCV's BGR order.
   shrinking both sides takes ``resizeAreaFast`` at integral ratios (the
   integer cell sum, ``(s + 2) >> 2`` at x2, else ``s * (1/k^2)`` in
   float32) and ``resizeArea`` otherwise (float32 cell weights summed row
-  by row in OpenCV's order). Other enlarging resizes take OpenCV's
-  generic path: taps from float32 coordinates without clamping at the
-  borders (indices replicate the edge), a horizontal pass of integer taps
-  (x 2048), and a vertical pass that is integer for ``INTER_LANCZOS4`` and
-  OpenCV's 16-bit ``mulhi`` SIMD sum for ``INTER_LINEAR``/``INTER_AREA``.
-  Shrinking with ``INTER_LINEAR`` or ``INTER_LANCZOS4`` goes through the
-  float filter of ``core/resize.py`` and rounds (not OpenCV's 8-bit path;
-  nothing in the port shrinks uint8 with them).
+  by row in OpenCV's order). Every other resize, enlarging or shrinking,
+  takes OpenCV's generic path: taps from float32 coordinates without
+  clamping at the borders (indices replicate the edge), a horizontal pass
+  of integer taps (x 2048), and a vertical pass that is integer for
+  ``INTER_LANCZOS4`` and OpenCV's 16-bit ``mulhi`` SIMD sum
+  (``VResizeLinear``) for ``INTER_LINEAR``/``INTER_AREA``. IPP takes no
+  uint8 ``INTER_LINEAR`` or ``INTER_LANCZOS4`` resize in this cv2 (the same
+  bytes with ``cv2.ipp.setUseIPP(False)``), and an exact x2
+  ``INTER_LINEAR`` shrink, which OpenCV hands to ``resizeAreaFast``, gives
+  the generic path's bytes too.
 - ``bgr2gray``, ``bgr2hsv_sv``: the fixed-point ``cvtColor`` (gray
   ``(B*3735 + G*19235 + R*9798 + 2^14) >> 15``, the 15-bit weights OpenCV
   4.x/5.x uses, not the 14-bit ``1868/9617/4899`` of its older releases; S
@@ -46,7 +48,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpusr_torch.core.resize import resize as _resize_f32
 
 _COEF_SCALE = 2048          # INTER_RESIZE_COEF_SCALE
 _KSIZE = {"bilinear": 2, "area": 2, "bicubic": 4, "lanczos4": 8}
@@ -214,10 +215,6 @@ def resize_u8(img: torch.Tensor, out_hw: tuple[int, int],
         return ipp_cubic(img, oh, ow)
     if method == "area" and oh <= h and ow <= w:
         return _area_shrink(img, oh, ow)
-    if oh < h or ow < w:
-        # shrinking: the float filter, rounded (not OpenCV's 8-bit path)
-        return _resize_f32(img.float(), (oh, ow), method).round().clamp(
-            0, 255).to(torch.uint8)
     dev = img.device
     xi, xt = (torch.from_numpy(a).to(dev) for a in _resize_taps(w, ow, method))
     yi, yt = (torch.from_numpy(a).to(dev) for a in _resize_taps(h, oh, method))

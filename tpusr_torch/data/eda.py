@@ -12,11 +12,16 @@ and their order are the JAX package's. The OpenCV calls are the port's own
 ops (``data/_cv_ops.py``), equal to cv2's on integer results.
 
 ``run_eda_pipeline`` writes ``eda_metrics.csv`` and ``eda_summary.csv``
-(pandas' ``describe()`` columns, written with the ``csv`` module) and picks
-the best/worst scenarios as the JAX pipeline does. It draws no figures (the
-JAX pipeline draws them with matplotlib, which the port does not use): it
-prints one line for each number of the global panel and returns the rows and
-``gd``, with the pick in ``gd["scenarios"]``.
+(pandas' ``describe()`` columns, written with the ``csv`` module), the JAX
+pipeline's figures through the port's figure writer (``viz/figure.py``):
+``advanced_global_panel.png``, the six figures of the metrics table and,
+for the best/worst scenarios it picks as the JAX pipeline does,
+``LPIPS_Scenarios/{best,worst}_scenarios/<file>`` and ``advanced_<file>``.
+It returns the rows and ``gd``, with the pick in ``gd["scenarios"]``. The
+maps of the figures (spectra, Sobel magnitude, GLCM, noise map, the
+difference map and its JET colours) are computed on the EDA's device; the
+table's statistics are numpy on the host, as pandas computes them
+(``correlation``: pairwise-complete Pearson).
 """
 
 from __future__ import annotations
@@ -354,8 +359,11 @@ def collect_metrics(lr_dir, hr_dir, glcm_multi_angle=False, glcm_levels=64,
                 timings.setdefault(key, []).append(ms * 1e3)
         if progress:
             progress(gd["count"])
+    # numpy, as the JAX package's; the device copies draw the global panel
+    gd["on_device"] = {}
     for key in ("lr_fft_sum", "hr_fft_sum", "grad_hr_sum", "glcm_sum"):
         if gd[key] is not None:
+            gd["on_device"][key] = gd[key]
             gd[key] = gd[key].cpu().numpy()
     return rows, gd
 
@@ -454,13 +462,261 @@ def global_panel_lines(gd: dict) -> list[str]:
     return lines
 
 
+# -------------------------------------------------------------------- plots
+def correlation(rows: list[dict]) -> tuple[list[str], np.ndarray]:
+    """(columns, matrix) of pandas' ``df.select_dtypes(include=number)
+    .dropna(axis=1, how="all").corr()``: Pearson over the rows where both
+    columns are finite, by pandas' ``nancorr`` (Welford's updates in row
+    order, the larger column index as x), clipped to [-1, 1], NaN where a
+    column is constant over them."""
+    cols = [k for k in _numeric_columns(rows)
+            if not np.isnan(_column(rows, k)).all()]
+    mat = np.stack([_column(rows, k) for k in cols], 1) if cols else \
+        np.zeros((len(rows), 0))
+    k = mat.shape[1]
+    ia, ib = np.meshgrid(np.arange(k), np.arange(k), indexing="ij")
+    xi, yi = np.maximum(ia, ib), np.minimum(ia, ib)
+    fin = np.isfinite(mat)
+    nobs = np.zeros((k, k))
+    mx, my, sx, sy, cxy = (np.zeros((k, k)) for _ in range(5))
+    for i in range(mat.shape[0]):
+        use = fin[i, xi] & fin[i, yi]
+        vx, vy = mat[i, xi], mat[i, yi]
+        n = nobs + use
+        with np.errstate(invalid="ignore", divide="ignore"):
+            dx, dy = vx - mx, vy - my
+            nmx = mx + 1.0 / n * dx
+            nmy = my + 1.0 / n * dy
+            nsx = sx + (vx - nmx) * dx
+            nsy = sy + (vy - nmy) * dy
+            ncxy = cxy + (vx - nmx) * dy
+        mx, my = np.where(use, nmx, mx), np.where(use, nmy, my)
+        sx, sy = np.where(use, nsx, sx), np.where(use, nsy, sy)
+        cxy, nobs = np.where(use, ncxy, cxy), n
+    div = np.sqrt(sx * sy)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        out = np.clip(cxy / div, -1.0, 1.0)
+    out[(nobs < 1) | (div == 0)] = np.nan
+    return cols, out
+
+
+def _dropna(rows, key) -> np.ndarray:
+    x = _column(rows, key)
+    return x[~np.isnan(x)]
+
+
+def _has_values(rows, key) -> bool:
+    return key in rows[0] and bool((~np.isnan(_column(rows, key))).any())
+
+
+def save_visual_example(lr_img, hr_img, output_path, lpips_val):
+    """Rescaled LR, HR and their JET difference map (EDA.ipynb cell 8),
+    written under ``output_path``'s own name (PNG or JPEG) at the figure's
+    100 dpi."""
+    from tpusr_torch.viz.colormaps import apply_color_map_jet
+    from tpusr_torch.viz.figure import subplots
+
+    lr_resized = (lr_img if lr_img.shape == hr_img.shape else
+                  cv.resize_u8(lr_img, hr_img.shape[:2], "bicubic"))
+    diff = (lr_resized.to(torch.int16) - hr_img.to(torch.int16)).abs().to(
+        torch.uint8)
+    # convertScaleAbs(gray) of a uint8 image is the image itself
+    diff_color = apply_color_map_jet(cv.bgr2gray(diff))
+    fig, axes = subplots(1, 3, figsize=(12, 4))
+    axes[0].imshow(lr_resized.flip(-1))
+    axes[0].set_title("Rescaled LR")
+    axes[1].imshow(hr_img.flip(-1))
+    axes[1].set_title("HR")
+    lp = f"{lpips_val:.4f}" if lpips_val is not None else "n/a"
+    axes[2].imshow(diff_color.flip(-1))
+    axes[2].set_title(f"Difference map\nLPIPS: {lp}")
+    for ax in axes:
+        ax.axis("off")
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(output_path), exist_ok=True)
+    fig.savefig(output_path)
+
+
+def create_advanced_visualizations(lr_img, hr_img, output_path):
+    """Per-pair 6-panel: LR/HR spectra, HR gradient magnitude, LR GLCM,
+    LR noise map, saturation distributions (EDA.ipynb cell 8); the maps on
+    the pair's device."""
+    from tpusr_torch.viz.figure import subplots
+
+    gray_lr = cv.bgr2gray(lr_img)
+    gray_hr = cv.bgr2gray(hr_img)
+
+    def spectrum(g):
+        return torch.log1p(torch.fft.fftshift(torch.fft.fft2(g.double())).abs())
+
+    fig, axes = subplots(2, 3, figsize=(20, 10))
+    axes[0, 0].imshow(spectrum(gray_lr), cmap="magma")
+    axes[0, 0].set_title("LR spectrum (log)")
+    axes[0, 1].imshow(spectrum(gray_hr), cmap="magma")
+    axes[0, 1].set_title("HR spectrum (log)")
+    sx = cv.sobel5(gray_hr, 1, 0)
+    sy = cv.sobel5(gray_hr, 0, 1)
+    axes[0, 2].imshow(torch.sqrt(sx**2 + sy**2), cmap="viridis")
+    axes[0, 2].set_title("HR gradient magnitude")
+    axes[1, 0].imshow(torch.log1p(glcm_matrix(gray_lr, 256)), cmap="cividis")
+    axes[1, 0].set_title("LR GLCM (log)")
+    blur = cv.gaussian_blur_u8(gray_lr, 3)
+    axes[1, 1].imshow((gray_lr.float() - blur.float()).abs(), cmap="inferno")
+    axes[1, 1].set_title("LR noise map")
+    axes[1, 2].hist(cv.bgr2hsv_sv(lr_img)[0].reshape(-1), bins=50, alpha=0.6,
+                    label="LR")
+    axes[1, 2].hist(cv.bgr2hsv_sv(hr_img)[0].reshape(-1), bins=50, alpha=0.6,
+                    label="HR")
+    axes[1, 2].set_title("Saturation distribution")
+    axes[1, 2].legend()
+    for ax in axes.ravel()[:5]:
+        ax.axis("off")
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+    fig.savefig(output_path, dpi=120)
+
+
+def artifact_color_histograms(rows, output_dir):
+    """LR-vs-HR histograms for the artifact metrics (EDA cell 10 output)."""
+    from tpusr_torch.viz.figure import subplots
+
+    pairs = [("blocking_lr", "blocking_hr"), ("color_noise_lr", "color_noise_hr"),
+             ("ringing_lr", "ringing_hr"), ("rms_noise_lr", "rms_noise_hr")]
+    fig, axes = subplots(2, 2, figsize=(14, 9))
+    for ax, (lo, hi) in zip(axes.ravel(), pairs):
+        ax.hist(_dropna(rows, lo), bins=25, alpha=0.6, label="LR")
+        ax.hist(_dropna(rows, hi), bins=25, alpha=0.6, label="HR")
+        ax.set_title(lo[:-3])
+        ax.legend()
+    fig.tight_layout()
+    fig.savefig(os.path.join(output_dir, "artifact_color_histograms.png"), dpi=130)
+
+
+def _mean(rows, key) -> float:
+    """pandas' ``Series.mean()``: NaN skipped, NaN when nothing is left."""
+    x = _dropna(rows, key)
+    return float(np.mean(x)) if len(x) else math.nan
+
+
+def channel_shape_bars(rows, output_dir):
+    """Mean per-channel skew/kurtosis bars, LR vs HR (EDA cell 10 output)."""
+    from tpusr_torch.viz.figure import subplots
+
+    fig, axes = subplots(1, 2, figsize=(14, 5))
+    xs = np.arange(3)
+    for ax, stat in zip(axes, ("skew", "kurt")):
+        lr_vals = [_mean(rows, f"ch{c}_{stat}_lr") for c in range(3)]
+        hr_vals = [_mean(rows, f"ch{c}_{stat}_hr") for c in range(3)]
+        ax.bar(xs - 0.2, lr_vals, 0.4, label="LR")
+        ax.bar(xs + 0.2, hr_vals, 0.4, label="HR")
+        ax.set_xticks(xs, [f"ch{c}" for c in range(3)])
+        ax.set_title(f"Per-channel {stat} (mean)")
+        ax.legend()
+    fig.tight_layout()
+    fig.savefig(os.path.join(output_dir, "channel_shape_bars.png"), dpi=130)
+
+
+def create_global_advanced_visualizations(gd, output_path):
+    """The dataset's mean spectra, gradient magnitude and GLCM (from the
+    accumulators' device copies where ``collect_metrics`` kept them), the
+    saturation histograms and the LR colour-noise distribution."""
+    from tpusr_torch.viz.figure import subplots
+
+    n = max(1, gd["count"])
+    sums = {k: gd.get("on_device", {}).get(k, gd[k]) for k in (
+        "lr_fft_sum", "hr_fft_sum", "grad_hr_sum", "glcm_sum")}
+    sums = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.asarray(v)) for k, v in sums.items()}
+    fig, axes = subplots(2, 3, figsize=(20, 10))
+    axes[0, 0].imshow(torch.log1p(sums["lr_fft_sum"] / n), cmap="magma")
+    axes[0, 0].set_title("Mean LR spectrum (log)")
+    axes[0, 1].imshow(torch.log1p(sums["hr_fft_sum"] / n), cmap="magma")
+    axes[0, 1].set_title("Mean HR spectrum (log)")
+    axes[0, 2].imshow(sums["grad_hr_sum"] / n, cmap="viridis")
+    axes[0, 2].set_title("Mean HR gradient magnitude")
+    axes[1, 0].imshow(torch.log1p(sums["glcm_sum"] / n), cmap="cividis")
+    axes[1, 0].set_title("Mean LR GLCM (log)")
+    centers = (gd["sat_bins"][:-1] + gd["sat_bins"][1:]) / 2
+    axes[1, 1].plot(centers, gd["sat_lr_counts"], label="LR")
+    axes[1, 1].plot(centers, gd["sat_hr_counts"], label="HR")
+    axes[1, 1].set_title("Saturation histograms")
+    axes[1, 1].legend()
+    axes[1, 2].hist(gd["noise_means_lr"], bins=30, color="#4c72b0")
+    axes[1, 2].set_title("LR color-noise distribution")
+    for ax in axes.ravel()[:4]:
+        ax.axis("off")
+    fig.tight_layout()
+    fig.savefig(output_path, dpi=130)
+
+
+def basic_distributions(rows, output_dir):
+    from tpusr_torch.viz.figure import subplots
+
+    keys = [k for k in ("lpips", "psnr", "ssim", "glcm_contrast",
+                        "glcm_homogeneity", "glcm_correlation")
+            if _has_values(rows, k)]
+    fig, axes = subplots(2, 3, figsize=(16, 8))
+    for ax, k in zip(axes.ravel(), keys):
+        ax.hist(_dropna(rows, k), bins=30, color="#55a868")
+        ax.set_title(k)
+    fig.tight_layout()
+    fig.savefig(os.path.join(output_dir, "distributions.png"), dpi=130)
+
+
+def artifact_boxplots(rows, output_dir):
+    from tpusr_torch.viz.figure import subplots
+
+    pairs = [("rms_noise_lr", "rms_noise_hr"), ("lap_var_lr", "lap_var_hr"),
+             ("blocking_lr", "blocking_hr"), ("color_noise_lr", "color_noise_hr"),
+             ("ringing_lr", "ringing_hr"),
+             ("saturation_mean_lr", "saturation_mean_hr")]
+    fig, axes = subplots(2, 3, figsize=(16, 8))
+    for ax, (lo, hi) in zip(axes.ravel(), pairs):
+        ax.boxplot([_dropna(rows, lo), _dropna(rows, hi)], tick_labels=["LR", "HR"])
+        ax.set_title(lo[:-3])
+    fig.tight_layout()
+    fig.savefig(os.path.join(output_dir, "artifact_boxplots.png"), dpi=130)
+
+
+def correlation_matrix(rows, output_dir):
+    from tpusr_torch.viz.figure import subplots
+
+    cols, corr = correlation(rows)
+    fig, ax = subplots(figsize=(14, 12))
+    im = ax.imshow(corr, cmap="coolwarm", vmin=-1, vmax=1)
+    ax.set_xticks(range(len(cols)), cols, rotation=90, fontsize=6)
+    ax.set_yticks(range(len(cols)), cols, fontsize=6)
+    fig.colorbar(im, shrink=0.8)
+    fig.tight_layout()
+    fig.savefig(os.path.join(output_dir, "correlation_matrix.png"), dpi=130)
+
+
+def scatter_relations(rows, output_dir):
+    from tpusr_torch.viz.figure import subplots
+
+    rel = [("psnr", "ssim"), ("rms_noise_lr", "psnr"),
+           ("blocking_lr", "ssim"), ("color_noise_lr", "psnr")]
+    if _has_values(rows, "lpips"):
+        rel = [("lpips", "psnr"), ("lpips", "ssim")] + rel[:2]
+    fig, axes = subplots(2, 2, figsize=(12, 9))
+    for ax, (xk, yk) in zip(axes.ravel(), rel):
+        ax.scatter(_column(rows, xk), _column(rows, yk), s=12, alpha=0.6)
+        ax.set_xlabel(xk)
+        ax.set_ylabel(yk)
+    fig.tight_layout()
+    fig.savefig(os.path.join(output_dir, "scatter_relations.png"), dpi=130)
+
+
 def run_eda_pipeline(lr_dir, hr_dir, output_dir="eda_results", top_k_examples=1,
                      glcm_multi_angle=False, glcm_levels=64, interp_map_path="",
                      limit=None, lpips_weights=None, device=None):
     """The EDA (EDA.ipynb cell 10): ``eda_metrics.csv``, ``eda_summary.csv``,
-    the global panel's numbers printed and the best/worst scenario pick.
-    ``lpips_weights`` is an LPIPS-alex ``.npz`` (default
-    ``tools.lpips_weights.default_weights_path()``). Returns (rows, gd)."""
+    the JAX pipeline's figures (the global panel, the six figures of the
+    metrics table, the best/worst scenarios' dumps by LPIPS, or by PSNR
+    without it) and the global panel's numbers printed. ``lpips_weights``
+    is an LPIPS-alex ``.npz`` (default
+    ``tools.lpips_weights.default_weights_path()``). Returns (rows, gd).
+    """
     from tpusr_torch.tools.lpips_weights import default_weights_path
 
     dev = resolve_device(device)
@@ -483,8 +739,35 @@ def run_eda_pipeline(lr_dir, hr_dir, output_dir="eda_results", top_k_examples=1,
     write_summary_csv(summary(rows), os.path.join(output_dir, "eda_summary.csv"))
     for line in global_panel_lines(gd):
         print(f"[eda] {line}")
+
+    create_global_advanced_visualizations(
+        gd, os.path.join(output_dir, "advanced_global_panel.png"))
+    basic_distributions(rows, output_dir)
+    artifact_color_histograms(rows, output_dir)
+    artifact_boxplots(rows, output_dir)
+    channel_shape_bars(rows, output_dir)
+    correlation_matrix(rows, output_dir)
+    scatter_relations(rows, output_dir)
+
+    # best/worst scenario dumps (LPIPS if available, else PSNR)
     gd["scenarios"] = pick_scenarios(rows, top_k_examples)
     sc = gd["scenarios"]
+    by_name = {r["filename"]: r for r in rows}
+    for dname, names in (("best_scenarios", sc["best"]),
+                         ("worst_scenarios", sc["worst"])):
+        for name in names:
+            lr_img, hr_img = load_and_align(os.path.join(lr_dir, name),
+                                            os.path.join(hr_dir, name),
+                                            interp_map, device=dev)
+            base = os.path.basename(name)
+            save_visual_example(
+                lr_img, hr_img,
+                os.path.join(output_dir, "LPIPS_Scenarios", dname, base),
+                by_name[name]["lpips"] if sc["key"] == "lpips" else None)
+            create_advanced_visualizations(
+                lr_img, hr_img,
+                os.path.join(output_dir, "LPIPS_Scenarios", dname,
+                             "advanced_" + base))
     print(f"[eda] {len(rows)} pairs; best by {sc['key']}: {sc['best']}, "
-          f"worst: {sc['worst']}; figures are not drawn (matplotlib)")
+          f"worst: {sc['worst']}; figures written to {output_dir}")
     return rows, gd
