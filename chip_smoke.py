@@ -146,8 +146,11 @@ its own lines:
    99%, request latency p50/p99 on the client's clock, requests/s, batches
    formed, mean fill, queue wait and batch time; 8 /sr answers byte for
    byte the pipeline's direct SR of the image beside 15 other eval images;
-   400 for a non-image and a truncated JPEG body, 404 for another path; the
-   command's exit after its last request;
+   the committed 128^2 LR bodies in progressive JPEG, Adam7 PNG, BMP and
+   TIFF (``tests/data/formats``), 8 of each to /classify and /sr at
+   concurrency 1, answered as the PNG twins of their decodes (classes
+   equal, /sr byte for byte); 400 for a non-image and a truncated JPEG
+   body, 404 for another path; the command's exit after its last request;
 18. the reference's commands (``CommandsSlice``) on its own dataset
    layout, made on the card: 16 HR print surfaces of 512^2 (the gate's hard
    task) and their x0.25 ``degrade_image`` LR as PNG with
@@ -181,9 +184,9 @@ its own lines:
    a (1, 2) mesh: forward and step, each TP shape held), which carry no
    send/recv of CUDA tensors, so PP and SP over 2 ranks run in the CPU
    tests only (a line says so); K2 at the new shapes beside ``F.conv2d``;
-20. the ``eda`` command (``EdaSlice``): the baseline JPEG decoder against
-   cv2's decode of every committed fixture (``tests/data/jpeg``: sha256 and
-   PNG twins; a progressive JPEG refused) and timed at 128^2 and 512^2; 16
+20. the ``eda`` command (``EdaSlice``): the JPEG decoder against cv2's
+   decode of every committed fixture (``tests/data/jpeg``: sha256 and PNG
+   twins; the progressive one included) and timed at 128^2 and 512^2; 16
    HR 512^2 / LR 128^2 surfaces made as phase 18 makes them plus the
    committed JPEG pair, ``python -m tpusr_torch.cli eda`` in process with
    LPIPS-alex on seeded random weights: no kernel launched, no plain twin,
@@ -224,7 +227,16 @@ its own lines:
    but where a value rounds apart at uint8); ``cli preprocess`` on the
    1280x720 clip with ``--hr-size 512`` and without and on the odd-width
    clip, timed per frame by stage; ``train-edsr --scale 2`` on its pairs
-   with its first step held against K2's twin.
+   with its first step held against K2's twin;
+25. the image formats (``FormatsSlice``, ``pipeline/imdecode.py``): every
+   committed fixture in ``tests/data/formats`` (PNG, Adam7 and low-depth
+   PNG, baseline, progressive, SOF1, RGB, CMYK, YCCK and 4:1:1 JPEG, BMP
+   with RLE, TIFF in strips, tiles and planes) decoded and held against
+   the sha256 of cv2's decode in its manifest; the decode of one 512^2
+   image in each format timed (host clock, best of 3); ``classic --limit
+   4`` on 4 PNG pairs made as phase 18 makes them and on their ``.tiff``
+   and ``.bmp`` twins, the JSON (times and memory aside) and K4's launches
+   equal to the PNG run's.
 
 ``python3 chip_smoke.py --dist-cards N`` (N cards) runs only the
 parallelism layer over N NCCL ranks, one card each: DP EDSR x4 at a global
@@ -235,10 +247,10 @@ dense one), then ``tpusr_torch.entry.dryrun_multichip(N)``.
 
 Phase 8 also prints which stage of the fused f32 SR first differs between
 an image alone (N = 1) and the same image in the batch of 16, each stage
-run on shared inputs (``sr_stage_diffs``). Each path (8-24) is driven with
+run on shared inputs (``sr_stage_diffs``). Each path (8-25) is driven with
 the launch counts set to 0 just before it and read just after (23: each
 of its main-path runs, summed; 24: the training run, the only one that
-launches a kernel). Before the last line it prints one JSON object with a
+launches a kernel; 25: its three ``classic`` runs, summed). Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
 dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
@@ -252,7 +264,7 @@ every path's launches by name; K2's record carries an ``inference`` object,
 its ms, bound and ``F.conv2d`` ms summed over each SR path's launches, and
 a ``poly`` object, phase 21's launches, forward ms beside the fused path's
 and K2's sums at its shapes; ``launches_by_path`` also has ``eda``,
-``poly``, ``h5`` and ``preprocess``) and the
+``poly``, ``h5``, ``preprocess`` and ``formats``) and the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
@@ -261,6 +273,7 @@ that line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -308,6 +321,18 @@ class CheckFailed(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise CheckFailed(msg)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to deterministic algorithms while open, for checks that
+    compare two training runs (as ``tools/serving_gate.py`` trains)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 @dataclass(frozen=True)
@@ -3017,9 +3042,7 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
         return held_bytes
 
     runs = {}
-    before_det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         for remat in (False, True):
             tr = ESRGANTrainer(gen8, disc, vgg, remat=remat, device=dev)
             kept = held_by_forward(tr)
@@ -3030,8 +3053,6 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
             runs[remat] = (st, out, read_counts()["conv3x3_bias_act"],
                            torch.cuda.max_memory_allocated(dev), kept)
             del tr
-    finally:
-        torch.backends.cudnn.deterministic = before_det
     (a, oa, la, pa, ka), (b, ob, lb, pb, kb) = runs[False], runs[True]
     check(la == s.remat_steps * (2 * n_fwd - 1)
           and lb == s.remat_steps * (3 * n_fwd - 1),
@@ -3565,7 +3586,8 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
                                          build_parser, main as cli_main)
     from tpusr_torch.core.resize import resize
     from tpusr_torch.models.api import EDSR as EDSRFacade, FineTunedVGG16
-    from tpusr_torch.pipeline.png import decode_png, encode_png
+    from tpusr_torch.pipeline.imdecode import decode_image_u8
+    from tpusr_torch.pipeline.png import decode_png, encode_png, encode_png_u8
     from tpusr_torch.tools import serving_gate as sg
 
     t_setup = time.perf_counter()
@@ -3601,7 +3623,16 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
         ref_cls = trained["ref_cls"]
         bodies = [encode_png(im) for im in lr_eval]
         n_sr = min(SERVE_SR_CHECKS, len(bodies))
-        n_post = len(SERVE_LEVELS) * len(bodies) + n_sr + 2
+        # the formats beside PNG: each committed LR body, and the PNG twin
+        # of its decode, to /classify and /sr
+        fmt_bodies = {label: [format_fixture(f"lr{i}{suffix}")
+                              for i in range(4)] * SERVE_FORMAT_REPEATS
+                      for label, suffix in SERVE_FORMATS.items()}
+        twins = {b: encode_png_u8(decode_image_u8(b))
+                 for fb in fmt_bodies.values() for b in fb}
+        n_fmt = 2 * (sum(map(len, fmt_bodies.values()))
+                     + len(set(twins.values())))
+        n_post = len(SERVE_LEVELS) * len(bodies) + n_sr + n_fmt + 2
         port_file = os.path.join(work, "port")
         argv = ["serve", "--edsr-ckpt", paths[0], "--vgg16-ckpt", paths[1],
                 "--scale", str(cfg.scale), "--lr-size", str(cfg.lr),
@@ -3737,6 +3768,31 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
                               for _ in range(3))
                 d2h_ms = min(host_ms(lambda: direct.cpu(), sync)
                              for _ in range(3))
+            # ---- each format's bodies answered as their PNG twins are
+            t0 = time.perf_counter()
+            twin_answers = {}
+            for twin in dict.fromkeys(twins.values()):
+                twin_answers[twin] = {p: http(base + p, twin)
+                                      for p in ("/classify", "/sr")}
+            fmt_ms = {}
+            for label, fb in fmt_bodies.items():
+                t1 = time.perf_counter()
+                for b in fb:
+                    for p in ("/classify", "/sr"):
+                        got_p = http(base + p, b)
+                        want_p = twin_answers[twins[b]][p]
+                        check(got_p[0] == want_p[0] == 200,
+                              f"{label} body to {p}: status {got_p[0]}, its "
+                              f"PNG twin {want_p[0]}")
+                        if p == "/sr":
+                            check(got_p[1] == want_p[1], f"{label} body: /sr "
+                                  f"differs from its PNG twin's")
+                        else:
+                            check(json.loads(got_p[1])["class"] == json.loads(
+                                want_p[1])["class"], f"{label} body: class "
+                                f"differs from its PNG twin's")
+                fmt_ms[label] = (time.perf_counter() - t1) * 1e3 / (2 * len(fb))
+            fmt_s = time.perf_counter() - t0
             # ---- the error codes (the two 400s are the last POSTs counted)
             check(http(base + "/nope", bodies[0])[0] == 404, "POST /nope")
             check(http(base + "/nope")[0] == 404, "GET /nope")
@@ -3761,6 +3817,12 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
               f"alone, N = 1, which the server never runs); 400 for a "
               f"non-image and a truncated JPEG body, 404 for /nope; exited after "
               f"{n_post} POSTs; no plain twin on the card")
+        print(f"[serve] {card}: {SERVE_FORMAT_REPEATS * 4} {cfg.lr}^2 LR "
+              f"bodies of each of {', '.join(fmt_bodies)} to /classify and "
+              f"/sr at concurrency 1 answer as their PNG twins (classes "
+              f"equal, /sr byte for byte) in {fmt_s:.1f} s with the twins; "
+              f"mean ms a POST: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in fmt_ms.items()))
         print(f"[serve] {card}: where a batch's time goes: the pipeline "
               f"on one request padded to {cfg.batch} {pipe_ms:.2f} ms (host "
               f"clock, best of 3); copying its {cfg.batch} SR images to the "
@@ -4785,11 +4847,16 @@ def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
             st = tr.init_state()
             return [float(tr.train_step(st, clf_x, clf_y, i)[1]["loss"])
                     for i in range(d.vgg_steps)]
-        vl_dp, vl_1 = vgg_losses(mesh), vgg_losses(None)
+        # cuDNN's default backward convs may sum in another order on each
+        # run, which three Adam steps carry past the tolerance
+        with deterministic_cudnn():
+            vl_dp, vl_1 = vgg_losses(mesh), vgg_losses(None)
         check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(vl_dp, vl_1)),
               f"DP VGG16 losses {vl_dp} vs {vl_1}")
         print(f"[dist] {card}: DP VGG16 {d.vgg_steps} steps at batch "
-              f"{t.vgg_batch} with dropout: losses {vl_dp} == unsharded")
+              f"{t.vgg_batch} with dropout (deterministic cuDNN): losses "
+              f"{vl_dp} == unsharded {vl_1}, max|difference| "
+              f"{max(abs(a - b) for a, b in zip(vl_dp, vl_1)):.3g}")
 
         # ---- DP GAN at GanSlice's shapes
         gp_lr, gp_hr = sr_pairs(g, gs.batch, gs, dev)
@@ -4807,10 +4874,11 @@ def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
             st = tr.init_state()
             return [{k: float(v) for k, v in tr.train_step(st, gp_lr, gp_hr)[1]
                      .items()} for _ in range(d.gan_steps)]
-        reset_counts()
-        gan_dp = gan(mesh)
-        launches["dist_gan"] = read_counts()
-        gan_1 = gan(None)
+        with deterministic_cudnn():
+            reset_counts()
+            gan_dp = gan(mesh)
+            launches["dist_gan"] = read_counts()
+            gan_1 = gan(None)
         per_gan = 2 * esrgan_launches(gs.rrdb, gs.scale) - 1
         check(launches["dist_gan"] == launches_want(
             conv3x3_bias_act=d.gan_steps * per_gan),
@@ -5214,9 +5282,9 @@ def random_lpips_npz(path: str, seed: int) -> str:
 
 
 def check_jpeg_fixtures(sync) -> dict:
-    """The baseline JPEG decoder against cv2's decode of every committed
-    fixture (its sha256, and its PNG where one is kept), the progressive one
-    refused; the decode's host ms at 128^2 and 512^2 (best of 3)."""
+    """The JPEG decoder against cv2's decode of every committed fixture (its
+    sha256, and its PNG where one is kept), the progressive one included;
+    the decode's host ms at 128^2 and 512^2 (best of 3)."""
     import hashlib
 
     from tpusr_torch.pipeline.jpeg import decode_jpeg_u8
@@ -5234,13 +5302,7 @@ def check_jpeg_fixtures(sync) -> dict:
             with open(twin, "rb") as f:
                 check(np.array_equal(decode_png_u8(f.read()), got),
                       f"JPEG fixture {name}: differs from its cv2 PNG")
-    with open(os.path.join(JPEG_FIXTURES, "progressive.jpg"), "rb") as f:
-        body = f.read()
-    try:
-        decode_jpeg_u8(body)
-        check(False, "a progressive JPEG was decoded")
-    except ValueError as e:
-        check("progressive JPEG" in str(e), f"progressive JPEG refused as {e}")
+    check("progressive" in decoded, "the progressive fixture has no entry")
     ms = {}
     for name in ("eda_hr", "q90_512"):
         with open(os.path.join(JPEG_FIXTURES, f"{name}.jpg"), "rb") as f:
@@ -5381,7 +5443,7 @@ def phase_eda(e: EdaSlice, dev, seed: int, sync, card: str) -> dict:
           f"(JPEG pair included): largest relative difference "
           f"{worst_rel:.3g} (held at {EDA_RTOL:g}), LPIPS {worst_lpips:.3g} "
           f"(held at {EDA_LPIPS_ATOL:g}); the JPEG decoder equal to cv2 on "
-          f"{jpeg['n']} fixtures, a progressive JPEG refused; decode "
+          f"{jpeg['n']} fixtures, the progressive one included; decode "
           f"{jpeg['ms_128']:.1f} ms at 128^2, {jpeg['ms_512']:.1f} ms at "
           f"512^2 (host); the phase {time.perf_counter() - t_phase:.2f} s "
           f"(the surfaces made on the card and the CPU run included)")
@@ -6594,6 +6656,157 @@ def phase_preprocess(p: PreprocessSlice, dev, seed: int, sync,
             "parity": parity, "ms": ms}
 
 
+# ----------------------------------------------------------------- formats
+
+FORMAT_FIXTURES = os.path.join(REPO, "tests", "data", "formats")
+# (the [formats] line's name, the 512^2 fixture timed)
+FORMAT_TIMED = (("baseline JPEG", "s512_baseline.jpg"),
+                ("progressive JPEG", "s512_progressive.jpg"),
+                ("PNG", "s512.png"), ("Adam7 PNG", "s512_adam7.png"),
+                ("BMP", "s512.bmp.xz"), ("TIFF none", "s512_none.tif.xz"),
+                ("TIFF LZW", "s512_lzw.tif"),
+                ("TIFF Deflate", "s512_deflate.tif"))
+# the committed 128^2 LR bodies phase_serve sends, by format
+SERVE_FORMATS = {"progressive JPEG": "_progressive.jpg",
+                 "Adam7 PNG": "_adam7.png", "BMP": ".bmp.xz", "TIFF": ".tif"}
+SERVE_FORMAT_REPEATS = 2     # each fixture sent twice: 8 bodies a format
+
+
+@dataclass(frozen=True)
+class FormatsSlice:
+    """The image formats the port decodes beside PNG: the committed
+    fixtures (``tests/data/formats``) against cv2's decode in their
+    manifest, a 512^2 decode per format timed, and ``classic`` on ``.tiff``
+    and ``.bmp`` twins of ``images`` HR/LR PNG pairs made as
+    ``phase_commands`` makes its surfaces."""
+    images: int = 4              # pairs, and classic's --limit
+
+
+def format_fixture(name: str) -> bytes:
+    """A fixture's bytes as the decoders read them (``.xz`` ones
+    unpacked)."""
+    import lzma
+    with open(os.path.join(FORMAT_FIXTURES, name), "rb") as f:
+        stored = f.read()
+    return lzma.decompress(stored) if name.endswith(".xz") else stored
+
+
+def write_format_twins(src: str, dst: str) -> None:
+    """Each PNG under ``src``/HR and ``src``/LR rewritten as a TIFF
+    (Deflate, predictor 2) under ``{dst}_tiff`` and as a 24 bpp BMP under
+    ``{dst}_bmp``, by ``tests/torch_image_writers.py``."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_image_writers import bmp_rows, write_bmp, write_tiff
+
+    from tpusr_torch.pipeline.png import decode_png_u8
+    for sub in ("HR", "LR"):
+        for fmt in ("tiff", "bmp"):
+            os.makedirs(os.path.join(f"{dst}_{fmt}", sub))
+        for name in sorted(os.listdir(os.path.join(src, sub))):
+            with open(os.path.join(src, sub, name), "rb") as f:
+                rgb = decode_png_u8(f.read())
+            stem = name.rsplit(".", 1)[0]
+            h, w, _ = rgb.shape
+            for fmt, body in (
+                    ("tiff", write_tiff(rgb, compression=8, predictor=2,
+                                        rows_per_strip=16)),
+                    ("bmp", write_bmp(w, h, 24, bmp_rows(
+                        rgb[::-1, :, ::-1].reshape(h, -1), 8)))):
+                with open(os.path.join(f"{dst}_{fmt}", sub, f"{stem}.{fmt}"),
+                          "wb") as f:
+                    f.write(body)
+
+
+def phase_formats(f: FormatsSlice, dev, seed: int, sync, card: str) -> dict:
+    """Host work and one command on the card: every committed format
+    fixture decoded and held against the sha256 of cv2's decode in
+    ``manifest.json``; the decode of one 512^2 image in each format timed
+    (host clock, best of 3); then ``classic --limit {images} --device
+    cuda`` in process on PNG pairs and on their ``.tiff`` and ``.bmp``
+    twins, each run driven with the launch counts set to 0 just before it
+    and read just after: the JSON (times and memory aside) and K4's
+    launches of the twins equal the PNG run's. Returns K4's launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from tpusr_torch.cli.__main__ import main as cli_main
+    from tpusr_torch.core import nlm
+    from tpusr_torch.pipeline.imdecode import decode_image_u8, image_format
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(FORMAT_FIXTURES, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    for name, want in sorted(manifest.items()):
+        with open(os.path.join(FORMAT_FIXTURES, name), "rb") as fh:
+            check(hashlib.sha256(fh.read()).hexdigest() == want["file_sha256"],
+                  f"format fixture {name}: not the file its manifest names")
+        got = decode_image_u8(format_fixture(name))
+        check(list(got.shape) == want["shape"] and hashlib.sha256(
+            got.tobytes()).hexdigest() == want["sha256"],
+            f"format fixture {name}: the decode differs from cv2's")
+    kinds = sorted({image_format(format_fixture(n)) for n in manifest})
+    print(f"[formats] {len(manifest)} fixtures ({', '.join(kinds)}) decode "
+          f"to cv2's bytes (the sha256 in tests/data/formats/manifest.json)")
+    timed = {}
+    for label, name in FORMAT_TIMED:
+        body = format_fixture(name)
+        ms = min(host_ms(lambda: decode_image_u8(body), sync)
+                 for _ in range(3))
+        timed[label] = {"ms": ms, "bytes": len(body)}
+        print(f"[formats] {card}: {label} 512^2 decode {ms:.1f} ms (host "
+              f"clock, best of 3), {len(body)} bytes")
+    work = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    runs, k4 = {}, {}
+    try:
+        c = CommandsSlice(images=f.images)
+        png_dir = os.path.join(work, "png")
+        write_reference_dataset(png_dir, c, seed + c.train_seed, dev,
+                                maps=True)
+        write_format_twins(png_dir, os.path.join(work, "twin"))
+        for fmt, root in (("png", png_dir),
+                          ("tiff", os.path.join(work, "twin_tiff")),
+                          ("bmp", os.path.join(work, "twin_bmp"))):
+            out = os.path.join(work, f"out_{fmt}")
+            argv = ["classic", "--hr-dir", os.path.join(root, "HR"),
+                    "--lr-dir", os.path.join(root, "LR"), "--fraction", "1.0",
+                    "--limit", str(f.images), "--out", out]
+            with count_plain_calls() as plain:
+                reset_counts()
+                nlm.reset_launch_counts()
+                t0 = time.perf_counter()
+                cli_main(argv)
+                sync()
+                wall = time.perf_counter() - t0
+                got = read_counts()
+                k4[fmt] = nlm.LAUNCHES["nlm_denoise"]
+            check(plain.n == 0, f"classic on {fmt}: plain twins on the card "
+                                f"{plain.by_twin}")
+            check(not any(got.values()), f"classic on {fmt}: launches {got} "
+                                         f"of kernels classic does not run")
+            res = json.load(open(os.path.join(out, "classic_summary.json")))
+            runs[fmt] = {alg: {k: v for k, v in row.items()
+                               if not k.startswith(("time_", "memory_"))}
+                         for alg, row in res["summary"].items()}
+            print(f"[formats] {card}: classic --limit {f.images} --device "
+                  f"cuda on {f.images} {fmt.upper()} pairs ({c.size}^2 / "
+                  f"{c.size // 4}^2) in {wall:.1f} s; K4 {k4[fmt]} launches")
+        for fmt in ("tiff", "bmp"):
+            check(runs[fmt] == runs["png"], f"classic on {fmt}: the JSON "
+                                            f"differs from the PNG run's")
+            check(k4[fmt] == k4["png"] == f.images * 3 + 1,
+                  f"classic on {fmt}: K4 launches {k4[fmt]}, PNG run "
+                  f"{k4['png']}, expected {f.images * 3 + 1}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ms = (time.perf_counter() - t_phase) * 1e3
+    print(f"[formats] {card}: classic's JSON (times and memory aside) and K4 "
+          f"launches on the .tiff and .bmp twins equal the PNG run's; "
+          f"phase_formats {ms:.0f} ms")
+    return {"launches": {"nlm_denoise": sum(k4.values())}, "decode": timed,
+            "ms": ms}
+
+
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
     rec = {"name": name, "route": "cuda",
            "source": f"tpusr_torch/csrc/{source}", "replaces": replaces,
@@ -6710,6 +6923,8 @@ def main() -> int:
         h5 = phase_h5(H5Slice(), cfg, dev, args.seed, sync, card)
         torch.cuda.empty_cache()
         pre = phase_preprocess(PreprocessSlice(), dev, args.seed, sync, card)
+        torch.cuda.empty_cache()
+        fmts = phase_formats(FormatsSlice(), dev, args.seed, sync, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6779,7 +6994,8 @@ def main() -> int:
             "eda": eda["launches"].get(rec["name"], 0),
             "poly": poly["launches"].get(rec["name"], 0),
             "h5": h5["launches"].get(rec["name"], 0),
-            "preprocess": pre["launches"].get(rec["name"], 0)}
+            "preprocess": pre["launches"].get(rec["name"], 0),
+            "formats": fmts["launches"].get(rec["name"], 0)}
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -83,8 +83,6 @@ def main():
     for name, body in fixtures().items():
         with open(os.path.join(HERE, f"{name}.jpg"), "wb") as f:
             f.write(body)
-        if name == "progressive":     # the decoder refuses it
-            continue
         bgr = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
         rgb = np.ascontiguousarray(bgr[..., ::-1])
         decoded[name] = {"shape": list(rgb.shape),
@@ -93,7 +91,7 @@ def main():
             cv2.imwrite(os.path.join(HERE, f"{name}.png"), bgr)
     with open(os.path.join(HERE, "decoded.json"), "w") as f:
         json.dump(decoded, f, indent=1, sort_keys=True)
-    print(f"wrote {len(decoded) + 1} JPEG fixtures to {HERE}")
+    print(f"wrote {len(decoded)} JPEG fixtures to {HERE}")
 
 
 if __name__ == "__main__":

@@ -283,24 +283,28 @@ def test_argument_checks_raise_as_jax(pairs, tmp_path, case):
 
 @pytest.mark.parametrize("fmt", ["jpg", "bmp", "tiff"])
 def test_a_file_of_another_format_raises_naming_it(pairs, tmp_path, fmt):
-    """A file the loader reaches and cannot decode (a BMP, a TIFF, a
-    progressive JPEG) raises, naming the file and its format; it is not
-    skipped (which would change the pairs and the split)."""
+    """A file of another format among the PNGs (a progressive JPEG, a BMP,
+    a TIFF), which raised naming itself before the port read these formats,
+    now loads as the JAX loader loads it with cv2: the arrays are equal. A
+    format no loader decodes (GIF) still raises, naming the file."""
     hr_dir = tmp_path / "HR"
     hr_dir.mkdir()
     for f in os.listdir(pairs / "HR"):
         (hr_dir / f).write_bytes((pairs / "HR" / f).read_bytes())
-    bad = hr_dir / f"s_001.{fmt}"
-    cv2.imwrite(str(bad), np.zeros((48, 48, 3), np.uint8),
+    other = hr_dir / f"s_001.{fmt}"
+    cv2.imwrite(str(other), cv2.imread(str(hr_dir / "s_001.png")),
                 [cv2.IMWRITE_JPEG_PROGRESSIVE, 1] if fmt == "jpg" else [])
     os.remove(hr_dir / "s_001.png")
-    name = {"jpg": "JPEG", "bmp": "BMP", "tiff": "TIFF"}[fmt]
     with open(tmp_path / "c.pkl", "wb") as f:
         pickle.dump({p: 0 for p in os.listdir(hr_dir)}, f)
-    with pytest.raises(ValueError, match=f"s_001.{fmt}: a {name} image"):
-        tl.load_defects_dataset_as_patches(str(hr_dir), patch_size=16,
-                                           stride=8,
-                                           class_map_path=str(tmp_path / "c.pkl"))
+    kw = dict(patch_size=16, stride=8, class_map_path=str(tmp_path / "c.pkl"))
+    for g, w in zip(tl.load_defects_dataset_as_patches(str(hr_dir), **kw),
+                    jl.load_defects_dataset_as_patches(str(hr_dir), **kw)):
+        np.testing.assert_array_equal(g, w)
+    gif = tmp_path / "g.gif"
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(gif)
+    with pytest.raises(ValueError, match="g.gif: a GIF image"):
+        tl.imread_rgb_u8(str(gif))
 
 
 def test_an_unreadable_png_raises_naming_the_file(tmp_path):

@@ -33,6 +33,7 @@ from tpusr_torch.models.block1 import extract_patches_reference
 from tpusr_torch.pipeline import PipelineServer, make_serving_pipeline
 from tpusr_torch.pipeline import png
 from tpusr_torch.pipeline.http_serving import make_http_server
+from torch_image_writers import write_png, write_tiff
 
 LR, SCALE, PATCH, STRIDE = 24, 2, 32, 16   # 48x48 SR, 3x3 patch grid
 
@@ -162,6 +163,9 @@ def test_cv2_reads_the_encoded_png_back_exactly():
 
 
 def test_jpeg_and_interlaced_png_are_refused_by_name():
+    """The PNG decoder refuses a JPEG by name; an Adam7 PNG, refused before
+    the port read interlaced files, decodes equal to cv2 under every row
+    filter."""
     img = np.random.default_rng(4).integers(0, 256, (16, 16, 3), np.uint8)
     ok, jpg = cv2.imencode(".jpg", img)
     assert ok
@@ -169,8 +173,7 @@ def test_jpeg_and_interlaced_png_are_refused_by_name():
         png.decode_png(jpg.tobytes())
     interlaced = _raw_png(img, 8, 2, interlace=1)
     np.testing.assert_array_equal(_cv2_rgb(interlaced), img)  # a valid PNG
-    with pytest.raises(ValueError, match="interlaced"):
-        png.decode_png(interlaced)
+    np.testing.assert_array_equal(png.decode_png_u8(interlaced), img)
     with pytest.raises(ValueError, match="not a decodable image"):
         png.decode_png(b"not an image")
     bad_crc = bytearray(png.encode_png(img / 255.0))
@@ -256,13 +259,20 @@ def test_every_endpoint_and_status_code(nets):
         both = json.loads(body)
         assert status == 200 and both["class"] == r["class"]
         assert base64.b64decode(both["sr_png_base64"]) == sr_png
-        # 400: not an image, a progressive JPEG, a GIF, a wrong LR size
-        status, _, body = _request(served.base + "/classify", b"not an image")
-        assert status == 400 and json.loads(body)["type"] == "ValueError"
+        # a progressive JPEG answers 200; 400: not an image, an
+        # arithmetic-coded JPEG, a GIF, a wrong LR size
         ok, jpg = cv2.imencode(".jpg", (lr[0] * 255).astype(np.uint8),
                                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-        status, _, body = _request(served.base + "/sr", jpg.tobytes())
-        assert status == 400 and "progressive JPEG" in json.loads(body)["error"]
+        status, ctype, _ = _request(served.base + "/sr", jpg.tobytes())
+        assert status == 200 and ctype == "image/png"
+        status, _, body = _request(served.base + "/classify", b"not an image")
+        assert status == 400 and json.loads(body)["type"] == "ValueError"
+        ok, jpg = cv2.imencode(".jpg", (lr[0] * 255).astype(np.uint8))
+        i = jpg.tobytes().index(b"\xff\xc0")
+        arith = jpg.tobytes()[:i + 1] + b"\xc9" + jpg.tobytes()[i + 2:]
+        status, _, body = _request(served.base + "/sr", arith)
+        assert status == 400 and "arithmetic-coded JPEG" in json.loads(
+            body)["error"]
         status, _, body = _request(served.base + "/sr", b"GIF89a" + b"\0" * 16)
         assert status == 400 and "GIF" in json.loads(body)["error"]
         status, _, body = _request(served.base + "/classify",
@@ -419,3 +429,54 @@ def test_http_answers_match_the_jax_server(nets, monkeypatch):
     finally:
         port.close()
         jax.close()
+
+
+def _bodies(u8: np.ndarray) -> dict:
+    """The LR image in each new format; the lossy one with its decode."""
+    ok, bmp = cv2.imencode(".bmp", u8[..., ::-1])
+    ok2, prog = cv2.imencode(".jpg", u8[..., ::-1], [
+        cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, 90])
+    assert ok and ok2
+    return {"bmp": bmp.tobytes(),
+            "tiff": write_tiff(u8, compression=8, predictor=2),
+            "progressive": prog.tobytes(),
+            "adam7": write_png(u8, 8, 2, interlace=1)}
+
+
+def test_http_tier_answers_each_format_as_its_png_twin(nets):
+    """BMP, TIFF, progressive-JPEG and Adam7 bodies answer 200 with the
+    class and the SR of their PNG twins; GIF, WebP and arithmetic-coded
+    JPEG bodies answer 400 naming what they are; a body of another size in
+    a new format is refused from its header."""
+    sv, cv, lr = nets
+    served = _Served(make_http_server, _port_server(sv, cv))
+    try:
+        for img in lr[:2]:
+            u8 = (img * 255).astype(np.uint8)
+            for name, body in _bodies(u8).items():
+                rgb = cv2.imdecode(np.frombuffer(body, np.uint8),
+                                   cv2.IMREAD_COLOR)[..., ::-1]
+                twin = png.encode_png_u8(rgb)
+                for path in ("/classify", "/sr"):
+                    got = _request(served.base + path, body)
+                    want = _request(served.base + path, twin)
+                    assert got[0] == want[0] == 200, (name, path, got[2][:200])
+                    assert got[2] == want[2], (name, path)
+        u8 = (lr[0] * 255).astype(np.uint8)
+        gif, webp = io.BytesIO(), io.BytesIO()
+        Image.fromarray(u8).save(gif, "GIF")
+        Image.fromarray(u8).save(webp, "WEBP")
+        ok, jpg = cv2.imencode(".jpg", u8)
+        i = jpg.tobytes().index(b"\xff\xc0")
+        arith = jpg.tobytes()[:i + 1] + b"\xc9" + jpg.tobytes()[i + 2:]
+        for body, what in ((gif.getvalue(), "GIF"), (webp.getvalue(), "WebP"),
+                           (arith, "arithmetic-coded JPEG")):
+            status, _, reply = _request(served.base + "/classify", body)
+            assert status == 400 and what in json.loads(reply)["error"]
+        # a body of another size in a new format is refused from its header
+        wide = np.zeros((LR, LR + 1, 3), np.uint8)
+        for name, body in _bodies(wide).items():
+            status, _, reply = _request(served.base + "/sr", body)
+            assert status == 400 and "expected" in json.loads(reply)["error"]
+    finally:
+        served.close()

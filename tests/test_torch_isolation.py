@@ -61,7 +61,9 @@ def test_every_port_module_imports_without_jax():
             "tpusr_torch.pipeline.http_serving",
             "tpusr_torch.cli.__main__", "tpusr_torch.data.loading",
             "tpusr_torch.data.degrade", "tpusr_torch.utils",
-            "tpusr_torch.pipeline.jpeg", "tpusr_torch.metrics.lpips",
+            "tpusr_torch.pipeline.jpeg", "tpusr_torch.pipeline.imdecode",
+            "tpusr_torch.pipeline.bmp", "tpusr_torch.pipeline.tiff",
+            "tpusr_torch.metrics.lpips",
             "tpusr_torch.tools.lpips_weights", "tpusr_torch.data.eda",
             "tpusr_torch.data._cv_ops", "tpusr_torch.tools.imagenet_weights",
             "tpusr_torch.models.edsr_fast", "tpusr_torch.core.winograd",

@@ -1,10 +1,13 @@
-"""The port's baseline JPEG decoder (``tpusr_torch/pipeline/jpeg.py``)
-against ``cv2.imdecode(IMREAD_COLOR)``, which the JAX package decodes with.
+"""The port's JPEG decoder (``tpusr_torch/pipeline/jpeg.py``) against
+``cv2.imdecode(IMREAD_COLOR)``, which the JAX package decodes with (the
+progressive, RGB, CMYK and other-sampling cases are in
+``test_torch_jpeg_formats.py``).
 
 Tolerance: none. Every baseline case decodes to cv2's bytes exactly
 (swapped to RGB): qualities 50-100, 4:4:4, 4:2:2, 4:2:0 and 4:4:0, odd
 sizes, gray, restart intervals, optimised Huffman tables, PIL's encoder and
-every EXIF orientation. What the decoder refuses raises naming it, and a
+every EXIF orientation, and what the baseline decoder refused (progressive,
+SOF1, 4:1:1, RGB, CMYK). What the decoder refuses raises naming it, and a
 crafted header is refused before memory is sized from it.
 """
 
@@ -20,7 +23,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from tpusr_torch.pipeline import jpeg, png
+from tpusr_torch.pipeline import imdecode, jpeg, png
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jpeg")
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
@@ -140,16 +143,11 @@ def test_committed_fixtures_decode_to_their_cv2_pngs():
     names = sorted(f[:-4] for f in os.listdir(DATA) if f.endswith(".jpg"))
     with open(os.path.join(DATA, "decoded.json")) as f:
         decoded = json.load(f)
-    assert len(names) == 10 and sorted(decoded) == [n for n in names
-                                                    if n != "progressive"]
+    assert len(names) == 10 and sorted(decoded) == names
     for name in names:
         with open(os.path.join(DATA, f"{name}.jpg"), "rb") as f:
             body = f.read()
-        if name == "progressive":
-            with pytest.raises(ValueError, match="progressive JPEG"):
-                jpeg.decode_jpeg_u8(body)
-            continue
-        got = png.decode_image_u8(body)
+        got = imdecode.decode_image_u8(body)
         np.testing.assert_array_equal(got, _cv2_rgb(body))
         assert list(got.shape) == decoded[name]["shape"]
         assert hashlib.sha256(got.tobytes()).hexdigest() == decoded[name]["sha256"]
@@ -200,42 +198,71 @@ def _second_scan(body: bytes) -> bytes:
     return body[:eoi] + body[sos:eoi] + body[eoi:]
 
 
+def _unrefined(body: bytes) -> bytes:
+    """A progressive file cut after its first scan, EOI appended."""
+    sos = body.index(b"\xff\xda")
+    nxt = sos + 2
+    while not (body[nxt] == 0xFF and body[nxt + 1] not in (0, *range(0xD0, 0xD8))):
+        nxt += 1
+    return body[:nxt] + b"\xff\xd9"
+
+
 def test_what_the_decoder_refuses_raises_naming_it():
     img = _scene(9, 24, 24)
     base = _encode(img, cv2.IMWRITE_JPEG_QUALITY, 90)
     cases = [
-        (_encode(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1), "progressive JPEG"),
         (_patched_sof(base, marker=0xC9), "arithmetic-coded JPEG"),
         (_patched_sof(base, marker=0xC3), "lossless JPEG"),
-        (_patched_sof(base, marker=0xC1), r"extended sequential \(SOF1\)"),
         (_patched_sof(base, precision=12), "12-bit JPEG"),
-        (_encode(img, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
-         "subsampling of 4x1"),
-        (_as_rgb(base, "adobe"), "RGB JPEG"),
-        (_as_rgb(base, "ids"), "RGB JPEG"),
         (_second_scan(_encode(img[..., 0])), "coded in two scans"),
         (base[:len(base) // 2], "truncated"),
+        (_unrefined(_encode(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)),
+         "unrefined progressive JPEG"),
     ]
-    buf = io.BytesIO()
-    Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
-    cases.append((buf.getvalue(), "CMYK"))
     for body, what in cases:
         with pytest.raises(ValueError, match=what):
-            png.decode_image_u8(body)
+            imdecode.decode_image_u8(body)
+
+
+def _formerly_refused(case: str) -> bytes:
+    img = _scene(9, 24, 24)
+    base = _encode(img, cv2.IMWRITE_JPEG_QUALITY, 90)
+    if case == "progressive":
+        return _encode(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+    if case == "sof1":
+        return _patched_sof(base, marker=0xC1)
+    if case == "411":
+        return _encode(img, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411)
+    if case.startswith("rgb-"):
+        return _as_rgb(base, case[4:])
+    buf = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("case", ["progressive", "sof1", "411", "rgb-adobe",
+                                  "rgb-ids", "cmyk"])
+def test_formerly_refused_jpegs_decode_equal_to_cv2(case):
+    """What the baseline decoder refused (progressive, SOF1, 4:1:1, RGB by
+    Adobe transform or by component ids, CMYK) decodes as cv2 decodes it."""
+    _same_as_cv2(_formerly_refused(case))
 
 
 def test_cv2_reads_the_refused_rgb_jpegs_as_rgb():
     """The relabelled files above are what libjpeg takes for RGB: cv2 gives
-    the stored planes unconverted, so the decoder refuses them rather than
-    convert them as YCbCr."""
+    the stored planes unconverted, not their YCbCr conversion, and so does
+    the decoder."""
     img = _scene(9, 24, 24)
     base = _encode(img, cv2.IMWRITE_JPEG_QUALITY, 90,
                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)
     for how in ("adobe", "ids"):
-        assert not np.array_equal(_cv2_rgb(_as_rgb(base, how)),
-                                  _cv2_rgb(base))
+        body = _as_rgb(base, how)
+        assert not np.array_equal(_cv2_rgb(body), _cv2_rgb(base))
+        _same_as_cv2(body)
+        frame, _ = jpeg.parse_jpeg(body)
+        assert frame.colorspace == "rgb"
 
 
 def _resized_sof(body: bytes, h: int, w: int) -> bytes:
@@ -269,7 +296,7 @@ def test_a_crafted_frame_header_is_refused_in_bounded_memory(h, w, channels,
 
     def decode():
         with pytest.raises(ValueError, match=what):
-            png.decode_image_u8(body)
+            imdecode.decode_image_u8(body)
     assert _peak_bytes(decode) < 16 << 20
 
 
@@ -281,18 +308,18 @@ def test_expected_size_refuses_another_frame_before_decoding(monkeypatch):
                             AssertionError("a scan was decoded")))
     for bad in (body, _resized_sof(body, 8192, 8192)):
         with pytest.raises(ValueError, match="expected 128x128 LR input"):
-            png.decode_image_u8(bad, expected_hw=(128, 128))
+            imdecode.decode_image_u8(bad, expected_hw=(128, 128))
     img = _scene(2, 16, 16)
     with pytest.raises(ValueError, match="expected 128x128 LR input"):
-        png.decode_image_u8(png.encode_png_u8(img), expected_hw=(128, 128))
+        imdecode.decode_image_u8(png.encode_png_u8(img), expected_hw=(128, 128))
     assert not built
     monkeypatch.undo()
     # the transposed frame passes: an EXIF tag may turn it to the size
     turned = body[:2] + _exif(6, "II") + body[2:]
-    got = png.decode_image_u8(turned, expected_hw=(40, 24))
+    got = imdecode.decode_image_u8(turned, expected_hw=(40, 24))
     np.testing.assert_array_equal(got, _cv2_rgb(turned))
     np.testing.assert_array_equal(
-        png.decode_image_u8(png.encode_png_u8(img), expected_hw=(16, 16)),
+        imdecode.decode_image_u8(png.encode_png_u8(img), expected_hw=(16, 16)),
         img)
 
 
@@ -340,6 +367,8 @@ def test_bytes_past_the_scans_blocks_are_not_windowed():
 @pytest.mark.parametrize("fmt,ext", [("GIF", ".gif"), ("BMP", ".bmp"),
                                      ("TIFF", ".tiff"), ("WebP", ".webp")])
 def test_other_formats_raise_naming_the_format(fmt, ext):
+    """GIF and WebP raise naming the format; BMP and TIFF, which raised
+    before the port read them, decode equal to cv2."""
     img = _scene(3, 16, 16)
     if fmt == "GIF":
         buf = io.BytesIO()
@@ -349,7 +378,11 @@ def test_other_formats_raise_naming_the_format(fmt, ext):
         ok, b = cv2.imencode(ext, img)
         assert ok
         body = b.tobytes()
-    assert png.image_format(body) == fmt
-    with pytest.raises(ValueError, match=f"a {fmt} image"):
-        png.decode_image_u8(body)
-    assert png.decode_image(png.encode_png_u8(img)).dtype == np.float32
+    assert imdecode.image_format(body) == fmt
+    if fmt in ("BMP", "TIFF"):
+        np.testing.assert_array_equal(imdecode.decode_image_u8(body),
+                                      _cv2_rgb(body))
+    else:
+        with pytest.raises(ValueError, match=f"a {fmt} image"):
+            imdecode.decode_image_u8(body)
+    assert imdecode.decode_image(png.encode_png_u8(img)).dtype == np.float32

@@ -15,8 +15,8 @@ Every command takes the JAX command's flags and defaults, plus ``--device``
 (default ``cuda``): with no card and no ``--device cpu`` a command exits
 with a message; it never falls back to the CPU. The flows are the JAX
 package's (load -> split(seed 42) -> train -> evaluate -> checkpoint +
-metrics JSON), on the port's loaders (``data/loading.py``: PNG and baseline
-JPEG), its trainers and facades; checkpoints are the port's own
+metrics JSON), on the port's loaders (``data/loading.py``: PNG, JPEG, BMP
+and TIFF, decoded as cv2 decodes them), its trainers and facades; checkpoints are the port's own
 (``train/checkpoint.py``). ``classic`` and ``pipeline`` write the JSON the
 JAX commands write and their figures, under the same names, through the
 port's figure writer (``tpusr_torch/viz``).
@@ -726,7 +726,7 @@ def _read_calib_dir(calib_dir: str, lr_hw: tuple[int, int]):
     import torch
 
     from tpusr_torch.core.resize import resize
-    from tpusr_torch.pipeline.png import decode_image_u8
+    from tpusr_torch.pipeline.imdecode import decode_image_u8
 
     files = sorted(f for ext in ("png", "jpg", "jpeg")
                    for f in glob.glob(os.path.join(calib_dir, f"*.{ext}")))[:16]

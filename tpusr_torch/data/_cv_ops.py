@@ -18,7 +18,10 @@ Images are (H, W, C) or (H, W) uint8 tensors in OpenCV's BGR order.
   clamping at the borders (indices replicate the edge), a horizontal pass
   of integer taps (x 2048), and a vertical pass that is integer for
   ``INTER_LANCZOS4`` and OpenCV's 16-bit ``mulhi`` SIMD sum
-  (``VResizeLinear``) for ``INTER_LINEAR``/``INTER_AREA``. IPP takes no
+  (``VResizeLinear``) for ``INTER_LINEAR``/``INTER_AREA``; for
+  ``INTER_CUBIC`` from a source under 4x4, float32 in steps of 8 values
+  (``VResizeCubicVec_32s8u``, no fused multiply-add) and OpenCV's integer
+  ``VResizeCubic`` for the rest of each row. IPP takes no
   uint8 ``INTER_LINEAR`` or ``INTER_LANCZOS4`` resize in this cv2 (the same
   bytes with ``cv2.ipp.setUseIPP(False)``), and an exact x2
   ``INTER_LINEAR`` shrink, which OpenCV hands to ``resizeAreaFast``, gives
@@ -224,14 +227,19 @@ def resize_u8(img: torch.Tensor, out_hw: tuple[int, int],
     if method == "lanczos4":
         v = ((rows * yt[:, :, None]).sum(1) + (1 << 21)) >> 22
     elif method == "bicubic":
+        # VResizeCubicVec_32s8u: 8 values a step in float32, s0*b0 + (s1*b1
+        # + (s2*b2 + s3*b3)), each product and sum rounded; the last
+        # ow*c % 8 values (all of a row under 8) in VResizeCubic's integer
+        # sum, rounded at 22 bits
         s = rows.to(torch.float32)
         b = yt.to(torch.float32) * np.float32(1.0 / (_COEF_SCALE * _COEF_SCALE))
-
-        def fma_pair(i, j):   # fma(s_i, b_i, s_j * b_j), rounded once
-            prod = (s[:, j] * b[:, j, None]).double()
-            return (s[:, i].double() * b[:, i, None].double() + prod).float()
-
-        v = torch.round(fma_pair(0, 1) + fma_pair(2, 3)).to(torch.int64)
+        acc = s[:, 3] * b[:, 3, None]
+        for k in (2, 1, 0):
+            acc = s[:, k] * b[:, k, None] + acc
+        v = torch.round(acc).to(torch.int64)
+        simd = (ow * c) // 8 * 8
+        v[:, simd:] = ((rows[:, :, simd:] * yt[:, :, None]).sum(1)
+                       + (1 << 21)) >> 22
     else:
         s = (rows >> 4).clamp(-32768, 32767)
         t = ((s[:, 0] * yt[:, 0, None]) >> 16) + ((s[:, 1] * yt[:, 1, None]) >> 16)

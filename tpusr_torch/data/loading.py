@@ -11,11 +11,10 @@ reference's semantics (``SRModels/loading_methods.py``):
 - ``load_predictions_dataset`` (:288-386).
 
 The JAX package decodes with ``cv2.imread`` and resizes with ``cv2.resize``.
-The port has no image library: it decodes PNG with ``pipeline/png.py``
-(what ``cv2.imread(IMREAD_COLOR)`` gives for 8- and 16-bit, gray, palette
-and alpha PNGs) and baseline JPEG with ``pipeline/jpeg.py`` (bit for bit
-what cv2 gives, EXIF orientation applied) and resizes with ``core/resize.py``'s cv2 taps, plus a
-private ``INTER_NEAREST``. A file of another format that a loader reaches
+The port has no image library: it decodes PNG, JPEG, BMP and TIFF with
+``pipeline/imdecode.py`` (byte for byte what ``cv2.imread(IMREAD_COLOR)``
+gives, orientation tags applied) and resizes with ``core/resize.py``'s cv2
+taps, plus a private ``INTER_NEAREST``. A file of another format that a loader reaches
 raises, naming the file and its format: skipping it would change the pairs
 and the split. Patches are cut with one numpy view per image.
 """
@@ -29,7 +28,7 @@ import numpy as np
 import torch
 
 from tpusr_torch.core.resize import resize
-from tpusr_torch.pipeline.png import decode_image_u8, image_format
+from tpusr_torch.pipeline.imdecode import decode_image_u8, image_format
 
 _IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tiff")
 
@@ -63,17 +62,21 @@ def get_all_image_paths(root: str) -> list[str]:
 
 
 def imread_rgb_u8(path: str) -> np.ndarray:
-    """A PNG or baseline JPEG file as (h, w, 3) uint8 RGB, what
-    ``cv2.imread(IMREAD_COLOR)`` and the BGR->RGB swap give; any other file
-    raises ``ValueError`` naming it and its format."""
+    """An image file as (h, w, 3) uint8 RGB, what ``cv2.imread(IMREAD_COLOR)``
+    and the BGR->RGB swap give: PNG, JPEG, BMP or TIFF through
+    ``pipeline/imdecode.py``. Any other format, and what those decoders
+    refuse (arithmetic-coded, lossless or 12-bit JPEG, a progressive JPEG
+    with unrefined bits, JPEG-compressed, CCITT or floating-point TIFF),
+    raises ``ValueError`` naming the file and its format."""
     with open(path, "rb") as f:
         body = f.read()
     fmt = image_format(body)
-    if fmt not in ("PNG", "JPEG"):
+    if fmt not in ("PNG", "JPEG", "BMP", "TIFF"):
         raise ValueError(
-            f"{path}: a {fmt} image; the port's loaders decode PNG and "
-            f"baseline JPEG only" if fmt
-            else f"Failed to read image: {path} (not a PNG or JPEG)")
+            f"{path}: a {fmt} image; the port's loaders decode PNG, JPEG, "
+            f"BMP and TIFF only" if fmt
+            else f"Failed to read image: {path} (not a PNG, JPEG, BMP or "
+                 f"TIFF)")
     try:
         return decode_image_u8(body)
     except ValueError as e:

@@ -8,8 +8,8 @@ simultaneous requests.
 
 Endpoints:
   GET  /healthz     -> {"status": "ok", "config": {...}}
-  POST /classify    -> {"class": int, "confidence": float}; body = a PNG or
-                       JPEG LR image of the configured LR size
+  POST /classify    -> {"class": int, "confidence": float}; body = a PNG,
+                       JPEG, BMP or TIFF LR image of the configured LR size
   POST /sr          -> PNG body of the super-resolved image
   POST /classify_sr -> JSON with class/confidence + base64 PNG of the SR
 
@@ -18,10 +18,12 @@ wrong size (refused from its header, before its data is decoded), 504 when the b
 pipeline fault, 404 for any other path.
 
 Two things differ from the JAX server. The codec: it decodes any format
-OpenCV reads, the port PNG (``pipeline/png.py``) and baseline JPEG
-(``pipeline/jpeg.py``, equal to OpenCV's decode), since the card's machine
-has no image library; a progressive or other JPEG the decoder refuses, or a
-body of another format, gets a 400 that names what it is. The listen backlog: 128, where the standard library's 5 (the
+OpenCV reads; the port decodes PNG, JPEG (baseline, extended and
+progressive; gray, YCbCr, RGB, CMYK), BMP and TIFF
+(``pipeline/imdecode.py``, each equal to OpenCV's decode), since the card's
+machine has no image library; a body of another format (GIF, WebP, AVIF,
+JPEG 2000, ...) or one the decoders refuse (an arithmetic-coded JPEG, a
+JPEG-compressed TIFF, ...) gets a 400 that names what it is. The listen backlog: 128, where the standard library's 5 (the
 JAX server's) leaves a client beyond the fifth waiting connection to the
 kernel's SYN retry, about a second later. Stand it up with ``python -m tpusr_torch.cli serve
 --edsr-ckpt ... --vgg16-ckpt ...``.
@@ -35,7 +37,8 @@ import threading
 from concurrent.futures import TimeoutError as FutTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from tpusr_torch.pipeline.png import decode_image, encode_png
+from tpusr_torch.pipeline.imdecode import decode_image
+from tpusr_torch.pipeline.png import encode_png
 
 
 class _Server(ThreadingHTTPServer):

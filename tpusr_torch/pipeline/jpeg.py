@@ -1,34 +1,45 @@
-"""Baseline JPEG decode in numpy, beside ``pipeline/png.py``.
+"""JPEG decode in numpy, beside ``pipeline/png.py``.
 
 The JAX package decodes request bodies and dataset files with OpenCV, which
 decodes JPEG through libjpeg-turbo. The port has no image library, so it
 carries this decoder, written to give what ``cv2.imdecode(buf,
 cv2.IMREAD_COLOR)`` gives (swapped to RGB), bit for bit:
 
-- baseline sequential Huffman JPEG (SOF0), 8-bit samples, one scan or one
-  scan per component, restart intervals;
-- gray, or YCbCr at 4:4:4, 4:2:2 (h2v1), 4:4:0 (h1v2) or 4:2:0 (h2v2);
+- Huffman-coded JPEG at 8 bits: baseline (SOF0) and extended sequential
+  (SOF1: four tables of each kind), one scan or one scan per component;
+  progressive (SOF2: DC first and refinement scans, AC first scans with
+  end-of-band runs, AC refinement scans with their correction bits, as in
+  libjpeg's ``jdphuff.c``); restart intervals in both;
+- gray, YCbCr, RGB (an Adobe transform of 0, or components named R, G, B
+  and no JFIF marker), CMYK and YCCK (four components, an Adobe transform
+  of 0 or 2), given as OpenCV gives them: libjpeg's ``JCS_CMYK`` output
+  through OpenCV's ``icvCvt_CMYK2BGR``;
+- every integral sampling ratio: libjpeg's "fancy" triangle upsampling at
+  h2v1, h1v2 and h2v2 (box replication where the chroma is at most two
+  samples wide), box replication (``int_upsample``) at any other ratio;
 - libjpeg's integer IDCT (``JDCT_ISLOW``, ``jidctint.c``) with its range
-  limit, its "fancy" triangle upsampling (box replication where the chroma
-  is at most two samples wide), and its fixed-point YCbCr->RGB tables
-  (``jdcolor.c``);
+  limit and its fixed-point YCbCr->RGB tables (``jdcolor.c``);
 - the EXIF orientation tag (APP1), applied as ``cv2.imdecode`` applies it.
 
 Huffman decoding is a Python loop over symbols, on a precomputed 16-bit
 window of the entropy-coded bits and 16-bit lookup tables; dequantisation,
 the IDCT, upsampling and colour run over all blocks at once in numpy.
 
-Progressive, arithmetic-coded, extended sequential, lossless, hierarchical,
-12-bit, RGB, four-component (CMYK/YCCK) JPEG and other subsampling ratios
-raise ``ValueError`` naming what they are.
+Arithmetic-coded, lossless, hierarchical and 12-bit JPEG, a sequential
+component coded in two scans, and a progressive JPEG whose scans leave a
+coefficient bit unrefined (where libjpeg smooths the blocks) raise
+``ValueError`` naming what they are.
 
 The decoder faces the network, so what a body declares is checked before
 memory is sized from it: an image over 2^30 pixels is refused (OpenCV's
 ``CV_IO_MAX_IMAGE_PIXELS``), and so is a frame of another size than the
-caller's ``expected_hw``; a scan whose blocks need more bits than it
-carries is refused before its coefficients are allocated, and only the
-bytes its blocks could read are windowed; Huffman tables are built when a
-scan uses them, and each component is coded in one scan.
+caller's ``expected_hw``; a component's coefficients are allocated by the
+first scan that codes it, and only once that scan is known to carry at
+least one bit for each of its blocks (two in a sequential scan: a DC and an
+AC code; one in a progressive DC scan; a progressive component's first scan
+must be a DC scan), so a few bytes cannot declare megabytes of blocks; only
+the bytes a scan's blocks could read are windowed; Huffman tables are built
+when a scan uses them.
 """
 
 from __future__ import annotations
@@ -46,8 +57,7 @@ _NATURAL = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
             35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
             58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63] \
     + [63] * 16
-_SOF_REFUSED = {0xC1: "extended sequential (SOF1)", 0xC2: "progressive",
-                0xC3: "lossless", 0xC5: "differential",
+_SOF_REFUSED = {0xC3: "lossless", 0xC5: "differential",
                 0xC6: "differential progressive", 0xC7: "differential lossless",
                 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
                 0xCB: "arithmetic-coded lossless",
@@ -64,8 +74,8 @@ MAX_PIXELS = 1 << 30
 # the most bits one block can read: 64 codes of at most 16 bits, each with
 # at most 15 extra bits
 _MAX_BLOCK_BITS = 64 * (16 + 15)
-# (h, w) ratios of the full grid to a component's: 4:4:4, 4:2:2, 4:4:0, 4:2:0
-_RATIOS = {(1, 1), (2, 1), (1, 2), (2, 2)}
+# libjpeg's D_MAX_BLOCKS_IN_MCU
+_MAX_BLOCKS_IN_MCU = 10
 
 
 def _range_limit() -> np.ndarray:
@@ -151,13 +161,15 @@ class _Component:
 
 
 class _Frame:
-    def __init__(self, data: bytes, expected_hw: tuple[int, int] | None):
+    def __init__(self, data: bytes, expected_hw: tuple[int, int] | None,
+                 progressive: bool = False):
         if len(data) < 6:
             raise ValueError("truncated JPEG frame header")
         precision, self.height, self.width, n = struct.unpack(">BHHB", data[:6])
+        self.progressive = progressive
         if precision != 8:
             raise ValueError(f"{precision}-bit JPEG is not supported "
-                             f"(8-bit baseline only)")
+                             f"(8-bit only)")
         if self.height == 0 or self.width == 0:
             raise ValueError("JPEG with no height (a DNL marker) or no width "
                              "is not supported")
@@ -169,9 +181,7 @@ class _Frame:
             raise ValueError(f"expected {expected_hw[0]}x{expected_hw[1]} "
                              f"LR input, got a {self.height}x{self.width} "
                              f"JPEG")
-        if n == 4:
-            raise ValueError("CMYK/YCCK JPEG (4 components) is not supported")
-        if n not in (1, 3):
+        if n not in (1, 3, 4):
             raise ValueError(f"JPEG with {n} components is not supported")
         if len(data) != 6 + 3 * n:
             raise ValueError("JPEG frame header of the wrong length")
@@ -185,12 +195,11 @@ class _Frame:
         self.max_h = max(c.h for c in self.comps)
         self.max_v = max(c.v for c in self.comps)
         for c in self.comps:
-            ratio = (self.max_h / c.h, self.max_v / c.v)
-            if ratio not in _RATIOS:
+            if self.max_h % c.h or self.max_v % c.v:
                 raise ValueError(
-                    f"JPEG subsampling of {ratio[0]:g}x{ratio[1]:g} (component "
-                    f"{c.id} at h{c.h}v{c.v}) is not supported (4:4:4, 4:2:2, "
-                    f"4:4:0 and 4:2:0 only)")
+                    f"JPEG subsampling of {self.max_h}/{c.h}x{self.max_v}/"
+                    f"{c.v} (component {c.id} at h{c.h}v{c.v}) is a "
+                    f"fractional ratio, which libjpeg does not upsample")
         self.mcus_wide = -(-self.width // (8 * self.max_h))
         self.mcus_high = -(-self.height // (8 * self.max_v))
         for c in self.comps:
@@ -201,6 +210,8 @@ class _Frame:
             c.dh = -(-self.height * c.v // self.max_v)
             c.rows, c.cols = self.mcus_high * c.v, self.mcus_wide * c.h
             c.coef = None       # allocated by the scan that codes it
+            c.flat = None       # a progressive component's coefficients
+            c.coef_bits = [-1] * 64     # libjpeg's coef_bits, per position
 
 
 def _segments(body: bytes, pos: int) -> tuple[list[bytes], int]:
@@ -263,11 +274,9 @@ def _scan_plan(frame: _Frame, comps: list[_Component]):
     return slots, np.concatenate(parts, axis=2).ravel().tolist()
 
 
-def _decode_scan(body: bytes, pos: int, frame: _Frame, header: bytes,
-                 dc_tabs: dict, ac_tabs: dict, qtabs: dict,
-                 restart: int) -> int:
-    """Huffman-decode one scan into its components' coefficients; returns
-    the position of the marker after it."""
+def _scan_header(frame: _Frame, header: bytes):
+    """The components of a scan, their (DC, AC) table ids and the scan's
+    Ss, Se, Ah and Al."""
     n = header[0] if header else 0
     if not 1 <= n <= len(frame.comps) or len(header) != 4 + 2 * n:
         raise ValueError("JPEG scan header is malformed")
@@ -277,40 +286,66 @@ def _decode_scan(body: bytes, pos: int, frame: _Frame, header: bytes,
         c = next((c for c in frame.comps if c.id == cid), None)
         if c is None:
             raise ValueError(f"JPEG scan names an unknown component {cid}")
-        if c.q is not None or c in comps:
-            raise ValueError(f"JPEG component {cid} is coded in two scans")
-        if (t >> 4) not in dc_tabs or (t & 15) not in ac_tabs:
-            raise ValueError("JPEG scan uses an undefined Huffman table")
-        if c.tq not in qtabs:
-            raise ValueError("JPEG component uses an undefined quantisation "
-                             "table")
+        if c in comps:
+            raise ValueError(f"JPEG scan names component {cid} twice")
         comps.append(c)
         tabs.append((t >> 4, t & 15))
+    if n > 1 and sum(c.h * c.v for c in comps) > _MAX_BLOCKS_IN_MCU:
+        raise ValueError("JPEG scan of more than 10 blocks an MCU")
     ss, se, a = header[1 + 2 * n: 4 + 2 * n]
-    if (ss, se, a) != (0, 63, 0):
-        raise ValueError("progressive JPEG scan is not supported (baseline "
-                         "only)")
+    return comps, tabs, ss, se, a >> 4, a & 15
+
+
+def _scan_extent(frame: _Frame, comps: list[_Component]) -> tuple[int, int]:
+    """(MCUs, blocks an MCU) of a scan: one block an MCU in a scan of one
+    component, else the frame's MCUs."""
+    if len(comps) == 1:
+        return comps[0].blocks_high * comps[0].blocks_wide, 1
+    return (frame.mcus_high * frame.mcus_wide,
+            sum(c.h * c.v for c in comps))
+
+
+def _scan_segments(body: bytes, pos: int, n_mcu: int, mcu_blocks: int,
+                   restart: int, min_bits: int):
+    """The segments of the scan at ``pos`` that its MCUs read, each cut to
+    the bytes its blocks could read; the position of the marker after the
+    scan. A scan that carries fewer than ``min_bits`` bits for each block
+    is cut short, and is refused before anything is sized from it."""
     segs, end = _segments(body, pos)
-    if n == 1:
-        mcu_blocks = 1
-        n_mcu = comps[0].blocks_high * comps[0].blocks_wide
-    else:
-        mcu_blocks = sum(c.h * c.v for c in comps)
-        n_mcu = frame.mcus_high * frame.mcus_wide
     # segments past the last restart interval are never read
     per_seg = restart if restart else n_mcu
     segs = segs[:-(-n_mcu // per_seg)]
-    # every block reads a DC and an AC code of one bit or more, within its
-    # segment: a scan that carries fewer bits is cut short, and is refused
-    # before its coefficients are sized
     bits = 8 * sum(len(s) for s in segs)
-    if 2 * n_mcu * mcu_blocks > bits:
+    if min_bits * n_mcu * mcu_blocks > bits:
         raise ValueError(f"truncated JPEG scan: {n_mcu * mcu_blocks} blocks "
                          f"in {bits} bits")
     # a segment's blocks read at most _MAX_BLOCK_BITS each: the bytes past
     # them are never read
     cap = per_seg * mcu_blocks * _MAX_BLOCK_BITS // 8 + 8
-    segs = [s[:cap] for s in segs]
+    return [s[:cap] for s in segs], end
+
+
+def _decode_scan(body: bytes, pos: int, frame: _Frame, header: bytes,
+                 dc_tabs: dict, ac_tabs: dict, qtabs: dict,
+                 restart: int) -> int:
+    """Huffman-decode one sequential scan into its components'
+    coefficients; returns the position of the marker after it."""
+    comps, tabs, ss, se, ah, al = _scan_header(frame, header)
+    n = len(comps)
+    for c, (d, t) in zip(comps, tabs):
+        if c.q is not None:
+            raise ValueError(f"JPEG component {c.id} is coded in two scans")
+        if d not in dc_tabs or t not in ac_tabs:
+            raise ValueError("JPEG scan uses an undefined Huffman table")
+        if c.tq not in qtabs:
+            raise ValueError("JPEG component uses an undefined quantisation "
+                             "table")
+    if (ss, se, ah, al) != (0, 63, 0, 0):
+        raise ValueError("JPEG sequential scan with a spectral band or "
+                         "successive approximation is invalid")
+    n_mcu, mcu_blocks = _scan_extent(frame, comps)
+    # every block reads a DC and an AC code of one bit or more
+    segs, end = _scan_segments(body, pos, n_mcu, mcu_blocks, restart, 2)
     for c in comps:
         c.q = qtabs[c.tq]
         c.coef = np.zeros((c.rows, c.cols, 64), np.int64)
@@ -384,6 +419,176 @@ def _decode_scan(body: bytes, pos: int, frame: _Frame, header: bytes,
         raise ValueError("truncated or corrupt JPEG scan data") from None
     for f, vals in zip(flats, coefs):
         f[:] = vals
+    return end
+
+
+def _decode_progressive_scan(body: bytes, pos: int, frame: _Frame,
+                             header: bytes, dc_tabs: dict, ac_tabs: dict,
+                             qtabs: dict, restart: int) -> int:
+    """Huffman-decode one progressive scan (``jdphuff.c``) into its
+    components' coefficient lists; returns the position of the marker after
+    it. As libjpeg, an MCU that starts after its segment's data ran out is
+    left as it was."""
+    comps, tabs, ss, se, ah, al = _scan_header(frame, header)
+    dc_band = ss == 0
+    if (se != 0 if dc_band else (ss > se or se > 63 or len(comps) != 1)) \
+            or (ah and al != ah - 1) or al > 13:
+        raise ValueError(f"JPEG progression Ss={ss} Se={se} Ah={ah} Al={al} "
+                         f"is invalid")
+    for c, (d, t) in zip(comps, tabs):
+        if dc_band and not ah and d not in dc_tabs or \
+                not dc_band and t not in ac_tabs:
+            raise ValueError("JPEG scan uses an undefined Huffman table")
+        if c.q is None and c.tq not in qtabs:
+            raise ValueError("JPEG component uses an undefined quantisation "
+                             "table")
+        if c.flat is None and not dc_band:
+            raise ValueError(f"progressive JPEG component {c.id} has an AC "
+                             f"scan before its DC scan")
+    n_mcu, mcu_blocks = _scan_extent(frame, comps)
+    # a DC scan reads a code or a bit for each block; an AC scan may cover
+    # 32767 blocks with one end-of-band run
+    segs, end = _scan_segments(body, pos, n_mcu, mcu_blocks, restart,
+                               1 if dc_band else 0)
+    for c in comps:
+        if c.q is None:         # libjpeg's latch_quant_tables
+            c.q = qtabs[c.tq]
+        if c.flat is None:
+            c.flat = [0] * (c.rows * c.cols * 64)
+        for k in range(ss, se + 1):
+            c.coef_bits[k] = al
+    win, starts = _bit_windows(segs)
+    ends = [st + 8 * len(sg) for st, sg in zip(starts, segs)]
+    mcu_slots, bases = _scan_plan(frame, comps)
+    outs = [c.flat for c in comps]
+    natural = _NATURAL
+    p1, m1 = 1 << al, -1 << al
+    seg, bit, i = 0, starts[0], 0
+    pred = [0] * len(comps)
+    eobrun = 0
+    if dc_band and not ah:
+        dcs = [_huffman(*dc_tabs[d], True) for d, _ in tabs]
+    elif not dc_band:
+        ac = _huffman(*ac_tabs[tabs[0][1]], False)
+        al_, asym, afl, afr, afv = (ac.length, ac.symbol, ac.fast_len,
+                                    ac.fast_run, ac.fast_val)
+        out = outs[0]
+    try:
+        for m in range(n_mcu):
+            if restart and m and m % restart == 0:
+                seg += 1
+                pred = [0] * len(comps)
+                eobrun = 0
+                bit = starts[seg] if seg < len(starts) else len(win) - 16
+            if bit > ends[min(seg, len(ends) - 1)]:     # insufficient data
+                i += mcu_blocks
+                continue
+            if dc_band:
+                for slot in mcu_slots:
+                    base = bases[i]
+                    i += 1
+                    o = outs[slot]
+                    if ah:                       # DC refinement: one bit
+                        if win[bit] >> 15:
+                            o[base] |= p1
+                        bit += 1
+                        continue
+                    dc = dcs[slot]
+                    w = win[bit]
+                    nb = dc.fast_len[w]
+                    if nb:
+                        pred[slot] += dc.fast_val[w]
+                        bit += nb
+                    else:
+                        sz = dc.symbol[w]
+                        bit += dc.length[w]
+                        if sz:
+                            v = win[bit] >> (16 - sz)
+                            bit += sz
+                            if v < (1 << (sz - 1)):
+                                v -= (1 << sz) - 1
+                            pred[slot] += v
+                    o[base] = pred[slot] << al
+                continue
+            base = bases[i]
+            i += 1
+            if not ah:                           # AC first
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    w = win[bit]
+                    nb = afl[w]
+                    if nb:
+                        k += afr[w]
+                        out[base + natural[k]] = afv[w] << al
+                        k += 1
+                        bit += nb
+                        continue
+                    rs = asym[w]
+                    bit += al_[w]
+                    r, sz = rs >> 4, rs & 15
+                    if sz:
+                        k += r
+                        v = win[bit] >> (16 - sz)
+                        bit += sz
+                        if v < (1 << (sz - 1)):
+                            v -= (1 << sz) - 1
+                        out[base + natural[k]] = v << al
+                        k += 1
+                    elif r == 15:
+                        k += 16
+                    else:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += win[bit] >> (16 - r)
+                            bit += r
+                        eobrun -= 1
+                        break
+                continue
+            k = ss                               # AC refinement
+            if not eobrun:
+                while k <= se:
+                    rs = asym[win[bit]]
+                    bit += al_[win[bit]]
+                    r, sz = rs >> 4, rs & 15
+                    if sz:
+                        sz = p1 if win[bit] >> 15 else m1
+                        bit += 1
+                    elif r != 15:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += win[bit] >> (16 - r)
+                            bit += r
+                        break
+                    while k <= se:
+                        at = base + natural[k]
+                        cur = out[at]
+                        if cur:
+                            if win[bit] >> 15 and not cur & p1:
+                                out[at] = cur + (p1 if cur >= 0 else m1)
+                            bit += 1
+                        else:
+                            if r == 0:
+                                break
+                            r -= 1
+                        k += 1
+                    if sz:
+                        out[base + natural[k]] = sz
+                    k += 1
+            if eobrun:
+                while k <= se:
+                    at = base + natural[k]
+                    cur = out[at]
+                    if cur:
+                        if win[bit] >> 15 and not cur & p1:
+                            out[at] = cur + (p1 if cur >= 0 else m1)
+                        bit += 1
+                    k += 1
+                eobrun -= 1
+    except IndexError:
+        raise ValueError("truncated or corrupt JPEG scan data") from None
     return end
 
 
@@ -478,9 +683,9 @@ def _fancy_h2v2(p: np.ndarray) -> np.ndarray:
 def _upsample(c: _Component, frame: _Frame) -> np.ndarray:
     """A component brought to the full grid (libjpeg's ``jdsample.c``:
     fancy h2v1/h1v2/h2v2, box replication where the chroma is at most two
-    samples wide), cropped to the image."""
+    samples wide and at every other ratio), cropped to the image."""
     p = _plane(c)
-    rh, rv = frame.max_h // c.h, frame.max_v // c.v     # one of _RATIOS
+    rh, rv = frame.max_h // c.h, frame.max_v // c.v
     fancy_wide = c.dw > 2
     if (rh, rv) == (2, 1) and fancy_wide:
         p = _fancy_h2v1(p)
@@ -493,13 +698,11 @@ def _upsample(c: _Component, frame: _Frame) -> np.ndarray:
     return p[:frame.height, :frame.width].astype(np.int64)
 
 
-def _exif_orientation(data: bytes) -> int:
-    """The orientation tag (0x0112) of an APP1 Exif payload's IFD0, or 1."""
-    if not data.startswith(b"Exif\x00\x00") or len(data) < 14:
-        return 1
-    tiff = data[6:]
+def exif_orientation(tiff: bytes) -> int:
+    """The orientation tag (0x0112) of the IFD0 of an Exif TIFF block (an
+    APP1 payload after its ``Exif\\0\\0``, or a PNG's eXIf chunk), or 1."""
     order = {b"II": "<", b"MM": ">"}.get(tiff[:2])
-    if order is None:
+    if order is None or len(tiff) < 8:
         return 1
     try:
         (ifd,) = struct.unpack(order + "I", tiff[4:8])
@@ -537,24 +740,44 @@ def decode_jpeg_u8(body: bytes,
     decoded."""
     frame, orientation = parse_jpeg(body, expected_hw)
     planes = [_upsample(c, frame) for c in frame.comps]
-    if len(planes) == 1:
+    space = frame.colorspace
+    if space == "gray":
         rgb = np.repeat(planes[0][..., None], 3, axis=-1)
+    elif space in ("rgb", "cmyk"):
+        rgb = np.stack(planes[:3], axis=-1)
     else:
-        y, cb, cr = planes
-        rgb = np.stack([y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16),
-                        y + _CB_B[cb]], axis=-1)
-    rgb = np.clip(rgb, 0, 255).astype(np.uint8)
-    return apply_orientation(rgb, orientation)
+        y, cb, cr = planes[:3]
+        rgb = np.clip(np.stack([y + _CR_R[cr],
+                                y + ((_CB_G[cb] + _CR_G[cr]) >> 16),
+                                y + _CB_B[cb]], axis=-1), 0, 255)
+        if space == "ycck":             # jdcolor.c's ycck_cmyk_convert
+            rgb = 255 - rgb
+    if space in ("cmyk", "ycck"):
+        # OpenCV's icvCvt_CMYK2BGR on libjpeg's JCS_CMYK samples
+        k = planes[3][..., None]
+        rgb = k - (((255 - rgb) * k) >> 8)
+    return apply_orientation(rgb.astype(np.uint8), orientation)
 
 
 def parse_jpeg(body: bytes, expected_hw: tuple[int, int] | None = None):
-    """Parse a baseline JPEG and Huffman-decode its scans: returns (frame,
-    EXIF orientation); each of ``frame.comps`` holds its quantised
-    coefficients ``coef`` ((rows, cols, 64) blocks in natural order) and its
-    table ``q`` (natural order), ``dh`` x ``dw`` of its samples are in the
-    image, and ``frame.max_h`` / ``frame.max_v`` over its ``h`` / ``v``
-    give its subsampling. Every refusal of ``decode_jpeg_u8`` is made
-    here."""
+    """Parse a JPEG and Huffman-decode its scans: returns (frame, EXIF
+    orientation); each of ``frame.comps`` holds its quantised coefficients
+    ``coef`` ((rows, cols, 64) blocks in natural order) and its table ``q``
+    (natural order), ``dh`` x ``dw`` of its samples are in the image, and
+    ``frame.max_h`` / ``frame.max_v`` over its ``h`` / ``v`` give its
+    subsampling; ``frame.colorspace`` is what libjpeg takes it for. Every
+    refusal of ``decode_jpeg_u8`` is made here; a truncated progressive
+    file is refused as unrefined (libjpeg decodes what arrived, smoothed)."""
+    frames = []
+    try:
+        return _parse_jpeg(body, expected_hw, frames)
+    except ValueError as e:
+        if frames and frames[0].progressive and str(e).startswith("truncated"):
+            raise ValueError(f"unrefined progressive JPEG: {e}") from None
+        raise
+
+
+def _parse_jpeg(body: bytes, expected_hw, frames: list):
     if not body.startswith(SOI):
         raise ValueError("not a JPEG image (no SOI marker)")
     pos, frame, restart = 2, None, 0
@@ -582,10 +805,11 @@ def parse_jpeg(body: bytes, expected_hw: tuple[int, int] | None = None):
         if marker in _SOF_REFUSED:
             raise ValueError(f"{_SOF_REFUSED[marker]} JPEG is not supported "
                              f"(baseline only)")
-        if marker == 0xC0:
+        if marker in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise ValueError("JPEG with two frames")
-            frame = _Frame(data, expected_hw)
+            frame = _Frame(data, expected_hw, progressive=marker == 0xC2)
+            frames.append(frame)
         elif marker == 0xC4:                     # DHT: built at its scan
             k = 0
             while k < len(data):
@@ -620,32 +844,47 @@ def parse_jpeg(body: bytes, expected_hw: tuple[int, int] | None = None):
         elif marker == 0xDA:                     # SOS
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
-            pos = _decode_scan(body, pos, frame, data, dc_tabs, ac_tabs,
-                               qtabs, restart)
+            decode = (_decode_progressive_scan if frame.progressive
+                      else _decode_scan)
+            pos = decode(body, pos, frame, data, dc_tabs, ac_tabs, qtabs,
+                         restart)
         elif marker == 0xDC:
             raise ValueError("JPEG with a DNL marker is not supported")
         elif marker == 0xE0 and data.startswith(b"JFIF\x00"):
             jfif = True
-        elif marker == 0xE1 and orientation == 1:
-            orientation = _exif_orientation(data)
+        elif (marker == 0xE1 and orientation == 1
+              and data.startswith(b"Exif\x00\x00")):
+            orientation = exif_orientation(data[6:])
         elif marker == 0xEE and data.startswith(b"Adobe") and len(data) >= 12:
             adobe = data[11]
     if frame is None:
         raise ValueError("JPEG has no frame header")
     if any(c.q is None for c in frame.comps):
         raise ValueError("JPEG component never coded in a scan")
-    if len(frame.comps) == 3 and _is_rgb(frame, jfif, adobe):
-        raise ValueError("RGB JPEG (an Adobe transform of 0, or components "
-                         "named R, G, B) is not supported (YCbCr only)")
+    if frame.progressive:
+        for c in frame.comps:
+            if any(c.coef_bits):
+                raise ValueError(
+                    f"unrefined progressive JPEG: component {c.id} has "
+                    f"coefficient bits no scan refined (libjpeg smooths "
+                    f"such blocks; not supported)")
+            c.coef = np.asarray(c.flat, np.int64).reshape(c.rows, c.cols, 64)
+            c.flat = None
+    frame.colorspace = _colorspace(frame, jfif, adobe)
     return frame, orientation
 
 
-def _is_rgb(frame: _Frame, jfif: bool, adobe: int | None) -> bool:
-    """Whether libjpeg's ``default_decompress_parms`` takes three components
-    for RGB."""
+def _colorspace(frame: _Frame, jfif: bool, adobe: int | None) -> str:
+    """libjpeg's ``default_decompress_parms``: the colour space it takes a
+    frame to be coded in ("gray", "ycc", "rgb", "cmyk" or "ycck")."""
+    n = len(frame.comps)
+    if n == 1:
+        return "gray"
+    if n == 4:
+        return "cmyk" if adobe == 0 or adobe is None else "ycck"
     if jfif:
-        return False
+        return "ycc"
     if adobe is not None:
-        return adobe == 0
+        return "rgb" if adobe == 0 else "ycc"
     ids = tuple(c.id for c in frame.comps)
-    return ids == (ord("R"), ord("G"), ord("B"))
+    return "rgb" if ids == (ord("R"), ord("G"), ord("B")) else "ycc"

@@ -1,23 +1,25 @@
-"""PNG decode and encode in numpy and ``zlib``, for the HTTP tier.
+"""PNG decode and encode in numpy and ``zlib``, for the HTTP tier and the
+loaders.
 
-The JAX package's server decodes and encodes with OpenCV
+The JAX package decodes and encodes with OpenCV
 (``tpusr/pipeline/http_serving.py:29-47``); the port runs where no image
 library is installed, so it carries its own codec:
 
-- ``decode_png``: a non-interlaced PNG at bit depth 8 or 16 in colour type
-  0 (gray), 2 (RGB), 3 (palette, depth 8), 4 (gray + alpha) or 6 (RGBA),
-  with all five row filters and the chunk CRCs checked, to RGB float32 in
-  [0, 1]: what ``cv2.imdecode(IMREAD_COLOR)`` followed by the BGR->RGB swap
-  and ``/ 255`` gives. Alpha is dropped, gray repeated into three channels,
-  a 16-bit sample taken as its high byte (``>> 8``).
+- ``decode_png_u8``: any PNG that libpng reads, to what
+  ``cv2.imdecode(IMREAD_COLOR)`` followed by the BGR->RGB swap gives: colour
+  types 0 (gray), 2 (RGB), 3 (palette), 4 (gray + alpha) and 6 (RGBA) at
+  every bit depth the format allows, plain or Adam7-interlaced, with all
+  five row filters and the chunk CRCs checked. Alpha and ``tRNS`` are
+  dropped, gray repeated into three channels, gray at 1, 2 or 4 bits scaled
+  to 8 (libpng's ``png_set_expand_gray_1_2_4_to_8``), a palette index past
+  its PLTE read as black, a 16-bit sample taken as its high byte (``>> 8``),
+  and the eXIf chunk's orientation applied.
 - ``encode_png``: 8-bit RGB (colour type 2), every row unfiltered (filter
   0), the IDAT compressed by ``zlib`` at level 1, after the JAX server's
   rounding ``clip(x * 255 + 0.5, 0, 255)``.
 
-Anything else (GIF, BMP, TIFF, WebP, an interlaced PNG, another bit depth)
-raises ``ValueError`` naming what it is. ``decode_image_u8`` and
-``decode_image`` take a PNG or a JPEG, dispatching on the magic bytes; a JPEG
-goes to ``pipeline/jpeg.py``'s baseline decoder.
+A body that is not a PNG raises ``ValueError``; ``pipeline/imdecode.py``
+dispatches between this and the other formats.
 """
 
 from __future__ import annotations
@@ -27,24 +29,17 @@ import zlib
 
 import numpy as np
 
-from tpusr_torch.pipeline.jpeg import MAX_PIXELS, decode_jpeg_u8
+from tpusr_torch.pipeline.jpeg import (MAX_PIXELS, apply_orientation,
+                                       exif_orientation)
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_DEPTHS = {0: (8, 16), 2: (8, 16), 3: (8,), 4: (8, 16), 6: (8, 16)}
-_MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-          (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7: (first row, first column, row step, column step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 ENCODE_LEVEL = 1
-
-
-def image_format(body: bytes) -> str | None:
-    """The name of the image format ``body`` starts with, or None."""
-    if body.startswith(SIGNATURE):
-        return "PNG"
-    if body[:4] == b"RIFF" and body[8:12] == b"WEBP":
-        return "WebP"
-    return next((name for magic, name in _MAGIC if body.startswith(magic)),
-                None)
 
 
 def _chunks(body: bytes):
@@ -114,17 +109,43 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _passes(height: int, width: int, interlace: int):
+    """(row0, col0, drow, dcol, rows, cols) of each pass of the image's
+    data, the empty passes of a small Adam7 image left out."""
+    grid = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    return [(y0, x0, dy, dx, -(-(height - y0) // dy), -(-(width - x0) // dx))
+            for y0, x0, dy, dx in grid if height > y0 and width > x0]
+
+
+def _samples(rows: np.ndarray, cols: int, ch: int, depth: int) -> np.ndarray:
+    """A pass's unfiltered rows -> (rows, cols, ch) samples; 16-bit samples
+    as their high byte, 1-, 2- and 4-bit ones as their values."""
+    n = rows.shape[0]
+    if depth == 16:      # big-endian samples: the high byte is >> 8
+        return rows[:, :cols * ch * 2].reshape(n, cols, ch, 2)[..., 0]
+    if depth == 8:
+        return rows[:, :cols * ch].reshape(n, cols, ch)
+    bits = np.unpackbits(rows, axis=1)[:, :cols * ch * depth]
+    bits = bits.reshape(n, cols * ch, depth)
+    vals = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+        -1, dtype=np.uint8)
+    return vals.reshape(n, cols, ch)
+
+
 def decode_png_u8(body: bytes,
                   expected_hw: tuple[int, int] | None = None) -> np.ndarray:
     """PNG bytes -> (h, w, 3) uint8 RGB (see the module docstring). With
-    ``expected_hw``, an image of another size is refused before its data is
-    inflated; the data is inflated only as far as the image needs."""
-    fmt = image_format(body)
-    if fmt != "PNG":
+    ``expected_hw``, an image of another size (in either orientation, since
+    the eXIf tag may transpose it) is refused before its data is inflated;
+    the data is inflated only as far as the image needs."""
+    if not body.startswith(SIGNATURE):
+        from tpusr_torch.pipeline.imdecode import image_format
+        fmt = image_format(body)
         raise ValueError(f"a {fmt} image, not a PNG" if fmt else
                          "request body is not a decodable image (PNG expected)")
     header = palette = None
     idat = []
+    orientation = 1
     for ctype, data in _chunks(body):
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", data)
@@ -132,29 +153,33 @@ def decode_png_u8(body: bytes,
             palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(data)
+        elif ctype == b"eXIf" and orientation == 1:
+            orientation = exif_orientation(data)
     if header is None:
         raise ValueError("PNG has no IHDR chunk")
     width, height, depth, color, comp, filt, interlace = header
-    if interlace:
-        raise ValueError("interlaced (Adam7) PNG is not supported; send a "
-                         "non-interlaced PNG")
-    if color not in _CHANNELS or comp or filt:
+    if color not in _CHANNELS or comp or filt or interlace > 1:
         raise ValueError(f"PNG colour type {color}, compression {comp}, "
-                         f"filter method {filt} is not a valid PNG")
+                         f"filter method {filt}, interlace {interlace} is "
+                         f"not a valid PNG")
     if depth not in _DEPTHS[color]:
         raise ValueError(f"PNG bit depth {depth} in colour type {color} is "
-                         f"not supported (8 or 16; palettes 8)")
+                         f"not a valid PNG")
     if color == 3 and palette is None:
         raise ValueError("palette PNG without a PLTE chunk")
     if width * height > MAX_PIXELS:
         raise ValueError(f"PNG of {height}x{width} is over 2^30 pixels "
                          f"(OpenCV's limit)")
-    if expected_hw is not None and (height, width) != tuple(expected_hw):
+    if expected_hw is not None and (height, width) not in (
+            tuple(expected_hw), tuple(expected_hw)[::-1]):
         raise ValueError(f"expected {expected_hw[0]}x{expected_hw[1]} LR "
                          f"input, got a {height}x{width} PNG")
     ch = _CHANNELS[color]
-    bpp = ch * depth // 8
-    need = height * (width * bpp + 1)
+    bpp = max(1, ch * depth // 8)
+    passes = _passes(height, width, interlace)
+    strides = [-(-cols * ch * depth // 8) for *_, cols in passes]
+    need = sum(rows * (stride + 1)
+               for (*_, rows, _c), stride in zip(passes, strides))
     try:
         z = zlib.decompressobj()
         raw = z.decompress(b"".join(idat), need)
@@ -162,47 +187,30 @@ def decode_png_u8(body: bytes,
             raise zlib.error("incomplete or truncated stream")
     except zlib.error as e:
         raise ValueError(f"PNG image data does not inflate: {e}") from None
-    rows = _unfilter(raw, height, width * bpp, bpp)
-    if depth == 16:      # big-endian samples: the high byte is >> 8
-        s = rows.reshape(height, width, ch, 2)[..., 0]
+    if len(raw) < need:
+        raise ValueError(f"truncated PNG data: {len(raw)} of {need} bytes")
+    s = np.empty((height, width, ch), np.uint8)
+    pos = 0
+    for (y0, x0, dy, dx, rows, cols), stride in zip(passes, strides):
+        part = _unfilter(raw[pos: pos + rows * (stride + 1)], rows, stride,
+                         bpp)
+        s[y0::dy, x0::dx] = _samples(part, cols, ch, depth)
+        pos += rows * (stride + 1)
+    if color == 3:       # libpng reads an index past the PLTE as black
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette)] = palette[:256]
+        rgb = lut[s[..., 0]]
     else:
-        s = rows.reshape(height, width, ch)
-    if color == 3:
-        if int(s.max(initial=0)) >= palette.shape[0]:
-            raise ValueError("PNG palette index beyond its PLTE entries")
-        return palette[s[..., 0]]
-    if color in (0, 4):
-        return np.repeat(s[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(s[..., :3])
+        if color == 0 and depth < 8:
+            s = s * np.uint8(255 // ((1 << depth) - 1))
+        rgb = (np.repeat(s[..., :1], 3, axis=-1) if color in (0, 4)
+               else s[..., :3])
+    return apply_orientation(rgb, orientation)
 
 
 def decode_png(body: bytes) -> np.ndarray:
     """PNG bytes -> (h, w, 3) float32 RGB in [0, 1]."""
     return decode_png_u8(body).astype(np.float32) / 255.0
-
-
-def decode_image_u8(body: bytes,
-                    expected_hw: tuple[int, int] | None = None) -> np.ndarray:
-    """PNG or JPEG bytes -> (h, w, 3) uint8 RGB, what ``cv2.imdecode(
-    IMREAD_COLOR)`` and the BGR->RGB swap give; another format raises
-    ``ValueError`` naming it. ``expected_hw`` refuses an image whose header
-    declares another size before its data is decoded (a JPEG's EXIF
-    orientation may still transpose it: check the result's shape too)."""
-    fmt = image_format(body)
-    if fmt == "PNG":
-        return decode_png_u8(body, expected_hw)
-    if fmt == "JPEG":
-        return decode_jpeg_u8(body, expected_hw)
-    raise ValueError(
-        f"request body is a {fmt} image; this server decodes PNG and "
-        f"baseline JPEG only" if fmt else
-        "request body is not a decodable image (PNG or JPEG expected)")
-
-
-def decode_image(body: bytes,
-                 expected_hw: tuple[int, int] | None = None) -> np.ndarray:
-    """PNG or JPEG bytes -> (h, w, 3) float32 RGB in [0, 1]."""
-    return decode_image_u8(body, expected_hw).astype(np.float32) / 255.0
 
 
 def _chunk(ctype: bytes, data: bytes) -> bytes:
