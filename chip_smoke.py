@@ -6196,6 +6196,7 @@ def phase_h5(s: H5Slice, cfg: Slice, dev, seed: int, sync, card: str) -> dict:
 # --------------------------------------------------------------- preprocess
 
 VIDEO_FIXTURES = os.path.join(REPO, "tests", "data", "video")
+MPEG4_FIXTURES = os.path.join(REPO, "tests", "data", "mpeg4")
 
 
 @dataclass(frozen=True)
@@ -6203,9 +6204,12 @@ class PreprocessSlice:
     """``preprocess`` on the committed clips (``tests/data/video``): a clip
     at the size users record (1280x720 MJPEG, 10 fps, 40 frames of a print
     moving over the bed) with ``--hr-size 512`` and without, the 59x80 clip
-    whose odd crop is trimmed (``--predictions``), then ``train-edsr
+    whose odd crop is trimmed (``--predictions``), the same print as
+    MPEG-4 Part 2 in MP4 (``tests/data/mpeg4``, what ``cv2.VideoWriter``
+    writes with ``mp4v``) with ``--hr-size 512``, then ``train-edsr
     --scale 2`` for ``edsr_epochs`` on the 512^2 pairs."""
     clip: str = "print_720p.avi"
+    mp4_clip: str = "print_720p.mp4"
     odd_clip: str = "odd_59x80.avi"
     hr_size: int = 512
     edsr_epochs: int = 1
@@ -6237,10 +6241,83 @@ def _sha(a) -> str:
                           if isinstance(a, np.ndarray) else a).hexdigest()
 
 
+def check_mpeg4_fixtures(p: PreprocessSlice, card: str) -> dict:
+    """The MPEG-4 Part 2 reader's rate, count and every frame of each clip
+    under ``tests/data/mpeg4`` (the 720p ``.mp4``, the small ``.mp4``,
+    ``.mov`` and ``.avi`` clips, the hand-written stream) against what
+    ``cv2.VideoCapture`` read (``manifest.json``), and the tools the decoder
+    counted against the manifest's counts; then the host time of a
+    1280x720 I-VOP and P-VOP (the whole clip decoded, best of 2, each VOP
+    timed) and of the BGR conversion. Returns the times and the 720p frames
+    that ``preprocess`` samples (one a second)."""
+    import collections
+
+    from tpusr_torch.data import mpeg4
+    from tpusr_torch.data.video import open_video
+    from tpusr_torch.pipeline.png import decode_png_u8
+
+    with open(os.path.join(MPEG4_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)["clips"]
+    held, kept = 0, {}
+    for name, entry in manifest.items():
+        video = open_video(os.path.join(MPEG4_FIXTURES, name))
+        check((len(video), video.fps) == (entry["frames"], entry["fps"]),
+              f"{name}: {len(video)} frames at {video.fps} fps, cv2 reads "
+              f"{entry['frames']} at {entry['fps']}")
+        step = int(video.fps) if name == p.mp4_clip else 0
+        for i, frame in enumerate(video.frames()):
+            bgr = frame()
+            check(_sha(bgr) == entry["sha256"][i],
+                  f"{name} frame {i}: differs from cv2.VideoCapture's")
+            if i in entry["png_frames"]:
+                with open(os.path.join(MPEG4_FIXTURES,
+                                       f"{name[:-4]}_f{i}.png"), "rb") as f:
+                    twin = decode_png_u8(f.read())
+                check(np.array_equal(twin, bgr[..., ::-1]),
+                      f"{name} frame {i}: differs from its cv2 PNG")
+            if step and i % step == 0:
+                kept[i] = bgr
+            held += 1
+        check(dict(video.counts) == entry["counts"],
+              f"{name}: the decoder met {dict(video.counts)}, the manifest "
+              f"has {entry['counts']}")
+    video = open_video(os.path.join(MPEG4_FIXTURES, p.mp4_clip))
+    best = None
+    for _ in range(2):
+        dec, ms = mpeg4.Mpeg4Decoder(video.vol), collections.defaultdict(list)
+        for i, sample in enumerate(video.samples):
+            t0 = time.perf_counter()
+            planes = dec.decode(sample)
+            ms["I" if i in video.intra else "P"].append(
+                (time.perf_counter() - t0) * 1e3)
+        run = {k: sum(v) / len(v) for k, v in ms.items()}
+        best = run if best is None else {k: min(best[k], run[k])
+                                         for k in run}
+    conv = min(host_ms(lambda: mpeg4.to_bgr(planes, video.vol), lambda: None)
+               for _ in range(2))
+    sizes = {k: float(np.mean([len(video.samples[i])
+                               for i in range(len(video.samples))
+                               if (i in video.intra) == (k == "I")]))
+             for k in "IP"}
+    print(f"[mpeg4] {card}: {held} frames of {len(manifest)} MPEG-4 Part 2 "
+          f"clips (mp4v in .mp4/.mov, XVID/DIVX/FMP4 in .avi, a hand-written "
+          f"stream) equal to cv2.VideoCapture's by sha256, rates and counts "
+          f"equal; {p.mp4_clip} (1280x720, {len(video.intra)} I-VOPs, "
+          f"{len(video) - len(video.intra)} P-VOPs): an I-VOP decodes in "
+          f"{best['I']:.1f} ms, a P-VOP in {best['P']:.1f} ms, the BGR "
+          f"conversion {conv:.1f} ms a frame (host, best of 2); "
+          f"{sizes['I']:.0f} bytes an I-VOP, {sizes['P']:.0f} a P-VOP")
+    return {"frames_held": held, "i_vop_ms": best["I"],
+            "p_vop_ms": best["P"], "convert_ms": conv,
+            "i_vop_bytes": sizes["I"], "p_vop_bytes": sizes["P"],
+            "kept": kept}
+
+
 def check_video_fixtures(p: PreprocessSlice, dev, sync, card: str) -> dict:
     """The JPEG encoder's bytes, the AVI reader's rate, count and frames,
     and ``resize_u8`` on the card against what OpenCV wrote into
-    ``tests/data/video`` (``manifest.json``)."""
+    ``tests/data/video`` (``manifest.json``); then the MPEG-4 fixtures
+    (``check_mpeg4_fixtures``)."""
     from tpusr_torch.data import avi
     from tpusr_torch.data._cv_ops import resize_u8
     from tpusr_torch.pipeline.jpeg_encode import encode_jpeg_u8
@@ -6319,7 +6396,8 @@ def check_video_fixtures(p: PreprocessSlice, dev, sync, card: str) -> dict:
     print(f"[preprocess] {card}: resize_u8 on the card: {len(manifest['resize'])}"
           f" cases; equal to cv2.resize on all but the x3 INTER_CUBIC ones, "
           f"which differ where recorded (in, out, values): {counts}")
-    return {"encode_ms": enc_ms, "decode_ms": decode_ms}
+    return {"encode_ms": enc_ms, "decode_ms": decode_ms,
+            "mpeg4": check_mpeg4_fixtures(p, card)}
 
 
 def _mcu_cover(diff: np.ndarray) -> np.ndarray:
@@ -6441,17 +6519,18 @@ def card_against_cpu(p: PreprocessSlice, dev, card: str) -> dict:
 
 class preprocess_stage_times:
     """While open, time each stage of ``preprocess`` per call: the frame
-    decode, the crop, the resize, the JPEG round trip and the PNG writes on
+    decode (an MJPEG frame, or every MPEG-4 VOP), the BGR conversion of an
+    MPEG-4 frame, the crop, the resize, the JPEG round trip and the PNG writes on
     the host clock (each ended by a device barrier), the degradation core
     by CUDA events."""
 
-    STAGES = ("decode", "crop", "resize", "jpeg", "png")
+    STAGES = ("decode", "convert", "crop", "resize", "jpeg", "png")
 
     def __init__(self, sync):
         self.sync = sync
 
     def __enter__(self):
-        from tpusr_torch.data import _cv_ops, avi, degrade, video
+        from tpusr_torch.data import _cv_ops, avi, degrade, mpeg4, video
         self.ms = {k: [] for k in self.STAGES}
         self.events = []
 
@@ -6478,6 +6557,8 @@ class preprocess_stage_times:
             return run
 
         self._p = [patched(avi, decode_mjpeg_frame=host("decode")),
+                   patched(mpeg4.Mpeg4Decoder, decode=host("decode")),
+                   patched(mpeg4, to_bgr=host("convert")),
                    patched(video, smart_square_crop=host("crop"),
                            encode_png_u8=host("png")),
                    patched(_cv_ops, resize_u8=host("resize")),
@@ -6486,6 +6567,9 @@ class preprocess_stage_times:
         for q in self._p:
             q.__enter__()
         return self
+
+    def total(self, key: str) -> float:
+        return sum(self.ms[key])
 
     def per_frame(self, frames: int) -> dict:
         self.sync()
@@ -6602,6 +6686,53 @@ def phase_preprocess(p: PreprocessSlice, dev, seed: int, sync,
         print(f"[preprocess] {card}: preprocess --predictions on "
               f"{p.odd_clip}: {len(names)} pairs, the 59^2 crop trimmed to "
               f"58^2, the predictions class map written")
+
+        # the same print as MPEG-4 Part 2 in MP4: each HR PNG against the
+        # host's crop + resize of the sha256-held frame it came from
+        from tpusr_torch.data import _cv_ops as cv
+        from tpusr_torch.data.video import smart_square_crop
+        kept = fixtures["mpeg4"].pop("kept")
+        root = os.path.join(work, "mp4")
+        with preprocess_stage_times(sync) as st:
+            reset_counts()
+            t0 = time.perf_counter()
+            cli_main(["preprocess", "--video",
+                      os.path.join(MPEG4_FIXTURES, p.mp4_clip), "--hr-dir",
+                      os.path.join(root, "HR"), "--lr-dir",
+                      os.path.join(root, "LR"), "--hr-size", str(p.hr_size),
+                      "--seed", str(seed), "--device", "cuda"])
+            sync()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+        check(got == launches_want(),
+              f"preprocess on {p.mp4_clip}: launched kernels {got}")
+        names = sorted(os.listdir(os.path.join(root, "HR")))
+        check(names == [f"sample_{i:05d}.png" for i in range(len(kept))]
+              and len(st.ms["decode"]) == 40 and len(st.ms["convert"])
+              == len(kept), f"preprocess on {p.mp4_clip}: wrote {names}, "
+                            f"decoded {len(st.ms['decode'])} VOPs, converted "
+                            f"{len(st.ms['convert'])} frames")
+        for name, i in zip(names, sorted(kept)):
+            hr = decode_png_u8(open(os.path.join(root, "HR", name),
+                                    "rb").read())
+            want = cv.resize_u8(smart_square_crop(torch.from_numpy(kept[i])),
+                                (p.hr_size, p.hr_size), "area").numpy()
+            check(np.array_equal(hr, want[..., ::-1]),
+                  f"preprocess on {p.mp4_clip} {name}: the HR PNG differs "
+                  f"from the host's crop + resize of frame {i}")
+        decode = st.total("decode") + st.total("convert")
+        runs["mp4"] = {"wall_s": wall, "pairs": len(names),
+                       "decode_ms": st.total("decode"),
+                       "convert_ms": st.total("convert")}
+        print(f"[preprocess] {card}: preprocess --hr-size {p.hr_size} "
+              f"--device cuda on {p.mp4_clip} (mp4v, 1280x720, 40 frames at "
+              f"10 fps): {len(names)} pairs in {wall:.2f} s (the MJPEG AVI: "
+              f"{runs[f'hr{p.hr_size}']['wall_s']:.2f} s); decoding all 40 "
+              f"VOPs {st.total('decode'):.0f} ms and converting the "
+              f"{len(names)} sampled frames {st.total('convert'):.0f} ms "
+              f"(host), {100 * decode / 1e3 / wall:.0f}% of the wall; each "
+              f"HR PNG equal to the host's smart_square_crop + resize_u8 of "
+              f"the sha256-held frame")
 
         # train-edsr --scale 2 on the 512^2 pairs the command wrote
         ed = EDSRConfig()

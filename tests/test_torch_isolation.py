@@ -2,8 +2,9 @@
 flax and nothing of the JAX package, at import time or lazily; nor OpenCV,
 PIL, matplotlib, pandas or scikit-learn (the port draws its figures with
 its own writer, ``tpusr_torch/viz``), nor h5py, TensorFlow or Keras (the
-port reads and writes Keras files with its own codec), which the card's
-machine does not have."""
+port reads and writes Keras files with its own codec), nor PyAV or
+imageio (the port reads video with its own demuxers and decoders), which
+the card's machine does not have."""
 
 import ast
 import pathlib
@@ -15,7 +16,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tpusr"}
 IMAGE_LIBS = {"cv2", "PIL", "matplotlib", "sklearn",   # absent on the card's
-              "pandas", "mpl_toolkits"}                  # machine
+              "pandas", "mpl_toolkits", "av", "imageio"}  # machine
 HDF5_LIBS = {"h5py", "tensorflow", "keras"}            # absent there too
 
 

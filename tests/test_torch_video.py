@@ -10,12 +10,14 @@ the JAX package's ``tpusr/data/video.py``, on the CPU:
 - the MJPEG-AVI reader against ``cv2.VideoCapture`` (FFmpeg): the rate,
   the frame count and every frame of the committed clips
   (``tests/data/video/``, ``make_fixtures.py``) and of AVIs written here
-  (4:2:2, gray, odd width, another rate), and its refusals;
-- the extractor on the clips with JAX's draws (``split`` of the key per
+  (4:2:2, gray, odd width, another rate), and the readers' refusals (the
+  MPEG-4 reader is held in ``test_torch_mpeg4.py``);
+- the extractor on the MJPEG AVI and on an ``mp4v`` MP4
+  (``tests/data/mpeg4/``) with JAX's draws (``split`` of the key per
   written frame) against ``create_hr_lr_images_from_video``: the PNG
   pixels and the pickled maps, for both variants and continued numbering;
-- ``preprocess`` through both command lines on ``--device cpu``, and the
-  port's refusal without a card.
+- ``preprocess`` through both command lines on ``--device cpu`` on both
+  clips, and the port's refusal without a card.
 """
 
 import hashlib
@@ -48,8 +50,12 @@ fx = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(fx)
 
 
+MPEG4_CLIP = os.path.join(os.path.dirname(FIXTURES), "mpeg4", "pan_96x64.mp4")
+
+
 def _clip(name):
-    return os.path.join(FIXTURES, name)
+    return MPEG4_CLIP if name.endswith(".mp4") else os.path.join(FIXTURES,
+                                                                 name)
 
 
 # ----------------------------------------------------------------- crop ops
@@ -216,17 +222,24 @@ def test_reader_equals_videocapture_on_written_avis(kind, tmp_path):
 
 def test_reader_refuses_other_codecs_and_containers(tmp_path):
     jpeg = cv2.imencode(".jpg", np.zeros((16, 16, 3), np.uint8))[1].tobytes()
-    path = str(tmp_path / "xvid.avi")
-    fx.write_avi(path, [jpeg], 16, 16, fourcc=b"XVID")
-    with pytest.raises(ValueError, match="XVID, not MJPEG"):
+    path = str(tmp_path / "h264.avi")
+    fx.write_avi(path, [jpeg], 16, 16, fourcc=b"H264")
+    with pytest.raises(ValueError, match="H264, not MJPEG or MPEG-4"):
         avi.read_avi(path)
-    mp4 = tmp_path / "v.mp4"
-    mp4.write_bytes(b"\x00\x00\x00\x18ftypisom" + bytes(16))
-    with pytest.raises(ValueError, match="MP4"):
-        avi.read_avi(str(mp4))
+    with open(MPEG4_CLIP, "rb") as f:                 # an H.264 sample entry
+        mp4 = f.read()
+    at = mp4.index(b"mp4v")
+    avc = tmp_path / "v.mp4"
+    avc.write_bytes(mp4[:at] + b"avc1" + mp4[at + 4:])
+    with pytest.raises(ValueError, match="H.264"):
+        tv.open_video(str(avc))
     with pytest.raises(ValueError, match="could not open video"):
-        tv.create_hr_lr_images_from_video(str(mp4), str(tmp_path / "h"),
+        tv.create_hr_lr_images_from_video(str(avc), str(tmp_path / "h"),
                                           str(tmp_path / "l"), device="cpu")
+    mkv = tmp_path / "v.mkv"
+    mkv.write_bytes(b"\x1aE\xdf\xa3" + bytes(28))
+    with pytest.raises(ValueError, match="Matroska"):
+        tv.open_video(str(mkv))
     with pytest.raises(FileNotFoundError):
         tv.create_hr_lr_images_from_video(str(tmp_path / "missing.avi"),
                                           "h", "l", device="cpu")
@@ -278,11 +291,20 @@ def _load(path):
         return pickle.load(f)
 
 
-def test_extractor_on_jax_draws_equals_jax(tmp_path):
+@pytest.mark.parametrize("name,first", [("clip_80x60.avi", 3),
+                                        ("pan_96x64.mp4", 2)])
+def test_extractor_on_jax_draws_equals_jax(name, first, tmp_path):
     """The training variant with ``hr_size`` (cv2's INTER_AREA), then a
-    second run into the same directories that continues the numbering."""
-    clip = _clip("clip_80x60.avi")
+    second run into the same directories that continues the numbering; on
+    the MJPEG AVI the port is fed cv2's frames, on the MPEG-4 MP4 it reads
+    the clip with its own reader."""
+    clip = _clip(name)
     frames, fps = _cv2_frames(clip)
+    if name.endswith(".mp4"):
+        video = tv.open_video(clip)
+        frames, fps = video.frames, video.fps
+    else:
+        frames = (lambda f=frames: f)
     for run, kw in enumerate(({}, {"skip_seconds": 1.0, "max_frames": 1})):
         out = {}
         for pkg in ("jax", "torch"):
@@ -296,23 +318,26 @@ def test_extractor_on_jax_draws_equals_jax(tmp_path):
                 out[pkg] = jv.create_hr_lr_images_from_video(clip, **args)
             else:
                 out[pkg] = tv.create_hr_lr_images_from_frames(
-                    frames, fps, device="cpu",
+                    frames(), fps, device="cpu",
                     draws_fn=_jax_draws_fn(3 + run), **args)
         assert out["torch"] == out["jax"]
-        assert len(out["jax"]) == (3 if run == 0 else 1)
+        assert len(out["jax"]) == (first if run == 0 else 1)
         _assert_same_outputs(str(tmp_path / "jax"), str(tmp_path / "torch"),
                              out["jax"])
-    assert out["jax"] == ["sample_00003.png"]
+    assert out["jax"] == [f"sample_{first:05d}.png"]
     for m in ("imap.pkl", "cmap.pkl"):
         assert _load(str(tmp_path / "torch" / m)) == _load(
             str(tmp_path / "jax" / m))
 
 
-def test_prediction_variant_on_jax_draws_equals_jax(tmp_path):
-    """Cell 5's variant without ``hr_size`` on the odd-width clip: the 59^2
-    crop is trimmed to 58^2; the port reads the clip with its own reader."""
-    clip = _clip("odd_59x80.avi")
-    video = avi.read_avi(clip)
+@pytest.mark.parametrize("name,side", [("odd_59x80.avi", 58),
+                                       ("pan_96x64.mp4", 64)])
+def test_prediction_variant_on_jax_draws_equals_jax(name, side, tmp_path):
+    """Cell 5's variant without ``hr_size``: on the odd-width clip the 59^2
+    crop is trimmed to 58^2; the port reads each clip with its own
+    reader."""
+    clip = _clip(name)
+    video = tv.open_video(clip)
     out = {}
     for pkg in ("jax", "torch"):
         root = str(tmp_path / pkg)
@@ -332,7 +357,7 @@ def test_prediction_variant_on_jax_draws_equals_jax(tmp_path):
     _assert_same_outputs(str(tmp_path / "jax"), str(tmp_path / "torch"),
                          out["jax"])
     hr = cv2.imread(str(tmp_path / "torch" / "HR" / out["jax"][0]))
-    assert hr.shape == (58, 58, 3)
+    assert hr.shape == (side, side, 3)
     assert _load(str(tmp_path / "torch" / "p.pkl")) == _load(
         str(tmp_path / "jax" / "p.pkl")) == {n: 2 for n in out["jax"]}
     assert not os.path.exists(str(tmp_path / "torch" / "imap.pkl"))
@@ -356,10 +381,12 @@ def test_the_video_entry_point_seeds_its_generator(tmp_path):
 
 
 # ------------------------------------------------------------ the commands
-def test_preprocess_through_both_command_lines(tmp_path, capsys):
+@pytest.mark.parametrize("name,pairs", [("clip_80x60.avi", 3),
+                                        ("pan_96x64.mp4", 2)])
+def test_preprocess_through_both_command_lines(name, pairs, tmp_path, capsys):
     """The same files, HR pixels and map keys from both commands (the LR
     images differ: each package draws from its own generator)."""
-    clip = _clip("clip_80x60.avi")
+    clip = _clip(name)
     for pkg, main in (("jax", jcli.main), ("torch", tcli.main)):
         root = tmp_path / pkg
         argv = ["preprocess", "--video", clip, "--hr-dir", str(root / "HR"),
@@ -367,7 +394,7 @@ def test_preprocess_through_both_command_lines(tmp_path, capsys):
                 "--interp-map", str(root / "m.pkl"), "--class-map",
                 str(root / "c.pkl"), "--class-id", "1", "--seed", "2"]
         main(argv + (["--device", "cpu"] if pkg == "torch" else []))
-        assert "wrote 3 HR/LR pairs" in capsys.readouterr().out
+        assert f"wrote {pairs} HR/LR pairs" in capsys.readouterr().out
     names = sorted(os.listdir(tmp_path / "jax" / "HR"))
     assert sorted(os.listdir(tmp_path / "torch" / "HR")) == names
     assert sorted(os.listdir(tmp_path / "torch" / "LR")) == names

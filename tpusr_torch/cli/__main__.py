@@ -1,7 +1,7 @@
 """Command-line entry points of the port (port of ``tpusr/cli/__main__.py``):
 the reference's notebook flows, and the serving tier.
 
-    python -m tpusr_torch.cli preprocess   --video v.avi --hr-dir HR --lr-dir LR ...
+    python -m tpusr_torch.cli preprocess   --video v.mp4 --hr-dir HR --lr-dir LR ...
     python -m tpusr_torch.cli classic      --hr-dir HR --lr-dir LR --out results/
     python -m tpusr_torch.cli train-srcnn  --hr-dir HR --lr-dir LR --interp-map m.pkl ...
     python -m tpusr_torch.cli train-edsr   --hr-dir HR --lr-dir LR ...
@@ -30,9 +30,10 @@ and its logs.
 ``eda`` runs the dataset EDA (``data/eda.py``) on the card and writes its
 CSVs and the JAX command's figures. ``convert`` moves a model between
 the port's checkpoint and the reference's Keras ``.h5`` (the port's own
-HDF5 codec, ``train/hdf5.py``), both ways. ``preprocess`` turns an MJPEG
-AVI into the HR/LR PNG pairs and maps the other commands read
-(``data/video.py``: the port's AVI reader, crop and JPEG codec; the
+HDF5 codec, ``train/hdf5.py``), both ways. ``preprocess`` turns a video
+(``.mp4``/``.mov`` with MPEG-4 Part 2, ``.avi`` with MPEG-4 Part 2 or
+MJPEG) into the HR/LR PNG pairs and maps the other commands read
+(``data/video.py``: the port's readers, crop and JPEG codec; the
 degradation on the card).
 """
 
@@ -853,8 +854,9 @@ def build_parser():
     p = argparse.ArgumentParser(prog="tpusr_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sp = sub.add_parser("preprocess", help="MJPEG AVI video -> HR/LR PNG "
-                        "pairs and the interpolation/class maps")
+    sp = sub.add_parser("preprocess", help="video (MPEG-4 Part 2 in MP4, "
+                        "MOV or AVI; MJPEG AVI) -> HR/LR PNG pairs and the "
+                        "interpolation/class maps")
     sp.add_argument("--video", required=True)
     sp.add_argument("--hr-dir", required=True)
     sp.add_argument("--lr-dir", required=True)

@@ -7,13 +7,19 @@ pairs and the sidecar pickles (``interpolation_map.pkl``: name -> interp
 name; ``class_labels_map.pkl``: name -> class id), numbering continued from
 the files already there.
 
-The video is read by the port's MJPEG-AVI reader (``data/avi.py``, the
-frames ``cv2.VideoCapture`` gives); the crop's OpenCV ops are the port's
-own (``data/_cv_ops.py``: gray and Otsu on the frame's device, the contours
-on the host); the resize is ``_cv_ops.resize_u8`` (cv2's uint8
-``INTER_AREA``); the degradation core runs on ``device`` with draws from
-``generator`` (one seeded by ``seed`` on ``device`` by default) and the
-JPEG round trip on the host; the PNGs are ``pipeline/png.py``'s.
+The video is read by the port's own readers, which give the frames
+``cv2.VideoCapture`` gives (``open_video``, by the file's magic bytes):
+AVI (``data/avi.py``) with MJPEG or MPEG-4 Part 2 (``FMP4``/``XVID``/
+``DIVX``), and MP4/QuickTime ``.mp4``/``.mov`` (``data/isobmff.py``) with
+MPEG-4 Part 2 (``mp4v``, ``data/mpeg4.py``): what ``cv2.VideoWriter``
+writes. An MPEG-4 stream decodes every frame in order (each predicts the
+next) and converts to BGR only the frames the extractor samples. The
+crop's OpenCV ops are the port's own (``data/_cv_ops.py``: gray and Otsu
+on the frame's device, the contours on the host); the resize is
+``_cv_ops.resize_u8`` (cv2's uint8 ``INTER_AREA``); the degradation core
+runs on ``device`` with draws from ``generator`` (one seeded by ``seed`` on
+``device`` by default) and the JPEG round trip on the host; the PNGs are
+``pipeline/png.py``'s.
 
 ``create_hr_lr_images_from_frames`` is the frame loop below the reader: an
 iterable of BGR frames (or of callables that decode one) and the rate, and
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from tpusr_torch.data import _cv_ops as cv
+from tpusr_torch.data import isobmff
 from tpusr_torch.data.avi import read_avi
 from tpusr_torch.data.degrade import (DegradeConfig, degrade_with_draws,
                                       sample_draws)
@@ -64,6 +71,17 @@ def smart_square_crop(img):
     left = (w - crop_size) // 2
     top = (h - crop_size) // 2
     return img[top:top + crop_size, left:left + crop_size]
+
+
+def open_video(path: str):
+    """The video at ``path``, by its magic bytes (never its extension):
+    an object with ``fps``, ``len()``, ``frame(i)`` and ``frames()`` (an
+    ``avi.AviVideo`` or an ``mpeg4.Mpeg4Video``)."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[4:8] in isobmff.MAGIC:
+        return isobmff.read_mp4(path)
+    return read_avi(path)
 
 
 def _next_index(directory: str, prefix: str) -> int:
@@ -195,10 +213,11 @@ def create_hr_lr_images_from_video(
     if not os.path.exists(video_path):
         raise FileNotFoundError(video_path)
     try:
-        video = read_avi(video_path)
+        video = open_video(video_path)
     except ValueError as e:
-        raise ValueError(f"could not open video (corrupt/unsupported "
-                         f"codec?): {e}") from None
+        raise ValueError(f"could not open video (the port reads MJPEG or "
+                         f"MPEG-4 Part 2 in AVI, and MPEG-4 Part 2 in "
+                         f"MP4/QuickTime): {e}") from None
     return create_hr_lr_images_from_frames(
         video.frames(), video.fps, hr_dir, lr_dir, skip_seconds=skip_seconds,
         frame_interval_seconds=frame_interval_seconds, hr_size=hr_size,
