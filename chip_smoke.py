@@ -146,10 +146,12 @@ its own lines:
    99%, request latency p50/p99 on the client's clock, requests/s, batches
    formed, mean fill, queue wait and batch time; 8 /sr answers byte for
    byte the pipeline's direct SR of the image beside 15 other eval images;
-   the committed 128^2 LR bodies in progressive JPEG, Adam7 PNG, BMP and
-   TIFF (``tests/data/formats``), 8 of each to /classify and /sr at
-   concurrency 1, answered as the PNG twins of their decodes (classes
-   equal, /sr byte for byte); 400 for a non-image and a truncated JPEG
+   the committed 128^2 LR bodies in progressive JPEG, Adam7 PNG, BMP,
+   TIFF, lossy and lossless WebP and GIF (``tests/data/formats``), 8 of
+   each to /classify and /sr at concurrency 1, and one PPM and one HDR to
+   /classify, answered as the PNG twins of their decodes (classes equal,
+   /sr byte for byte), with the launches their batches imply; 400 for a
+   non-image and a truncated JPEG
    body, 404 for another path; the command's exit after its last request;
 18. the reference's commands (``CommandsSlice``) on its own dataset
    layout, made on the card: 16 HR print surfaces of 512^2 (the gate's hard
@@ -231,9 +233,13 @@ its own lines:
 25. the image formats (``FormatsSlice``, ``pipeline/imdecode.py``): every
    committed fixture in ``tests/data/formats`` (PNG, Adam7 and low-depth
    PNG, baseline, progressive, SOF1, RGB, CMYK, YCCK and 4:1:1 JPEG, BMP
-   with RLE, TIFF in strips, tiles and planes) decoded and held against
-   the sha256 of cv2's decode in its manifest; the decode of one 512^2
-   image in each format timed (host clock, best of 3); ``classic --limit
+   with RLE, TIFF in strips, tiles and planes; WebP lossy, lossless, with
+   alpha and animated, GIF, PBM/PGM/PPM/PAM, Sun raster, HDR, PFM) decoded
+   and held against the sha256 of cv2's decode in its manifest; the decode
+   of one 512^2 image in each format timed (host clock, best of 3), and of
+   a 128^2 and a 512^2 one in each format only the HTTP tier reads (best of
+   2; the PPM, PAM, Sun raster, HDR and PFM bodies written here and held to
+   their pixels); ``classic --limit
    4`` on 4 PNG pairs made as phase 18 makes them and on their ``.tiff``
    and ``.bmp`` twins, the JSON (times and memory aside) and K4's launches
    equal to the PNG run's.
@@ -3628,10 +3634,13 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
         fmt_bodies = {label: [format_fixture(f"lr{i}{suffix}")
                               for i in range(4)] * SERVE_FORMAT_REPEATS
                       for label, suffix in SERVE_FORMATS.items()}
+        once = {label: format_fixture(name)
+                for label, name in SERVE_ONCE.items()}
         twins = {b: encode_png_u8(decode_image_u8(b))
-                 for fb in fmt_bodies.values() for b in fb}
+                 for b in [*(b for fb in fmt_bodies.values() for b in fb),
+                           *once.values()]}
         n_fmt = 2 * (sum(map(len, fmt_bodies.values()))
-                     + len(set(twins.values())))
+                     + len(set(twins.values()))) + len(once)
         n_post = len(SERVE_LEVELS) * len(bodies) + n_sr + n_fmt + 2
         port_file = os.path.join(work, "port")
         argv = ["serve", "--edsr-ckpt", paths[0], "--vgg16-ckpt", paths[1],
@@ -3768,7 +3777,10 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
                               for _ in range(3))
                 d2h_ms = min(host_ms(lambda: direct.cpu(), sync)
                              for _ in range(3))
-            # ---- each format's bodies answered as their PNG twins are
+            # ---- each format's bodies answered as their PNG twins are,
+            # the launches counted over them and their twins
+            n0, trips0 = len(log.batches), votes.guard_trips
+            reset_counts()
             t0 = time.perf_counter()
             twin_answers = {}
             for twin in dict.fromkeys(twins.values()):
@@ -3792,7 +3804,39 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
                                 want_p[1])["class"], f"{label} body: class "
                                 f"differs from its PNG twin's")
                 fmt_ms[label] = (time.perf_counter() - t1) * 1e3 / (2 * len(fb))
+            for label, b in once.items():
+                t1 = time.perf_counter()
+                got_p = http(base + "/classify", b)
+                want_p = twin_answers[twins[b]]["/classify"]
+                check(got_p[0] == want_p[0] == 200 and json.loads(got_p[1])[
+                    "class"] == json.loads(want_p[1])["class"],
+                    f"{label} body to /classify: {got_p[0]} {got_p[1][:80]!r},"
+                    f" its PNG twin {want_p[0]} {want_p[1][:80]!r}")
+                fmt_ms[label] = (time.perf_counter() - t1) * 1e3
             fmt_s = time.perf_counter() - t0
+            fmt_launches = read_counts()
+            # a batch is logged just after its replies are sent: wait for
+            # the last one
+            n_req = 2 * (sum(map(len, fmt_bodies.values()))
+                         + len(twin_answers)) + len(once)
+            deadline = time.monotonic() + 10
+            while (sum(n for _, _, n, _ in log.batches[n0:]) < n_req
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            check(sum(n for _, _, n, _ in log.batches[n0:]) == n_req,
+                  f"format bodies: the batches hold "
+                  f"{sum(n for _, _, n, _ in log.batches[n0:])} of {n_req} "
+                  f"requests")
+            fmt_batches = len(log.batches) - n0
+            fmt_trips = votes.guard_trips - trips0
+            want = launches_want(
+                conv3x3_int8_requant=fmt_batches * len(k1_shapes(cfg))
+                + fmt_trips * n_per_patch_k1(cfg),
+                conv3x3_bias_act=fmt_batches
+                * sum(m for *_, m in k2_shapes(cfg)),
+                block1_int8=fmt_batches + fmt_trips)
+            check(fmt_launches == want, f"format bodies: launches "
+                  f"{fmt_launches} != {want} for {fmt_batches} batches")
             # ---- the error codes (the two 400s are the last POSTs counted)
             check(http(base + "/nope", bodies[0])[0] == 404, "POST /nope")
             check(http(base + "/nope")[0] == 404, "GET /nope")
@@ -3819,8 +3863,11 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
               f"{n_post} POSTs; no plain twin on the card")
         print(f"[serve] {card}: {SERVE_FORMAT_REPEATS * 4} {cfg.lr}^2 LR "
               f"bodies of each of {', '.join(fmt_bodies)} to /classify and "
-              f"/sr at concurrency 1 answer as their PNG twins (classes "
-              f"equal, /sr byte for byte) in {fmt_s:.1f} s with the twins; "
+              f"/sr, and one each of {', '.join(once)} to /classify, at "
+              f"concurrency 1 answer as their PNG twins (classes "
+              f"equal, /sr byte for byte) in {fmt_s:.1f} s with the twins "
+              f"({fmt_batches} batches, guard trips {fmt_trips}, launches "
+              f"{fmt_launches}); "
               f"mean ms a POST: " + ", ".join(
                   f"{k} {v:.1f}" for k, v in fmt_ms.items()))
         print(f"[serve] {card}: where a batch's time goes: the pipeline "
@@ -3830,7 +3877,8 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
               f"batch at concurrency 1 {levels[1]['batch_ms']:.2f} ms")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"levels": levels, "launches": launches}
+    return {"levels": levels, "launches": launches,
+            "format_launches": fmt_launches}
 
 
 # ----------------------------------------------------------------- commands
@@ -6799,8 +6847,58 @@ FORMAT_TIMED = (("baseline JPEG", "s512_baseline.jpg"),
                 ("TIFF Deflate", "s512_deflate.tif"))
 # the committed 128^2 LR bodies phase_serve sends, by format
 SERVE_FORMATS = {"progressive JPEG": "_progressive.jpg",
-                 "Adam7 PNG": "_adam7.png", "BMP": ".bmp.xz", "TIFF": ".tif"}
+                 "Adam7 PNG": "_adam7.png", "BMP": ".bmp.xz", "TIFF": ".tif",
+                 "WebP lossy": "_lossy.webp", "WebP lossless": "_lossless.webp",
+                 "GIF": ".gif"}
 SERVE_FORMAT_REPEATS = 2     # each fixture sent twice: 8 bodies a format
+# committed LR bodies sent once to /classify beside their PNG twins
+SERVE_ONCE = {"PPM": "lr0.ppm.xz", "HDR": "lr0.hdr"}
+# the formats only the HTTP tier reads, timed at 128^2 and 512^2: the
+# committed WebP and GIF fixtures; the others written from lr0's and
+# s512's pixels by tests/torch_image_writers.py (``served_format_bodies``)
+SERVED_TIMED = {"WebP lossy": ("lr0_lossy.webp", "s512_lossy.webp"),
+                "WebP lossless": ("lr0_lossless.webp", "s512_lossless.webp"),
+                "GIF": ("lr0.gif", "s512.gif")}
+
+
+def served_format_bodies() -> dict:
+    """{format: {side: (body, the pixels its decode must equal or
+    None)}} at sides 128 and 512: the committed WebP and GIF fixtures
+    (held by the manifest's sha256), and PPM, PAM, Sun raster, HDR and PFM
+    bodies written by hand from the RGB of ``lr0_adam7.png`` and
+    ``s512.png``, each decoding to a known image: the pixels (PPM, Sun
+    raster, PFM), their channels reversed (PAM ``RGB``, which OpenCV reads
+    as B, G, R), or the pixels clipped to 254 through RGBE mantissas chosen
+    to round back to them (HDR)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_image_writers import (sunras_rows, write_hdr, write_pfm,
+                                     write_sunras)
+
+    from tpusr_torch.pipeline.png import decode_png_u8
+    out = {label: {side: (format_fixture(name), None)
+                   for side, name in zip((128, 512), names)}
+           for label, names in SERVED_TIMED.items()}
+    for side, name in ((128, "lr0_adam7.png"), (512, "s512.png")):
+        rgb = decode_png_u8(format_fixture(name))
+        h, w, _ = rgb.shape
+        # RGBE at exponent 128 (a factor 2^-8): mantissa q for q < 128, q + 1
+        # above, rounds back to q after x255 (255 itself cannot: clipped)
+        q = np.minimum(rgb, 254).astype(np.int64)
+        rgbe = np.concatenate([np.where(q < 128, q, q + 1),
+                               np.full((h, w, 1), 128)], -1).astype(np.uint8)
+        want_hdr = q.astype(np.uint8)
+        bodies = {
+            "PPM": (b"P6\n%d %d\n255\n" % (w, h) + rgb.tobytes(), rgb),
+            "PAM": (b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH 3\nMAXVAL 255\n"
+                    b"TUPLTYPE RGB\nENDHDR\n" % (w, h) + rgb.tobytes(),
+                    rgb[..., ::-1]),
+            "Sun raster": (write_sunras(w, h, 24, sunras_rows(
+                rgb[..., ::-1], 24)), rgb),
+            "HDR": (write_hdr(rgbe), want_hdr),
+            "PFM": (write_pfm(rgb.astype(np.float32)), rgb)}
+        for label, pair in bodies.items():
+            out.setdefault(label, {})[side] = pair
+    return out
 
 
 @dataclass(frozen=True)
@@ -6879,6 +6977,25 @@ def phase_formats(f: FormatsSlice, dev, seed: int, sync, card: str) -> dict:
     kinds = sorted({image_format(format_fixture(n)) for n in manifest})
     print(f"[formats] {len(manifest)} fixtures ({', '.join(kinds)}) decode "
           f"to cv2's bytes (the sha256 in tests/data/formats/manifest.json)")
+    served = {}
+    for label, sides in served_format_bodies().items():
+        for side, (body, want) in sides.items():
+            got = decode_image_u8(body)
+            if want is not None:
+                check(np.array_equal(got, want), f"{label} {side}^2: the "
+                      f"decode differs from the pixels it was written from")
+            check(got.shape == (side, side, 3), f"{label} {side}^2: shape "
+                                                f"{got.shape}")
+            ms = min(host_ms(lambda: decode_image_u8(body), sync)
+                     for _ in range(2))
+            served.setdefault(label, {})[side] = {"ms": ms,
+                                                  "bytes": len(body)}
+        held = "committed, held by the manifest" if label in SERVED_TIMED \
+            else "written here, equal to their pixels"
+        print(f"[formats] {card}: {label} decode " + ", ".join(
+            f"{side}^2 {v['ms']:.1f} ms ({v['bytes']} bytes)"
+            for side, v in served[label].items()) + f" (host clock, best of "
+            f"2; {held})")
     timed = {}
     for label, name in FORMAT_TIMED:
         body = format_fixture(name)
@@ -6935,7 +7052,7 @@ def phase_formats(f: FormatsSlice, dev, seed: int, sync, card: str) -> dict:
           f"launches on the .tiff and .bmp twins equal the PNG run's; "
           f"phase_formats {ms:.0f} ms")
     return {"launches": {"nlm_denoise": sum(k4.values())}, "decode": timed,
-            "ms": ms}
+            "served_decode": served, "ms": ms}
 
 
 def kernel_record(name, source, replaces, launches, tot, library) -> dict:
@@ -7110,6 +7227,7 @@ def main() -> int:
             "slice": rec["launches"], "gate": rec["gate_launches"],
             **{f"serve_concurrency_{c}": n.get(rec["name"], 0)
                for c, n in serve["launches"].items()},
+            "serve_formats": serve["format_launches"].get(rec["name"], 0),
             **({f"inference_{p}": n for p, n in
                 inference["launches"].items() if n}
                if rec["name"] == "conv3x3_bias_act" else {}),

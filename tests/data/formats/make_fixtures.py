@@ -16,9 +16,19 @@ each, for checks on a machine that has no OpenCV (``chip_smoke.py``'s
   low depths, RLE BMPs with deltas, 5-6-5 and OS/2 BMPs, tiled, planar,
   BigTIFF, predictor-2 16-bit, palette and bilevel TIFFs, extended
   sequential, 4:1:1, RGB, CMYK and YCCK JPEGs);
+- the formats only the HTTP tier receives: ``lr<i>_lossy.webp`` (cv2,
+  quality 90), ``lr<i>_lossless.webp`` (Pillow) and ``lr<i>.gif`` (Pillow)
+  for each LR surface, ``lr0.ppm.xz`` and ``lr0.hdr`` (cv2), ``s512_lossy
+  .webp``, ``s512_lossless.webp`` and ``s512.gif``; ``edge_*`` WebP (VP8
+  frames under every header tool from ``vp8_frame``, alpha raw and
+  compressed, palettes, animations, metadata chunks), GIF (interlace,
+  local and missing tables, transparency on an offset frame, animation,
+  GIF87a, a full LZW table), PBM/PGM/PPM/PAM, Sun raster, HDR and PFM;
 - ``manifest.json``: per file, its bytes' sha256 (of the file as stored,
   packed or not) and the shape and sha256 of ``cv2.imdecode(IMREAD_COLOR)``
-  swapped to RGB, of the unpacked bytes.
+  swapped to RGB, of the unpacked bytes; for WebP also what the bitstream
+  uses (``tools``: VP8 modes, filter, partitions and segments, VP8L
+  transforms and cache, alpha, animation), as the port's decoder reads it.
 
     python tests/data/formats/make_fixtures.py
 
@@ -30,15 +40,20 @@ import hashlib
 import io
 import json
 import os
+import struct
 import sys
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
 
 from torch_image_writers import (bmp_rows, random_components, rgbq,  # noqa: E402
-                                 write_bmp, write_jpeg, write_png, write_tiff)
+                                 riff_chunk, sunras_rows, vp8_frame,
+                                 webp_file, write_bmp, write_gif, write_hdr,
+                                 write_jpeg, write_pfm, write_png,
+                                 write_sunras, write_tiff)
 
 
 def scene(rng, h, w, noise=3.0):
@@ -158,6 +173,193 @@ def fixtures() -> dict[str, bytes]:
     out["edge_progressive_gray_rst.jpg"] = imencode(
         ".jpg", small[..., 0], cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
         cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
+    out.update(served_formats(imencode))
+    return out
+
+
+def _pil(img, fmt, **kw) -> bytes:
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def _webp_chunks(body: bytes) -> list[tuple[bytes, bytes]]:
+    """The chunks of a WebP file after its RIFF header."""
+    out, pos = [], 12
+    while pos + 8 <= len(body):
+        tag = body[pos:pos + 4]
+        n = struct.unpack("<I", body[pos + 4:pos + 8])[0]
+        out.append((tag, body[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def alpha_stream(alpha: np.ndarray) -> bytes:
+    """An alpha plane as the headerless VP8L stream of an ``ALPH`` chunk:
+    Pillow's lossless WebP of it in the green channel, less the VP8L
+    chunk's 5-byte header."""
+    g = np.zeros((*alpha.shape, 3), np.uint8)
+    g[..., 1] = alpha
+    return dict(_webp_chunks(_pil(g, "WEBP", lossless=True)))[b"VP8L"][5:]
+
+
+def _anmf(x, y, w, h, chunks) -> bytes:
+    return ((x // 2).to_bytes(3, "little") + (y // 2).to_bytes(3, "little")
+            + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+            + (100).to_bytes(3, "little") + b"\0"
+            + b"".join(riff_chunk(t, d) for t, d in chunks if t != b"VP8X"))
+
+
+def served_formats(imencode) -> dict[str, bytes]:
+    """The fixtures of the formats only the HTTP tier receives."""
+    import cv2
+    rng = np.random.default_rng(20)
+    out = {}
+    rgb = scene(rng, 512, 512, noise=0.0) // 4 * 4
+    out["s512_lossy.webp"] = imencode(".webp", rgb[..., ::-1],
+                                      cv2.IMWRITE_WEBP_QUALITY, 90)
+    out["s512_lossless.webp"] = _pil(rgb, "WEBP", lossless=True)
+    out["s512.gif"] = _pil(rgb, "GIF")
+    for i in range(4):
+        lr = scene(np.random.default_rng(18 + i), 128, 128, noise=2.0)
+        out[f"lr{i}_lossy.webp"] = imencode(".webp", lr[..., ::-1],
+                                            cv2.IMWRITE_WEBP_QUALITY, 90)
+        out[f"lr{i}_lossless.webp"] = _pil(lr, "WEBP", lossless=True)
+        out[f"lr{i}.gif"] = _pil(lr, "GIF")
+        if i == 0:
+            out["lr0.ppm.xz"] = imencode(".ppm", lr[..., ::-1])
+            out["lr0.hdr"] = imencode(".hdr", lr[..., ::-1].astype(np.float32)
+                                      / 255)
+    # ---- WebP
+    small = scene(rng, 37, 37)[:29]
+    for name, kw in (
+            ("simple", dict(filter_type="simple", level=30, sharpness=3,
+                            partitions=4, skip_prob=80, prob_updates=0.05,
+                            lf_delta=([5, 0, 0, 0], [-9, 0, 0, 0]))),
+            ("segments", dict(level=25, sharpness=6, partitions=8,
+                              q_deltas=(3, -4, 5, 8, -2),
+                              segments=dict(quant=[5, -10, 20, 0],
+                                            lf=[3, -5, 10, 0],
+                                            map_probs=[100, 150, 200]))),
+            ("absolute", dict(level=40, partitions=2, lf_delta=(
+                [-3, 0, 0, 0], [12, 0, 0, 0]), segments=dict(
+                quant=[50, 10, 90, 3], lf=[30, 5, 63, 0], absolute=True,
+                map_probs=[10, 250, 128]))),
+            ("q0", dict(q_index=0, level=63, big=0.3)),
+            ("nofilter", dict(level=0, i16_share=0.8))):
+        out[f"edge_vp8_{name}.webp"] = webp_file(
+            [(b"VP8 ", vp8_frame(rng, 37, 29, **kw))])
+    out["edge_lossy_1x1.webp"] = imencode(".webp", small[:1, :1],
+                                          cv2.IMWRITE_WEBP_QUALITY, 80)
+    out["edge_lossy_odd.webp"] = imencode(".webp", small,
+                                          cv2.IMWRITE_WEBP_QUALITY, 50)
+    rgba = np.dstack([small, rng.integers(0, 256, (29, 37), np.uint8)])
+    out["edge_alpha_lossy.webp"] = _pil(rgba, "WEBP", quality=70)
+    out["edge_alpha_lossless.webp"] = _pil(rgba, "WEBP", lossless=True,
+                                           exact=True)
+    frame = vp8_frame(rng, 37, 29)
+    out["edge_alpha_raw.webp"] = webp_file(
+        [(b"ALPH", bytes([3 << 2]) + rng.integers(0, 256, 37 * 29, np.uint8)
+          .tobytes()), (b"VP8 ", frame)], vp8x=(0x10, 37, 29))
+    for name, filt in (("alpha_vp8l", 1), ("alpha_vp8l_vertical", 2)):
+        out[f"edge_{name}.webp"] = webp_file(
+            [(b"ALPH", bytes([1 | filt << 2]) + alpha_stream(rgba[..., 3])),
+             (b"VP8 ", vp8_frame(rng, 37, 29))], vp8x=(0x10, 37, 29))
+    out["edge_lossless_m0.webp"] = _pil(small, "WEBP", lossless=True,
+                                        method=0)
+    pal = rng.integers(0, 256, (12, 3)).astype(np.uint8)
+    out["edge_palette.webp"] = _pil(pal[rng.integers(0, 12, (29, 37))],
+                                    "WEBP", lossless=True)
+    out["edge_palette2.webp"] = _pil(pal[rng.integers(0, 2, (29, 37))],
+                                     "WEBP", lossless=True)
+    first = rgba[:20, :24]
+    for name, lossless in (("anim", False), ("anim_lossless", True)):
+        frames = [_anmf(6, 4, 24, 20, _webp_chunks(_pil(
+                      first, "WEBP", lossless=lossless, exact=True))),
+                  _anmf(0, 0, 37, 29, _webp_chunks(_pil(
+                      small, "WEBP", lossless=lossless)))]
+        out[f"edge_{name}.webp"] = webp_file(
+            [(b"ANIM", bytes(4) + b"\0\0")]
+            + [(b"ANMF", f) for f in frames], vp8x=(0x12, 37, 29))
+    out["edge_vp8x_meta.webp"] = _pil(small, "WEBP", quality=60,
+                                      exif=b"Exif\0\0MM\0*\0\0\0\x08\0\0",
+                                      xmp=b"<x:xmpmeta/>")
+    # ---- GIF
+    gpal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    idx = rng.integers(0, 256, (29, 37))
+    out["edge_interlace.gif"] = write_gif([dict(idx=idx, interlace=True)],
+                                          37, 29, gpal)
+    lidx = rng.integers(0, 16, (21, 19))
+    out["edge_local.gif"] = write_gif(
+        [dict(idx=lidx, palette=gpal[100:104], min_size=4, x=5, y=3)],
+        37, 29, gpal, background=7)
+    out["edge_transparent.gif"] = write_gif(
+        [dict(idx=lidx, transparent=3, min_size=4, x=9, y=2)], 37, 29,
+        gpal[:16], background=5)
+    out["edge_anim.gif"] = write_gif(
+        [dict(idx=idx[:20, :30], x=2, y=4), dict(idx=idx, disposal=2)],
+        37, 29, gpal, background=9, loop=True)
+    out["edge_nopal.gif"] = write_gif([dict(idx=idx)], 37, 29, None)
+    out["edge_87a.gif"] = write_gif([dict(idx=lidx, min_size=4)], 19, 21,
+                                    gpal[:16], version=b"87a")
+    out["edge_full_table.gif"] = write_gif(
+        [dict(idx=rng.integers(0, 256, (64, 64)))], 64, 64, gpal)
+    # ---- PBM, PGM, PPM, PAM
+    bits = rng.integers(0, 2, (7, 13))
+    out["edge_p1.pbm"] = b"P1\n# a comment\n13 7\n" + b"\n".join(
+        b" ".join(b"%d" % v for v in row) for row in bits) + b"\n"
+    out["edge_p4.pbm"] = b"P4 13 7\n" + np.packbits(bits, axis=1).tobytes()
+    g = rng.integers(0, 1100, (7, 13))
+    out["edge_p2_16.pgm"] = b"P2\n13 7 # size\n1000\n" + b"\n".join(
+        b" ".join(b"%d" % v for v in row) for row in g) + b"\n"
+    out["edge_p5.pgm"] = b"P5\n13\t7\n100\n" + rng.integers(
+        0, 256, (7, 13), np.uint8).tobytes()
+    out["edge_p5_16.pgm"] = b"P5 13 7 65535\n" + rng.integers(
+        0, 65536, (7, 13)).astype(">u2").tobytes()
+    c = rng.integers(0, 20, (7, 13, 3))
+    out["edge_p3.ppm"] = b"P3 13 7 15\n" + b" ".join(
+        b"%d" % v for v in c.ravel()) + b"\n"
+    out["edge_p6_16.ppm"] = b"P6\n13 7\n4095\n" + rng.integers(
+        0, 4096, (7, 13, 3)).astype(">u2").tobytes()
+    pam = b"P7\nWIDTH 13\nHEIGHT 7\nDEPTH %d\nMAXVAL %d\n%sENDHDR\n"
+    out["edge_rgb.pam"] = pam % (3, 255, b"TUPLTYPE RGB\n") + rng.integers(
+        0, 256, (7, 13, 3), np.uint8).tobytes()
+    out["edge_gray16.pam"] = pam % (1, 1000, b"# gray\nTUPLTYPE GRAYSCALE\n") \
+        + rng.integers(0, 65536, (7, 13)).astype(">u2").tobytes()
+    out["edge_bw.pam"] = pam % (1, 1, b"TUPLTYPE BLACKANDWHITE\n") \
+        + rng.integers(0, 256, (7, 13), np.uint8).tobytes()
+    # ---- Sun raster
+    gray = rng.integers(0, 256, (7, 13), np.uint8)
+    out["edge_1bit.ras"] = write_sunras(13, 7, 1, sunras_rows(bits, 1))
+    out["edge_1bit_map.ras"] = write_sunras(13, 7, 1, sunras_rows(bits, 1),
+                                            colormap=gpal[:2])
+    out["edge_8bit_gray.ras"] = write_sunras(13, 7, 8, sunras_rows(gray, 8),
+                                             kind=0)
+    out["edge_8bit_map.ras"] = write_sunras(13, 7, 8, sunras_rows(gray, 8),
+                                            colormap=gpal[:200])
+    out["edge_24bit.ras"] = write_sunras(13, 7, 24, sunras_rows(
+        rng.integers(0, 256, (7, 13, 3)), 24))
+    out["edge_32bit.ras"] = write_sunras(13, 7, 32, rng.integers(
+        0, 256, (7, 13, 4), np.uint8).tobytes())
+    # ---- Radiance HDR and PFM
+    rgbe = rng.integers(0, 256, (7, 13, 4)).astype(np.uint8)
+    rgbe[..., 3] = rng.integers(120, 140, (7, 13))
+    rgbe[2, 3:11] = rgbe[2, 3]                      # runs
+    out["edge_rle.hdr"] = write_hdr(rgbe)
+    out["edge_flat.hdr"] = write_hdr(rgbe[:, :5], rle=False)
+    out["edge_rle_then_flat.hdr"] = write_hdr(rgbe[:3]) + \
+        rgbe[3:].tobytes()
+    out["edge_rle_then_flat.hdr"] = out["edge_rle_then_flat.hdr"].replace(
+        b"-Y 3 +X 13", b"-Y 7 +X 13", 1)
+    bright = rgbe.copy()
+    bright[..., 3] = rng.integers(140, 256, (7, 13))
+    out["edge_bright.hdr"] = write_hdr(bright, header=b"#?RGBE\nEXPOSURE=1"
+                                       b"\n# " + b"x" * 150 + b"\n")
+    f = rng.normal(100, 120, (7, 13, 3)).astype(np.float32)
+    f[0, :3] = [np.inf, np.nan, 3e9]
+    out["edge_le.pfm"] = write_pfm(f, -1.0)
+    out["edge_be.pfm"] = write_pfm(f, 2.5)
     return out
 
 
@@ -181,6 +383,11 @@ def main():
             "file_sha256": hashlib.sha256(stored).hexdigest(),
             "shape": list(rgb.shape),
             "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+        if ".webp" in name:
+            from tpusr_torch.pipeline.webp import decode_webp
+            tools = {}
+            decode_webp(body, tools=tools)
+            manifest[name]["tools"] = tools
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
     print(f"wrote {len(manifest)} fixtures to {HERE}")

@@ -33,7 +33,8 @@ from tpusr_torch.models.block1 import extract_patches_reference
 from tpusr_torch.pipeline import PipelineServer, make_serving_pipeline
 from tpusr_torch.pipeline import png
 from tpusr_torch.pipeline.http_serving import make_http_server
-from torch_image_writers import write_png, write_tiff
+from torch_image_writers import (sunras_rows, write_pfm, write_png,
+                                 write_sunras, write_tiff)
 
 LR, SCALE, PATCH, STRIDE = 24, 2, 32, 16   # 48x48 SR, 3x3 patch grid
 
@@ -432,45 +433,69 @@ def test_http_answers_match_the_jax_server(nets, monkeypatch):
 
 
 def _bodies(u8: np.ndarray) -> dict:
-    """The LR image in each new format; the lossy one with its decode."""
+    """The LR image in each format the port reads beside PNG."""
     ok, bmp = cv2.imencode(".bmp", u8[..., ::-1])
     ok2, prog = cv2.imencode(".jpg", u8[..., ::-1], [
         cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, 90])
     assert ok and ok2
-    return {"bmp": bmp.tobytes(),
-            "tiff": write_tiff(u8, compression=8, predictor=2),
-            "progressive": prog.tobytes(),
-            "adam7": write_png(u8, 8, 2, interlace=1)}
+    out = {"bmp": bmp.tobytes(),
+           "tiff": write_tiff(u8, compression=8, predictor=2),
+           "progressive": prog.tobytes(),
+           "adam7": write_png(u8, 8, 2, interlace=1)}
+    for name, ext in (("webp-lossy", ".webp"), ("ppm", ".ppm"),
+                      ("pam", ".pam"), ("hdr", ".hdr")):
+        img = u8[..., ::-1] if ext != ".hdr" \
+            else u8[..., ::-1].astype(np.float32) / 255
+        ok, buf = cv2.imencode(ext, img)
+        assert ok
+        out[name] = buf.tobytes()
+    for name, kw in (("webp-lossless", dict(format="WEBP", lossless=True)),
+                     ("gif", dict(format="GIF"))):
+        buf = io.BytesIO()
+        Image.fromarray(u8).save(buf, **kw)
+        out[name] = buf.getvalue()
+    h, w, _ = u8.shape
+    out["sun-raster"] = write_sunras(w, h, 24, sunras_rows(u8[..., ::-1], 24))
+    out["pfm"] = write_pfm(u8.astype(np.float32))
+    return out
+
+
+def _unread_bodies(u8: np.ndarray) -> dict:
+    """Bodies of formats the port refuses by name, by that name."""
+    jp2, avif = io.BytesIO(), io.BytesIO()
+    Image.fromarray(u8).save(jp2, "JPEG2000")
+    Image.fromarray(u8).save(avif, "AVIF")
+    ok, jpg = cv2.imencode(".jpg", u8)
+    i = jpg.tobytes().index(b"\xff\xc0")
+    return {"JPEG 2000": jp2.getvalue(), "AVIF": avif.getvalue(),
+            "OpenEXR": b"v/1\x01" + bytes(60),
+            "arithmetic-coded JPEG": jpg.tobytes()[:i + 1] + b"\xc9"
+            + jpg.tobytes()[i + 2:]}
 
 
 def test_http_tier_answers_each_format_as_its_png_twin(nets):
-    """BMP, TIFF, progressive-JPEG and Adam7 bodies answer 200 with the
-    class and the SR of their PNG twins; GIF, WebP and arithmetic-coded
-    JPEG bodies answer 400 naming what they are; a body of another size in
-    a new format is refused from its header."""
+    """BMP, TIFF, progressive-JPEG, Adam7, WebP (lossy and lossless), GIF,
+    PPM, PAM, Sun raster, HDR and PFM bodies answer 200 with the class and
+    the SR of their PNG twins; JPEG 2000, AVIF, OpenEXR and
+    arithmetic-coded JPEG bodies answer 400 naming what they are; a body of
+    another size in a new format is refused from its header."""
     sv, cv, lr = nets
     served = _Served(make_http_server, _port_server(sv, cv))
     try:
         for img in lr[:2]:
             u8 = (img * 255).astype(np.uint8)
             for name, body in _bodies(u8).items():
-                rgb = cv2.imdecode(np.frombuffer(body, np.uint8),
-                                   cv2.IMREAD_COLOR)[..., ::-1]
-                twin = png.encode_png_u8(rgb)
+                bgr = cv2.imdecode(np.frombuffer(body, np.uint8),
+                                   cv2.IMREAD_COLOR)
+                twin = png.encode_png_u8(np.ascontiguousarray(
+                    cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)))
                 for path in ("/classify", "/sr"):
                     got = _request(served.base + path, body)
                     want = _request(served.base + path, twin)
                     assert got[0] == want[0] == 200, (name, path, got[2][:200])
                     assert got[2] == want[2], (name, path)
         u8 = (lr[0] * 255).astype(np.uint8)
-        gif, webp = io.BytesIO(), io.BytesIO()
-        Image.fromarray(u8).save(gif, "GIF")
-        Image.fromarray(u8).save(webp, "WEBP")
-        ok, jpg = cv2.imencode(".jpg", u8)
-        i = jpg.tobytes().index(b"\xff\xc0")
-        arith = jpg.tobytes()[:i + 1] + b"\xc9" + jpg.tobytes()[i + 2:]
-        for body, what in ((gif.getvalue(), "GIF"), (webp.getvalue(), "WebP"),
-                           (arith, "arithmetic-coded JPEG")):
+        for what, body in _unread_bodies(u8).items():
             status, _, reply = _request(served.base + "/classify", body)
             assert status == 400 and what in json.loads(reply)["error"]
         # a body of another size in a new format is refused from its header
@@ -480,3 +505,47 @@ def test_http_tier_answers_each_format_as_its_png_twin(nets):
             assert status == 400 and "expected" in json.loads(reply)["error"]
     finally:
         served.close()
+
+
+def test_new_formats_decode_as_the_jax_server_decodes(nets, monkeypatch):
+    """Each format the HTTP tier reads beside PNG decodes to the array of
+    the JAX server's ``_decode_image`` (``cv2.imdecode`` + ``cvtColor``),
+    exactly; through both servers on the same weights each answers the
+    same class. OpenEXR, which this cv2 cannot read, is a 400 from both;
+    JPEG 2000 and AVIF are 400s naming themselves from the port only."""
+    import tpusr.models.vgg as jvgg
+    from tpusr.pipeline.http_serving import _decode_image as jax_decode
+
+    from tpusr_torch.pipeline.imdecode import decode_image
+    sv, cv, lr = nets
+    u8 = (lr[0] * 255).astype(np.uint8)
+    for name, body in _bodies(u8).items():
+        np.testing.assert_array_equal(decode_image(body), jax_decode(body),
+                                      err_msg=name)
+    for what, body in _unread_bodies(u8).items():
+        with pytest.raises(ValueError, match=what):
+            decode_image(body)
+    with pytest.raises(ValueError):
+        jax_decode(_unread_bodies(u8)["OpenEXR"])
+    monkeypatch.setattr(jvgg, "_VGG16_CFG", tuple(
+        (b, n, w) for (b, n, _f), w in zip(jvgg._VGG16_CFG, NARROW_WIDTHS)))
+    port = _Served(make_http_server, _port_server(sv, cv, batch=4, wait=5.0))
+    jax_pipe = jax_make_pipeline(sv, cv, (LR, LR), SCALE, patch=PATCH,
+                                 stride=STRIDE, sr_mode="f32",
+                                 clf_mode="per_patch_f32")
+    jax = _Served(jax_make_http, JaxPipelineServer(jax_pipe, batch_size=4,
+                                                   max_wait_ms=5.0))
+    try:
+        bodies = _bodies(u8)
+        for name in ("webp-lossy", "webp-lossless", "gif", "ppm", "hdr"):
+            got = [_request(s.base + "/classify", bodies[name])
+                   for s in (port, jax)]
+            assert got[0][0] == got[1][0] == 200, name
+            assert json.loads(got[0][2])["class"] == \
+                json.loads(got[1][2])["class"], name
+        exr = _unread_bodies(u8)["OpenEXR"]
+        assert [_request(s.base + "/classify", exr)[0]
+                for s in (port, jax)] == [400, 400]
+    finally:
+        port.close()
+        jax.close()

@@ -99,6 +99,50 @@ def test_source_names_no_hdf5_or_keras_library(path):
     assert not roots & HDF5_LIBS, (path, sorted(roots & HDF5_LIBS))
 
 
+CTYPES_LOADERS = {"CDLL", "PyDLL", "LibraryLoader", "LoadLibrary",
+                  "find_library", "dlopen"}
+CTYPES_NAMESPACES = {"cdll", "pydll"}     # ctypes.cdll.libfoo loads libfoo
+
+
+def _ctypes_loads(path: pathlib.Path) -> list[str]:
+    """Where a source loads a shared library through ``ctypes``: a call of
+    a loader (``ctypes.CDLL(...)``, ``cdll.LoadLibrary(...)``,
+    ``find_library(...)``), an attribute of ``cdll``/``pydll``, or such a
+    name imported from ``ctypes``."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Call):
+            name = getattr(node.func, "attr", getattr(node.func, "id", ""))
+            if name in CTYPES_LOADERS:
+                found.append(f"{ast.unparse(node.func)}()")
+        elif isinstance(node, ast.Attribute) and \
+                getattr(node.value, "attr", getattr(node.value, "id", "")) \
+                in CTYPES_NAMESPACES:
+            found.append(ast.unparse(node))
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.split(".")[0] == "ctypes":
+            found += [f"from {node.module} import {a.name}"
+                      for a in node.names if a.name in CTYPES_LOADERS
+                      | CTYPES_NAMESPACES or node.module == "ctypes.util"]
+    return found
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*(REPO / "tpusr_torch").rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_no_module_loads_a_shared_library_but_the_built_kernels(path):
+    found = _ctypes_loads(REPO / path)
+    if path == "tpusr_torch/core/_build.py":
+        # its one load: a library it built from csrc/ into _build/, by path
+        assert found == ["ctypes.CDLL()"], found
+        src = (REPO / path).read_text()
+        assert "ctypes.CDLL(str(_lib_path(name)))" in src
+        assert 'BUILD_DIR = _PKG / "_build"' in src
+        assert 'return BUILD_DIR / f"lib{name}-' in src
+    else:
+        assert not found, (path, found)
+
+
 def test_viz_exports_the_jax_viz_names():
     """``tpusr_torch.viz`` exports the 16 names of ``tpusr/viz/__init__.py``
     and ``classification_report_dict``, and imports no image, plotting or

@@ -367,8 +367,9 @@ def test_bytes_past_the_scans_blocks_are_not_windowed():
 @pytest.mark.parametrize("fmt,ext", [("GIF", ".gif"), ("BMP", ".bmp"),
                                      ("TIFF", ".tiff"), ("WebP", ".webp")])
 def test_other_formats_raise_naming_the_format(fmt, ext):
-    """GIF and WebP raise naming the format; BMP and TIFF, which raised
-    before the port read them, decode equal to cv2."""
+    """GIF, BMP, TIFF and WebP, which raised before the port read them,
+    decode equal to cv2; a format the port does not read (JPEG 2000)
+    raises naming it."""
     img = _scene(3, 16, 16)
     if fmt == "GIF":
         buf = io.BytesIO()
@@ -379,10 +380,10 @@ def test_other_formats_raise_naming_the_format(fmt, ext):
         assert ok
         body = b.tobytes()
     assert imdecode.image_format(body) == fmt
-    if fmt in ("BMP", "TIFF"):
-        np.testing.assert_array_equal(imdecode.decode_image_u8(body),
-                                      _cv2_rgb(body))
-    else:
-        with pytest.raises(ValueError, match=f"a {fmt} image"):
-            imdecode.decode_image_u8(body)
+    np.testing.assert_array_equal(imdecode.decode_image_u8(body),
+                                  _cv2_rgb(body))
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG2000")
+    with pytest.raises(ValueError, match="a JPEG 2000 image"):
+        imdecode.decode_image_u8(buf.getvalue())
     assert imdecode.decode_image(png.encode_png_u8(img)).dtype == np.float32

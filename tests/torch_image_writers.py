@@ -419,3 +419,465 @@ def jpeg_segments(body: bytes) -> list[tuple[int, bytes]]:
         out.append((marker, body[pos:end]))
         pos = end
     return out
+
+
+# ------------------------------------------------------------------ VP8
+class BoolEncoder:
+    """RFC 6386's boolean entropy encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out, self.rng, self.bottom, self.count = bytearray(), 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob: int, bit: int):
+        split = 1 + (((self.rng - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.rng -= split
+        else:
+            self.rng = split
+        while self.rng < 128:
+            self.rng <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.count -= 1
+            if not self.count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.count = 8
+
+    def literal(self, v: int, n: int):
+        for i in reversed(range(n)):
+            self.put(128, (v >> i) & 1)
+
+    def optional_signed(self, v: int, n: int):
+        """A flag, then (if set) magnitude and sign."""
+        self.put(128, int(v != 0))
+        if v:
+            self.literal(abs(v), n)
+            self.put(128, int(v < 0))
+
+    def finish(self) -> bytes:
+        c, v = self.count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def _tree_path(tree, leaf: int):
+    """The (node index, bit) pairs that reach ``-leaf`` in a VP8 tree."""
+    def walk(i, path):
+        for b in (0, 1):
+            t = tree[i + b]
+            if t <= 0:
+                if -t == leaf:
+                    return path + [(i, b)]
+            else:
+                r = walk(2 * t, path + [(i, b)])
+                if r:
+                    return r
+        return None
+    return walk(0, [])
+
+
+def _put_tokens(e: BoolEncoder, probs, ctx: int, first: int, levels) -> int:
+    """One block's tokens (the inverse of libwebp's GetCoeffs); returns
+    the decoder's context flag for its neighbours."""
+    nz = [n for n in range(first, 16) if levels[n]]
+    last = nz[-1] if nz else -1
+    n, p = first, probs[first][ctx]
+    while n < 16:
+        if n > last:
+            e.put(p[0], 0)
+            break
+        e.put(p[0], 1)
+        while not levels[n]:
+            e.put(p[1], 0)
+            n += 1
+            p = probs[n][0]
+        e.put(p[1], 1)
+        v = abs(int(levels[n]))
+        if v == 1:
+            e.put(p[2], 0)
+            nxt = 1
+        else:
+            e.put(p[2], 1)
+            nxt = 2
+            if v <= 4:
+                e.put(p[3], 0)
+                e.put(p[4], int(v > 2))
+                if v > 2:
+                    e.put(p[5], v - 3)
+            elif v <= 10:
+                e.put(p[3], 1)
+                e.put(p[6], 0)
+                e.put(p[7], int(v > 6))
+                if v <= 6:
+                    e.put(159, v - 5)
+                else:
+                    e.put(165, (v - 7) >> 1)
+                    e.put(145, (v - 7) & 1)
+            else:
+                e.put(p[3], 1)
+                e.put(p[6], 1)
+                cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+                e.put(p[8], cat >> 1)
+                e.put(p[9 + (cat >> 1)], cat & 1)
+                from tpusr_torch.pipeline.vp8 import _CAT_PROBS
+                extra = v - 3 - (8 << cat)
+                k = len(_CAT_PROBS[cat])
+                for i, q in enumerate(_CAT_PROBS[cat]):
+                    e.put(q, (extra >> (k - 1 - i)) & 1)
+        e.put(128, int(levels[n] < 0))
+        n += 1
+        p = probs[n][nxt]
+    return int(last >= first)
+
+
+def vp8_frame(rng, w, h, *, filter_type="normal", level=20, sharpness=0,
+              partitions=1, segments=None, lf_delta=None, q_index=40,
+              q_deltas=(0, 0, 0, 0, 0), prob_updates=0.0, skip_prob=None,
+              i16_share=0.5, coef_share=0.5, big=0.05,
+              max_coef=2048) -> bytes:
+    """A VP8 key frame (the payload of a ``VP8 `` chunk) of random modes
+    and coefficients under the given header, for what no encoder at hand
+    writes: the simple filter, sharpness, filter deltas, 2-8 partitions,
+    segment maps and values, quantiser deltas, probability updates.
+    ``segments``: dict(quant=4 values, lf=4 values, absolute=bool,
+    map_probs=3 values or None); ``lf_delta``: (4 ref deltas, 4 mode
+    deltas). Levels stay within ``max_coef`` once dequantised, as an
+    encoder's do (libwebp's SSE2 transforms wrap at 16 bits beyond)."""
+    from tpusr_torch.pipeline import vp8
+    from tpusr_torch.pipeline.vp8_tables import (AC_Q, COEF_PROBS,
+                                                 COEF_UPDATE_PROBS, DC_Q,
+                                                 KF_BMODE_PROBS)
+    qs = [q_index]
+    if segments is not None:
+        qs = [v + (0 if segments.get("absolute") else q_index)
+              for v in segments["quant"]]
+    steps = [max(DC_Q[min(max(q + d, 0), 127)] * 2,
+                 AC_Q[min(max(q + d, 0), 127)] * 101581 >> 16)
+             for q in qs for d in q_deltas]
+    cap = max(4, max_coef // max(steps))
+    mbw, mbh = (w + 15) // 16, (h + 15) // 16
+    e = BoolEncoder()
+    e.put(128, 0)
+    e.put(128, 0)
+    e.put(128, int(segments is not None))
+    update_map = segments is not None and segments.get("map_probs")
+    if segments is not None:
+        e.put(128, int(bool(update_map)))
+        e.put(128, 1)
+        e.put(128, int(segments.get("absolute", False)))
+        for v in segments["quant"]:
+            e.optional_signed(v, 7)
+        for v in segments["lf"]:
+            e.optional_signed(v, 6)
+        if update_map:
+            for p in segments["map_probs"]:
+                e.put(128, 1)
+                e.literal(p, 8)
+    e.put(128, int(filter_type == "simple"))
+    e.literal(level, 6)
+    e.literal(sharpness, 3)
+    e.put(128, int(lf_delta is not None))
+    if lf_delta is not None:
+        e.put(128, 1)
+        for v in (*lf_delta[0], *lf_delta[1]):
+            e.optional_signed(v, 6)
+    e.literal(partitions.bit_length() - 1, 2)
+    e.literal(q_index, 7)
+    for v in q_deltas:
+        e.optional_signed(v, 4)
+    e.put(128, 0)                                  # refresh entropy probs
+    probs = bytearray(COEF_PROBS)
+    for i in range(len(probs)):
+        upd = rng.random() < prob_updates
+        e.put(COEF_UPDATE_PROBS[i], int(upd))
+        if upd:
+            probs[i] = int(rng.integers(1, 256))
+            e.literal(probs[i], 8)
+    table = []
+    for t in range(4):
+        bands = [[tuple(probs[((t * 8 + b) * 3 + c) * 11:
+                              ((t * 8 + b) * 3 + c + 1) * 11])
+                  for c in range(3)] for b in range(8)]
+        table.append([bands[vp8._BANDS[n]] for n in range(17)])
+    e.put(128, int(skip_prob is not None))
+    if skip_prob is not None:
+        e.literal(skip_prob, 8)
+    parts = [BoolEncoder() for _ in range(partitions)]
+    top = [vp8.DC] * (4 * mbw)
+    tnz = {"y": [0] * (4 * mbw), "u": [0] * (2 * mbw), "v": [0] * (2 * mbw),
+           "dc": [0] * mbw}
+    for mby in range(mbh):
+        left = [vp8.DC] * 4
+        lnz = {"y": [0] * 4, "u": [0] * 2, "v": [0] * 2, "dc": [0]}
+        tok = parts[mby % partitions]
+        for mbx in range(mbw):
+            if update_map:
+                s = int(rng.integers(0, 4))
+                mp = segments["map_probs"]
+                e.put(mp[0], s >> 1)
+                e.put(mp[1 + (s >> 1)], s & 1)
+            skip = skip_prob is not None and rng.random() < 0.3
+            if skip_prob is not None:
+                e.put(skip_prob, int(skip))
+            i16 = rng.random() < i16_share
+            e.put(145, int(i16))
+            if i16:
+                m = int(rng.integers(0, 4))
+                e.put(156, int(m in (vp8.TM, vp8.HE)))
+                if m in (vp8.TM, vp8.HE):
+                    e.put(128, int(m == vp8.TM))
+                else:
+                    e.put(163, int(m == vp8.VE))
+                top[4 * mbx:4 * mbx + 4] = [m] * 4
+                left = [m] * 4
+            else:
+                for y in range(4):
+                    for x in range(4):
+                        m = int(rng.integers(0, 10))
+                        prob = KF_BMODE_PROBS[(top[4 * mbx + x] * 10 + left[y])
+                                              * 9:][:9]
+                        for node, b in _tree_path(vp8._BMODE_TREE, m):
+                            e.put(prob[node // 2], b)
+                        top[4 * mbx + x] = left[y] = m
+            uv = int(rng.integers(0, 4))
+            e.put(142, int(uv != vp8.DC))
+            if uv != vp8.DC:
+                e.put(114, int(uv != vp8.VE))
+                if uv != vp8.VE:
+                    e.put(183, int(uv == vp8.TM))
+            if skip:
+                for k in ("y", "u", "v"):
+                    n = 4 if k == "y" else 2
+                    tnz[k][n * mbx:n * mbx + n] = [0] * n
+                    lnz[k] = [0] * n
+                if i16:
+                    tnz["dc"][mbx] = lnz["dc"][0] = 0
+                continue
+
+            def levels(first):
+                lv = [0] * 16
+                if rng.random() < coef_share:
+                    for n in rng.integers(first, 16, int(rng.integers(1, 5))):
+                        v = int(rng.integers(1, 4))
+                        if rng.random() < big:
+                            v = int(rng.integers(4, cap + 1))
+                        lv[n] = v if rng.random() < 0.5 else -v
+                return lv
+
+            if i16:
+                ctx = tnz["dc"][mbx] + lnz["dc"][0]
+                tnz["dc"][mbx] = lnz["dc"][0] = _put_tokens(
+                    tok, table[1], ctx, 0, levels(0))
+            first, pac = (1, table[0]) if i16 else (0, table[3])
+            for y in range(4):
+                for x in range(4):
+                    c = 4 * mbx + x
+                    f = _put_tokens(tok, pac, lnz["y"][y] + tnz["y"][c], first,
+                                    levels(first))
+                    tnz["y"][c] = lnz["y"][y] = f
+            for k in ("u", "v"):
+                for y in range(2):
+                    for x in range(2):
+                        c = 2 * mbx + x
+                        f = _put_tokens(tok, table[2], lnz[k][y] + tnz[k][c],
+                                        0, levels(0))
+                        tnz[k][c] = lnz[k][y] = f
+    first_part = e.finish()
+    bodies = [p.finish() for p in parts]
+    tag = (len(first_part) << 5) | (1 << 4)
+    out = bytearray(struct.pack("<I", tag)[:3] + b"\x9d\x01\x2a"
+                    + struct.pack("<HH", w, h) + first_part)
+    for b in bodies[:-1]:
+        out += struct.pack("<I", len(b))[:3]
+    for b in bodies:
+        out += b
+    return bytes(out)
+
+
+def riff_chunk(tag: bytes, data: bytes) -> bytes:
+    return tag + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+
+
+def webp_file(chunks, vp8x=None) -> bytes:
+    """A RIFF/WEBP file of ``chunks`` ((tag, payload) pairs), after a
+    ``VP8X`` chunk of (flags, width, height) when given."""
+    body = b"WEBP"
+    if vp8x is not None:
+        flags, w, h = vp8x
+        body += riff_chunk(b"VP8X", bytes([flags, 0, 0, 0])
+                           + (w - 1).to_bytes(3, "little")
+                           + (h - 1).to_bytes(3, "little"))
+    for tag, data in chunks:
+        body += riff_chunk(tag, data)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+# ------------------------------------------------------------------- GIF
+def gif_lzw(indices, min_size: int) -> bytes:
+    """GIF's LZW: a clear code first, LSB-first codes growing with the
+    table, a clear code when it fills, the end code last."""
+    clear = 1 << min_size
+    out, acc, nacc = bytearray(), 0, 0
+
+    def emit(code, width):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    def fresh():
+        return {(i,): i for i in range(clear)}
+
+    table, nxt, width = fresh(), clear + 2, min_size + 1
+    emit(clear, width)
+    w = ()
+    for k in map(int, np.asarray(indices).ravel()):
+        if w + (k,) in table:
+            w += (k,)
+            continue
+        emit(table[w], width)
+        if nxt < 4096:
+            table[w + (k,)] = nxt
+            nxt += 1
+            if nxt > 1 << width and width < 12:
+                width += 1
+        else:
+            emit(clear, width)
+            table, nxt, width = fresh(), clear + 2, min_size + 1
+        w = (k,)
+    if w:
+        emit(table[w], width)
+    emit(clear + 1, width)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def gif_sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def _gif_table(colors) -> tuple[bytes, int]:
+    n = len(colors)
+    bits = max(1, (n - 1).bit_length())
+    table = np.zeros((1 << bits, 3), np.uint8)
+    table[:n] = colors
+    return table.tobytes(), bits - 1
+
+
+def write_gif(frames, width, height, palette=None, background=0,
+              version=b"89a", loop=False) -> bytes:
+    """A GIF of ``frames``: dicts of ``idx`` (h, w) and optional ``x``,
+    ``y``, ``palette`` (local), ``transparent``, ``disposal``,
+    ``interlace``, ``min_size``."""
+    out = bytearray(b"GIF" + version + struct.pack("<HH", width, height))
+    if palette is not None:
+        table, size = _gif_table(palette)
+        out += bytes([0x80 | 0x70 | size, background, 0]) + table
+    else:
+        out += bytes([0x70, background, 0])
+    if loop:
+        out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    for f in frames:
+        t = f.get("transparent")
+        if t is not None or f.get("disposal"):
+            out += bytes([0x21, 0xF9, 4, f.get("disposal", 0) << 2
+                          | (t is not None), 10, 0, t or 0, 0])
+        idx = np.asarray(f["idx"])
+        h, w = idx.shape
+        flags, local = 0, b""
+        if f.get("palette") is not None:
+            local, size = _gif_table(f["palette"])
+            flags |= 0x80 | size
+        if f.get("interlace"):
+            flags |= 0x40
+            idx = idx[np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                                      np.arange(2, h, 4), np.arange(1, h, 2)])]
+        out += b"\x2c" + struct.pack("<HHHHB", f.get("x", 0), f.get("y", 0),
+                                     w, h, flags) + local
+        ms = f.get("min_size", 8)
+        out += bytes([ms]) + gif_sub_blocks(gif_lzw(idx, ms))
+    return bytes(out + b"\x3b")
+
+
+# ------------------------------------------- Sun raster, HDR and PFM
+def write_sunras(width, height, depth, data: bytes, kind=1, colormap=None):
+    """A Sun raster of ``data`` (rows already padded); ``colormap`` (n, 3)
+    is stored as its red, green and blue planes."""
+    cmap = b"" if colormap is None else \
+        np.asarray(colormap, np.uint8).T.tobytes()
+    return struct.pack(">8I", 0x59A66A95, width, height, depth, len(data),
+                       kind, int(colormap is not None), len(cmap)) \
+        + cmap + data
+
+
+def sunras_rows(rows: np.ndarray, depth: int) -> bytes:
+    """(h, w[, c]) samples as Sun raster rows padded to 16 bits."""
+    rows = np.asarray(rows, np.uint8)
+    h = rows.shape[0]
+    flat = np.packbits(rows.reshape(h, -1), axis=1) if depth == 1 \
+        else rows.reshape(h, -1)
+    pad = flat.shape[1] & 1
+    return np.concatenate([flat, np.zeros((h, pad), np.uint8)], 1).tobytes()
+
+
+def write_hdr(rgbe: np.ndarray, rle=True, header=b"#?RADIANCE\n") -> bytes:
+    """A Radiance HDR of (h, w, 4) RGBE bytes: new-style RLE scanlines
+    (runs of 3 or more, literals of up to 128) when ``rle``, else flat."""
+    h, w, _ = rgbe.shape
+    out = bytearray(header + b"FORMAT=32-bit_rle_rgbe\n\n"
+                    + b"-Y %d +X %d\n" % (h, w))
+    if not rle:
+        return bytes(out + np.asarray(rgbe, np.uint8).tobytes())
+    for row in np.asarray(rgbe, np.uint8):
+        out += bytes([2, 2, w >> 8, w & 0xFF])
+        for c in range(4):
+            v = row[:, c].tolist()
+            i = 0
+            while i < w:
+                j = i
+                while j < w and j - i < 127 and v[j] == v[i]:
+                    j += 1
+                if j - i >= 3:
+                    out += bytes([128 + j - i, v[i]])
+                    i = j
+                    continue
+                j = i + 1
+                while j < w and j - i < 128 and not (
+                        j + 2 < w and v[j] == v[j + 1] == v[j + 2]):
+                    j += 1
+                out += bytes([j - i]) + bytes(v[i:j])
+                i = j
+    return bytes(out)
+
+
+def write_pfm(values: np.ndarray, scale=-1.0) -> bytes:
+    """A PFM of (h, w) or (h, w, 3) floats, rows from the bottom up,
+    little-endian for a negative scale."""
+    v = np.asarray(values, np.float32)
+    kind = b"PF" if v.ndim == 3 else b"Pf"
+    order = "<" if scale < 0 else ">"
+    return b"%s\n%d %d\n%s\n" % (kind, v.shape[1], v.shape[0],
+                                  repr(float(scale)).encode()) \
+        + v[::-1].astype(order + "f4").tobytes()

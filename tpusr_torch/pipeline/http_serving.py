@@ -8,8 +8,9 @@ simultaneous requests.
 
 Endpoints:
   GET  /healthz     -> {"status": "ok", "config": {...}}
-  POST /classify    -> {"class": int, "confidence": float}; body = a PNG,
-                       JPEG, BMP or TIFF LR image of the configured LR size
+  POST /classify    -> {"class": int, "confidence": float}; body = an LR
+                       image of the configured LR size in one of the
+                       formats below
   POST /sr          -> PNG body of the super-resolved image
   POST /classify_sr -> JSON with class/confidence + base64 PNG of the SR
 
@@ -19,11 +20,13 @@ pipeline fault, 404 for any other path.
 
 Two things differ from the JAX server. The codec: it decodes any format
 OpenCV reads; the port decodes PNG, JPEG (baseline, extended and
-progressive; gray, YCbCr, RGB, CMYK), BMP and TIFF
-(``pipeline/imdecode.py``, each equal to OpenCV's decode), since the card's
-machine has no image library; a body of another format (GIF, WebP, AVIF,
+progressive; gray, YCbCr, RGB, CMYK), BMP, TIFF, WebP (lossy, lossless,
+alpha, an animation's first frame), GIF, PNM/PAM, Sun raster, Radiance HDR
+and PFM (``pipeline/imdecode.py``, each equal to OpenCV's decode), since
+the card's machine has no image library; a body of another format (AVIF,
 JPEG 2000, ...) or one the decoders refuse (an arithmetic-coded JPEG, a
-JPEG-compressed TIFF, ...) gets a 400 that names what it is. The listen backlog: 128, where the standard library's 5 (the
+JPEG-compressed TIFF, a PAM with alpha, ...) gets a 400 that names what it
+is. The listen backlog: 128, where the standard library's 5 (the
 JAX server's) leaves a client beyond the fifth waiting connection to the
 kernel's SYN retry, about a second later. Stand it up with ``python -m tpusr_torch.cli serve
 --edsr-ckpt ... --vgg16-ckpt ...``.
