@@ -6245,6 +6245,7 @@ def phase_h5(s: H5Slice, cfg: Slice, dev, seed: int, sync, card: str) -> dict:
 
 VIDEO_FIXTURES = os.path.join(REPO, "tests", "data", "video")
 MPEG4_FIXTURES = os.path.join(REPO, "tests", "data", "mpeg4")
+WEBM_FIXTURES = os.path.join(REPO, "tests", "data", "webm")
 
 
 @dataclass(frozen=True)
@@ -6254,10 +6255,13 @@ class PreprocessSlice:
     moving over the bed) with ``--hr-size 512`` and without, the 59x80 clip
     whose odd crop is trimmed (``--predictions``), the same print as
     MPEG-4 Part 2 in MP4 (``tests/data/mpeg4``, what ``cv2.VideoWriter``
-    writes with ``mp4v``) with ``--hr-size 512``, then ``train-edsr
-    --scale 2`` for ``edsr_epochs`` on the 512^2 pairs."""
+    writes with ``mp4v``), as VP8 in WebM (its first 16 frames) and as
+    ``mp4v`` in Matroska (``tests/data/webm``) with ``--hr-size 512``, then
+    ``train-edsr --scale 2`` for ``edsr_epochs`` on the 512^2 pairs."""
     clip: str = "print_720p.avi"
     mp4_clip: str = "print_720p.mp4"
+    webm_clip: str = "print_720p.webm"
+    mkv_clip: str = "print_720p.mkv"
     odd_clip: str = "odd_59x80.avi"
     hr_size: int = 512
     edsr_epochs: int = 1
@@ -6361,6 +6365,78 @@ def check_mpeg4_fixtures(p: PreprocessSlice, card: str) -> dict:
             "kept": kept}
 
 
+def _vp8_timed_frames(video, ms: dict):
+    """The BGR frames of a ``vp8video.Vp8Video``, decoded in order by one
+    decoder with each decode (``ms["key"]``, ``ms["inter"]``) and each
+    conversion (``ms["convert"]``) timed on the host clock."""
+    from tpusr_torch.data import vp8video
+
+    dec = vp8video.Vp8Decoder()
+    for sample in video.samples:
+        t0 = time.perf_counter()
+        planes = dec.decode(sample)
+        ms["inter" if sample[0] & 1 else "key"].append(
+            (time.perf_counter() - t0) * 1e3)
+        if planes is not None:
+            t0 = time.perf_counter()
+            bgr = vp8video.to_bgr(planes, dec.width, dec.height,
+                                  dec.full_range)
+            ms["convert"].append((time.perf_counter() - t0) * 1e3)
+            yield bgr
+    video.counts.update(dec.counts)
+
+
+def check_webm_fixtures(p: PreprocessSlice, card: str) -> dict:
+    """Every Matroska/WebM fixture under ``tests/data/webm`` (the 720p VP8
+    ``.webm`` and ``mp4v`` ``.mkv``, the small clips ``cv2.VideoWriter``
+    wrote, their crafted layouts, the hand-written VP8 streams): the rate,
+    the count, every frame by sha256 and the tools the decoders counted
+    against ``manifest.json`` (cv2's reading); the 720p VP8 clip with each
+    frame's decode and conversion timed. Returns the times and, per print
+    clip, the frames ``preprocess`` samples (one a second)."""
+    from tpusr_torch.data.video import open_video
+
+    with open(os.path.join(WEBM_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)["clips"]
+    held, kept = 0, {p.webm_clip: {}, p.mkv_clip: {}}
+    ms = {"key": [], "inter": [], "convert": []}
+    for name, entry in manifest.items():
+        video = open_video(os.path.join(WEBM_FIXTURES, name))
+        check((len(video), video.fps) == (entry["frames"], entry["fps"]),
+              f"{name}: {len(video)} frames at {video.fps} fps, cv2 reads "
+              f"{entry['frames']} at {entry['fps']}")
+        step = int(video.fps) if name in kept else 0
+        frames = (_vp8_timed_frames(video, ms) if name == p.webm_clip
+                  else (f() for f in video.frames()))
+        for i, bgr in enumerate(frames):
+            check(_sha(bgr) == entry["sha256"][i],
+                  f"{name} frame {i}: differs from cv2.VideoCapture's")
+            if step and i % step == 0:
+                kept[name][i] = bgr
+            held += 1
+        met = dict(getattr(video, "counts", {}))    # MJPEG counts nothing
+        check(met == entry["counts"], f"{name}: the decoder met {met}, the "
+                                      f"manifest has {entry['counts']}")
+    video = open_video(os.path.join(WEBM_FIXTURES, p.webm_clip))
+    out = {k: float(np.mean(v)) for k, v in ms.items()}
+    sizes = {k: float(np.mean([len(s) for s in video.samples
+                               if bool(s[0] & 1) == (k == "inter")]))
+             for k in ("key", "inter")}
+    print(f"[webm] {card}: {held} frames of {len(manifest)} Matroska/WebM "
+          f"files (VP8, mp4v and MJPEG from cv2.VideoWriter, their crafted "
+          f"layouts, hand-written VP8 streams) equal to cv2.VideoCapture's "
+          f"by sha256, rates and tool counts equal; {p.webm_clip} (VP8, "
+          f"1280x720, {len(ms['key'])} key frames, {len(ms['inter'])} "
+          f"interframes): a key frame decodes in {out['key']:.1f} ms, an "
+          f"interframe in {out['inter']:.1f} ms, the BGR conversion "
+          f"{out['convert']:.1f} ms a frame (host, mean); {sizes['key']:.0f} "
+          f"bytes a key frame, {sizes['inter']:.0f} an interframe")
+    return {"frames_held": held, "key_ms": out["key"],
+            "inter_ms": out["inter"], "convert_ms": out["convert"],
+            "key_bytes": sizes["key"], "inter_bytes": sizes["inter"],
+            "kept": kept}
+
+
 def check_video_fixtures(p: PreprocessSlice, dev, sync, card: str) -> dict:
     """The JPEG encoder's bytes, the AVI reader's rate, count and frames,
     and ``resize_u8`` on the card against what OpenCV wrote into
@@ -6445,7 +6521,8 @@ def check_video_fixtures(p: PreprocessSlice, dev, sync, card: str) -> dict:
           f" cases; equal to cv2.resize on all but the x3 INTER_CUBIC ones, "
           f"which differ where recorded (in, out, values): {counts}")
     return {"encode_ms": enc_ms, "decode_ms": decode_ms,
-            "mpeg4": check_mpeg4_fixtures(p, card)}
+            "mpeg4": check_mpeg4_fixtures(p, card),
+            "webm": check_webm_fixtures(p, card)}
 
 
 def _mcu_cover(diff: np.ndarray) -> np.ndarray:
@@ -6567,10 +6644,10 @@ def card_against_cpu(p: PreprocessSlice, dev, card: str) -> dict:
 
 class preprocess_stage_times:
     """While open, time each stage of ``preprocess`` per call: the frame
-    decode (an MJPEG frame, or every MPEG-4 VOP), the BGR conversion of an
-    MPEG-4 frame, the crop, the resize, the JPEG round trip and the PNG writes on
-    the host clock (each ended by a device barrier), the degradation core
-    by CUDA events."""
+    decode (an MJPEG frame, or every MPEG-4 VOP or VP8 frame), the BGR
+    conversion of an MPEG-4 or VP8 frame, the crop, the resize, the JPEG
+    round trip and the PNG writes on the host clock (each ended by a device
+    barrier), the degradation core by CUDA events."""
 
     STAGES = ("decode", "convert", "crop", "resize", "jpeg", "png")
 
@@ -6578,7 +6655,8 @@ class preprocess_stage_times:
         self.sync = sync
 
     def __enter__(self):
-        from tpusr_torch.data import _cv_ops, avi, degrade, mpeg4, video
+        from tpusr_torch.data import (_cv_ops, avi, degrade, mpeg4, video,
+                                      vp8video)
         self.ms = {k: [] for k in self.STAGES}
         self.events = []
 
@@ -6607,6 +6685,8 @@ class preprocess_stage_times:
         self._p = [patched(avi, decode_mjpeg_frame=host("decode")),
                    patched(mpeg4.Mpeg4Decoder, decode=host("decode")),
                    patched(mpeg4, to_bgr=host("convert")),
+                   patched(vp8video.Vp8Decoder, decode=host("decode")),
+                   patched(vp8video, to_bgr=host("convert")),
                    patched(video, smart_square_crop=host("crop"),
                            encode_png_u8=host("png")),
                    patched(_cv_ops, resize_u8=host("resize")),
@@ -6631,6 +6711,71 @@ class preprocess_stage_times:
             q.__exit__(*exc)
 
 
+def preprocess_held_clip(p: PreprocessSlice, path: str, kept: dict,
+                         root: str, seed: int, sync, card: str,
+                         avi_wall: float) -> dict:
+    """``python -m tpusr_torch.cli preprocess --hr-size`` in process on a
+    print clip whose frames ``kept`` (index -> BGR) were held to cv2's by
+    sha256, with its stages timed: no kernel launched, one pair a second,
+    every frame decoded and only the sampled ones converted, each HR PNG
+    equal to the host's ``smart_square_crop`` + ``resize_u8`` of its
+    frame. Returns the wall time and the decode and conversion ms."""
+    from tpusr_torch.cli.__main__ import main as cli_main
+    from tpusr_torch.data import _cv_ops as cv
+    from tpusr_torch.data.video import open_video, smart_square_crop
+    from tpusr_torch.pipeline.png import decode_png_u8
+
+    name = os.path.basename(path)
+    video = open_video(path)
+    samples = video.samples
+    with preprocess_stage_times(sync) as st:
+        reset_counts()
+        t0 = time.perf_counter()
+        cli_main(["preprocess", "--video", path, "--hr-dir",
+                  os.path.join(root, "HR"), "--lr-dir",
+                  os.path.join(root, "LR"), "--hr-size", str(p.hr_size),
+                  "--seed", str(seed), "--device", "cuda"])
+        sync()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+    check(got == launches_want(),
+          f"preprocess on {name}: launched kernels {got}")
+    names = sorted(os.listdir(os.path.join(root, "HR")))
+    check(names == [f"sample_{i:05d}.png" for i in range(len(kept))]
+          and len(st.ms["decode"]) == len(samples)
+          and len(st.ms["convert"]) == len(kept),
+          f"preprocess on {name}: wrote {names}, decoded "
+          f"{len(st.ms['decode'])} of {len(samples)} frames, converted "
+          f"{len(st.ms['convert'])}")
+    for png, i in zip(names, sorted(kept)):
+        hr = decode_png_u8(open(os.path.join(root, "HR", png), "rb").read())
+        want = cv.resize_u8(smart_square_crop(torch.from_numpy(kept[i])),
+                            (p.hr_size, p.hr_size), "area").numpy()
+        check(np.array_equal(hr, want[..., ::-1]),
+              f"preprocess on {name} {png}: the HR PNG differs from the "
+              f"host's crop + resize of frame {i}")
+    decode, convert = st.total("decode"), st.total("convert")
+    run = {"wall_s": wall, "pairs": len(names), "decode_ms": decode,
+           "convert_ms": convert}
+    kinds = ""
+    if name.endswith(".webm"):              # VP8: key frames and the rest
+        key = [ms for ms, s in zip(st.ms["decode"], samples) if not s[0] & 1]
+        inter = [ms for ms, s in zip(st.ms["decode"], samples) if s[0] & 1]
+        run.update(key_ms=float(np.mean(key)), inter_ms=float(np.mean(inter)))
+        kinds = (f" ({len(key)} key frames {run['key_ms']:.1f} ms each, "
+                 f"{len(inter)} interframes {run['inter_ms']:.1f} ms each)")
+    print(f"[preprocess] {card}: preprocess --hr-size {p.hr_size} --device "
+          f"cuda on {name} ({getattr(video, 'fourcc', '')}, 1280x720, "
+          f"{len(samples)} frames at {video.fps:g} fps): {len(names)} pairs "
+          f"in {wall:.2f} s (the MJPEG AVI: {avi_wall:.2f} s); decoding all "
+          f"{len(samples)} frames {decode:.0f} ms{kinds} and converting the "
+          f"{len(names)} sampled frames {convert:.0f} ms (host), "
+          f"{100 * (decode + convert) / 1e3 / wall:.0f}% of the wall; each HR "
+          f"PNG equal to the host's smart_square_crop + resize_u8 of the "
+          f"sha256-held frame")
+    return run
+
+
 def edsr_x2_train_layers(n: int, h: int, blocks: int, f: int) -> list:
     """(conv, forward shape, relu) of every conv of an x2 EDSR's training
     forward, in order (``edsr_train_layers`` at x2: one upsample conv)."""
@@ -6649,9 +6794,10 @@ def phase_preprocess(p: PreprocessSlice, dev, seed: int, sync,
     encoder's bytes, the reader's frames, ``resize_u8``), the card against
     the CPU on the same draws, then ``python -m tpusr_torch.cli
     preprocess`` (in process) on the 720p clip with ``--hr-size`` and
-    without and on the odd clip, each stage timed per frame, then
-    ``train-edsr --scale 2`` on the pairs it wrote with its first step held
-    against K2's twin. The training run is driven with the launch counts
+    without and on the odd clip, each stage timed per frame, the same
+    print as ``.mp4``, ``.webm`` and ``.mkv`` (``preprocess_held_clip``),
+    then ``train-edsr --scale 2`` on the pairs it wrote with its first step
+    held against K2's twin. The training run is driven with the launch counts
     set to 0 just before it and read just after. Returns its launches."""
     import pickle
     import shutil
@@ -6735,52 +6881,19 @@ def phase_preprocess(p: PreprocessSlice, dev, seed: int, sync,
               f"{p.odd_clip}: {len(names)} pairs, the 59^2 crop trimmed to "
               f"58^2, the predictions class map written")
 
-        # the same print as MPEG-4 Part 2 in MP4: each HR PNG against the
-        # host's crop + resize of the sha256-held frame it came from
-        from tpusr_torch.data import _cv_ops as cv
-        from tpusr_torch.data.video import smart_square_crop
-        kept = fixtures["mpeg4"].pop("kept")
-        root = os.path.join(work, "mp4")
-        with preprocess_stage_times(sync) as st:
-            reset_counts()
-            t0 = time.perf_counter()
-            cli_main(["preprocess", "--video",
-                      os.path.join(MPEG4_FIXTURES, p.mp4_clip), "--hr-dir",
-                      os.path.join(root, "HR"), "--lr-dir",
-                      os.path.join(root, "LR"), "--hr-size", str(p.hr_size),
-                      "--seed", str(seed), "--device", "cuda"])
-            sync()
-            wall = time.perf_counter() - t0
-            got = read_counts()
-        check(got == launches_want(),
-              f"preprocess on {p.mp4_clip}: launched kernels {got}")
-        names = sorted(os.listdir(os.path.join(root, "HR")))
-        check(names == [f"sample_{i:05d}.png" for i in range(len(kept))]
-              and len(st.ms["decode"]) == 40 and len(st.ms["convert"])
-              == len(kept), f"preprocess on {p.mp4_clip}: wrote {names}, "
-                            f"decoded {len(st.ms['decode'])} VOPs, converted "
-                            f"{len(st.ms['convert'])} frames")
-        for name, i in zip(names, sorted(kept)):
-            hr = decode_png_u8(open(os.path.join(root, "HR", name),
-                                    "rb").read())
-            want = cv.resize_u8(smart_square_crop(torch.from_numpy(kept[i])),
-                                (p.hr_size, p.hr_size), "area").numpy()
-            check(np.array_equal(hr, want[..., ::-1]),
-                  f"preprocess on {p.mp4_clip} {name}: the HR PNG differs "
-                  f"from the host's crop + resize of frame {i}")
-        decode = st.total("decode") + st.total("convert")
-        runs["mp4"] = {"wall_s": wall, "pairs": len(names),
-                       "decode_ms": st.total("decode"),
-                       "convert_ms": st.total("convert")}
-        print(f"[preprocess] {card}: preprocess --hr-size {p.hr_size} "
-              f"--device cuda on {p.mp4_clip} (mp4v, 1280x720, 40 frames at "
-              f"10 fps): {len(names)} pairs in {wall:.2f} s (the MJPEG AVI: "
-              f"{runs[f'hr{p.hr_size}']['wall_s']:.2f} s); decoding all 40 "
-              f"VOPs {st.total('decode'):.0f} ms and converting the "
-              f"{len(names)} sampled frames {st.total('convert'):.0f} ms "
-              f"(host), {100 * decode / 1e3 / wall:.0f}% of the wall; each "
-              f"HR PNG equal to the host's smart_square_crop + resize_u8 of "
-              f"the sha256-held frame")
+        # the same print as MPEG-4 Part 2 in MP4, VP8 in WebM and MPEG-4
+        # Part 2 in Matroska: each HR PNG against the host's crop + resize
+        # of the sha256-held frame it came from
+        for tag, folder, name, kept in (
+                ("mp4", MPEG4_FIXTURES, p.mp4_clip,
+                 fixtures["mpeg4"].pop("kept")),
+                ("webm", WEBM_FIXTURES, p.webm_clip,
+                 fixtures["webm"]["kept"].pop(p.webm_clip)),
+                ("mkv", WEBM_FIXTURES, p.mkv_clip,
+                 fixtures["webm"].pop("kept").pop(p.mkv_clip))):
+            runs[tag] = preprocess_held_clip(
+                p, os.path.join(folder, name), kept, os.path.join(work, tag),
+                seed, sync, card, runs[f"hr{p.hr_size}"]["wall_s"])
 
         # train-edsr --scale 2 on the 512^2 pairs the command wrote
         ed = EDSRConfig()

@@ -73,12 +73,17 @@ def _train_edsr(data, out, *launcher, extra=()):
 
 def test_train_edsr_data_parallel_under_torchrun(tmp_path):
     """2 ranks, each a process of torchrun: the 4-pair fixture's run gives
-    the loss of the run without --data-parallel."""
+    the loss of the run without --data-parallel. The rendezvous store and
+    the ranks' MASTER_ADDR are on 127.0.0.1 (``--standalone`` would take
+    ``localhost`` and ``socket.getfqdn()``: name lookups, which a machine
+    without a network may answer late or not at all)."""
     (tmp_path / "ds").mkdir()
     data = _write_pairs(tmp_path / "ds")
     dp = _train_edsr(data, tmp_path / "dp", sys.executable, "-m",
                      "torch.distributed.run", "--nproc-per-node", "2",
-                     "--standalone", extra=("--data-parallel",))
+                     "--rdzv-backend", "c10d", "--rdzv-endpoint",
+                     "127.0.0.1:0", "--local-addr", "127.0.0.1",
+                     extra=("--data-parallel",))
     single = _train_edsr(data, tmp_path / "single", sys.executable)
     for k in ("loss", "val_loss"):
         assert dp["history"][k] == pytest.approx(single["history"][k],

@@ -11,7 +11,8 @@ the JAX package's ``tpusr/data/video.py``, on the CPU:
   the frame count and every frame of the committed clips
   (``tests/data/video/``, ``make_fixtures.py``) and of AVIs written here
   (4:2:2, gray, odd width, another rate), and the readers' refusals (the
-  MPEG-4 reader is held in ``test_torch_mpeg4.py``);
+  MPEG-4 reader is held in ``test_torch_mpeg4.py``, Matroska and VP8 in
+  ``test_torch_matroska.py`` and ``test_torch_vp8_video.py``);
 - the extractor on the MJPEG AVI and on an ``mp4v`` MP4
   (``tests/data/mpeg4/``) with JAX's draws (``split`` of the key per
   written frame) against ``create_hr_lr_images_from_video``: the PNG
@@ -35,6 +36,7 @@ import torch
 import tpusr.cli.__main__ as jcli
 import tpusr_torch.cli.__main__ as tcli
 from test_torch_degrade import jax_draws
+from torch_video_writers import mkv as mkv_file
 from tpusr.data import video as jv
 from tpusr_torch.data import _cv_ops as ops
 from tpusr_torch.data import avi
@@ -240,6 +242,17 @@ def test_reader_refuses_other_codecs_and_containers(tmp_path):
     mkv.write_bytes(b"\x1aE\xdf\xa3" + bytes(28))
     with pytest.raises(ValueError, match="Matroska"):
         tv.open_video(str(mkv))
+    for codec, name in (("V_MPEG4/ISO/AVC", "H.264"),
+                        ("V_MPEGH/ISO/HEVC", "HEVC"), ("V_AV1", "AV1"),
+                        ("V_VP9", "VP9"), ("V_FFV1", "FFV1")):
+        mkv.write_bytes(mkv_file(codec, 16, 16, [jpeg],
+                                 default_duration=40000000))
+        with pytest.raises(ValueError,
+                           match=f"Matroska/WebM file with {name}"):
+            tv.open_video(str(mkv))
+    with pytest.raises(ValueError, match="could not open video"):
+        tv.create_hr_lr_images_from_video(str(mkv), str(tmp_path / "h"),
+                                          str(tmp_path / "l"), device="cpu")
     with pytest.raises(FileNotFoundError):
         tv.create_hr_lr_images_from_video(str(tmp_path / "missing.avi"),
                                           "h", "l", device="cpu")

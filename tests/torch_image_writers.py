@@ -551,15 +551,16 @@ def vp8_frame(rng, w, h, *, filter_type="normal", level=20, sharpness=0,
               partitions=1, segments=None, lf_delta=None, q_index=40,
               q_deltas=(0, 0, 0, 0, 0), prob_updates=0.0, skip_prob=None,
               i16_share=0.5, coef_share=0.5, big=0.05,
-              max_coef=2048) -> bytes:
+              max_coef=2048, clamping=0) -> bytes:
     """A VP8 key frame (the payload of a ``VP8 `` chunk) of random modes
     and coefficients under the given header, for what no encoder at hand
     writes: the simple filter, sharpness, filter deltas, 2-8 partitions,
     segment maps and values, quantiser deltas, probability updates.
     ``segments``: dict(quant=4 values, lf=4 values, absolute=bool,
     map_probs=3 values or None); ``lf_delta``: (4 ref deltas, 4 mode
-    deltas). Levels stay within ``max_coef`` once dequantised, as an
-    encoder's do (libwebp's SSE2 transforms wrap at 16 bits beyond)."""
+    deltas); ``clamping``: the clamping-type bit. Levels stay within
+    ``max_coef`` once dequantised, as an encoder's do (libwebp's SSE2
+    transforms wrap at 16 bits beyond)."""
     from tpusr_torch.pipeline import vp8
     from tpusr_torch.pipeline.vp8_tables import (AC_Q, COEF_PROBS,
                                                  COEF_UPDATE_PROBS, DC_Q,
@@ -575,7 +576,7 @@ def vp8_frame(rng, w, h, *, filter_type="normal", level=20, sharpness=0,
     mbw, mbh = (w + 15) // 16, (h + 15) // 16
     e = BoolEncoder()
     e.put(128, 0)
-    e.put(128, 0)
+    e.put(128, clamping)
     e.put(128, int(segments is not None))
     update_map = segments is not None and segments.get("map_probs")
     if segments is not None:

@@ -11,7 +11,8 @@ reader:
   ``CAP_PROP_FPS`` gives) and ``strf`` (its compression must be MJPEG, or
   ``FMP4``/``XVID``/``DIVX``/``DX50``/``MP4V``, which go to the MPEG-4
   Part 2 decoder with the VOL taken in band; any other codec, and any other
-  container such as Matroska, is refused by name), then that stream's
+  container such as Ogg, is refused by name; Matroska goes to
+  ``data/matroska.py``), then that stream's
   ``##dc``/``##db`` chunks of ``movi`` in file order, ``LIST rec`` groups
   included; the main header ``avih`` and the indexes (``idx1``, ``ix##``)
   are not needed;
@@ -48,9 +49,8 @@ _MJPEG = {b"MJPG", b"mjpg", b"AVRn", b"LJPG", b"JPGL", b"dmb1", b"jpeg",
           b"JPEG", b"MJPA", b"AVDJ", b"ACDV", b"QIVG", b"SLMJ"}
 # the fourccs of FFmpeg's mpeg4 decoder in AVI
 _MPEG4 = {b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4V", b"mp4v"}
-_CONTAINERS = ((0, b"\x1aE\xdf\xa3", "Matroska/WebM"), (0, b"OggS", "Ogg"),
-               (0, b"FLV", "FLV"), (0, b"\x00\x00\x01\xba", "MPEG-PS"),
-               (0, b"G", "MPEG-TS"))
+_CONTAINERS = ((0, b"OggS", "Ogg"), (0, b"FLV", "FLV"),
+               (0, b"\x00\x00\x01\xba", "MPEG-PS"), (0, b"G", "MPEG-TS"))
 
 
 @dataclasses.dataclass
@@ -81,8 +81,8 @@ def _refuse_container(head: bytes, path: str) -> None:
     for at, magic, name in _CONTAINERS:
         if head[at: at + len(magic)] == magic:
             raise ValueError(f"{path}: a {name} file; the port reads AVI "
-                             f"(MJPEG, MPEG-4 Part 2) and MP4/QuickTime "
-                             f"(MPEG-4 Part 2)")
+                             f"(MJPEG, MPEG-4 Part 2), MP4/QuickTime "
+                             f"(MPEG-4 Part 2) and Matroska/WebM")
     raise ValueError(f"{path}: not a RIFF AVI file")
 
 

@@ -10,10 +10,12 @@ the files already there.
 The video is read by the port's own readers, which give the frames
 ``cv2.VideoCapture`` gives (``open_video``, by the file's magic bytes):
 AVI (``data/avi.py``) with MJPEG or MPEG-4 Part 2 (``FMP4``/``XVID``/
-``DIVX``), and MP4/QuickTime ``.mp4``/``.mov`` (``data/isobmff.py``) with
-MPEG-4 Part 2 (``mp4v``, ``data/mpeg4.py``): what ``cv2.VideoWriter``
-writes. An MPEG-4 stream decodes every frame in order (each predicts the
-next) and converts to BGR only the frames the extractor samples. The
+``DIVX``), MP4/QuickTime ``.mp4``/``.mov`` (``data/isobmff.py``) with
+MPEG-4 Part 2 (``mp4v``, ``data/mpeg4.py``), and Matroska/WebM
+``.mkv``/``.webm`` (``data/matroska.py``) with VP8 (``data/vp8video.py``),
+MPEG-4 Part 2 or MJPEG: what ``cv2.VideoWriter`` writes. An MPEG-4 or VP8
+stream decodes every frame in order (each predicts the next) and converts
+to BGR only the frames the extractor samples. The
 crop's OpenCV ops are the port's own (``data/_cv_ops.py``: gray and Otsu
 on the frame's device, the contours on the host); the resize is
 ``_cv_ops.resize_u8`` (cv2's uint8 ``INTER_AREA``); the degradation core
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from tpusr_torch.data import _cv_ops as cv
-from tpusr_torch.data import isobmff
+from tpusr_torch.data import isobmff, matroska
 from tpusr_torch.data.avi import read_avi
 from tpusr_torch.data.degrade import (DegradeConfig, degrade_with_draws,
                                       sample_draws)
@@ -76,11 +78,13 @@ def smart_square_crop(img):
 def open_video(path: str):
     """The video at ``path``, by its magic bytes (never its extension):
     an object with ``fps``, ``len()``, ``frame(i)`` and ``frames()`` (an
-    ``avi.AviVideo`` or an ``mpeg4.Mpeg4Video``)."""
+    ``avi.AviVideo``, an ``mpeg4.Mpeg4Video`` or a ``vp8video.Vp8Video``)."""
     with open(path, "rb") as f:
         head = f.read(12)
     if head[4:8] in isobmff.MAGIC:
         return isobmff.read_mp4(path)
+    if head[:4] == matroska.MAGIC:
+        return matroska.read_mkv(path)
     return read_avi(path)
 
 
@@ -216,8 +220,9 @@ def create_hr_lr_images_from_video(
         video = open_video(video_path)
     except ValueError as e:
         raise ValueError(f"could not open video (the port reads MJPEG or "
-                         f"MPEG-4 Part 2 in AVI, and MPEG-4 Part 2 in "
-                         f"MP4/QuickTime): {e}") from None
+                         f"MPEG-4 Part 2 in AVI, MPEG-4 Part 2 in "
+                         f"MP4/QuickTime, and VP8, MPEG-4 Part 2 or MJPEG "
+                         f"in Matroska/WebM): {e}") from None
     return create_hr_lr_images_from_frames(
         video.frames(), video.fps, hr_dir, lr_dir, skip_seconds=skip_seconds,
         frame_interval_seconds=frame_interval_seconds, hr_size=hr_size,

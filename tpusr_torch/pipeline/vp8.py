@@ -24,9 +24,11 @@ planes that ``webp.py`` turns into RGB.
   level of the macroblock's segment and mode, inner edges only where the
   block is ``B_PRED`` or has coefficients.
 
-Interframes do not occur in WebP and are refused by name; so is what
-libwebp refuses (bad start code, an invisible frame, a profile above 3,
-truncated partitions), with ``ValueError``. Dequantised coefficients past
+Interframes do not occur in WebP and are refused by name here (the video
+decoder ``data/vp8video.py`` decodes them with this module's boolean
+decoder, token reader, transforms, intra predictors and loop filter); so is
+what libwebp refuses (bad start code, an invisible frame, a profile above
+3, truncated partitions), with ``ValueError``. Dequantised coefficients past
 16,384, which no encoder writes, are decoded as the C transforms compute
 them; libwebp's SSE2 transforms wrap at 16 bits there.
 """
@@ -273,9 +275,24 @@ def _read_probs(br: BoolDecoder):
     """The coefficient probabilities after the frame's updates, as
     [type][position 0-16][context] -> 11 probabilities."""
     probs = bytearray(COEF_PROBS)
+    _update_probs(br, probs)
+    return _prob_table(probs)
+
+
+def _update_probs(br: BoolDecoder, probs: bytearray) -> int:
+    """The frame's coefficient probability updates, applied to the flat
+    ``probs`` in place; returns how many were updated."""
+    n = 0
     for i in range(len(probs)):
         if br.bit(COEF_UPDATE_PROBS[i]):
             probs[i] = br.literal(8)
+            n += 1
+    return n
+
+
+def _prob_table(probs) -> list:
+    """The flat coefficient probabilities as [type][position 0-16][context]
+    -> 11 probabilities."""
     table = []
     for t in range(4):
         bands = [[tuple(probs[((t * 8 + b) * 3 + c) * 11:
@@ -339,13 +356,15 @@ def _read_modes(br, hdr, mbw, mbh, skip_prob):
 def _read_tokens(parts, mbw, mbh, probs, quant, seg, skip, ymode):
     """Every macroblock's coefficients (ParseResiduals): (mbh, mbw, 25, 16)
     int64, blocks Y 0-15, U 16-19, V 20-23, Y2 24, each in raster order,
-    and each block's ``nz`` (mbh, mbw, 24)."""
+    and each block's ``nz`` (mbh, mbw, 25). A macroblock whose ``ymode`` is
+    negative has no Y2 block (``B_PRED``; in an interframe also
+    ``SPLITMV``)."""
     coefs = []
     nzs = []
     tnz_y, tnz_u, tnz_v = [0] * (4 * mbw), [0] * (2 * mbw), [0] * (2 * mbw)
     tnz_dc = [0] * mbw
     p_i16, p_y2, p_uv, p_i4 = probs
-    zero_nz = [0] * 24
+    zero_nz = [0] * 25
     for mby in range(mbh):
         br = parts[mby % len(parts)]
         coeffs = br.coeffs
@@ -365,11 +384,12 @@ def _read_tokens(parts, mbw, mbh, probs, quant, seg, skip, ymode):
                 nzs.append(zero_nz)
                 continue
             y1dc, y1ac, y2dc, y2ac, uvdc, uvac = quant[seg[i]]
-            nz_mb = [0] * 24
+            nz_mb = [0] * 25
             if not is4:
                 nz = coeffs(p_y2, tnz_dc[mbx] + lnz_dc, 0, y2dc, y2ac, blk,
                             384)
                 tnz_dc[mbx] = lnz_dc = int(nz > 0)
+                nz_mb[24] = nz
                 first, pac = 1, p_i16
             else:
                 first, pac = 0, p_i4
@@ -398,7 +418,7 @@ def _read_tokens(parts, mbw, mbh, probs, quant, seg, skip, ymode):
                 raise ValueError("VP8 token partition ends early")
     c = np.array(coefs, np.int64).reshape(mbh, mbw, 25, 16)
     c = ((c + 32768) & 0xFFFF) - 32768          # int16, as libwebp stores
-    return c, np.array(nzs, np.int64).reshape(mbh, mbw, 24)
+    return c, np.array(nzs, np.int64).reshape(mbh, mbw, 25)
 
 
 def _wht(c):
@@ -531,29 +551,43 @@ def _reconstruct(mbw, mbh, ymode, bmodes, uvmode, res):
     """The unfiltered planes (16 mbh, 16 mbw) and two (8 mbh, 8 mbw)."""
     Y = np.zeros((16 * mbh, 16 * mbw), np.int64)
     UV = np.zeros((2, 8 * mbh, 8 * mbw), np.int64)
-    res_y = res[:, :, :16].reshape(mbh, mbw, 4, 4, 4, 4) \
-        .transpose(0, 1, 2, 4, 3, 5).reshape(mbh, mbw, 16, 16)
-    res_uv = res[:, :, 16:].reshape(mbh, mbw, 2, 2, 2, 4, 4) \
-        .transpose(0, 1, 2, 3, 5, 4, 6).reshape(mbh, mbw, 2, 8, 8)
+    res_y, res_uv = _residual_planes(res)
     for mby in range(mbh):
         for mbx in range(mbw):
             i = mby * mbw + mbx
-            y0, x0 = 16 * mby, 16 * mbx
-            top, left, corner = _edges(Y, y0, x0, 16, mbx, mby)
-            if ymode[i] >= 0:
-                pred = _pred_block(ymode[i], top, left, corner, 16, mbx, mby)
-                Y[y0:y0 + 16, x0:x0 + 16] = _clip(pred + res_y[mby, mbx])
-            else:
-                Y[y0:y0 + 16, x0:x0 + 16] = _bpred(
-                    bmodes[i], top, left, corner,
-                    _top_right(Y, y0, x0, mbx, mby, mbw),
-                    res[mby, mbx, :16].reshape(16, 16).tolist())
-            c0, c1 = 8 * mby, 8 * mbx
-            for p in range(2):
-                top, left, corner = _edges(UV[p], c0, c1, 8, mbx, mby)
-                pred = _pred_block(uvmode[i], top, left, corner, 8, mbx, mby)
-                UV[p, c0:c0 + 8, c1:c1 + 8] = _clip(pred + res_uv[mby, mbx, p])
+            _intra_mb(Y, UV, mbx, mby, mbw, ymode[i], bmodes[i], uvmode[i],
+                      res[mby, mbx], res_y[mby, mbx], res_uv[mby, mbx])
     return Y, UV
+
+
+def _residual_planes(res):
+    """(mbh, mbw, 24, 4, 4) block residuals -> the luma (mbh, mbw, 16, 16)
+    and chroma (mbh, mbw, 2, 8, 8) residuals of each macroblock."""
+    mbh, mbw = res.shape[:2]
+    return (res[:, :, :16].reshape(mbh, mbw, 4, 4, 4, 4)
+            .transpose(0, 1, 2, 4, 3, 5).reshape(mbh, mbw, 16, 16),
+            res[:, :, 16:].reshape(mbh, mbw, 2, 2, 2, 4, 4)
+            .transpose(0, 1, 2, 3, 5, 4, 6).reshape(mbh, mbw, 2, 8, 8))
+
+
+def _intra_mb(Y, UV, mbx, mby, mbw, ymode, bmodes, uvmode, res, res_y,
+              res_uv) -> None:
+    """Predict and reconstruct one intra macroblock in place, from the
+    unfiltered pixels above and left of it."""
+    y0, x0 = 16 * mby, 16 * mbx
+    top, left, corner = _edges(Y, y0, x0, 16, mbx, mby)
+    if ymode >= 0:
+        pred = _pred_block(ymode, top, left, corner, 16, mbx, mby)
+        Y[y0:y0 + 16, x0:x0 + 16] = _clip(pred + res_y)
+    else:
+        Y[y0:y0 + 16, x0:x0 + 16] = _bpred(
+            bmodes, top, left, corner, _top_right(Y, y0, x0, mbx, mby, mbw),
+            res[:16].reshape(16, 16).tolist())
+    c0, c1 = 8 * mby, 8 * mbx
+    for p in range(2):
+        top, left, corner = _edges(UV[p], c0, c1, 8, mbx, mby)
+        pred = _pred_block(uvmode, top, left, corner, 8, mbx, mby)
+        UV[p, c0:c0 + 8, c1:c1 + 8] = _clip(pred + res_uv[p])
 
 
 def _top_right(Y, y0, x0, mbx, mby, mbw):
@@ -750,7 +784,7 @@ def decode_frame(data: bytes, start: int, size: int) -> Frame:
     if hdr.filter_type:
         # a macroblock's inner edges are filtered if it is B_PRED or any
         # block has coefficients (NzCodeBits: nz > 1 or a non-zero DC)
-        coded = ((nz > 1) | (coefs[:, :, :24, 0] != 0)).any(-1)
+        coded = ((nz[..., :24] > 1) | (coefs[:, :, :24, 0] != 0)).any(-1)
         coded &= ~np.array(skip, bool).reshape(mbh, mbw)
         fs = hdr.filter_strengths()
         strengths = [[fs[seg[i]][ymode[i] < 0][:3]
