@@ -242,7 +242,19 @@ its own lines:
    their pixels); ``classic --limit
    4`` on 4 PNG pairs made as phase 18 makes them and on their ``.tiff``
    and ``.bmp`` twins, the JSON (times and memory aside) and K4's launches
-   equal to the PNG run's.
+   equal to the PNG run's;
+26. JAX's random streams (``PrngSlice``, ``core/prng.py``, run right after
+   the build): ``bits``, ``uniform``, ``randint``, ``bernoulli``,
+   ``permutation``, ``normal`` and ``truncated_normal`` drawn on the card at
+   several keys and shapes, each equal to the same draw on the CPU
+   (integers, masks and uniforms bit for bit, normals within
+   ``PRNG_NORMAL_ULP``, which is 0, as ``tests/test_torch_prng.py`` holds
+   the CPU's to JAX's); the card's tables of the 2^23 normal and
+   truncated-normal values equal to the CPU's in every entry, and the
+   gate's (128, 512, 512, 3) surface noise drawn on the card, its words and
+   values at sampled counters equal to the CPU's hash and table there;
+   each draw's ms on the card (CUDA events, median of 3) beside the card's
+   name and power limit. It launches no kernel of the port.
 
 ``python3 chip_smoke.py --dist-cards N`` (N cards) runs only the
 parallelism layer over N NCCL ranks, one card each: DP EDSR x4 at a global
@@ -594,6 +606,127 @@ def phase_build() -> None:
         _build.load(name)
     print(f"[build] {', '.join(f'csrc/{n}.cu' for n in names)} built and "
           f"loaded in {time.perf_counter() - t0:.2f} s")
+
+
+PRNG_NORMAL_ULP = 0      # the card's normals against the CPU's, in ulp
+
+
+@dataclass(frozen=True)
+class PrngSlice:
+    """Draws of ``core/prng.py`` on the card against the CPU: the keys and
+    the shapes the port draws at (a scalar, the gate's (n,) parameters and
+    its crop offsets, the surfaces' background cells, a VGG16 kernel's
+    truncated normal, EDSR's dropout-free batch indices), the gate's
+    surface noise, and the two-round permutation of 5000."""
+    seeds: tuple = (0, 7, 42)
+    shapes: tuple = ((), (128,), (128, 17, 17, 1), (3, 3, 512, 512))
+    noise: tuple = (128, 512, 512, 3)
+    perm: int = 5000
+
+
+def phase_prng(p: PrngSlice, dev, card: str) -> dict:
+    """``phase_prng``: every sampler on the card equal to the CPU's draw,
+    and its ms on the card (the first ``normal`` builds the card's table
+    of the 2^23 mantissas' values; it is timed apart)."""
+    from tpusr_torch.core import prng
+
+    cpu = torch.device("cpu")
+    samplers = {
+        "bits": lambda k, sh, d: prng.bits(k, sh, d),
+        "uniform": lambda k, sh, d: prng.uniform(k, sh, 0.3, 0.7, d),
+        "randint": lambda k, sh, d: prng.randint(k, sh, 0, 2048, d),
+        "bernoulli": lambda k, sh, d: prng.bernoulli(k, 0.8, sh, d),
+        "normal": lambda k, sh, d: prng.normal(k, sh, d),
+        "truncated_normal": lambda k, sh, d: prng.truncated_normal(
+            k, -2.0, 2.0, sh, d)}
+
+    def ulps(a, b):
+        return int((a.view(torch.int32).long()
+                    - b.view(torch.int32).long()).abs().max())
+
+    def agree(name, got, want, what):
+        if name in ("normal", "truncated_normal"):
+            worst = ulps(got, want) if got.numel() else 0
+            check(worst <= PRNG_NORMAL_ULP,
+                  f"[prng] {what}: {worst} ulp from the CPU's draw")
+        else:
+            check(torch.equal(got, want), f"[prng] {what}: differs from "
+                                          f"the CPU's draw")
+
+    def timed(fn):
+        ms = []
+        for _ in range(3):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            fn()
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+        return float(np.median(ms))
+
+    t0 = time.perf_counter()
+    prng.normal(prng.PRNGKey(0), (prng._TABLE_MIN,), dev)
+    prng.truncated_normal(prng.PRNGKey(0), -2.0, 2.0, (prng._TABLE_MIN,), dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    n_draws = 0
+    for seed in p.seeds:
+        key = prng.PRNGKey(seed)
+        for shape in p.shapes:
+            for name, draw in samplers.items():
+                agree(name, draw(key, shape, dev).cpu(),
+                      draw(key, shape, cpu), f"{name} seed {seed} {shape}")
+                n_draws += 1
+    agree("permutation", prng.permutation(prng.PRNGKey(6), p.perm, dev).cpu(),
+          prng.permutation(prng.PRNGKey(6), p.perm, cpu),
+          f"permutation of {p.perm}")
+    # every entry of both tables, then the gate's noise through them: the
+    # card's words at sampled counters (the first and last 4096 and one in
+    # 9973) against the CPU's hash of those counters, and its values
+    # against the CPU's table at those words
+    for bounds in ((None, None), (-2.0, 2.0)):
+        agree("normal", prng._normal_table(*bounds, dev).cpu(),
+              prng._normal_table(*bounds, cpu),
+              f"the table of the 2^23 values at bounds {bounds}")
+    key = prng.split(prng.PRNGKey(p.seeds[0]), 9)[5]   # the gate's ks[5]
+    noise = prng.normal(key, p.noise, dev).reshape(-1)
+    n = noise.numel()
+    at = torch.cat([torch.arange(4096), torch.arange(4096, n - 4096, 9973),
+                    torch.arange(n - 4096, n)])
+    w0, w1 = prng._threefry2x32(*key, torch.zeros_like(at, dtype=torch.int32),
+                                at.to(torch.int32))
+    words = w0 ^ w1
+    agree("bits", prng._bits32(key, p.noise, dev).reshape(-1)[at.to(dev)]
+          .cpu(), words, f"the gate's noise words at {at.numel()} counters")
+    table = prng._normal_table(None, None, cpu)
+    agree("normal", noise[at.to(dev)].cpu(),
+          table[((words >> 9) & (prng._MANTISSAS - 1)).long()] * prng.SQRT2,
+          f"the gate's noise {p.noise} at {at.numel()} counters")
+    check(bool(torch.isfinite(noise).all()), "[prng] non-finite noise")
+    del noise
+    big = (3, 3, 512, 512)
+    ms = {"normal_noise": timed(lambda: prng.normal(key, p.noise, dev)),
+          "uniform_noise": timed(lambda: prng.uniform(key, p.noise, 0.0, 1.0,
+                                                      dev)),
+          "bits_noise": timed(lambda: prng.bits(key, p.noise, dev)),
+          "truncated_normal_vgg_kernel": timed(
+              lambda: prng.truncated_normal(key, -2.0, 2.0, big, dev)),
+          "randint_batch": timed(lambda: prng.randint(key, (64,), 0, 2048,
+                                                      dev)),
+          "permutation": timed(lambda: prng.permutation(key, p.perm, dev))}
+    torch.cuda.empty_cache()
+    print(f"[prng] {n_draws + 1} draws on the card equal to the CPU's "
+          f"(normals within {PRNG_NORMAL_ULP} ulp): {len(samplers)} samplers "
+          f"x seeds {list(p.seeds)} x shapes {[list(s) for s in p.shapes]}, "
+          f"permutation({p.perm}); both tables of the 2^23 normal values "
+          f"equal to the CPU's in every entry; the gate's noise "
+          f"{list(p.noise)} at {at.numel()} counters equal to the CPU's "
+          f"words and table")
+    print(f"[prng] {card}: tables of the 2^23 normal and truncated-normal "
+          f"values built in {table_s:.2f} s (host clock); ms on the card "
+          f"(CUDA events, median of 3): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return {"ms": ms, "table_s": table_s}
 
 
 def _int8_operands(shape, g, dev):
@@ -1065,11 +1198,14 @@ def image_logodds(probs: torch.Tensor) -> torch.Tensor:
 
 def center_classifier_bias(vgg, trunk: torch.Tensor, per_patch: torch.Tensor):
     """Shift the class-1 logit bias by minus the median over images of the
-    mean of the trunk's and the per-patch path's median patch log-odds, so
-    the votes of both paths split between the classes. Returns the shift
-    and the two per-image log-odds vectors."""
+    per-patch path's median patch log-odds, so that its votes, which decide
+    every escalated image and every image of a batch whose guard trips,
+    split between the classes (flax's initial weights give each path a
+    spread of log-odds narrower than the offset between the two, so no one
+    shift splits both). Returns the shift and the two per-image log-odds
+    vectors."""
     lt, lp = image_logodds(trunk), image_logodds(per_patch)
-    delta = -float(((lt + lp) / 2).median())
+    delta = -float(lp.median())
     with torch.no_grad():
         vgg.predictions.bias[1] += delta
     return delta, lt, lp
@@ -1154,6 +1290,7 @@ def sr_stage_diffs(edsr, x: torch.Tensor, images: int = 4) -> dict:
 
 
 def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
+    from tpusr_torch.core import prng
     from tpusr_torch.core.patches import patchify
     from tpusr_torch.models import EDSR, VGG16Classifier
     from tpusr_torch.models.block1 import extract_patches_reference
@@ -1167,11 +1304,11 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
     from tpusr_torch.pipeline.cascade import make_cascade_votes
 
     t0 = time.perf_counter()
-    g = torch.Generator().manual_seed(seed)
+    rg, rv = prng.split(prng.PRNGKey(seed))
     edsr = EDSR(scale_factor=cfg.scale, num_res_blocks=cfg.blocks,
-                num_filters=cfg.filters, device=dev, generator=g)
+                num_filters=cfg.filters, device=dev, key=rg)
     vgg = VGG16Classifier(num_classes=2, dense_units=cfg.dense,
-                          widths=cfg.widths, device=dev, generator=g)
+                          widths=cfg.widths, device=dev, key=rv)
     rng = np.random.default_rng(seed)
 
     def lr_images(n):
@@ -1200,7 +1337,7 @@ def phase_slice(cfg: Slice, dev, seed: int, sync, card: str) -> dict:
             cascade_guard_threshold=cfg.guard, device=dev)
 
     # random weights vote one class; center the last bias on the requests'
-    # trunk and per-patch log-odds so that both classes get votes
+    # per-patch log-odds so that both classes get votes
     pipe = build()
     with torch.inference_mode():
         srq = pipe.pre_quant(pipe.sr_apply(torch.as_tensor(requests, device=dev)))
@@ -1924,16 +2061,16 @@ def phase_inference(s: InferenceSlice, dev, seed: int, sync, card: str) -> dict:
                                                 super_resolve_image)
 
     def gen(k):
-        return torch.Generator().manual_seed(seed * 100 + k)
+        return seed * 100 + k
     lr = (smooth_images(torch.Generator(device=dev).manual_seed(seed + 40), 1,
                         s.lr, 3, dev)[0] / 255.0).contiguous()
     hr = 4 * s.lr
-    edsr = EDSR(scale_factor=4, device=dev, generator=gen(1))
-    srcnn = SRCNN(device=dev, generator=gen(2))
+    edsr = EDSR(scale_factor=4, device=dev, key=gen(1))
+    srcnn = SRCNN(device=dev, key=gen(2))
     c8 = ESRGANConfig()
     esr8 = ESRGANGenerator(c8.scale_factor, c8.growth_channels,
-                           c8.num_rrdb_blocks, device=dev, generator=gen(3))
-    esr32 = ESRGANGenerator(device=dev, generator=gen(4))
+                           c8.num_rrdb_blocks, device=dev, key=gen(3))
+    esr32 = ESRGANGenerator(device=dev, key=gen(4))
     n8 = sum(p.numel() for p in esr8.parameters())
     check(n8 == 1_162_915, f"ESRGANConfig generator has {n8} parameters")
     # name: (call, K2 launches, output side, tolerance against the twin:
@@ -2495,7 +2632,7 @@ def phase_train(t: TrainSlice, dev, seed: int, sync, card: str) -> dict:
                             device=dev)
     edsr = EDSR(scale_factor=t.scale, num_res_blocks=t.blocks,
                 num_filters=t.filters, device=dev,
-                generator=torch.Generator().manual_seed(seed))
+                key=seed)
     trainer = SupervisedSRTrainer(edsr, learning_rate=1e-4, device=dev)
     sync()
     print(f"[train] EDSR x{t.scale} {t.blocks} blocks {t.filters} filters, "
@@ -2565,7 +2702,7 @@ def phase_train(t: TrainSlice, dev, seed: int, sync, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         vgg = VGG16Classifier(num_classes=2, dense_units=t.dense,
                               widths=t.widths, device=dev,
-                              generator=torch.Generator().manual_seed(seed + 1))
+                              key=seed + 1)
         clf = ClassifierTrainer(vgg, learning_rate=2e-4, device=dev)
         cstate = clf.init_state()
         reset_counts()
@@ -2814,16 +2951,16 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
                                              time_compiled, trace)
 
     def gen(k):
-        return torch.Generator().manual_seed(seed * 100 + 60 + k)
+        return seed * 100 + 60 + k
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(seed + 60)
     pool_lr, pool_hr = sr_pairs(g, s.pool, s, dev)
     pool_lr, pool_hr = pool_lr * 2.0 - 1.0, pool_hr * 2.0 - 1.0   # [-1, 1]
     sel = torch.randint(0, s.pool, (s.steps, s.batch), generator=g, device=dev)
     gen8 = ESRGANGenerator(s.scale, s.growth, s.rrdb, device=dev,
-                           generator=gen(1))
-    disc = ESRGANDiscriminator(device=dev, generator=gen(2))
-    vgg = VGG19Features(device=dev, generator=gen(3))
+                           key=gen(1))
+    disc = ESRGANDiscriminator(device=dev, key=gen(2))
+    vgg = VGG19Features(device=dev, key=gen(3))
     trainer = ESRGANTrainer(gen8, disc, vgg, device=dev)
     layers = gan_train_layers(s, s.growth, s.rrdb)
     n_fwd = len(layers)
@@ -3113,7 +3250,7 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
 
     # ---- the facade's default width: growth 32, 23 RRDB ----
     gen32 = ESRGANGenerator(s.scale, s.wide_growth, s.wide_rrdb, device=dev,
-                            generator=gen(4))
+                            key=gen(4))
     tr32 = ESRGANTrainer(gen32, disc, vgg, device=dev)
     wide = gan_train_layers(s, s.wide_growth, s.wide_rrdb)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3147,7 +3284,7 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
                            f"bf16 GAN step (g{s.growth}x{s.rrdb})",
                            torch.bfloat16)
     gen32 = ESRGANGenerator(s.scale, s.wide_growth, s.wide_rrdb, device=dev,
-                            generator=gen(4))
+                            key=gen(4))
     tot32 = train_k2_times(wide, dict(gen32.named_modules()), dev, card,
                            "gan-K2-g32", f"GAN step (g{s.wide_growth}x"
                            f"{s.wide_rrdb})")
@@ -3304,6 +3441,18 @@ def check_derived_rows(rep: dict, inputs: list) -> int:
     return n_rows
 
 
+def jax_gate_row(g: GateSlice, seed: int) -> str:
+    """The shipped row of ``seed`` in the JAX package's 12-seed gate run
+    (``GATE_r05.json``, a TPU run's report), as agreement and flips."""
+    with open(os.path.join(REPO, "GATE_r05.json")) as f:
+        runs = json.load(f)["runs"]
+    run = next((r for r in runs if r["seed"] == seed), None)
+    if run is None:
+        return "(no such seed)"
+    m = next(m for m in run["modes"] if m["mode"] == g.shipped_row)
+    return f"{m['vote_agreement']:.4f} ({m['flips']} flips)"
+
+
 def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
                card: str) -> dict:
     """The serving gate on the card at its full protocol, through
@@ -3415,6 +3564,9 @@ def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
           f"{shipped['unescalated_flips']}, guard canary "
           f"{shipped['guard_canary']:.4f} (tripped "
           f"{shipped['guard_triggered']}), passes {shipped['passes_gate']}")
+    print(f"[gate] shipped row, seed {seed}, on JAX's streams: the port "
+          f"{shipped['vote_agreement']:.4f} ({shipped['flips']} flips) beside "
+          f"the JAX package's GATE_r05.json {jax_gate_row(g, seed)}")
     n_rows = check_derived_rows(rep, kept["derive"])
     check(json.loads(json.dumps(rep)) == rep, "the report does not round-trip "
                                               "through json")
@@ -3677,7 +3829,7 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
                   and cfg_echo["batch_size"] == cfg.batch,
                   f"/healthz config {cfg_echo}")
             # the note of the served mode (the default), read from
-            # GATE_torch.json (the 12-seed report fails it on one seed)
+            # GATE_torch.json (the 12-seed report fails it on three seeds)
             want_note = _gate_certification_note(
                 build_parser().parse_args(argv))
             check("GATE_torch.json" in cfg_echo.get("gate", "")
@@ -3911,6 +4063,7 @@ def write_reference_dataset(root: str, c: CommandsSlice, seed: int, dev,
     training set, ``interp_map.pkl`` (basename -> the INTER_* name drawn)."""
     import pickle
 
+    from tpusr_torch.core import prng
     from tpusr_torch.data.degrade import DegradeConfig, degrade_image
     from tpusr_torch.pipeline.png import encode_png_u8
     from tpusr_torch.tools import serving_gate as sg
@@ -3919,13 +4072,14 @@ def write_reference_dataset(root: str, c: CommandsSlice, seed: int, dev,
     hr, labels = sg.make_surface_images(
         seed, c.images, c.size, amp_range=task["amp_range"],
         noise=task["noise"], coverage_range=task["coverage_range"], device=dev)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    key = prng.PRNGKey(seed)
     cfg = DegradeConfig(scale_factor=0.25)
     interp_map, class_map = {}, {}
     for sub in ("HR", "LR"):
         os.makedirs(os.path.join(root, sub))
     for i in range(c.images):
-        lr, interp = degrade_image(hr[i], g, cfg, apply_jpeg=False)
+        key, k = prng.split(key)
+        lr, interp = degrade_image(hr[i], k, cfg, apply_jpeg=False)
         name = f"sample_{i:05d}.png"
         for sub, img in (("HR", hr[i]), ("LR", lr)):
             u8 = (img * 255).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
@@ -4641,7 +4795,7 @@ def dist_gloo_rank(rank: int, world: int, init_file: str, out_dir: str,
         def edsr():
             return EDSR(scale_factor=t.scale, num_res_blocks=t.blocks,
                         num_filters=t.filters, device=dev,
-                        generator=torch.Generator().manual_seed(spec["seed"]))
+                        key=spec["seed"])
 
         def counted(name, fn):
             with count_plain_calls() as plain:
@@ -4834,7 +4988,7 @@ def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
     def edsr():
         return EDSR(scale_factor=t.scale, num_res_blocks=t.blocks,
                     num_filters=t.filters, device=dev,
-                    generator=torch.Generator().manual_seed(seed))
+                    key=seed)
 
     with count_plain_calls() as plain:
         # ---- DP EDSR x4: 20 steps, the first against the unsharded step
@@ -4890,7 +5044,7 @@ def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
         def vgg_losses(m):
             tr = ClassifierTrainer(VGG16Classifier(
                 num_classes=2, device=dev,
-                generator=torch.Generator().manual_seed(seed + 1)),
+                key=seed + 1),
                 learning_rate=2e-4, mesh=m, device=dev)
             st = tr.init_state()
             return [float(tr.train_step(st, clf_x, clf_y, i)[1]["loss"])
@@ -4912,12 +5066,12 @@ def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
 
         def gan(m):
             def gen(k):
-                return torch.Generator().manual_seed(seed * 100 + 60 + k)
+                return seed * 100 + 60 + k
             tr = ESRGANTrainer(
                 ESRGANGenerator(gs.scale, gs.growth, gs.rrdb, device=dev,
-                                generator=gen(1)),
-                ESRGANDiscriminator(device=dev, generator=gen(2)),
-                VGG19Features(device=dev, generator=gen(3)), mesh=m,
+                                key=gen(1)),
+                ESRGANDiscriminator(device=dev, key=gen(2)),
+                VGG19Features(device=dev, key=gen(3)), mesh=m,
                 device=dev)
             st = tr.init_state()
             return [{k: float(v) for k, v in tr.train_step(st, gp_lr, gp_hr)[1]
@@ -4970,7 +5124,7 @@ def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
 
         # ---- full-image SR, rows split (world 1: halo rows are zeros)
         gen = ESRGANGenerator(d.sp_scale, gs.growth, gs.rrdb, device=dev,
-                              generator=torch.Generator().manual_seed(seed + 7))
+                              key=seed + 7)
         sp_img = smooth_images(g, 1, d.sp_lr, 3, dev)[0] / 255.0
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
@@ -5100,7 +5254,7 @@ def dist_card_rank(rank: int, world: int, init_file: str, out_dir: str,
         def edsr():
             return EDSR(scale_factor=t.scale, num_res_blocks=t.blocks,
                         num_filters=t.filters, device=dev,
-                        generator=torch.Generator().manual_seed(seed))
+                        key=seed)
 
         # ---- DP: strong (global 16) and weak (16 a rank) scaling
         for name, n in (("dp16", 16), ("dp_weak", 16 * world)):
@@ -5163,7 +5317,7 @@ def dist_card_rank(rank: int, world: int, init_file: str, out_dir: str,
         for name, (scale, growth, rrdb) in (("sp_g8", (4, 8, 4)),
                                             ("sp_g32", (2, 32, 23))):
             gen = ESRGANGenerator(scale, growth, rrdb, device=dev,
-                                  generator=torch.Generator().manual_seed(seed))
+                                  key=seed)
             full_image_esrgan_sr(gen, img, mesh)   # NCCL's p2p set-up
             torch.cuda.reset_peak_memory_stats(dev)
             reset_counts()
@@ -5530,7 +5684,7 @@ def phase_poly(p: PolySlice, dev, seed: int, sync, card: str) -> dict:
 
     edsr = EDSR(scale_factor=4, num_res_blocks=p.blocks,
                 num_filters=p.filters, device=dev,
-                generator=torch.Generator().manual_seed(seed + 14))
+                key=seed + 14)
     g = torch.Generator(device=dev).manual_seed(seed + 15)
     x = smooth_images(g, p.batch, p.lr, 3, dev) / 255.0
     want = poly_launches(p)
@@ -6130,8 +6284,7 @@ def phase_h5(s: H5Slice, cfg: Slice, dev, seed: int, sync, card: str) -> dict:
 
         # ---- train-esrgan --vgg19-weights <.h5> against the .npz ----
         es = ESRGANConfig()      # the command's generator (g8x4)
-        vgg19 = VGG19Features(device=dev, generator=torch.Generator()
-                              .manual_seed(seed + s.vgg_seed))
+        vgg19 = VGG19Features(device=dev, key=seed + s.vgg_seed)
         v19_h5 = os.path.join(work, "vgg19_notop.h5")
         _, w_ms = host(lambda: write_vgg_notop(v19_h5, vgg19.vgg19))
         v19_npz = os.path.join(work, "vgg19.npz")
@@ -6203,8 +6356,7 @@ def phase_h5(s: H5Slice, cfg: Slice, dev, seed: int, sync, card: str) -> dict:
 
         # ---- the ImageNet tool: a VGG16 notop .h5 -> .npz ----
         vgg16 = VGG16Classifier(num_classes=2, device=dev,
-                                generator=torch.Generator().manual_seed(
-                                    seed + s.notop_seed))
+                                key=seed + s.notop_seed)
         v16_h5 = os.path.join(work, "vgg16_notop.h5")
         write_vgg_notop(v16_h5, vgg16.vgg16)
         v16_npz = os.path.join(work, "vgg16_imagenet.npz")
@@ -6545,7 +6697,7 @@ def _mcu_cover(diff: np.ndarray) -> np.ndarray:
 
 def card_against_cpu(p: PreprocessSlice, dev, card: str) -> dict:
     """Frames of the clip cropped, resized and degraded on the card and on
-    the CPU with the same draws (from a CPU generator, moved to the card):
+    the CPU with the same draws (JAX's, made on the CPU, moved to the card):
     the crops equal, the degradation core within 1e-5, then the JPEG round
     trip equal where the uint8 image fed to the encoder is (else confined
     to the 16x16 blocks that hold a value that rounded apart, which is
@@ -6556,6 +6708,7 @@ def card_against_cpu(p: PreprocessSlice, dev, card: str) -> dict:
     import shutil
     import tempfile
 
+    from tpusr_torch.core import prng
     from tpusr_torch.data import _cv_ops as cv
     from tpusr_torch.data import avi, degrade, video as tv
     from tpusr_torch.data.degrade import (degrade_image_core, jpeg_roundtrip,
@@ -6565,7 +6718,7 @@ def card_against_cpu(p: PreprocessSlice, dev, card: str) -> dict:
     clip = avi.read_avi(os.path.join(VIDEO_FIXTURES, p.clip))
     frames = [clip.frame(i) for i in p.cpu_frames]
     worst, apart, spread = 0.0, 0, 0
-    g = torch.Generator().manual_seed(p.seed)
+    key = prng.PRNGKey(p.seed)
     for i, frame in zip(p.cpu_frames, frames):
         crops = [cv.resize_u8(tv.smart_square_crop(torch.from_numpy(
             frame).to(d)), (p.hr_size, p.hr_size), "area").cpu()
@@ -6573,7 +6726,8 @@ def card_against_cpu(p: PreprocessSlice, dev, card: str) -> dict:
         check(torch.equal(*crops),
               f"frame {i}: the crop + resize differs between card and CPU")
         hr = crops[1].flip(-1).float() / 255.0
-        draws = dataclasses.replace(sample_draws(g, tuple(hr.shape)),
+        key, sub = prng.split(key)
+        draws = dataclasses.replace(sample_draws(sub, tuple(hr.shape)),
                                     jpeg=True)
         lr_dev, _ = degrade_image_core(hr.to(dev), draws)
         lr_cpu, _ = degrade_image_core(hr, draws)
@@ -6611,7 +6765,7 @@ def card_against_cpu(p: PreprocessSlice, dev, card: str) -> dict:
                     frames, 1.0, os.path.join(work, d, "HR"),
                     os.path.join(work, d, "LR"), hr_size=p.hr_size,
                     device=dev if d == "cuda" else "cpu",
-                    generator=torch.Generator().manual_seed(p.seed + 1))
+                    key=p.seed + 1)
         png_apart = 0
         names = sorted(os.listdir(os.path.join(work, "cpu", "HR")))
         for name, (a_core, jpeg), (b_core, _) in zip(names, cores["cuda"],
@@ -7245,6 +7399,7 @@ def main() -> int:
     try:
         card = phase_environment()
         phase_build()
+        phase_prng(PrngSlice(), dev, card)
         k1 = phase_k1(cfg, dev)
         k3 = phase_k3(cfg, dev)
         k2 = phase_k2(cfg, dev, torch.float32)

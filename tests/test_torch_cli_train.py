@@ -3,9 +3,9 @@ JAX commands, each one epoch on the JAX CLI tests' fixture (4 PNG pairs of
 48^2/24^2, networks narrowed in both packages): the same files under the
 same names, the same ``.meta.json`` keys (the port adds ``arch`` for the
 facades, see ``_save_run``), the same eval and history keys, and the same
-per-epoch JSONL and CSV columns. The weights are each package's own draws,
-so the numbers are not compared here (the trainers are held against JAX's
-steps in ``tests/test_torch_train.py``)."""
+per-epoch JSONL and CSV columns. The numbers are not compared here (the
+trainers are held against JAX's steps in ``tests/test_torch_train.py``,
+and from a bare seed in ``tests/test_torch_prng.py``)."""
 
 import csv
 import json

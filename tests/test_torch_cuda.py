@@ -465,7 +465,7 @@ def test_per_patch_int8_at_an_odd_patch_runs_k1_alone(cuda):
     from tpusr_torch.models import quant
     vgg = VGG16Classifier(num_classes=2, dense_units=16,
                           widths=(64, 16, 16, 32, 32), device=cuda,
-                          generator=torch.Generator().manual_seed(15))
+                          key=15)
     g = torch.Generator(device=cuda).manual_seed(15)
     calib = torch.rand((8, 33, 33, 3), generator=g, device=cuda)
     q = quant.quantize_vgg16(vgg, quant.calibrate_vgg16(vgg, calib))
@@ -565,7 +565,7 @@ def test_edsr_train_step_on_k2_matches_the_twin(cuda):
     from tpusr_torch.models import EDSR
     from tpusr_torch.train import SupervisedSRTrainer
     model = EDSR(4, num_res_blocks=2, num_filters=16, device=cuda,
-                 generator=torch.Generator().manual_seed(3))
+                 key=3)
     tr = SupervisedSRTrainer(model, learning_rate=1e-4, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(3)
     xs = torch.rand((3, 4, 16, 16, 3), generator=g, device=cuda)
@@ -661,7 +661,7 @@ def _narrow_esrgan(cuda, scale):
     from tpusr_torch.models.esrgan import ESRGANGenerator
     gen = ESRGANGenerator(scale_factor=scale, growth_channels=8,
                           num_rrdb_blocks=2, base_filters=32, device=cuda,
-                          generator=torch.Generator().manual_seed(scale))
+                          key=scale)
     with torch.no_grad():     # non-zero biases, so their paths are held too
         for name, p in gen.named_parameters():
             if name.endswith("bias"):
@@ -704,7 +704,7 @@ def test_super_resolve_image_on_k2_matches_the_twin(cuda):
     from tpusr_torch.models import EDSR
     from tpusr_torch.pipeline.inference import super_resolve_image
     edsr = EDSR(4, num_res_blocks=1, num_filters=16, device=cuda,
-                generator=torch.Generator().manual_seed(4))
+                key=4)
     lr = np.random.default_rng(4).random((40, 40, 3), dtype=np.float32)
     before = k.LAUNCHES["conv3x3_bias_act"]
     with count_plain_calls() as plain:
@@ -735,11 +735,9 @@ def test_http_tier_on_the_card_answers_each_kind(cuda):
     from tpusr_torch.pipeline.png import encode_png
 
     lr_side, patch = 32, 32
-    gen = torch.Generator().manual_seed(9)
-    edsr = EDSR(2, num_res_blocks=1, num_filters=16, device=cuda, generator=gen)
+    edsr = EDSR(2, num_res_blocks=1, num_filters=16, device=cuda, key=9)
     vgg = VGG16Classifier(num_classes=2, dense_units=16,
-                          widths=(64, 16, 16, 32, 32), device=cuda,
-                          generator=gen)
+                          widths=(64, 16, 16, 32, 32), device=cuda, key=10)
     calib = torch.rand((8, patch, patch, 3), device=cuda,
                        generator=torch.Generator(device=cuda).manual_seed(9))
     pipe = make_serving_pipeline(edsr, vgg, (lr_side, lr_side), 2,
@@ -849,7 +847,7 @@ def test_gan_step_on_k2_matches_the_twin(cuda):
                                     VGG19Features)
     from tpusr_torch.train import ESRGANTrainer
     gen = ESRGANGenerator(2, 8, 1, device=cuda,
-                          generator=torch.Generator().manual_seed(1))
+                          key=1)
     tr = ESRGANTrainer(gen, ESRGANDiscriminator(device=cuda),
                        VGG19Features(device=cuda), device=cuda)
     g = torch.Generator(device=cuda).manual_seed(2)

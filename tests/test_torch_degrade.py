@@ -1,12 +1,14 @@
 """The port's degradation model (``tpusr_torch/data/degrade.py``) against
 JAX's ``tpusr.data.degrade.degrade_image_core``.
 
-torch cannot reproduce ``jax.random``'s streams, so the port's core takes
-its draws as arguments: the test computes JAX's draws from the same key (the
-eight key splits of ``degrade_image_core`` and ``fold_in(key, 99)`` for the
-noise), hands them to the port's core, and compares the LR images at atol
-1e-5 on [0, 1] (blur sums, the resize matrix products and the noise add in
-float32, in another order). The keys are chosen to cover every branch: each
+The port's core takes its draws as arguments, and the port's
+``sample_draws`` makes JAX's draws from a key (``tpusr_torch.core.prng``).
+``jax_draws`` below computes them with ``jax.random`` (the eight key splits
+of ``degrade_image_core`` and ``fold_in(key, 99)`` for the noise, taken
+as the ``erf_inv(u)`` that ``jax.random.normal`` scales by sqrt(2)): it is
+the oracle that ``sample_draws`` is held to, and the draws handed to the
+port's core, whose LR images are compared at atol 1e-5 on [0, 1] (blur
+sums and the resize matrix products in float32, in another order). The keys are chosen to cover every branch: each
 Gaussian size, each motion size, each interpolation, noise on and off.
 
 The JPEG stage takes JAX's ``split(fold_in(key, 7))`` draws too, so
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from tpusr.data import degrade as jd
+from tpusr_torch.core import prng
 from tpusr_torch.data import degrade as td
 
 ATOL = 1e-5
@@ -34,8 +37,12 @@ def jax_draws(key, hr_shape, cfg=td.DegradeConfig()) -> td.DegradeDraws:
     keys = jax.random.split(key, 8)
     k_idx = int(jax.random.randint(keys[1], (), 0, len(cfg.gauss_ksizes)))
     m_idx = int(jax.random.randint(keys[4], (), 0, len(cfg.motion_ksizes)))
-    noise = jax.random.normal(jax.random.fold_in(key, 99),
-                              td.lr_shape(hr_shape, cfg))
+    # jax.random.normal is sqrt(2) erf_inv(u), u uniform on
+    # (nextafter(-1, 0), 1): the core takes erf_inv(u)
+    u = jax.random.uniform(jax.random.fold_in(key, 99),
+                           td.lr_shape(hr_shape, cfg),
+                           minval=np.nextafter(np.float32(-1), np.float32(0)),
+                           maxval=1.0)
     j1, j2 = jax.random.split(jax.random.fold_in(key, 7))
     return td.DegradeDraws(
         blur=bool(jax.random.uniform(keys[0]) < cfg.p_gauss_blur),
@@ -48,7 +55,7 @@ def jax_draws(key, hr_shape, cfg=td.DegradeConfig()) -> td.DegradeDraws:
         noise=bool(jax.random.uniform(keys[6]) < cfg.p_noise),
         noise_std=float(jax.random.uniform(keys[7], minval=cfg.noise_range[0],
                                            maxval=cfg.noise_range[1])),
-        noise_tensor=torch.from_numpy(np.array(noise)),
+        noise_erf=torch.from_numpy(np.array(jax.lax.erf_inv(u))),
         jpeg=bool(float(jax.random.uniform(j1)) < cfg.p_jpeg),
         jpeg_quality=int(jax.random.randint(j2, (), cfg.jpeg_q_range[0],
                                             cfg.jpeg_q_range[1])))
@@ -130,16 +137,16 @@ def test_blur_kernels_and_reflect_padding_equal_jax():
 
 def test_sample_draws_is_seeded_and_in_range():
     cfg = td.DegradeConfig()
-    a = td.sample_draws(torch.Generator().manual_seed(3), HR_SHAPE, cfg)
-    b = td.sample_draws(torch.Generator().manual_seed(3), HR_SHAPE, cfg)
+    a = td.sample_draws(prng.PRNGKey(3), HR_SHAPE, cfg)
+    b = td.sample_draws(prng.PRNGKey(3), HR_SHAPE, cfg)
     assert a.ksize == b.ksize and a.sigma == b.sigma and a.interp == b.interp
-    assert torch.equal(a.noise_tensor, b.noise_tensor)
-    draws = [td.sample_draws(torch.Generator().manual_seed(s), HR_SHAPE, cfg)
+    assert torch.equal(a.noise_erf, b.noise_erf)
+    draws = [td.sample_draws(prng.PRNGKey(s), HR_SHAPE, cfg)
              for s in range(64)]
     for d in draws:
         assert d.ksize in cfg.gauss_ksizes and d.motion_size in cfg.motion_ksizes
         assert 0.8 <= d.sigma <= 2.0 and 2.0 <= d.noise_std <= 10.0
-        assert tuple(d.noise_tensor.shape) == (16, 20, 3)
+        assert tuple(d.noise_erf.shape) == (16, 20, 3)
     assert {d.interp for d in draws} == {0, 1, 2, 3}
     assert {d.blur for d in draws} == {d.noise for d in draws} == {False, True}
 
@@ -147,12 +154,11 @@ def test_sample_draws_is_seeded_and_in_range():
 def test_degrade_image_wraps_the_draws_and_the_core():
     hr = np.random.default_rng(4).random(HR_SHAPE).astype(np.float32)
     lr, name = td.degrade_image(hr, apply_jpeg=False, seed=5)
-    d = td.sample_draws(torch.Generator().manual_seed(5), HR_SHAPE)
+    d = td.sample_draws(prng.PRNGKey(5), HR_SHAPE)
     want, idx = td.degrade_image_core(torch.from_numpy(hr), d)
     assert isinstance(lr, np.ndarray) and name == td._INTERP_NAMES[idx]
     np.testing.assert_array_equal(lr, want.numpy())
-    lr_t, name_t = td.degrade_image(torch.from_numpy(hr),
-                                    torch.Generator().manual_seed(5),
+    lr_t, name_t = td.degrade_image(torch.from_numpy(hr), prng.PRNGKey(5),
                                     apply_jpeg=False)
     assert isinstance(lr_t, torch.Tensor) and name_t == name
     np.testing.assert_array_equal(lr_t.numpy(), lr)
@@ -222,17 +228,40 @@ def test_jpeg_roundtrip_equals_jax(quality):
 
 
 def test_sample_draws_takes_the_jpeg_draws_last():
+    """The JPEG stage's draws come from ``split(fold_in(key, 7))``, apart
+    from the core's eight keys, as in JAX's ``degrade_image``."""
     cfg = td.DegradeConfig()
-    draws = [td.sample_draws(torch.Generator().manual_seed(s), HR_SHAPE, cfg)
+    draws = [td.sample_draws(prng.PRNGKey(s), HR_SHAPE, cfg)
              for s in range(64)]
     assert {d.jpeg for d in draws} == {False, True}
     assert all(20 <= d.jpeg_quality < 60 for d in draws)
-    g = torch.Generator().manual_seed(7)
-    d = td.sample_draws(g, HR_SHAPE, cfg)
-    g2 = torch.Generator().manual_seed(7)
-    for n in (0, 3, 0, 0, 3, 4, 0, 0):     # the core's draws, in order
-        torch.rand((), generator=g2) if n == 0 else \
-            torch.randint(n, (), generator=g2)
-    torch.randn(td.lr_shape(HR_SHAPE, cfg), generator=g2)
-    assert d.jpeg == (float(torch.rand((), generator=g2)) < cfg.p_jpeg)
-    assert d.jpeg_quality == 20 + int(torch.randint(40, (), generator=g2))
+    key = prng.PRNGKey(7)
+    d = td.sample_draws(key, HR_SHAPE, cfg)
+    k1, k2 = prng.split(prng.fold_in(key, 7))
+    assert d.jpeg == (float(prng.uniform(k1)) < np.float32(cfg.p_jpeg))
+    assert d.jpeg_quality == int(prng.randint(k2, (), 20, 60))
+
+
+@pytest.mark.parametrize("seed", range(0, 40, 3))
+def test_sample_draws_equal_jax_draws(seed):
+    """Every choice and the noise tensor of the port's ``sample_draws``
+    equal JAX's from the same key, bit for bit."""
+    want = jax_draws(jax.random.PRNGKey(seed), HR_SHAPE)
+    got = td.sample_draws(prng.PRNGKey(seed), HR_SHAPE)
+    for f in ("blur", "ksize", "sigma", "motion", "motion_size", "interp",
+              "noise", "noise_std", "jpeg", "jpeg_quality"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert torch.equal(got.noise_erf, want.noise_erf)
+
+
+@pytest.mark.parametrize("seed", [0, 2, 3, 4])
+def test_degrade_image_from_a_bare_seed_equals_jax(seed):
+    """``degrade_image`` from a bare seed against JAX's: the same draws, so
+    the same interpolation, and LR images within ATOL (equal where only
+    the noise and the resize apply; XLA's blur sums differ from torch's
+    in the last bit)."""
+    hr = np.random.default_rng(seed).random(HR_SHAPE).astype(np.float32)
+    want, w_name = jd.degrade_image(hr, seed=seed, apply_jpeg=False)
+    got, g_name = td.degrade_image(hr, seed=seed, apply_jpeg=False)
+    assert g_name == w_name
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=ATOL)

@@ -34,7 +34,7 @@ GEN_ATOL = 1e-5
 
 def _attention_from_flax(params, channels, block_size=None):
     layer = SelfAttention(channels, block_size=block_size,
-                          generator=torch.Generator().manual_seed(0))
+                          rng=0)
     sd = {f"{name}.{leaf}": torch.from_numpy(
               np.array(v)[0, 0] if leaf == "kernel" else np.array(v))
           for name, p in params.items() for leaf, v in p.items()}
@@ -104,7 +104,7 @@ def test_conv1x1_is_flax_1x1_conv():
         jnp.asarray(x), jnp.asarray(k), (1, 1), "SAME",
         dimension_numbers=("NHWC", "HWIO", "NHWC"),
         precision=jax.lax.Precision.HIGHEST) + b
-    conv = Conv1x1(8, 4, torch.Generator().manual_seed(0))
+    conv = Conv1x1(8, 4, 0)
     conv.load_state_dict({"kernel": torch.from_numpy(k[0, 0]),
                           "bias": torch.from_numpy(b)})
     np.testing.assert_allclose(conv(torch.from_numpy(x)).numpy(),

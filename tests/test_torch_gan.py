@@ -115,10 +115,10 @@ def case():
     rng = np.random.default_rng(0)
     gen = _with_random_biases(ESRGANGenerator(
         scale_factor=2, growth_channels=4, num_rrdb_blocks=1, device="cpu",
-        generator=torch.Generator().manual_seed(1)), rng)
+        key=1), rng)
     disc = _with_random_biases(ESRGANDiscriminator(
-        device="cpu", generator=torch.Generator().manual_seed(2)), rng)
-    vgg = VGG19Features(device="cpu", generator=torch.Generator().manual_seed(3))
+        device="cpu", key=2), rng)
+    vgg = VGG19Features(device="cpu", key=3)
     g, d, spec, v = _flax_trees(gen, disc, vgg)
     lr = (rng.random((STEPS, 4, 8, 8, 3), dtype=np.float32) * 2 - 1)
     hr = (rng.random((STEPS, 4, 16, 16, 3), dtype=np.float32) * 2 - 1)

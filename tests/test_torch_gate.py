@@ -4,15 +4,17 @@ tpusr/tools/serving_gate.py on the CPU.
 - The numpy layer (row names, the derived cascade rows, the rank analysis,
   the comparison and the cross-seed aggregate) equals JAX's exactly.
 - ``build_surface_images``, given JAX's own draws, gives JAX's images; its
-  bicubic upsample is ``jax.image.resize``'s.
+  bicubic upsample is ``jax.image.resize``'s; the port's own draws
+  (``make_surface_images``, ``surface_labels``, ``make_crop_pool``) are
+  JAX's (``tests/test_torch_prng.py``).
 - The vote paths and ``run_gate`` run on the same images and weights in
   both packages: a narrow VGG16 (widths (8, 8, 16, 16, 16), dense 256)
   trained by the port's ``train_classifier`` for 300 steps and an EDSR x4 of
   one block of 8 filters trained by ``SupervisedSRTrainer`` for 150 steps,
-  both on the port's hard-task images of 128^2, carried to JAX by
+  both on the hard-task images of 128^2 (JAX's draws), carried to JAX by
   ``to_flax_tree``. They are away from the class tie: on the 8 eval images
-  the f32 reference path votes [0, 0, 1, 0, 1, 0, 0, 0] against labels
-  [0, 0, 1, 1, 1, 0, 0, 1] (accuracy 0.75), one boundary image.
+  the f32 reference path votes [0, 0, 1, 1, 0, 1, 0, 0] against labels
+  [1, 0, 1, 1, 0, 1, 0, 0] (accuracy 0.875).
 """
 
 import copy
@@ -38,6 +40,7 @@ from tpusr.models.vgg_trunk import (shared_trunk_probs_f32 as jax_trunk_f32,
                                     shared_trunk_probs_int8 as jax_trunk_int8)
 import tpusr_torch.tools.serving_gate as tsg
 from tpusr_torch.bridge import edsr_qtree_from_flax, qtree_from_flax
+from tpusr_torch.core import prng
 from tpusr_torch.core.resize import resize
 from tpusr_torch.models import edsr_quant as teq
 from tpusr_torch.models.edsr_fast import make_fused_sr_apply
@@ -90,13 +93,13 @@ def trained():
         vgg, _ = tsg.train_classifier(hr, y, steps=300, batch=16)
     edsr = tsg.EDSR(scale_factor=4, num_res_blocks=1, num_filters=8,
                         device="cpu",
-                        generator=torch.Generator().manual_seed(tsg.INIT_SEED))
+                        key=tsg.INIT_SEED)
     trainer = SupervisedSRTrainer(edsr, learning_rate=5e-3, device="cpu")
     state = trainer.init_state()
     lr = resize(hr, (SIZE // 4, SIZE // 4), "area")
     for step in range(150):
-        sel = torch.randint(0, N_TRAIN, (4,),
-                            generator=torch.Generator().manual_seed(step))
+        sel = prng.randint(prng.fold_in(prng.PRNGKey(0), step), (4,), 0,
+                           N_TRAIN)
         state, _ = trainer.train_step(state, lr[sel], hr[sel])
     edsr = tsg._with_params(edsr, state)
     calib = tsg.make_crop_pool(300, hr, y, 32, tsg.PATCH)[0]
@@ -529,14 +532,14 @@ def test_train_functions_are_seeded_and_train(monkeypatch):
     c, _ = tsg.train_classifier(hr, y, steps=3, batch=4, seed=1)
     init = tsg.VGG16Classifier(
         num_classes=2, device="cpu",
-        generator=torch.Generator().manual_seed(tsg.INIT_SEED))
+        key=tsg.INIT_SEED)
     assert 0.0 <= acc <= 1.0
     assert torch.equal(flat(a), flat(b)) and not torch.equal(flat(a), flat(c))
     assert not torch.equal(flat(a), flat(init))
     e1 = tsg.train_edsr(hr, steps=2, batch=2)
     e2 = tsg.train_edsr(hr, steps=2, batch=2)
     e_init = tsg.EDSR(scale_factor=4, device="cpu",
-                          generator=torch.Generator().manual_seed(tsg.INIT_SEED))
+                          key=tsg.INIT_SEED)
     assert torch.equal(flat(e1), flat(e2))
     assert not torch.equal(flat(e1), flat(e_init))
     assert bool(torch.isfinite(flat(e1)).all())

@@ -63,8 +63,7 @@ def test_expected_shapes_and_validate_match_jax(arch, tmp_path):
 def test_fine_tuned_vgg16_loads_the_npz_as_jax(tmp_path, monkeypatch):
     """The port's facade on the bundle against what JAX's facade computes:
     ``load_backbone_weights`` into a params tree, then the classifier. The
-    heads are each package's own draws, so the JAX tree's head is given to
-    the port."""
+    head of the JAX tree (numpy's draws) is given to the port."""
     narrow_models(monkeypatch)
     npz = _bundle(tmp_path / "vgg16.npz", "vgg16", NARROW_WIDTHS)
     tree = vgg16_tree(np.random.default_rng(5), dense_units=256)

@@ -247,8 +247,8 @@ def test_extractor_on_jax_draws_equals_jax(name, first, tmp_path):
                                         ("static_80x48.mkv", 1)])
 def test_preprocess_through_both_command_lines(name, pairs, tmp_path,
                                                capsys):
-    """The same files, HR pixels and map keys from both commands (the LR
-    images differ: each package draws from its own generator)."""
+    """The same files, HR and LR pixels, interpolation map and class map
+    from both commands: the port draws JAX's degradations from the seed."""
     clip = os.path.join(FIXTURES, name)
     for pkg, main in (("jax", jcli.main), ("torch", tcli.main)):
         root = tmp_path / pkg
@@ -261,10 +261,11 @@ def test_preprocess_through_both_command_lines(name, pairs, tmp_path,
     names = sorted(os.listdir(tmp_path / "jax" / "HR"))
     assert sorted(os.listdir(tmp_path / "torch" / "HR")) == names
     for n in names:
-        np.testing.assert_array_equal(
-            cv2.imread(str(tmp_path / "torch" / "HR" / n)),
-            cv2.imread(str(tmp_path / "jax" / "HR" / n)))
-    assert set(_load(str(tmp_path / "torch" / "m.pkl"))) == set(
-        _load(str(tmp_path / "jax" / "m.pkl")))
+        for d in ("HR", "LR"):
+            np.testing.assert_array_equal(
+                cv2.imread(str(tmp_path / "torch" / d / n)),
+                cv2.imread(str(tmp_path / "jax" / d / n)))
+    assert _load(str(tmp_path / "torch" / "m.pkl")) == _load(
+        str(tmp_path / "jax" / "m.pkl"))
     assert _load(str(tmp_path / "torch" / "c.pkl")) == _load(
         str(tmp_path / "jax" / "c.pkl"))

@@ -316,7 +316,7 @@ def test_entry_builds_the_reference_graph_at_full_size(monkeypatch):
     assert (pipe.patch, pipe.stride, pipe.scale, pipe.n_patches) == (96, 48, 4, 100)
     assert pipe.sr_apply.num_res_blocks == 16
     ref = EDSR(scale_factor=4, device="cpu",
-               generator=torch.Generator().manual_seed(0))
+               key=0)
     assert torch.equal(pipe.sr_apply.head.kernel, ref.head.kernel)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

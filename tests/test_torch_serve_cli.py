@@ -162,13 +162,13 @@ def test_gate_note_reads_the_ports_gate_report():
     report = json.loads((REPO / "GATE_torch.json").read_text())
     modes = report["aggregate"]["modes"]
     m = next(x for x in modes if x["mode"] == row)
-    # the report's verdict on the default mode over its seeds (0-11: seed 3
-    # fails the bar), and the rows that pass every seed
+    # the report's verdict on the default mode over its seeds (0-11: seeds
+    # 7, 9 and 11 fail the bar), and the rows that pass every seed (none)
     assert not m["passes_gate_all_seeds"] and len(m["seeds"]) == 12
     assert note.startswith(f"WARNING: {row} FAILED the hard serving gate "
                            f"(min vote agreement {m['min_vote_agreement']:.4f}")
     passing = [x["mode"] for x in modes if x["passes_gate_all_seeds"]]
-    assert passing and note.endswith(", ".join(passing))
+    assert note.endswith(", ".join(passing) or "none")
     assert "GATE_torch.json" in note and "GATE_r05" not in note
     args.clf_mode, args.sr_mode = "per_patch_f32", "int8"
     assert "int8_sr_f32_per_patch" in _gate_certification_note(args)

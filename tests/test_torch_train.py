@@ -29,7 +29,7 @@ from tpusr.train import ClassifierTrainer as JaxClassifierTrainer
 from tpusr.train import SupervisedSRTrainer as JaxSRTrainer
 from tpusr_torch.bridge import (edsr_from_flax, flax_path, srcnn_from_flax,
                                 to_flax_tree, vgg16_from_flax)
-from tpusr_torch.core import conv3x3
+from tpusr_torch.core import conv3x3, prng
 from tpusr_torch.core.conv3x3 import conv3x3_bias_act_train
 from tpusr_torch.models import EDSR, SRCNN, VGG16Classifier
 from tpusr_torch.train import ClassifierTrainer, SupervisedSRTrainer
@@ -584,13 +584,18 @@ def test_trainer_refuses_to_run_off_the_card_unasked():
 
 
 def test_init_state_draws_from_a_generator():
+    """Without ``rng`` the model's own weights; with a PRNG key (or an int
+    seed) flax's ``init`` from it, drawn anew."""
     model = EDSR(2, num_res_blocks=1, num_filters=4, device="cpu")
     tr = SupervisedSRTrainer(model, device="cpu")
     own = tr.init_state()
-    a = tr.init_state(rng=torch.Generator().manual_seed(7))
-    b = tr.init_state(rng=torch.Generator().manual_seed(7))
+    a = tr.init_state(rng=prng.PRNGKey(7))
+    b = tr.init_state(rng=7)
+    fresh = dict(EDSR(2, num_res_blocks=1, num_filters=4, device="cpu",
+                      key=7).named_parameters())
     for k, v in model.named_parameters():
         assert torch.equal(own.params[k], v) and own.params[k] is not v
         assert torch.equal(a.params[k], b.params[k])
+        assert torch.equal(a.params[k], fresh[k])
     assert not torch.equal(a.params["head.kernel"], own.params["head.kernel"])
     assert own.lr == float(np.float32(1e-4)) and own.opt_state["count"] == 0

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tpusr.data.augment import affine_warp as jax_affine_warp
+from tpusr_torch.core import prng
 from tpusr_torch.data.augment import (affine_warp, apply_augment,
                                       draw_augment_params, random_augment_batch)
 from tpusr_torch.data.prefetch import prefetch_iterator
@@ -32,7 +33,7 @@ WARP_ATOL = 1e-5    # float32 bilinear weights; JAX's warp is one rounding
 
 
 def _gen(seed):
-    return torch.Generator().manual_seed(seed)
+    return prng.PRNGKey(seed)
 
 
 # ------------------------------------------------------------- augmentation
@@ -114,15 +115,17 @@ def test_dropout_mask_rate_scale_and_generator():
     vgg = VGG16Classifier(widths=(4, 4, 4, 4, 4), dense_units=4,
                           device="cpu", dropout_rate=0.2)
     x = torch.full((2000, 50), 2.0)
-    y = vgg._dropout(x, True, _gen(0))
+    y = vgg._dropout(x, True, _gen(0), 0)
     kept = y != 0
     assert abs(float(kept.float().mean()) - 0.8) < 0.01
     np.testing.assert_allclose(y[kept].numpy(), 2.0 / 0.8, rtol=0)  # x / keep
-    assert torch.equal(y, vgg._dropout(x, True, _gen(0)))
-    assert not torch.equal(y, vgg._dropout(x, True, _gen(1)))
-    assert vgg._dropout(x, False, None) is x
-    with pytest.raises(ValueError, match="generator"):
-        vgg._dropout(x, True, None)
+    assert torch.equal(y, vgg._dropout(x, True, _gen(0), 0))
+    assert not torch.equal(y, vgg._dropout(x, True, _gen(1), 0))
+    # the second Dropout's scope has a key of its own
+    assert not torch.equal(y, vgg._dropout(x, True, _gen(0), 1))
+    assert vgg._dropout(x, False, None, 0) is x
+    with pytest.raises(ValueError, match="dropout_rng"):
+        vgg._dropout(x, True, None, 0)
 
 
 def test_vgg_train_forward_differs_only_by_dropout():
@@ -130,13 +133,13 @@ def test_vgg_train_forward_differs_only_by_dropout():
     x = torch.from_numpy(np.random.default_rng(6).random((6, 32, 32, 3),
                                                          dtype=np.float32))
     ev = vgg(x)
-    tr = vgg(x, train=True, generator=_gen(2))
+    tr = vgg(x, train=True, dropout_rng=_gen(2))
     assert not torch.equal(ev, tr)
     np.testing.assert_allclose(tr.sum(-1).numpy(), 1.0, rtol=1e-6)
     off = VGG16Classifier(widths=(4, 4, 4, 8, 8), dense_units=8, device="cpu",
                           dropout_rate=0.0)
     off.load_state_dict(vgg.state_dict())
-    assert torch.equal(off(x, train=True, generator=_gen(2)), ev)
+    assert torch.equal(off(x, train=True, dropout_rng=_gen(2)), ev)
 
 
 # ---------------------------------------------------------------- prefetch
@@ -358,9 +361,10 @@ def test_metrics_logger_takes_tensors_and_is_wired_through_fit(tmp_path):
 
 
 def test_classifier_augmentation_and_dropout_streams_are_seeded_by_step():
-    """(dropout_seed, step) seeds dropout and (dropout_seed + 1, step) the
-    augmentation: the same step repeats exactly, another step differs, and
-    the augmented step differs from the plain one."""
+    """``fold_in(PRNGKey(dropout_seed), step)`` keys dropout and
+    ``fold_in(PRNGKey(dropout_seed + 1), step)`` the augmentation: the same
+    step repeats exactly, another step differs, and the augmented step
+    differs from the plain one."""
     from tpusr_torch.train import ClassifierTrainer
 
     vgg = VGG16Classifier(widths=(4, 4, 4, 8, 8), dense_units=8, device="cpu")

@@ -38,11 +38,12 @@ def test_preprocess_caffe_matches_jax():
 @pytest.fixture(scope="module")
 def vgg19():
     model = VGG19Features(device="cpu",
-                          generator=torch.Generator().manual_seed(4))
+                          key=4)
     with torch.no_grad():                      # non-zero biases
         for name, p in model.named_parameters():
             if name.endswith("bias"):
-                p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(5))
+                p.normal_(0.0, 0.05,
+                          generator=torch.Generator().manual_seed(5))
     return model, to_flax_tree(dict(model.named_parameters()))
 
 
@@ -75,7 +76,7 @@ def test_bridge_and_parameter_count(vgg19):
 @pytest.mark.parametrize("until", ["block1_conv1", "block3_conv2"])
 def test_backbone_stops_after_the_named_layer_as_jax(until):
     cfg = tuple((b, n, 4) for b, n, _f in VGG19_CFG)
-    port = PortBackbone(cfg, torch.Generator().manual_seed(6), until=until)
+    port = PortBackbone(cfg, 6, until=until)
     rng = np.random.default_rng(7)
     x = rng.standard_normal((1, 12, 12, 3)).astype(np.float32)
     net = _VGGBackbone(cfg, until=until)
@@ -94,7 +95,7 @@ def test_backbone_stops_after_the_named_layer_as_jax(until):
 
 def test_an_unknown_stop_layer_raises():
     with pytest.raises(ValueError, match="matched no layer"):
-        PortBackbone(VGG19_CFG, torch.Generator(), until="block6_conv1")
+        PortBackbone(VGG19_CFG, 0, until="block6_conv1")
     net = _VGGBackbone(_VGG19_CFG, until="block6_conv1")
     with pytest.raises(ValueError, match="matched no layer"):
         net.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
@@ -102,19 +103,19 @@ def test_an_unknown_stop_layer_raises():
 
 def test_vgg16_classifier_keeps_its_parameter_names_and_draws():
     """VGG16 now builds its conv base with the shared backbone; its names
-    (``vgg16.block{b}_conv{c}.weight``) and its draws from the generator
-    are the flax tree's and the earlier port's order: conv layers, then the
-    two Dense layers."""
+    (``vgg16.block{b}_conv{c}.weight``) are the flax tree's, in the order
+    conv layers, then the two Dense layers, and each draw is flax's: the
+    first conv's kernel from the key of its path."""
     m = VGG16Classifier(widths=(4, 4, 8, 8, 8), dense_units=4, device="cpu",
-                        generator=torch.Generator().manual_seed(8))
+                        key=8)
     names = [k for k, _ in m.named_parameters()]
     assert names[:2] == ["vgg16.block1_conv1.weight", "vgg16.block1_conv1.bias"]
     assert names[-4:] == ["fc1.weight", "fc1.bias", "predictions.weight",
                           "predictions.bias"]
     assert len(names) == 2 * 13 + 4
-    g = torch.Generator().manual_seed(8)
-    from tpusr_torch.models.init import variance_scaling
-    first = variance_scaling((3, 3, 3, 4), 27, 1.0, g)
+    from tpusr_torch.models.init import ParamRng, variance_scaling
+    rng = ParamRng(8).child("vgg16").child("block1_conv1")
+    first = variance_scaling(rng.next(), (3, 3, 3, 4), 1.0)
     assert torch.equal(m.vgg16["block1_conv1"].weight,
                        first.permute(3, 2, 0, 1))
 

@@ -397,8 +397,8 @@ def test_the_video_entry_point_seeds_its_generator(tmp_path):
 @pytest.mark.parametrize("name,pairs", [("clip_80x60.avi", 3),
                                         ("pan_96x64.mp4", 2)])
 def test_preprocess_through_both_command_lines(name, pairs, tmp_path, capsys):
-    """The same files, HR pixels and map keys from both commands (the LR
-    images differ: each package draws from its own generator)."""
+    """The same files, HR and LR pixels, interpolation map and class map
+    from both commands: the port draws JAX's degradations from the seed."""
     clip = _clip(name)
     for pkg, main in (("jax", jcli.main), ("torch", tcli.main)):
         root = tmp_path / pkg
@@ -412,12 +412,13 @@ def test_preprocess_through_both_command_lines(name, pairs, tmp_path, capsys):
     assert sorted(os.listdir(tmp_path / "torch" / "HR")) == names
     assert sorted(os.listdir(tmp_path / "torch" / "LR")) == names
     for n in names:
-        np.testing.assert_array_equal(
-            cv2.imread(str(tmp_path / "torch" / "HR" / n)),
-            cv2.imread(str(tmp_path / "jax" / "HR" / n)))
+        for d in ("HR", "LR"):
+            np.testing.assert_array_equal(
+                cv2.imread(str(tmp_path / "torch" / d / n)),
+                cv2.imread(str(tmp_path / "jax" / d / n)))
         assert cv2.imread(str(tmp_path / "torch" / "LR" / n)).shape == (16, 16, 3)
     m_t, m_j = (_load(str(tmp_path / p / "m.pkl")) for p in ("torch", "jax"))
-    assert set(m_t) == set(m_j) and set(m_t.values()) <= set(
+    assert m_t == m_j and set(m_t.values()) <= set(
         ("INTER_LINEAR", "INTER_CUBIC", "INTER_AREA", "INTER_LANCZOS4"))
     assert _load(str(tmp_path / "torch" / "c.pkl")) == _load(
         str(tmp_path / "jax" / "c.pkl"))

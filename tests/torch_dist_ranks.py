@@ -124,13 +124,12 @@ def dp_suite(rank, world, sr, clf, gan, pipe):
 
     # the GAN step (g4 x2 from a seed, a narrow VGG19)
     def gan_step(m):
-        g = torch.Generator().manual_seed(gan["seed"])
+        s = gan["seed"]
         gen = ESRGANGenerator(scale_factor=2, growth_channels=4,
                               num_rrdb_blocks=1, base_filters=8, device="cpu",
-                              generator=g)
-        disc = ESRGANDiscriminator(device="cpu", generator=g)
-        vgg = VGG19Features(widths=(4, 4, 4, 4, 4), device="cpu",
-                            generator=g)
+                              key=s)
+        disc = ESRGANDiscriminator(device="cpu", key=s + 1)
+        vgg = VGG19Features(widths=(4, 4, 4, 4, 4), device="cpu", key=s + 2)
         tr = ESRGANTrainer(gen, disc, vgg, mesh=m, device="cpu")
         st, met = tr.train_step(tr.init_state(), torch.from_numpy(gan["lr"]),
                                 torch.from_numpy(gan["hr"]))

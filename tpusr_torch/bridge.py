@@ -50,13 +50,15 @@ def edsr_from_flax(params: dict, scale_factor: int, res_scaling: float = 0.1,
                    device=None):
     """``tpusr.models.EDSR`` params -> ``tpusr_torch.models.edsr.EDSR``."""
     from tpusr_torch.models.edsr import EDSR
+    from tpusr_torch.models.init import NO_DRAW
 
     n_res = sum(1 for k in params if k.startswith("res"))
     head_k = np.shape(params["head"]["kernel"])
     model = EDSR(scale_factor=scale_factor,
                  channels=np.shape(params["tail"]["kernel"])[-1],
                  num_res_blocks=n_res, num_filters=head_k[-1],
-                 res_scaling=res_scaling, device=resolve_device(device))
+                 res_scaling=res_scaling, device=resolve_device(device),
+                 key=NO_DRAW)
     sd = {k: _tensor(v) for k, v in _flatten(params).items()}
     model.load_state_dict(sd, strict=True)
     return model
@@ -75,11 +77,12 @@ def flax_path(name: str) -> tuple[str, ...]:
 def srcnn_from_flax(params: dict, device=None):
     """``tpusr.models.SRCNN`` params -> ``tpusr_torch.models.srcnn.SRCNN``."""
     from tpusr_torch.models.srcnn import SRCNN
+    from tpusr_torch.models.init import NO_DRAW
 
     k1 = np.shape(params["conv1"]["kernel"])
     model = SRCNN(channels=k1[2], f1=k1[3],
                   f2=np.shape(params["conv2"]["kernel"])[3],
-                  device=resolve_device(device))
+                  device=resolve_device(device), key=NO_DRAW)
     sd = {}
     for name in ("conv1", "conv2", "conv3"):
         sd[f"{name}.weight"] = hwio_to_oihw(_tensor(params[name]["kernel"]))
@@ -92,6 +95,7 @@ def vgg16_from_flax(params: dict, device=None, dropout_rate: float = 0.2):
     """``tpusr.models.VGG16Classifier`` params (VGG16 block names; any block
     widths) -> ``tpusr_torch.models.vgg.VGG16Classifier``."""
     from tpusr_torch.models.vgg import VGG16_CFG, VGG16Classifier
+    from tpusr_torch.models.init import NO_DRAW
 
     bb = params["vgg16"]
     widths = tuple(np.shape(bb[f"block{b}_conv1"]["kernel"])[-1]
@@ -99,7 +103,7 @@ def vgg16_from_flax(params: dict, device=None, dropout_rate: float = 0.2):
     model = VGG16Classifier(
         num_classes=np.shape(params["predictions"]["bias"])[0],
         dense_units=np.shape(params["fc1"]["bias"])[0], widths=widths,
-        device=resolve_device(device), dropout_rate=dropout_rate)
+        device=resolve_device(device), key=NO_DRAW, dropout_rate=dropout_rate)
     sd = {}
     for name, p in bb.items():
         sd[f"vgg16.{name}.weight"] = hwio_to_oihw(_tensor(p["kernel"]))
@@ -115,11 +119,12 @@ def vgg19_features_from_flax(params: dict, device=None):
     """``tpusr.models.VGG19Features`` params (any block widths) ->
     ``tpusr_torch.models.vgg.VGG19Features``."""
     from tpusr_torch.models.vgg import VGG19_CFG, VGG19Features
+    from tpusr_torch.models.init import NO_DRAW
 
     bb = params["vgg19"]
     widths = tuple(np.shape(bb[f"block{b}_conv1"]["kernel"])[-1]
                    for b, _n, _f in VGG19_CFG)
-    model = VGG19Features(widths=widths, device="cpu")
+    model = VGG19Features(widths=widths, device="cpu", key=NO_DRAW)
     sd = {}
     for name, p in bb.items():
         sd[f"vgg19.{name}.weight"] = hwio_to_oihw(_tensor(p["kernel"]))
@@ -186,6 +191,7 @@ def esrgan_generator_from_flax(params: dict, device=None,
     """``tpusr.models.ESRGANGenerator`` params -> ``tpusr_torch.models.
     esrgan.ESRGANGenerator``; the configuration is read off the tree."""
     from tpusr_torch.models.esrgan import ESRGANGenerator
+    from tpusr_torch.models.init import NO_DRAW
 
     n_up = sum(1 for k in params if k.startswith("upsample_"))
     model = ESRGANGenerator(
@@ -194,7 +200,7 @@ def esrgan_generator_from_flax(params: dict, device=None,
         num_rrdb_blocks=sum(1 for k in params if k.startswith("rrdb_")),
         channels=np.shape(params["final_conv2"]["kernel"])[-1],
         base_filters=np.shape(params["initial_conv"]["kernel"])[-1],
-        attention_block_size=attention_block_size, device="cpu")
+        attention_block_size=attention_block_size, device="cpu", key=NO_DRAW)
     sd = {k: _with_1x1_as_matrix(k, _tensor(v))
           for k, v in _flatten(params).items()}
     model.load_state_dict(sd, strict=True)
@@ -206,9 +212,11 @@ def esrgan_discriminator_from_flax(params: dict, spectral: dict, device=None):
     collection (each SN layer's ``u``) -> ``tpusr_torch.models.esrgan.
     ESRGANDiscriminator``."""
     from tpusr_torch.models.esrgan import ESRGANDiscriminator
+    from tpusr_torch.models.init import NO_DRAW
 
     model = ESRGANDiscriminator(
-        channels=np.shape(params["conv1"]["kernel"])[2], device="cpu")
+        channels=np.shape(params["conv1"]["kernel"])[2], device="cpu",
+        key=NO_DRAW)
     sd = {k: _tensor(v) for k, v in _flatten(params).items()}
     sd.update({k: _tensor(v) for k, v in _flatten(spectral).items()})
     model.load_state_dict(sd, strict=True)

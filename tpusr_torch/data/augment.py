@@ -7,9 +7,9 @@ height_shift_range=.2, horizontal_flip=True)``. Keras warps with
 ``scipy.ndimage.affine_transform(order=1, mode='nearest')`` on a
 rotation-then-shift matrix offset to the image centre, then flips
 horizontally. The drawing of the parameters (``draw_augment_params``, from
-an explicit ``torch.Generator``) is split from the warp (``affine_warp``,
-``apply_augment``), so the same (theta, tx, ty, flip) can be given to both
-packages; torch cannot reproduce JAX's PRNG streams.
+a ``jax.random`` key through ``tpusr_torch.core.prng``: JAX's draws) is
+split from the warp (``affine_warp``, ``apply_augment``), so given
+(theta, tx, ty, flip) can be warped too.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from tpusr_torch.core import prng
 
 
 def affine_warp(img: torch.Tensor, theta_deg, tx, ty) -> torch.Tensor:
@@ -66,7 +68,7 @@ def affine_warp(img: torch.Tensor, theta_deg, tx, ty) -> torch.Tensor:
     return out[0] if single else out
 
 
-def draw_augment_params(generator: torch.Generator, n: int, h: int, w: int,
+def draw_augment_params(key, n: int, h: int, w: int,
                         rotation_range: float = 20.0,
                         width_shift_range: float = 0.2,
                         height_shift_range: float = 0.2,
@@ -75,20 +77,19 @@ def draw_augment_params(generator: torch.Generator, n: int, h: int, w: int,
     ``ImageDataGenerator.get_random_transform`` draws them: theta ~ U(-rot,
     rot) degrees; row/col shifts ~ U(-s, s), scaled by h (resp. w) when
     |shift| < 1; flip with p = 0.5 (all False without ``horizontal_flip``).
-    The draws run on ``device`` (the generator's)."""
-    dev = generator.device if device is None else device
-
-    def uniform(lim):
-        return (torch.rand(n, generator=generator, device=dev) * 2.0 - 1.0) * lim
-
-    theta = uniform(rotation_range)
-    tx = uniform(height_shift_range)
+    JAX's draws from ``key`` (``split(key, 4)``, three uniforms and a
+    bernoulli, ``tpusr/data/augment.py``), made on ``device``."""
+    k1, k2, k3, k4 = prng.split(key, 4)
+    theta = prng.uniform(k1, (n,), -rotation_range, rotation_range, device)
+    tx = prng.uniform(k2, (n,), -height_shift_range, height_shift_range,
+                      device)
     tx = torch.where(tx.abs() < 1.0, tx * h, tx)
-    ty = uniform(width_shift_range)
+    ty = prng.uniform(k3, (n,), -width_shift_range, width_shift_range, device)
     ty = torch.where(ty.abs() < 1.0, ty * w, ty)
-    flip = torch.rand(n, generator=generator, device=dev) < 0.5
-    if not horizontal_flip:
-        flip = torch.zeros_like(flip)
+    if horizontal_flip:
+        flip = prng.bernoulli(k4, 0.5, (n,), device)
+    else:
+        flip = torch.zeros(n, dtype=torch.bool, device=device)
     return theta, tx, ty, flip
 
 
@@ -99,15 +100,15 @@ def apply_augment(batch: torch.Tensor, theta, tx, ty, flip) -> torch.Tensor:
     return torch.where(flip.reshape(-1, 1, 1, 1), out.flip(2), out)
 
 
-def random_augment_batch(generator: torch.Generator, batch: torch.Tensor,
+def random_augment_batch(key, batch: torch.Tensor,
                          rotation_range: float = 20.0,
                          width_shift_range: float = 0.2,
                          height_shift_range: float = 0.2,
                          horizontal_flip: bool = True) -> torch.Tensor:
     """Per-image random affine + hflip over an NHWC batch (Keras defaults),
-    drawn from ``generator``."""
+    drawn from the PRNG key ``key`` as JAX draws them."""
     n, h, w = batch.shape[:3]
-    params = draw_augment_params(generator, n, h, w, rotation_range,
+    params = draw_augment_params(key, n, h, w, rotation_range,
                                  width_shift_range, height_shift_range,
                                  horizontal_flip, device=batch.device)
     return apply_augment(batch, *params)

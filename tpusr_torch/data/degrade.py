@@ -7,10 +7,12 @@ interpolation from {bilinear, bicubic, area, lanczos4} (OpenCV's taps,
 ``core/resize.py``), Gaussian noise (p=.7, sigma in [2,10] on the 0..255
 scale).
 
-The random draws are split from the arithmetic. ``sample_draws`` takes them
-from an explicit ``torch.Generator`` (torch cannot reproduce ``jax.random``
-streams); ``degrade_image_core`` takes them as arguments, so the same draws
-can be given to both packages, and computes only the branch that was drawn
+The random draws are split from the arithmetic. ``sample_draws`` makes
+JAX's draws from a ``jax.random`` key (``tpusr_torch.core.prng``: the
+core's ``split(key, 8)`` and ``normal(fold_in(key, 99))``, the JPEG
+stage's ``split(fold_in(key, 7))``); ``degrade_image_core`` takes them as
+arguments, so given draws can be applied too, and computes only the branch
+that was drawn
 (the JAX core evaluates every variant and selects, an XLA device, not the
 semantics). The JPEG re-encode stage (p=.7, q in [20, 60)) is a host codec,
 as in JAX: ``jpeg_roundtrip`` rounds the LR to uint8, encodes it with the
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpusr_torch.core import prng
 from tpusr_torch.core.resize import resize
 from tpusr_torch.device import fp32_math
 from tpusr_torch.pipeline.jpeg import decode_jpeg_u8
@@ -34,6 +37,7 @@ from tpusr_torch.pipeline.jpeg_encode import encode_jpeg_u8
 
 _INTERP_NAMES = ("INTER_LINEAR", "INTER_CUBIC", "INTER_AREA", "INTER_LANCZOS4")
 _INTERP_METHODS = ("bilinear", "bicubic", "area", "lanczos4")
+_INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +58,12 @@ class DegradeConfig:
 class DegradeDraws:
     """One image's random choices: Gaussian blur on/off, its kernel size and
     sigma; motion blur on/off and its size; the interpolation (an index into
-    ``_INTERP_NAMES``); noise on/off, its std (0..255 scale) and the
-    standard-normal noise tensor of the LR's shape; the JPEG round trip
-    on/off and its quality."""
+    ``_INTERP_NAMES``); noise on/off, its std (0..255 scale) and
+    ``noise_erf``, the standard-normal noise of the LR's shape before its
+    factor sqrt(2) (``prng.normal_erf_inv``: the normal is ``noise_erf *
+    sqrt(2)``); the JPEG round trip on/off and its quality. The noise is
+    added as XLA compiles the JAX core, ``lr + erf * (std * sqrt(2))`` with
+    one rounding."""
     blur: bool
     ksize: int
     sigma: float
@@ -65,7 +72,7 @@ class DegradeDraws:
     interp: int
     noise: bool
     noise_std: float
-    noise_tensor: torch.Tensor | None
+    noise_erf: torch.Tensor
     jpeg: bool = False
     jpeg_quality: int = 0
 
@@ -76,36 +83,36 @@ def lr_shape(hr_shape, cfg: DegradeConfig = DegradeConfig()) -> tuple:
     return int(h * cfg.scale_factor), int(w * cfg.scale_factor), c
 
 
-def _uniform(g: torch.Generator, lo: float = 0.0, hi: float = 1.0) -> float:
-    u = torch.rand((), generator=g, device=g.device, dtype=torch.float32)
-    return float(lo + (hi - lo) * float(u))
+def sample_draws(key, hr_shape, cfg: DegradeConfig = DegradeConfig(),
+                 device=None) -> DegradeDraws:
+    """One image's choices from the PRNG key ``key``, as the JAX package
+    draws them (``tpusr/data/degrade.py``): the core's, then the JPEG
+    stage's (on/off, then the quality in [lo, hi)); the noise tensor is
+    drawn on ``device``."""
+    keys = prng.split(key, 8)
 
+    def u(k, lo=0.0, hi=1.0):
+        return float(prng.uniform(k, (), lo, hi))
 
-def _index(g: torch.Generator, n: int) -> int:
-    return int(torch.randint(n, (), generator=g, device=g.device))
+    def index(k, n):
+        return int(prng.randint(k, (), 0, n))
 
-
-def sample_draws(generator: torch.Generator, hr_shape,
-                 cfg: DegradeConfig = DegradeConfig()) -> DegradeDraws:
-    """Draw one image's choices from ``generator``, in JAX's order (the
-    core's, then the JPEG stage's: on/off, then the quality in [lo, hi));
-    the noise tensor lies on the generator's device."""
-    g = generator
-    blur = _uniform(g) < cfg.p_gauss_blur
-    ksize = cfg.gauss_ksizes[_index(g, len(cfg.gauss_ksizes))]
-    sigma = _uniform(g, *cfg.sigma_range)
-    motion = _uniform(g) < cfg.p_motion_blur
-    motion_size = cfg.motion_ksizes[_index(g, len(cfg.motion_ksizes))]
-    interp = _index(g, len(_INTERP_METHODS))
-    noise = _uniform(g) < cfg.p_noise
-    noise_std = _uniform(g, *cfg.noise_range)
-    noise_tensor = torch.randn(lr_shape(hr_shape, cfg), generator=g,
-                               device=g.device, dtype=torch.float32)
-    jpeg = _uniform(g) < cfg.p_jpeg
+    k1, k2 = prng.split(prng.fold_in(key, 7))
     lo, hi = cfg.jpeg_q_range
-    jpeg_quality = lo + _index(g, hi - lo)
-    return DegradeDraws(blur, ksize, sigma, motion, motion_size, interp,
-                        noise, noise_std, noise_tensor, jpeg, jpeg_quality)
+    erf = prng.normal_erf_inv(prng.fold_in(key, 99), lr_shape(hr_shape, cfg),
+                              device)
+    return DegradeDraws(
+        blur=u(keys[0]) < np.float32(cfg.p_gauss_blur),
+        ksize=cfg.gauss_ksizes[index(keys[1], len(cfg.gauss_ksizes))],
+        sigma=u(keys[2], *cfg.sigma_range),
+        motion=u(keys[3]) < np.float32(cfg.p_motion_blur),
+        motion_size=cfg.motion_ksizes[index(keys[4], len(cfg.motion_ksizes))],
+        interp=index(keys[5], len(_INTERP_METHODS)),
+        noise=u(keys[6]) < np.float32(cfg.p_noise),
+        noise_std=u(keys[7], *cfg.noise_range),
+        noise_erf=erf,
+        jpeg=u(k1) < np.float32(cfg.p_jpeg),
+        jpeg_quality=int(prng.randint(k2, (), lo, hi)))
 
 
 def _gauss_kernel1d(ksize: int, sigma: float, device) -> torch.Tensor:
@@ -147,9 +154,11 @@ def degrade_image_core(hr01: torch.Tensor, draws: DegradeDraws,
     out = lr_shape(tuple(hr01.shape), cfg)
     lr = resize(x, out[:2], _INTERP_METHODS[draws.interp])
     if draws.noise:
-        noise = draws.noise_tensor.to(lr.device, torch.float32) * draws.noise_std
-        lr = torch.clamp(lr + noise, 0.0, 255.0)
-    return torch.clamp(lr, 0.0, 255.0) / 255.0, draws.interp
+        scale = float(np.float32(draws.noise_std) * np.float32(prng.SQRT2))
+        lr = torch.clamp(prng.fma32(draws.noise_erf.to(lr.device), scale, lr),
+                         0.0, 255.0)
+    # XLA compiles the division by 255 as a product by float32(1 / 255)
+    return torch.clamp(lr, 0.0, 255.0) * _INV_255, draws.interp
 
 
 def jpeg_roundtrip(lr01, quality: int):
@@ -165,23 +174,20 @@ def jpeg_roundtrip(lr01, quality: int):
     return torch.from_numpy(out).to(lr01.device) if is_tensor else out
 
 
-def degrade_image(hr01, generator: torch.Generator | None = None,
-                  cfg: DegradeConfig = DegradeConfig(),
+def degrade_image(hr01, key=None, cfg: DegradeConfig = DegradeConfig(),
                   apply_jpeg: bool = True, seed: int | None = None):
     """Full degradation (common_methods.py:51-100). ``hr01`` is an (h, w,
-    c) numpy array or tensor in [0, 1]; the draws come from ``generator``
-    (default: one on ``hr01``'s device seeded by ``seed``, or 0), the core
-    runs on the generator's device, and with ``apply_jpeg`` (the default,
-    as in JAX) the drawn JPEG round trip follows on the host. Returns
-    (lr01, interp_name), lr01 of ``hr01``'s kind."""
+    c) numpy array or tensor in [0, 1]; the draws are JAX's from the PRNG
+    key ``key`` (default ``PRNGKey(seed)``, or 0), the core runs on
+    ``hr01``'s device, and with ``apply_jpeg`` (the default, as in JAX) the
+    drawn JPEG round trip follows on the host. Returns (lr01, interp_name),
+    lr01 of ``hr01``'s kind."""
     is_numpy = not isinstance(hr01, torch.Tensor)
     x = torch.as_tensor(np.asarray(hr01, np.float32)) if is_numpy else hr01
-    if generator is None:
-        generator = torch.Generator(device=x.device).manual_seed(
-            0 if seed is None else seed)
-    draws = sample_draws(generator, tuple(x.shape), cfg)
-    return degrade_with_draws(x.to(generator.device), draws, cfg, apply_jpeg,
-                              is_numpy)
+    if key is None:
+        key = prng.PRNGKey(0 if seed is None else seed)
+    draws = sample_draws(key, tuple(x.shape), cfg, x.device)
+    return degrade_with_draws(x, draws, cfg, apply_jpeg, is_numpy)
 
 
 def degrade_with_draws(hr01: torch.Tensor, draws: DegradeDraws,

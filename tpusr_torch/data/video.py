@@ -19,9 +19,9 @@ to BGR only the frames the extractor samples. The
 crop's OpenCV ops are the port's own (``data/_cv_ops.py``: gray and Otsu
 on the frame's device, the contours on the host); the resize is
 ``_cv_ops.resize_u8`` (cv2's uint8 ``INTER_AREA``); the degradation core
-runs on ``device`` with draws from ``generator`` (one seeded by ``seed`` on
-``device`` by default) and the JPEG round trip on the host; the PNGs are
-``pipeline/png.py``'s.
+runs on ``device`` with JAX's draws (``key, sub = split(key)`` from
+``PRNGKey(seed)`` for each written frame, as the JAX command draws) and
+the JPEG round trip on the host; the PNGs are ``pipeline/png.py``'s.
 
 ``create_hr_lr_images_from_frames`` is the frame loop below the reader: an
 iterable of BGR frames (or of callables that decode one) and the rate, and
@@ -37,6 +37,7 @@ import pickle
 import numpy as np
 import torch
 
+from tpusr_torch.core import prng
 from tpusr_torch.data import _cv_ops as cv
 from tpusr_torch.data import isobmff, matroska
 from tpusr_torch.data.avi import read_avi
@@ -126,14 +127,15 @@ def create_hr_lr_images_from_frames(
     seed: int = 0,
     max_frames: int | None = None,
     device="cuda",
-    generator: torch.Generator | None = None,
+    key=None,
     draws_fn=None,
 ):
     """The frame loop of ``create_hr_lr_images_from_video`` on ``frames``
     (BGR uint8 arrays, or callables returning one) at ``fps`` (0 reads as
     30, as ``CAP_PROP_FPS or 30.0``). ``draws_fn(hr_shape)``, when given,
-    supplies each written pair's ``DegradeDraws`` in place of
-    ``generator``. Returns the written basenames."""
+    supplies each written pair's ``DegradeDraws`` in place of the draws
+    from ``key`` (default ``PRNGKey(seed)``). Returns the written
+    basenames."""
     dev = resolve_device(device)
     os.makedirs(hr_dir, exist_ok=True)
     os.makedirs(lr_dir, exist_ok=True)
@@ -142,8 +144,8 @@ def create_hr_lr_images_from_frames(
     step = max(1, int(frame_interval_seconds * fps))
     interp_map = _load_map(interpolation_map_path)
     class_map = _load_map(class_labels_map_path)
-    if generator is None and draws_fn is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
+    if key is None:
+        key = prng.PRNGKey(seed)
 
     idx = _next_index(hr_dir, prefix)
     written = []
@@ -163,8 +165,9 @@ def create_hr_lr_images_from_frames(
             crop = crop[:-1, :-1]
         hr01 = crop.flip(-1).to(torch.float32) / 255.0
         shape = tuple(hr01.shape)
+        key, sub = prng.split(key)
         draws = (draws_fn(shape) if draws_fn is not None
-                 else sample_draws(generator, shape, degrade_cfg))
+                 else sample_draws(sub, shape, degrade_cfg, dev))
         lr01, interp_name = degrade_with_draws(hr01, draws, degrade_cfg,
                                                apply_jpeg=True)
 
@@ -207,7 +210,7 @@ def create_hr_lr_images_from_video(
     seed: int = 0,
     max_frames: int | None = None,
     device="cuda",
-    generator: torch.Generator | None = None,
+    key=None,
 ):
     """Sample frames -> smart crop -> (optional resize) -> degrade -> write
     aligned HR/LR PNG pairs; persist the sidecar pickles. Returns the
@@ -229,7 +232,7 @@ def create_hr_lr_images_from_video(
         prefix=prefix, interpolation_map_path=interpolation_map_path,
         class_labels_map_path=class_labels_map_path, class_id=class_id,
         degrade_cfg=degrade_cfg, seed=seed, max_frames=max_frames,
-        device=device, generator=generator)
+        device=device, key=key)
 
 
 def create_hr_lr_prediction_images_from_video(video_path, hr_dir, lr_dir,

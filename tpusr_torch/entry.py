@@ -5,10 +5,9 @@ f32 VGG16 and the patch vote, at 128x128 LR, patch 96, stride 48.
     fn, (lr_batch,) = entry()
     sr, classes, confidences = fn(lr_batch)
 
-The JAX entry draws its weights with ``jax.random.PRNGKey(0)`` and ``(1)``;
-those bits cannot be reproduced in PyTorch, so here the EDSR weights come
-from a ``torch.Generator`` seeded 0 and the VGG16 weights from one seeded 1.
-The example batch of 2 LR images is ``np.random.default_rng(0)``'s, as in
+As the JAX entry, the EDSR weights are flax's ``init`` from
+``jax.random.PRNGKey(0)`` and the VGG16 weights from ``PRNGKey(1)``, drawn
+by ``tpusr_torch.core.prng``. The example batch of 2 LR images is ``np.random.default_rng(0)``'s, as in
 the JAX entry.
 """
 
@@ -17,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpusr_torch.core import prng
 from tpusr_torch.device import resolve_device
 from tpusr_torch.dist.bootstrap import spawn
 from tpusr_torch.models import EDSR, VGG16Classifier
@@ -38,10 +38,8 @@ def entry(device=None):
     """Returns (fn, example_args): ``fn(lr_batch) -> (sr, classes,
     confidences)`` on ``device`` (CUDA unless ``device="cpu"``)."""
     dev = resolve_device(device)
-    edsr = EDSR(scale_factor=SCALE, device=dev,
-                generator=torch.Generator().manual_seed(0))
-    clf = VGG16Classifier(num_classes=2, device=dev,
-                          generator=torch.Generator().manual_seed(1))
+    edsr = EDSR(scale_factor=SCALE, device=dev, key=0)
+    clf = VGG16Classifier(num_classes=2, device=dev, key=1)
     pipe = entry_pipeline(edsr, clf, device=dev)
 
     def fn(lr_batch):
@@ -131,9 +129,6 @@ def _dryrun_rank(rank: int, n: int, device: str, init_file: str,
         rng = np.random.default_rng(0)
         batch = 2 * n
 
-        def seeded(s):
-            return torch.Generator().manual_seed(s)
-
         def t(a):
             return torch.as_tensor(a, device=dev)
 
@@ -141,22 +136,22 @@ def _dryrun_rank(rank: int, n: int, device: str, init_file: str,
         # equality with the unsharded step: tests/test_torch_dist_sharding)
         lr = rng.random((batch, 8, 8, 3), dtype=np.float32) * 2 - 1
         hr = rng.random((batch, 16, 16, 3), dtype=np.float32) * 2 - 1
-        g = seeded(0)
+        # JAX's keys: the trainer's default split(PRNGKey(42)), VGG19 from
+        # PRNGKey(0), then 2, 3, 42 (SRCNN's trainer default), 4 and 5
+        rg, rd = prng.split(prng.PRNGKey(42))
         tr = ESRGANTrainer(
             ESRGANGenerator(scale_factor=2, growth_channels=4,
-                            num_rrdb_blocks=1, device=dev, generator=g),
-            ESRGANDiscriminator(device=dev, generator=g),
-            VGG19Features(device=dev, generator=seeded(1)), mesh=mesh,
-            device=dev)
+                            num_rrdb_blocks=1, device=dev, key=rg),
+            ESRGANDiscriminator(device=dev, key=rd),
+            VGG19Features(device=dev, key=0), mesh=mesh, device=dev)
         met = tr.train_step(tr.init_state(), t(lr), t(hr))[1]
         g_loss, d_loss = float(met["g_loss"]), float(met["d_loss"])
         assert math.isfinite(g_loss) and math.isfinite(d_loss), (g_loss, d_loss)
         del tr
 
         # (DP) the fused LR -> EDSR SR -> VGG16 patch-vote pipeline
-        sr_model = EDSR(scale_factor=2, num_res_blocks=1, device=dev,
-                        generator=seeded(2))
-        clf = VGG16Classifier(num_classes=2, device=dev, generator=seeded(3))
+        sr_model = EDSR(scale_factor=2, num_res_blocks=1, device=dev, key=2)
+        clf = VGG16Classifier(num_classes=2, device=dev, key=3)
         plr = t(rng.random((batch, 16, 16, 3)).astype(np.float32))
         with torch.no_grad():
             sr_imgs = sr_model(plr)
@@ -228,8 +223,8 @@ def _dryrun_rank(rank: int, n: int, device: str, init_file: str,
         sy = t(rng.random((batch, 12, 12, 3), dtype=np.float32))
 
         def srcnn_loss(m):
-            tr = SupervisedSRTrainer(SRCNN(device=dev, generator=seeded(4)),
-                                     mesh=m, device=dev)
+            tr = SupervisedSRTrainer(SRCNN(device=dev, key=42), mesh=m,
+                                     device=dev)
             st = tr.init_state()
             if m is not None:
                 st = shard_params_tp(m, st)
@@ -245,8 +240,7 @@ def _dryrun_rank(rank: int, n: int, device: str, init_file: str,
         if p2p:
             # (SP) full-image SR, rows split + ring attention == dense
             gen = ESRGANGenerator(scale_factor=2, growth_channels=4,
-                                  num_rrdb_blocks=1, device=dev,
-                                  generator=seeded(5))
+                                  num_rrdb_blocks=1, device=dev, key=4)
             full = t(rng.random((1, 2 * n, 8, 3), dtype=np.float32) * 2 - 1)
             sp_sr = full_image_esrgan_sr(gen, full, mesh)
             with torch.no_grad():
@@ -257,7 +251,7 @@ def _dryrun_rank(rank: int, n: int, device: str, init_file: str,
             n_stages = 4 if n % 4 == 0 else 2 if n % 2 == 0 else 1
             pp_mesh = make_pp_mesh(n_stages, n_data=n // n_stages, device=dev)
             pp_model = EDSR(scale_factor=2, num_res_blocks=n_stages,
-                            num_filters=8, device=dev, generator=seeded(6))
+                            num_filters=8, device=dev, key=5)
             px = t(rng.random((4, 8, 8, 3), dtype=np.float32))
             py = t(rng.random((4, 16, 16, 3), dtype=np.float32))
             params = dict(pp_model.named_parameters())
@@ -310,7 +304,7 @@ def _bootstrap_rank(pid: int, port: int, device: str, out_dir: str) -> None:
         def loss(m, x, y):
             tr = SupervisedSRTrainer(
                 EDSR(scale_factor=2, num_res_blocks=1, num_filters=8,
-                     device=dev, generator=torch.Generator().manual_seed(7)),
+                     device=dev, key=7),
                 learning_rate=1e-3, mesh=m, device=dev)
             return float(tr.train_step(tr.init_state(), x, y)[1]["loss"])
         res = {"psum_total": total, "dp_loss": loss(mesh, xg, yg),

@@ -42,6 +42,7 @@ import torch
 from torch.func import functional_call
 
 from tpusr_torch import bridge
+from tpusr_torch.core import prng
 from tpusr_torch.config import RANDOM_SEED
 from tpusr_torch.device import resolve_device
 from tpusr_torch.dist.mesh import is_writer, replicate
@@ -112,9 +113,9 @@ def _h5_path(directory, name) -> str:
     return os.path.join(directory, f"{name}.h5")
 
 
-def _seeded() -> torch.Generator:
-    """The facades' initialiser stream (JAX: ``PRNGKey(RANDOM_SEED)``)."""
-    return torch.Generator().manual_seed(RANDOM_SEED)
+def _seeded() -> tuple[int, int]:
+    """The facades' initialiser key (JAX: ``PRNGKey(RANDOM_SEED)``)."""
+    return prng.PRNGKey(RANDOM_SEED)
 
 
 def module_with_params(module: torch.nn.Module, params: dict
@@ -156,7 +157,7 @@ class SRCNNModel(_Facade):
 
     def __init__(self, mesh=None, device=None):
         super().__init__(mesh, device)
-        self.module = SRCNN(device=self.device, generator=_seeded())
+        self.module = SRCNN(device=self.device, key=_seeded())
         self._trained = False
 
     def setup_model(self, input_shape=(24, 24, 3), learning_rate=1e-4,
@@ -256,7 +257,7 @@ class EDSR(_Facade):
                                  num_res_blocks=num_res_blocks,
                                  num_filters=num_filters,
                                  res_scaling=res_scaling, device=self.device,
-                                 generator=_seeded())
+                                 key=_seeded())
         # the reference compiles MSE regardless of the loss arg (EDSR_model.py:137)
         self.trainer = SupervisedSRTrainer(self.module,
                                            learning_rate=learning_rate,
@@ -364,16 +365,15 @@ class ESRGAN(_Facade):
         self._arch = {"scale_factor": scale_factor,
                       "growth_channels": growth_channels,
                       "num_rrdb_blocks": num_rrdb_blocks}
-        g = _seeded()
+        # the JAX facade's init_state(..., PRNGKey(RANDOM_SEED)) splits it
+        rg, rd = prng.split(_seeded())
         self.generator = ESRGANGenerator(scale_factor=scale_factor,
                                          growth_channels=growth_channels,
                                          num_rrdb_blocks=num_rrdb_blocks,
-                                         device=self.device, generator=g)
-        self.discriminator = ESRGANDiscriminator(device=self.device,
-                                                 generator=g)
+                                         device=self.device, key=rg)
+        self.discriminator = ESRGANDiscriminator(device=self.device, key=rd)
         # the JAX facade draws VGG19 from PRNGKey(0)
-        self.vgg_model = VGG19Features(
-            device=self.device, generator=torch.Generator().manual_seed(0))
+        self.vgg_model = VGG19Features(device=self.device, key=0)
         if vgg19_weights_path:
             load_backbone_weights(self.vgg_model, vgg19_weights_path, "vgg19")
         self.trainer = ESRGANTrainer(self.generator, self.discriminator,
@@ -518,7 +518,7 @@ class FineTunedVGG16(_Facade):
                       "num_classes": num_classes, "dropout_rate": dropout_rate}
         self.module = VGG16Classifier(num_classes=num_classes,
                                       dropout_rate=dropout_rate,
-                                      device=self.device, generator=_seeded())
+                                      device=self.device, key=_seeded())
         if imagenet_weights_path:
             load_backbone_weights(self.module, imagenet_weights_path, "vgg16")
         pred = None
@@ -607,8 +607,8 @@ class FineTunedVGG16(_Facade):
 
 
 def augment_classification_set(x, y, seed=RANDOM_SEED, device=None):
-    """One-shot dataset doubling via the Keras-parity warp ops, drawn from a
-    generator seeded by ``seed`` on ``device``.
+    """One-shot dataset doubling via the Keras-parity warp ops, drawn on
+    ``device`` from ``PRNGKey(seed)`` as the JAX helper draws.
 
     Training-time parity lives in the train step (``ClassifierTrainer`` with
     ``augment=True`` warps every batch on the fly, like
@@ -619,6 +619,6 @@ def augment_classification_set(x, y, seed=RANDOM_SEED, device=None):
 
     dev = resolve_device(device)
     xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
-    out = random_augment_batch(torch.Generator(device=dev).manual_seed(seed), xt)
+    out = random_augment_batch(prng.PRNGKey(seed), xt)
     return (np.concatenate([xt.cpu().numpy(), out.cpu().numpy()]),
             np.concatenate([y, y]))

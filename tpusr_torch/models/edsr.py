@@ -19,7 +19,7 @@ from torch import nn
 from tpusr_torch.core.conv3x3 import (conv3x3_bias_act,
                                       conv3x3_bias_act_train)
 from tpusr_torch.device import resolve_device
-from tpusr_torch.models.init import default_generator, variance_scaling
+from tpusr_torch.models.init import ParamRng, dense_params, param_rng
 from tpusr_torch.models.layers import pixel_shuffle
 
 
@@ -37,45 +37,46 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 
 class Conv3x3(nn.Module):
-    """3x3 SAME conv with an HWIO ``kernel`` and a ``bias``, run by K2.
-    ``init_scale`` 2.0 is flax's he_normal (EDSR), 1.0 its lecun_normal (the
-    ``nn.Conv`` default)."""
+    """3x3 SAME conv with an HWIO ``kernel`` and a ``bias``, run by K2,
+    drawn as the flax conv of scope ``rng`` draws them. ``init_scale`` 2.0
+    is flax's he_normal (EDSR), 1.0 its lecun_normal (the ``nn.Conv``
+    default)."""
 
-    def __init__(self, cin: int, cout: int, generator: torch.Generator,
+    def __init__(self, cin: int, cout: int, rng: ParamRng,
                  init_scale: float = 2.0):
         super().__init__()
-        # truncated normal, variance init_scale / fan_in
-        self.kernel = nn.Parameter(
-            variance_scaling((3, 3, cin, cout), 9 * cin, init_scale, generator),
-            requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+        kernel, bias = dense_params(param_rng(rng), (3, 3, cin, cout),
+                                    init_scale)
+        self.kernel = nn.Parameter(kernel, requires_grad=False)
+        self.bias = nn.Parameter(bias, requires_grad=False)
 
     def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         return conv3x3(x, self.kernel, self.bias, relu)
 
 
 class ResBlock(nn.Module):
-    def __init__(self, filters: int, generator: torch.Generator):
+    def __init__(self, filters: int, rng: ParamRng):
         super().__init__()
-        self.conv1 = Conv3x3(filters, filters, generator)
-        self.conv2 = Conv3x3(filters, filters, generator)
+        self.conv1 = Conv3x3(filters, filters, rng.child("conv1"))
+        self.conv2 = Conv3x3(filters, filters, rng.child("conv2"))
 
 
 class EDSR(nn.Module):
     """EDSR x2/x3/x4. Runs on ``device`` (CUDA unless the caller passes
-    ``device="cpu"``); weights come from ``generator`` or are loaded with
+    ``device="cpu"``); weights are flax's ``init`` from ``key`` (a PRNG key,
+    or an int seed for ``PRNGKey(seed)``; by default ``PRNGKey(42)``, the
+    JAX trainer's) or are loaded with
     ``tpusr_torch.bridge.edsr_from_flax``, without gradients until
     ``trainable()``."""
 
     def __init__(self, scale_factor: int = 2, channels: int = 3,
                  num_res_blocks: int = 16, num_filters: int = 64,
-                 res_scaling: float = 0.1, device=None,
-                 generator: torch.Generator | None = None):
+                 res_scaling: float = 0.1, device=None, key=None):
         super().__init__()
         if scale_factor not in (2, 3, 4):
             raise ValueError(f"scale factor {scale_factor} not supported")
         dev = resolve_device(device)
-        g = default_generator(generator)
+        r = param_rng(key)
         f = num_filters
         self.init_args = dict(scale_factor=scale_factor, channels=channels,
                               num_res_blocks=num_res_blocks,
@@ -83,16 +84,16 @@ class EDSR(nn.Module):
         self.scale_factor = scale_factor
         self.num_res_blocks = num_res_blocks
         self.res_scaling = res_scaling
-        self.head = Conv3x3(channels, f, g)
+        self.head = Conv3x3(channels, f, r.child("head"))
         for i in range(num_res_blocks):
-            self.add_module(f"res{i}", ResBlock(f, g))
-        self.body = Conv3x3(f, f, g)
+            self.add_module(f"res{i}", ResBlock(f, r.child(f"res{i}")))
+        self.body = Conv3x3(f, f, r.child("body"))
         if scale_factor in (2, 3):
-            self.up0 = Conv3x3(f, f * scale_factor ** 2, g)
+            self.up0 = Conv3x3(f, f * scale_factor ** 2, r.child("up0"))
         else:  # x4 = two chained x2 stages
-            self.up0 = Conv3x3(f, f * 4, g)
-            self.up1 = Conv3x3(f, f * 4, g)
-        self.tail = Conv3x3(f, channels, g)
+            self.up0 = Conv3x3(f, f * 4, r.child("up0"))
+            self.up1 = Conv3x3(f, f * 4, r.child("up1"))
+        self.tail = Conv3x3(f, channels, r.child("tail"))
         self.to(dev)
 
     def trainable(self, on: bool = True) -> "EDSR":

@@ -29,31 +29,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpusr_torch.core import prng
 from tpusr_torch.device import resolve_device
 from tpusr_torch.models.edsr import Conv3x3
-from tpusr_torch.models.init import default_generator
+from tpusr_torch.models.init import DEFAULT_KEY, ParamRng, param_rng
 from tpusr_torch.models.layers import (SelfAttention, SNConv, SNDense,
                                        pixel_shuffle)
 
 LEAKY_SLOPE = 0.2
 
 
-def _conv(cin: int, cout: int, g: torch.Generator) -> Conv3x3:
-    """flax ``nn.Conv(cout, (3, 3), padding="SAME")``: lecun_normal, zero
-    bias."""
-    return Conv3x3(cin, cout, g, init_scale=1.0)
+def _conv(cin: int, cout: int, rng: ParamRng) -> Conv3x3:
+    """flax ``nn.Conv(cout, (3, 3), padding="SAME")`` of scope ``rng``:
+    lecun_normal, zero bias."""
+    return Conv3x3(cin, cout, rng, init_scale=1.0)
 
 
 class DenseBlock(nn.Module):
     """Five-conv dense block with growth-channel concatenation
     (ESRGAN_model.py:212-254)."""
 
-    def __init__(self, in_ch: int, growth: int, generator: torch.Generator):
+    def __init__(self, in_ch: int, growth: int, rng: ParamRng):
         super().__init__()
         for i in range(4):
             self.add_module(f"conv{i + 1}", _conv(in_ch + i * growth, growth,
-                                                  generator))
-        self.conv5 = _conv(in_ch + 4 * growth, in_ch, generator)
+                                                  rng.child(f"conv{i + 1}")))
+        self.conv5 = _conv(in_ch + 4 * growth, in_ch, rng.child("conv5"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feats = [x]
@@ -66,11 +67,11 @@ class DenseBlock(nn.Module):
 class RRDB(nn.Module):
     """Residual-in-residual dense block (ESRGAN_model.py:256-282)."""
 
-    def __init__(self, in_ch: int, growth: int, generator: torch.Generator):
+    def __init__(self, in_ch: int, growth: int, rng: ParamRng):
         super().__init__()
-        self.dense1 = DenseBlock(in_ch, growth, generator)
-        self.dense2 = DenseBlock(in_ch, growth, generator)
-        self.dense3 = DenseBlock(in_ch, growth, generator)
+        self.dense1 = DenseBlock(in_ch, growth, rng.child("dense1"))
+        self.dense2 = DenseBlock(in_ch, growth, rng.child("dense2"))
+        self.dense3 = DenseBlock(in_ch, growth, rng.child("dense3"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + 0.2 * self.dense3(self.dense2(self.dense1(x)))
@@ -78,8 +79,9 @@ class RRDB(nn.Module):
 
 class ESRGANGenerator(nn.Module):
     """The RRDB generator, x``scale_factor`` (a power of 2), on ``device``
-    (CUDA unless the caller passes ``device="cpu"``); weights from
-    ``generator`` (flax's lecun_normal) or loaded with
+    (CUDA unless the caller passes ``device="cpu"``); weights are flax's
+    ``init`` from ``key`` (a PRNG key, or an int seed; by default the
+    first of ``split(PRNGKey(42))``, the JAX GAN trainer's) or loaded with
     ``tpusr_torch.bridge.esrgan_generator_from_flax``, without gradients
     until ``trainable()``.
 
@@ -94,7 +96,7 @@ class ESRGANGenerator(nn.Module):
                  base_filters: int = 64,
                  attention_block_size: int | None = None,
                  attention_fn: "typing.Callable | None" = None, device=None,
-                 generator: torch.Generator | None = None):
+                 key=None):
         super().__init__()
         num_up = int(math.log2(scale_factor)) if scale_factor >= 1 else -1
         if num_up < 0 or 2 ** num_up != scale_factor:
@@ -105,7 +107,7 @@ class ESRGANGenerator(nn.Module):
                 f"(log2(scale) upsample blocks, ESRGAN_model.py:327-339); "
                 f"got {scale_factor}")
         dev = resolve_device(device)
-        g = default_generator(generator)
+        r = param_rng(prng.split(DEFAULT_KEY)[0] if key is None else key)
         f = base_filters
         self.init_args = dict(scale_factor=scale_factor,
                               growth_channels=growth_channels,
@@ -116,17 +118,21 @@ class ESRGANGenerator(nn.Module):
         self.num_up = num_up
         self.attention_block_size = attention_block_size
         self.attention_fn = attention_fn
-        self.initial_conv = _conv(channels, f, g)
+        self.initial_conv = _conv(channels, f, r.child("initial_conv"))
         for i in range(num_rrdb_blocks):
-            self.add_module(f"rrdb_{i}", RRDB(f, growth_channels, g))
-        self.trunk_conv = _conv(f, f, g)
-        self.self_attention_trunk = SelfAttention(f, generator=g)
+            self.add_module(f"rrdb_{i}", RRDB(f, growth_channels,
+                                              r.child(f"rrdb_{i}")))
+        self.trunk_conv = _conv(f, f, r.child("trunk_conv"))
+        self.self_attention_trunk = SelfAttention(
+            f, rng=r.child("self_attention_trunk"))
         for i in range(num_up):
-            self.add_module(f"upsample_{i}_conv", _conv(f, 4 * f, g))
+            self.add_module(f"upsample_{i}_conv",
+                            _conv(f, 4 * f, r.child(f"upsample_{i}_conv")))
             if i == 0:
-                self.self_attention_upsample_0 = SelfAttention(f, generator=g)
-        self.final_conv1 = _conv(f, f, g)
-        self.final_conv2 = _conv(f, channels, g)
+                self.self_attention_upsample_0 = SelfAttention(
+                    f, rng=r.child("self_attention_upsample_0"))
+        self.final_conv1 = _conv(f, f, r.child("final_conv1"))
+        self.final_conv2 = _conv(f, channels, r.child("final_conv2"))
         self.to(dev)
 
     def trainable(self, on: bool = True) -> "ESRGANGenerator":
@@ -169,20 +175,22 @@ class ESRGANDiscriminator(nn.Module):
     ``update_stats=True`` every SN layer runs one power-iteration step on its
     ``u``."""
 
-    def __init__(self, channels: int = 3, device=None,
-                 generator: torch.Generator | None = None):
+    def __init__(self, channels: int = 3, device=None, key=None):
+        """Weights and ``u`` are flax's ``init`` from ``key`` (a PRNG key,
+        or an int seed; by default the second of ``split(PRNGKey(42))``,
+        the JAX GAN trainer's)."""
         super().__init__()
         dev = resolve_device(device)
-        g = default_generator(generator)
+        r = param_rng(prng.split(DEFAULT_KEY)[1] if key is None else key)
         self.init_args = dict(channels=channels)
-        self.conv1 = SNConv(channels, 64, generator=g)
+        self.conv1 = SNConv(channels, 64, rng=r.child("conv1"))
         cin = 64
         for i, (f, s) in enumerate(zip((64, 64, 128, 128, 256), (2, 1, 2, 1, 2))):
-            self.add_module(f"conv{i + 2}", SNConv(cin, f, strides=(s, s),
-                                                   generator=g))
+            self.add_module(f"conv{i + 2}", SNConv(
+                cin, f, strides=(s, s), rng=r.child(f"conv{i + 2}")))
             cin = f
-        self.dense1 = SNDense(cin, 256, generator=g)
-        self.output = SNDense(256, 1, generator=g)
+        self.dense1 = SNDense(cin, 256, rng=r.child("dense1"))
+        self.output = SNDense(256, 1, rng=r.child("output"))
         self.to(dev)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False

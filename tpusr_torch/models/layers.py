@@ -25,7 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpusr_torch.models.init import glorot_uniform, variance_scaling
+from tpusr_torch.core import prng
+from tpusr_torch.models.init import (ParamRng, dense_params, glorot_uniform,
+                                    param_rng)
 
 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -66,25 +68,36 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class SNConv(nn.Module):
+class _SpectralParams(nn.Module):
+    def _init_params(self, shape, rng: ParamRng | None) -> None:
+        """flax's draws in the layer's scope: the glorot-uniform kernel,
+        the zero bias, then the spectral ``u`` ~ N(0, 1) (1, features)
+        (``tpusr/models/layers.py:48-52``)."""
+        rng = param_rng(rng)
+        draw = rng.draw
+        self.kernel = nn.Parameter(
+            glorot_uniform(rng.next(), shape) if draw else torch.zeros(shape),
+            requires_grad=False)
+        rng.next()
+        self.bias = nn.Parameter(torch.zeros(shape[-1]), requires_grad=False)
+        self.register_buffer("u", prng.normal(rng.next(), (1, shape[-1]))
+                             if draw else torch.zeros((1, shape[-1])))
+
+
+class SNConv(_SpectralParams):
     """Spectrally-normalized Conv2D (keras SpectralNormalization parity):
     HWIO ``kernel``, ``bias`` and the buffer ``u`` (1, features); NHWC in
     and out, XLA's SAME padding at any stride."""
 
     def __init__(self, cin: int, features: int, kernel_size=(3, 3),
                  strides=(1, 1), padding: str = "SAME",
-                 generator: torch.Generator | None = None):
+                 rng: ParamRng | None = None):
         super().__init__()
         if padding != "SAME":
             raise ValueError(f"SNConv: padding {padding!r} (SAME only)")
         kh, kw = kernel_size
         self.strides = tuple(strides)
-        self.kernel = nn.Parameter(glorot_uniform(
-            (kh, kw, cin, features), kh * kw * cin, kh * kw * features,
-            generator), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
-        self.register_buffer("u", torch.randn((1, features),
-                                              generator=generator))
+        self._init_params((kh, kw, cin, features), rng)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False
                 ) -> torch.Tensor:
@@ -99,19 +112,13 @@ class SNConv(nn.Module):
         return y + self.bias.to(x.dtype)
 
 
-class SNDense(nn.Module):
+class SNDense(_SpectralParams):
     """Spectrally-normalized Dense: ``kernel`` (in, features), ``bias`` and
     the buffer ``u`` (1, features)."""
 
-    def __init__(self, cin: int, features: int,
-                 generator: torch.Generator | None = None):
+    def __init__(self, cin: int, features: int, rng: ParamRng | None = None):
         super().__init__()
-        self.kernel = nn.Parameter(glorot_uniform((cin, features), cin,
-                                                  features, generator),
-                                   requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
-        self.register_buffer("u", torch.randn((1, features),
-                                              generator=generator))
+        self._init_params((cin, features), rng)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False
                 ) -> torch.Tensor:
@@ -124,14 +131,14 @@ class SNDense(nn.Module):
 class Conv1x1(nn.Module):
     """flax ``nn.Conv(features, (1, 1))`` on NHWC as a matrix product over
     the channel axis: ``kernel`` (Cin, Cout) (flax's (1, 1, Cin, Cout)
-    without its unit axes), ``bias``; flax's lecun_normal init."""
+    without its unit axes), ``bias``; flax's lecun_normal init in the
+    scope ``rng``."""
 
-    def __init__(self, cin: int, cout: int, generator: torch.Generator):
+    def __init__(self, cin: int, cout: int, rng: ParamRng):
         super().__init__()
-        self.kernel = nn.Parameter(variance_scaling((cin, cout), cin, 1.0,
-                                                    generator),
-                                   requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+        kernel, bias = dense_params(param_rng(rng), (cin, cout))
+        self.kernel = nn.Parameter(kernel, requires_grad=False)
+        self.bias = nn.Parameter(bias, requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, self.kernel) + self.bias
@@ -172,15 +179,16 @@ class SelfAttention(nn.Module):
 
     def __init__(self, channels: int, block_size: int | None = None,
                  attention_fn: "typing.Callable | None" = None,
-                 generator: torch.Generator | None = None):
+                 rng: ParamRng | None = None):
         super().__init__()
         self.channels = channels
         self.block_size = block_size
         self.attention_fn = attention_fn
-        self.f = Conv1x1(channels, channels // 8, generator)
-        self.g = Conv1x1(channels, channels // 8, generator)
-        self.h = Conv1x1(channels, channels // 2, generator)
-        self.v = Conv1x1(channels // 2, channels, generator)
+        rng = param_rng(rng)
+        self.f = Conv1x1(channels, channels // 8, rng.child("f"))
+        self.g = Conv1x1(channels, channels // 8, rng.child("g"))
+        self.h = Conv1x1(channels, channels // 2, rng.child("h"))
+        self.v = Conv1x1(channels // 2, channels, rng.child("v"))
 
     def attend(self, x: torch.Tensor, block_size: int | None,
                attention_fn=None) -> torch.Tensor:

@@ -16,24 +16,27 @@ from torch import nn
 
 from tpusr_torch.bridge import hwio_to_oihw
 from tpusr_torch.device import resolve_device
-from tpusr_torch.models.init import default_generator, variance_scaling
+from tpusr_torch.models.init import dense_params, param_rng
 
 
 class SRCNN(nn.Module):
     def __init__(self, channels: int = 3, f1: int = 96, f2: int = 32,
-                 device=None, generator: torch.Generator | None = None):
+                 device=None, key=None):
+        """Weights are flax's ``init`` from ``key`` (a PRNG key, or an int
+        seed for ``PRNGKey(seed)``; by default ``PRNGKey(42)``, the JAX
+        trainer's)."""
         super().__init__()
         dev = resolve_device(device)
-        g = default_generator(generator)
+        r = param_rng(key)
         self.init_args = dict(channels=channels, f1=f1, f2=f2)
         for name, cin, cout, k in (("conv1", channels, f1, 9),
                                    ("conv2", f1, f2, 1),
                                    ("conv3", f2, channels, 5)):
             conv = nn.Conv2d(cin, cout, k, padding=k // 2)
             # flax nn.Conv's default lecun_normal: variance 1 / fan_in
-            conv.weight.data = hwio_to_oihw(variance_scaling(
-                (k, k, cin, cout), k * k * cin, 1.0, g)).contiguous()
-            conv.bias.data.zero_()
+            kernel, bias = dense_params(r.child(name), (k, k, cin, cout))
+            conv.weight.data = hwio_to_oihw(kernel).contiguous()
+            conv.bias.data = bias
             self.add_module(name, conv)
         self.requires_grad_(False)
         self.to(dev)

@@ -27,7 +27,9 @@ from torch import nn
 
 from tpusr_torch.bridge import dense_to_linear, hwio_to_oihw
 from tpusr_torch.device import resolve_device
-from tpusr_torch.models.init import default_generator, variance_scaling
+from tpusr_torch.core import prng
+from tpusr_torch.models.init import (ParamRng, dense_params, dropout_key,
+                                    param_rng)
 
 # (block, convs-in-block, filters)
 VGG16_CFG = ((1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512))
@@ -50,15 +52,15 @@ def preprocess_caffe(x_rgb_255: torch.Tensor) -> torch.Tensor:
 
 class _VGGBackbone(nn.ModuleDict):
     """The VGG conv base: ``cfg`` (block, convs, width) rows, each conv 3x3
-    SAME + ReLU (flax lecun_normal kernels, zero biases, drawn from
-    ``generator`` in layer order), a 2x2 max pool after each block. With
+    SAME + ReLU (flax lecun_normal kernels, zero biases, drawn in the
+    scope ``rng``), a 2x2 max pool after each block. With
     ``until`` (a layer name) it holds the layers up to that conv and returns
     right after its ReLU; a name that matches no layer raises, so a typo
     cannot return the post-pool features. Takes and returns NCHW."""
 
-    def __init__(self, cfg, generator: torch.Generator,
-                 until: str | None = None):
+    def __init__(self, cfg, rng: ParamRng, until: str | None = None):
         super().__init__()
+        rng = param_rng(rng)
         names = [f"block{b}_conv{c}" for b, n, _w in cfg for c in range(1, n + 1)]
         if until is not None and until not in names:
             raise ValueError(
@@ -70,9 +72,10 @@ class _VGGBackbone(nn.ModuleDict):
             for c in range(1, n + 1):
                 conv = nn.Conv2d(cin, wd, 3, padding=1)
                 # flax lecun_normal: variance 1 / fan_in, stored HWIO there
-                conv.weight.data = hwio_to_oihw(variance_scaling(
-                    (3, 3, cin, wd), 9 * cin, 1.0, generator)).contiguous()
-                conv.bias.data.zero_()
+                kernel, bias = dense_params(rng.child(f"block{b}_conv{c}"),
+                                            (3, 3, cin, wd))
+                conv.weight.data = hwio_to_oihw(kernel).contiguous()
+                conv.bias.data = bias
                 self[f"block{b}_conv{c}"] = conv
                 cin = wd
                 if f"block{b}_conv{c}" == until:
@@ -95,62 +98,61 @@ class VGG16Classifier(nn.Module):
 
     def __init__(self, num_classes: int = 2, dense_units: int = 256,
                  widths: tuple[int, ...] | None = None, device=None,
-                 generator: torch.Generator | None = None,
-                 dropout_rate: float = 0.2):
+                 key=None, dropout_rate: float = 0.2):
+        """Weights are flax's ``init`` from ``key`` (a PRNG key, or an int
+        seed; by default ``PRNGKey(42)``, ``models.init.DEFAULT_KEY``)."""
         super().__init__()
         dev = resolve_device(device)
-        g = default_generator(generator)
+        r = param_rng(key)
         widths = tuple(widths or (f for _b, _n, f in VGG16_CFG))
         self.dropout_rate = dropout_rate
         self.init_args = dict(num_classes=num_classes, dense_units=dense_units,
                               widths=widths, dropout_rate=dropout_rate)
         self.blocks = tuple((b, n, wd) for (b, n, _f), wd in zip(VGG16_CFG, widths))
-        self.vgg16 = _VGGBackbone(self.blocks, g)
+        self.vgg16 = _VGGBackbone(self.blocks, r.child("vgg16"))
         self.fc1 = nn.Linear(widths[-1], dense_units)
         self.predictions = nn.Linear(dense_units, num_classes)
-        for lin in (self.fc1, self.predictions):
-            lin.weight.data = dense_to_linear(variance_scaling(
-                (lin.in_features, lin.out_features), lin.in_features, 1.0,
-                g)).contiguous()
-            lin.bias.data.zero_()
+        for name in ("fc1", "predictions"):
+            lin = getattr(self, name)
+            kernel, bias = dense_params(r.child(name), (lin.in_features,
+                                                        lin.out_features))
+            lin.weight.data = dense_to_linear(kernel).contiguous()
+            lin.bias.data = bias
         self.requires_grad_(False)
         self.to(dev)
 
-    def _dropout(self, x: torch.Tensor, train: bool,
-                 generator: torch.Generator | None,
+    def _dropout(self, x: torch.Tensor, train: bool, dropout_rng, index: int,
                  rows: tuple[int, int] | None = None) -> torch.Tensor:
-        """flax ``Dropout``: keep where a uniform draw from ``generator`` is
-        below 1 - rate, scaled by 1 / (1 - rate). ``F.dropout`` takes no
-        generator. ``rows`` (lo, n): ``x`` is rows [lo, lo + len(x)) of a
-        batch of n, and keeps those rows of the batch's mask (JAX draws one
-        mask for the global batch)."""
+        """flax ``Dropout`` ``Dropout_{index}``: keep where
+        ``bernoulli(key, 1 - rate)`` holds, scaled by 1 / (1 - rate), the
+        key derived from ``dropout_rng`` (the ``dropout`` collection's root
+        key) as flax derives it. ``rows`` (lo, n): ``x`` is rows [lo, lo +
+        len(x)) of a batch of n, and keeps those rows of the batch's mask
+        (JAX draws one mask for the global batch)."""
         if not train or self.dropout_rate <= 0:
             return x
-        if generator is None:
-            raise ValueError("VGG16Classifier: train=True needs a generator "
+        if dropout_rng is None:
+            raise ValueError("VGG16Classifier: train=True needs a dropout_rng "
                              "for the dropout masks")
         keep_prob = 1.0 - self.dropout_rate
-        if rows is None:
-            keep = torch.rand(x.shape, generator=generator, device=x.device)
-        else:
-            lo, n = rows
-            keep = torch.rand((n,) + x.shape[1:], generator=generator,
-                              device=x.device)[lo:lo + x.shape[0]]
-        keep = keep < keep_prob
+        lo, n = (0, x.shape[0]) if rows is None else rows
+        keep = prng.bernoulli(dropout_key(dropout_rng, (f"Dropout_{index}",)),
+                              keep_prob, (n,) + tuple(x.shape[1:]),
+                              x.device)[lo:lo + x.shape[0]]
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None,
+                dropout_rng=None,
                 rows: tuple[int, int] | None = None) -> torch.Tensor:
         """(N, H, W, 3) [0, 1] patches -> (N, classes) softmax probs; with
-        ``train``, dropout masks drawn from ``generator`` (``rows``: see
-        ``_dropout``)."""
+        ``train``, dropout masks drawn as flax draws them from the
+        ``dropout`` key ``dropout_rng`` (``rows``: see ``_dropout``)."""
         x = self.vgg16(x.permute(0, 3, 1, 2))
         x = x.mean(dim=(2, 3))                       # GlobalAveragePooling2D
-        x = self._dropout(x, train, generator, rows)
+        x = self._dropout(x, train, dropout_rng, 0, rows)
         x = F.relu(self.fc1(x))
-        x = self._dropout(x, train, generator, rows)
+        x = self._dropout(x, train, dropout_rng, 1, rows)
         return torch.softmax(self.predictions(x), dim=-1)
 
 
@@ -161,13 +163,15 @@ class VGG19Features(nn.Module):
     overrides the five block widths (tests use narrow ones)."""
 
     def __init__(self, widths: tuple[int, ...] | None = None, device=None,
-                 generator: torch.Generator | None = None):
+                 key=None):
+        """Weights are flax's ``init`` from ``key`` (a PRNG key, or an int
+        seed; by default ``PRNGKey(42)``, ``models.init.DEFAULT_KEY``)."""
         super().__init__()
         dev = resolve_device(device)
         widths = tuple(widths or (f for _b, _n, f in VGG19_CFG))
         self.init_args = dict(widths=widths)
         cfg = tuple((b, n, wd) for (b, n, _f), wd in zip(VGG19_CFG, widths))
-        self.vgg19 = _VGGBackbone(cfg, default_generator(generator),
+        self.vgg19 = _VGGBackbone(cfg, param_rng(key).child("vgg19"),
                                   until="block5_conv4")
         self.requires_grad_(False)
         self.to(dev)

@@ -11,9 +11,10 @@ refreshes ``cascade_rank_analysis``, and recomputes the aggregate.
 
 Safety: eval labels are not stored in gate reports, but the dataset is
 seed-deterministic — labels are recovered via the port's ``surface_labels``
-(the port's own draws, not JAX's: a JAX report's labels are not recovered
-here) and then CROSS-CHECKED by recomputing every stored (non-derived)
-mode row's accuracy from its raw votes; any mismatch aborts the rewrite.
+(JAX's draws, so a JAX report's labels are the same) and then
+CROSS-CHECKED by recomputing every stored (non-derived) mode row's accuracy
+from its raw votes; any mismatch aborts the rewrite. A report written
+before the port drew JAX's streams fails that check.
 
 Precision note: stored confidences are rounded to 4 decimals. ``vote_frac``
 is exact (quantized to 1/n_patches), and the lexicographic tie-break scales

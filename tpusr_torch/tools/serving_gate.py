@@ -21,11 +21,13 @@ Where the port differs:
 
 - every tensor stays on one device, the card unless the caller passes
   ``device="cpu"``; only scalars and (N,)-vectors come back to the host;
-- torch cannot reproduce JAX's PRNG streams, so the data and the batches are
-  the port's own draws: each of JAX's keys ``ks[k]`` is a generator seeded by
-  (seed, k), a training step's batch is drawn from one seeded by (seed,
-  step) (``fold_in``'s role), and the networks start from generators seeded
-  42, as the JAX trainers' ``init_state`` starts from ``PRNGKey(42)``;
+- the data, the crop pools, the batches and the initial weights are JAX's
+  draws (``tpusr_torch.core.prng``): ``split(PRNGKey(seed), 9)`` for the
+  surfaces, ``split(PRNGKey(seed), 3)`` for a crop pool,
+  ``randint(fold_in(PRNGKey(seed), step))`` for a step's batch, and the
+  networks start from flax's ``init`` at ``PRNGKey(42)``, as the JAX
+  trainers' ``init_state``; what differs is the training arithmetic
+  (cuDNN's float32 against XLA's);
 - the per-patch vote path takes a function of whole images, so that the
   int8 classifier runs block 1 on K3 fused with the patch extraction;
 - ``train_classifier`` and ``train_edsr`` return the trained modules, the
@@ -52,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from tpusr_torch.core import prng
 from tpusr_torch.core.pad import pad_amounts
 from tpusr_torch.core.patches import patch_grid_size
 from tpusr_torch.core.resize import resize
@@ -68,10 +71,9 @@ from tpusr_torch.models.vgg_trunk import (shared_trunk_probs_f32,
                                           shared_trunk_probs_int8)
 from tpusr_torch.pipeline.defect_pipeline import _vote
 from tpusr_torch.train import ClassifierTrainer, SupervisedSRTrainer
-from tpusr_torch.train.trainer import _seeded_generator
 
 PATCH, STRIDE = 96, 48
-INIT_SEED = 42      # the JAX trainers' init_state key, PRNGKey(42)
+INIT_SEED = 42      # the JAX trainers' init_state key is PRNGKey(42)
 
 
 # --------------------------------------------------------------- dataset
@@ -105,40 +107,40 @@ def _bicubic_upsample(x: torch.Tensor, size: int) -> torch.Tensor:
     return torch.einsum("pj,nojc->nopc", ww, y).float()
 
 
+def _surface_keys(seed: int) -> list:
+    return prng.split(prng.PRNGKey(seed), 9)
+
+
 def _surface_order(seed: int, n: int) -> torch.Tensor:
-    """The shuffle of ``make_surface_images(seed, n)`` (JAX's ``ks[6]``),
-    drawn on the CPU whatever the images' device, so that ``surface_labels``
-    needs no card."""
-    return torch.randperm(n, generator=_seeded_generator(torch.device("cpu"),
-                                                         seed, 6))
+    """The shuffle of ``make_surface_images(seed, n)``: JAX's
+    ``permutation(ks[6], n)``, drawn on the CPU whatever the images'
+    device, so that ``surface_labels`` needs no card."""
+    return prng.permutation(_surface_keys(seed)[6], n)
 
 
 def surface_draws(seed: int, n: int, size: int = 512,
                   amp_range=(0.12, 0.25), coverage_range=(1.0, 1.0),
                   device=None) -> dict:
-    """The random draws of ``make_surface_images``, in JAX's order of
-    ``ks[0..8]``; ``ks[k]`` is a generator on ``device`` seeded by (seed, k),
-    ``ks[6]``'s permutation one on the CPU. ``nz`` is the unit normal noise,
-    before the ``noise`` scale."""
+    """The random draws of ``make_surface_images``: JAX's, from ``ks =
+    split(PRNGKey(seed), 9)``, on ``device`` (``ks[6]``'s permutation on
+    the CPU). ``nz`` is the unit normal noise, before the ``noise``
+    scale."""
     dev = resolve_device(device)
     cells = size // 32 + 1
+    ks = _surface_keys(seed)
 
     def uniform(k, shape, lo, hi):
-        u = torch.rand(shape, generator=_seeded_generator(dev, seed, k),
-                       device=dev)
-        return u * (hi - lo) + lo
+        return prng.uniform(ks[k], shape, lo, hi, dev)
 
     return {"bg_small": uniform(0, (n, cells, cells, 1), 0.3, 0.7),
-            "theta": uniform(1, (n,), 0.0, math.pi),
+            "theta": uniform(1, (n,), 0.0, np.pi),
             "period": uniform(2, (n,), 32.0, 64.0),
-            "phase": uniform(3, (n,), 0.0, 2 * math.pi),
+            "phase": uniform(3, (n,), 0.0, 2 * np.pi),
             "amp": uniform(4, (n,), *amp_range),
-            "nz": torch.randn((n, size, size, 3),
-                              generator=_seeded_generator(dev, seed, 5),
-                              device=dev),
+            "nz": prng.normal(ks[5], (n, size, size, 3), dev),
             "order": _surface_order(seed, n).to(dev),
             "cov": uniform(7, (n,), *coverage_range),
-            "phi": uniform(8, (n,), 0.0, math.pi)}
+            "phi": uniform(8, (n,), 0.0, np.pi)}
 
 
 def build_surface_images(draws: dict, size: int, noise: float = 0.01):
@@ -204,17 +206,13 @@ def make_crop_pool(seed: int, imgs: torch.Tensor, labels: torch.Tensor, k: int,
                    crop: int, align: int = 1):
     """k random crops as a pool on the images' device: (crops, labels,
     (idx, y0, x0)). ``align`` keeps offsets divisible (for scale-aligned
-    LR/HR pairs). JAX's three keys are generators seeded by (seed, 1..3)."""
+    LR/HR pairs). JAX's draws: ``randint`` on ``split(PRNGKey(seed), 3)``."""
     n, h, w, _ = imgs.shape
     dev = imgs.device
-
-    def ints(j, hi):
-        return torch.randint(0, hi, (k,), device=dev,
-                             generator=_seeded_generator(dev, seed, j))
-
-    idx = ints(1, n)
-    y0 = ints(2, (h - crop) // align + 1) * align
-    x0 = ints(3, (w - crop) // align + 1) * align
+    k1, k2, k3 = prng.split(prng.PRNGKey(seed), 3)
+    idx = prng.randint(k1, (k,), 0, n, dev)
+    y0 = prng.randint(k2, (k,), 0, (h - crop) // align + 1, dev) * align
+    x0 = prng.randint(k3, (k,), 0, (w - crop) // align + 1, dev) * align
     r = torch.arange(crop, device=dev)
     crops = imgs[idx[:, None, None], (y0[:, None] + r)[:, :, None],
                  (x0[:, None] + r)[:, None, :]]
@@ -254,14 +252,14 @@ def train_classifier(hr, labels, steps=500, batch=64, seed=0, verbose=False):
     cycled = resize(resize(pool_x[:half], (PATCH // 4, PATCH // 4), "area"),
                     (PATCH, PATCH), "bicubic")
     pool_x = torch.cat([cycled.clamp(0.0, 1.0), pool_x[half:]])
-    model = VGG16Classifier(num_classes=2, device=dev,
-                            generator=torch.Generator().manual_seed(INIT_SEED))
+    model = VGG16Classifier(num_classes=2, device=dev, key=INIT_SEED)
     trainer = ClassifierTrainer(model, learning_rate=2e-4, device=dev)
     state = trainer.init_state()
+    key = prng.PRNGKey(seed)
     acc = None
     for step in range(steps):
-        idx = torch.randint(0, pool_x.shape[0], (batch,), device=dev,
-                            generator=_seeded_generator(dev, seed, step))
+        idx = prng.randint(prng.fold_in(key, step), (batch,), 0,
+                           pool_x.shape[0], dev)
         state, m = trainer.train_step(state, pool_x[idx], pool_y[idx], step)
         if verbose and (step + 1) % 100 == 0:
             print(f"  clf step {step + 1}: loss={float(m['loss']):.4f} "
@@ -280,13 +278,13 @@ def train_edsr(hr, steps=300, batch=16, seed=1, scale=4, verbose=False):
     pool_hr, _, _ = make_crop_pool(seed + 200, hr, hr[:, 0, 0, 0], 1024,
                                    crop_hr, align=scale)
     pool_lr = resize(pool_hr, (crop_hr // scale, crop_hr // scale), "area")
-    model = EDSR(scale_factor=scale, device=dev,
-                 generator=torch.Generator().manual_seed(INIT_SEED))
+    model = EDSR(scale_factor=scale, device=dev, key=INIT_SEED)
     trainer = SupervisedSRTrainer(model, learning_rate=1e-4, device=dev)
     state = trainer.init_state()
+    key = prng.PRNGKey(seed)
     for step in range(steps):
-        sel = torch.randint(0, pool_hr.shape[0], (batch,), device=dev,
-                            generator=_seeded_generator(dev, seed, step))
+        sel = prng.randint(prng.fold_in(key, step), (batch,), 0,
+                           pool_hr.shape[0], dev)
         state, m = trainer.train_step(state, pool_lr[sel], pool_hr[sel])
         if verbose and (step + 1) % 100 == 0:
             print(f"  edsr step {step + 1}: loss={float(m['loss']):.5f} "

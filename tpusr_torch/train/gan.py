@@ -49,6 +49,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from tpusr_torch.core import prng
 from tpusr_torch.data.prefetch import prefetch_iterator
 from tpusr_torch.device import resolve_device
 from tpusr_torch.dist.mesh import (all_reduce_flat, axis_size, batch_shard,
@@ -163,15 +164,18 @@ class ESRGANTrainer:
     # ---- state -------------------------------------------------------------
     def init_state(self, lr_shape=None, hr_shape=None, rng=None) -> GANState:
         """A fresh state: the modules' own weights (the shapes are not
-        needed, the port's modules know theirs), or, with ``rng`` a
-        ``torch.Generator``, a generator and then a discriminator drawn anew
-        from it."""
+        needed, the port's modules know theirs; modules built from the two
+        keys of ``split(PRNGKey(42))`` hold what the JAX trainer's default
+        draws), or, with ``rng`` a PRNG key (or an int seed), a generator
+        and a discriminator drawn anew from ``split(rng)``'s two keys, as
+        flax's ``init`` draws them."""
         gen, disc = self.generator, self.discriminator
         if rng is not None:
+            rg, rd = prng.split(rng)
             gen = type(gen)(**gen.init_args,
                             attention_block_size=gen.attention_block_size,
-                            device="cpu", generator=rng)
-            disc = type(disc)(**disc.init_args, device="cpu", generator=rng)
+                            device="cpu", key=rg)
+            disc = type(disc)(**disc.init_args, device="cpu", key=rd)
 
         def leaves(named):
             return {k: v.detach().to(self.device, torch.float32, copy=True)
@@ -374,7 +378,7 @@ class ESRGANTrainer:
             steps_per_epoch = max(1, n // batch_size)
         if state is None:
             # seed also selects the init weights, not just the batch stream
-            state = self.init_state(rng=torch.Generator().manual_seed(seed))
+            state = self.init_state(rng=prng.PRNGKey(seed))
 
         # Shuffle without replacement, as the reference's tf.data
         # shuffle->batch->repeat stream (ESRGAN_model.py:578-598): one

@@ -59,6 +59,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from tpusr_torch.bridge import flax_path
+from tpusr_torch.core import prng
 from tpusr_torch.data.augment import random_augment_batch
 from tpusr_torch.data.prefetch import prefetch_iterator
 from tpusr_torch.device import resolve_device
@@ -125,13 +126,6 @@ def remat_call(fn, on: bool):
 def _f32(v: float) -> float:
     """``v`` rounded to float32, as the JAX state holds its rate."""
     return float(np.float32(v))
-
-
-def _seeded_generator(device: torch.device, *key: int) -> torch.Generator:
-    """A generator on ``device`` seeded by the tuple ``key`` (e.g. (seed,
-    step)): the port's stand-in for ``jax.random.fold_in``."""
-    seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _take(a, sel: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -223,12 +217,14 @@ class SupervisedSRTrainer:
 
     def init_state(self, sample_x=None, rng=None) -> TrainState:
         """A fresh state: the model's own weights (``sample_x`` is not needed,
-        the port's models know their shapes), or, with ``rng`` a
-        ``torch.Generator``, weights drawn anew from it. Frozen parameters
+        the port's models know their shapes; a model built from
+        ``PRNGKey(42)`` holds what the JAX trainer's default ``init_state``
+        draws), or, with ``rng`` a PRNG key (or an int seed), flax's
+        ``init`` from it, drawn anew. Frozen parameters
         (``trainable_predicate``) need no gradient and have no moments."""
         model = self.model
         if rng is not None:
-            model = type(model)(**model.init_args, device="cpu", generator=rng)
+            model = type(model)(**model.init_args, device="cpu", key=rng)
         params = {k: v.detach().to(self.device, torch.float32, copy=True)
                   .requires_grad_(self._trainable(k))
                   for k, v in model.named_parameters()}
@@ -488,8 +484,9 @@ class ClassifierTrainer(SupervisedSRTrainer):
     called on the flax path tuple (``("vgg16", "block5_conv3", "kernel")``,
     ``tpusr_torch.bridge.flax_path``), so one predicate serves both packages.
     A frozen parameter gets no gradient and no update: the JAX step's masked
-    gradients and updates. Dropout and augmentation draw from generators
-    seeded by (dropout_seed, step) and (dropout_seed + 1, step).
+    gradients and updates. Dropout draws from ``fold_in(PRNGKey(dropout_seed),
+    step)`` and augmentation from ``fold_in(PRNGKey(dropout_seed + 1),
+    step)``, as the JAX trainer does.
     """
 
     metric_keys = ("loss", "accuracy")
@@ -513,8 +510,8 @@ class ClassifierTrainer(SupervisedSRTrainer):
         if step is None:
             probs = self._apply(params, x)
         else:
-            gen = _seeded_generator(self.device, self.dropout_seed, step)
-            probs = self._apply(params, x, train=True, generator=gen,
+            key = prng.fold_in(prng.PRNGKey(self.dropout_seed), step)
+            probs = self._apply(params, x, train=True, dropout_rng=key,
                                 rows=rows)
         # minimum/maximum, not clamp: softmax saturates to exactly 1.0 in
         # fp32, where jnp.clip's gradient is 0.5 and clamp's 1
@@ -539,8 +536,8 @@ class ClassifierTrainer(SupervisedSRTrainer):
     def _train_step_w(self, state, x, y, w, step: int = 0,
                       augment: bool = False):
         if augment:
-            x = random_augment_batch(_seeded_generator(
-                self.device, self.dropout_seed + 1, step), x)
+            x = random_augment_batch(prng.fold_in(
+                prng.PRNGKey(self.dropout_seed + 1), step), x)
         return super()._train_step_w(state, x, y, w, step)
 
     def train_step(self, state, x, y, step):
@@ -555,7 +552,7 @@ class ClassifierTrainer(SupervisedSRTrainer):
             checkpoint_every: int = 0,
             checkpoint_offset: int = 0) -> FitResult:
         state = state if state is not None else self.init_state(x_train[:1])
-        step = 0  # global step feeds the dropout/augmentation generators
+        step = 0  # global step feeds the dropout/augmentation keys
 
         def train_fn(st, xb, yb, wb):
             nonlocal step
