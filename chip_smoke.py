@@ -243,18 +243,31 @@ its own lines:
    4`` on 4 PNG pairs made as phase 18 makes them and on their ``.tiff``
    and ``.bmp`` twins, the JSON (times and memory aside) and K4's launches
    equal to the PNG run's;
-26. JAX's random streams (``PrngSlice``, ``core/prng.py``, run right after
-   the build): ``bits``, ``uniform``, ``randint``, ``bernoulli``,
-   ``permutation``, ``normal`` and ``truncated_normal`` drawn on the card at
-   several keys and shapes, each equal to the same draw on the CPU
-   (integers, masks and uniforms bit for bit, normals within
-   ``PRNG_NORMAL_ULP``, which is 0, as ``tests/test_torch_prng.py`` holds
-   the CPU's to JAX's); the card's tables of the 2^23 normal and
-   truncated-normal values equal to the CPU's in every entry, and the
-   gate's (128, 512, 512, 3) surface noise drawn on the card, its words and
-   values at sampled counters equal to the CPU's hash and table there;
-   each draw's ms on the card (CUDA events, median of 3) beside the card's
-   name and power limit. It launches no kernel of the port.
+26. JAX's random streams on K5 (``PrngSlice``, ``core/prng.py``,
+   ``csrc/prng.cu``, run right after the build): ``bits``, ``uniform``,
+   ``randint``, ``bernoulli``, ``normal``, ``normal_erf_inv``,
+   ``truncated_normal`` and ``permutation`` drawn by K5 at several keys and
+   shapes, each torch.equal to the plain version on the card and to the
+   CPU's draw (normals within ``PRNG_NORMAL_ULP``, which is 0, as
+   ``tests/test_torch_prng.py`` holds the CPU's to JAX's), with one launch
+   a draw; both normal samplers over all 2^23 mantissas (K5 on words, the
+   plain version on the card, the CPU's tables); all 100.7 M threefry words
+   and normals of the gate's (128, 512, 512, 3) surface noise against the
+   plain version on the card; K5's ms at the gate's noise, a VGG16
+   kernel's truncated normal and a batch's ``randint`` beside the plain
+   version's and ``torch.randn``'s (another function, a yardstick only),
+   and its bound from the instructions of the normal sampler's loop in
+   SASS, by pipe and by issue.
+
+Every path that draws on the card counts K5's launches (``prng`` in the
+launch counts): the gate's surfaces, crop pools, batches and dropout masks,
+its seed-6 trajectory (``gate_trajectory``: 300 steps of the gate's VGG16
+loop, steps 0-2 within ``TRAJ_ATOL`` of JAX's on the CPU from
+``tests/data/gate_trajectory/jax_cpu.json``, and the step where it leaves
+the ln 2 plateau beside JAX's), phase 14's VGG16 dropout, the calibration
+and reference-dataset surfaces, ``train-vgg16``, DP VGG16 and
+``preprocess``'s degradations; every other path counts 0, and no plain
+draw runs on the card (``count_plain_calls``).
 
 ``python3 chip_smoke.py --dist-cards N`` (N cards) runs only the
 parallelism layer over N NCCL ranks, one card each: DP EDSR x4 at a global
@@ -267,8 +280,8 @@ Phase 8 also prints which stage of the fused f32 SR first differs between
 an image alone (N = 1) and the same image in the batch of 16, each stage
 run on shared inputs (``sr_stage_diffs``). Each path (8-25) is driven with
 the launch counts set to 0 just before it and read just after (23: each
-of its main-path runs, summed; 24: the training run, the only one that
-launches a kernel; 25: its three ``classic`` runs, summed). Before the last line it prints one JSON object with a
+of its main-path runs, summed; 24: each ``preprocess`` run (K5 alone)
+and the training run; 25: its three ``classic`` runs, summed). Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
 dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
@@ -312,7 +325,11 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12,
                   # special-function unit (expf): 16 results per clock per
                   # SM (NVIDIA's CUDA C++ throughput table, compute
                   # capability 9.0), 132 SMs at the 1.98 GHz boost clock
-                  "sfu": 16 * 132 * 1.98e9}
+                  "sfu": 16 * 132 * 1.98e9,
+                  # 32-bit integer add, logic and shift: 64 results per
+                  # clock per SM (the same table), as thread instructions
+                  # on the ALU pipe; the FMA pipes take twice that
+                  "int32": 64 * 132 * 1.98e9}
 K2_ATOL = 1e-4       # fp32 sums of up to 9*64 terms in another order
 K2_BF16_ULPS = 1     # the two outputs' roundings to bf16 at the store
 # worst-case error of an fp32 sum of K terms in any order, per term and per
@@ -433,17 +450,28 @@ def n_per_patch_k1(cfg: Slice) -> int:
 
 
 def reset_counts() -> None:
-    from tpusr_torch.core import conv3x3
+    from tpusr_torch.core import conv3x3, prng
     from tpusr_torch.models import block1
     conv3x3.reset_launch_counts()
     block1.reset_launch_counts()
+    prng.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    """The launch counts of every kernel on the serving paths."""
-    from tpusr_torch.core import conv3x3
+    """The launch counts of every kernel on the serving and training paths
+    (K5's draws as ``prng``)."""
+    from tpusr_torch.core import conv3x3, prng
     from tpusr_torch.models import block1
-    return {**conv3x3.LAUNCHES, **block1.LAUNCHES}
+    return {**conv3x3.LAUNCHES, **block1.LAUNCHES, **prng.LAUNCHES}
+
+
+def k5_launches() -> int:
+    from tpusr_torch.core import prng
+    return prng.LAUNCHES["prng"]
+
+
+# K5's launches by path: each phase that draws on the card adds its own
+K5_BY_PATH: dict = {}
 
 
 def launches_want(**counts) -> dict:
@@ -608,125 +636,199 @@ def phase_build() -> None:
           f"loaded in {time.perf_counter() - t0:.2f} s")
 
 
-PRNG_NORMAL_ULP = 0      # the card's normals against the CPU's, in ulp
+PRNG_NORMAL_ULP = 0      # K5's normals against the plain version's, in ulp
+# The SASS opcodes of K5's loop by the pipe that runs them: 32-bit integer
+# on the ALU pipe (64 lanes an SM), IMAD and fp32 on the FMA pipes (128)
+SASS_ALU = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP",
+            "LEA", "IMNMX", "PRMT", "SEL", "IABS", "VIADD", "FSETP", "FSEL",
+            "FMNMX"}
+SASS_FMA = {"IMAD", "IMUL", "FADD", "FMUL", "FFMA"}
 
 
 @dataclass(frozen=True)
 class PrngSlice:
-    """Draws of ``core/prng.py`` on the card against the CPU: the keys and
-    the shapes the port draws at (a scalar, the gate's (n,) parameters and
-    its crop offsets, the surfaces' background cells, a VGG16 kernel's
-    truncated normal, EDSR's dropout-free batch indices), the gate's
-    surface noise, and the two-round permutation of 5000."""
+    """K5 (``csrc/prng.cu``) on the card against the plain version on the
+    card and the CPU's draw: the keys and the shapes the port draws at (a
+    scalar, the gate's (n,) parameters and its crop offsets, the surfaces'
+    background cells, a VGG16 kernel's truncated normal), the gate's surface
+    noise, the two-round permutation of 5000 and a batch's indices."""
     seeds: tuple = (0, 7, 42)
     shapes: tuple = ((), (128,), (128, 17, 17, 1), (3, 3, 512, 512))
     noise: tuple = (128, 512, 512, 3)
+    kernel: tuple = (3, 3, 512, 512)
+    batch: int = 64
+    pool: int = 2048
     perm: int = 5000
 
 
+def k5_loop_instructions(kind: int) -> dict:
+    """The SASS of K5's loop for the sampler ``kind`` (``prng._KINDS``,
+    drawn from counters): the instructions from the address the widest
+    backward branch returns to through that branch (one value a trip: the
+    loop is not unrolled), counted by pipe (``SASS_ALU``, ``SASS_FMA``)
+    and in all."""
+    import re
+    from tpusr_torch.core import _build
+    sass = _build.sass("prng")
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next((f for f in funcs
+                 if re.match(rf"\S*prng_kernelILi{kind}ELb0E", f)), None)
+    check(body is not None, f"[prng] no prng_kernel<{kind}, false> in the SASS")
+    insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)(?:\.\S+)?\s*([^;]*)")
+    code = [(int(m.group(1), 16), m.group(2), m.group(3))
+            for ln in body.splitlines() if (m := insn.search(ln))]
+    loops = [(at - int(t.group(1), 16), int(t.group(1), 16), at)
+             for at, op, args in code
+             if op == "BRA" and (t := re.match(r"`?\(?0x([0-9a-f]+)", args))
+             and int(t.group(1), 16) < at]
+    check(bool(loops), f"[prng] no loop in prng_kernel<{kind}>'s SASS")
+    _, lo, hi = max(loops)
+    ops = [op for at, op, _ in code if lo <= at <= hi]
+    return {"alu": sum(o in SASS_ALU for o in ops),
+            "fma": sum(o in SASS_FMA for o in ops), "all": len(ops)}
+
+
 def phase_prng(p: PrngSlice, dev, card: str) -> dict:
-    """``phase_prng``: every sampler on the card equal to the CPU's draw,
-    and its ms on the card (the first ``normal`` builds the card's table
-    of the 2^23 mantissas' values; it is timed apart)."""
+    """``phase_prng``: K5 against the plain version on the card and the
+    CPU's draw for every sampler, seed and shape; the normal samplers over
+    all 2^23 mantissas; the 100.7 M threefry words and normals of the
+    gate's noise; K5's ms beside the plain version's and ``torch.randn``'s;
+    its bound from the SASS of its loop."""
     from tpusr_torch.core import prng
 
     cpu = torch.device("cpu")
     samplers = {
-        "bits": lambda k, sh, d: prng.bits(k, sh, d),
-        "uniform": lambda k, sh, d: prng.uniform(k, sh, 0.3, 0.7, d),
-        "randint": lambda k, sh, d: prng.randint(k, sh, 0, 2048, d),
-        "bernoulli": lambda k, sh, d: prng.bernoulli(k, 0.8, sh, d),
-        "normal": lambda k, sh, d: prng.normal(k, sh, d),
-        "truncated_normal": lambda k, sh, d: prng.truncated_normal(
-            k, -2.0, 2.0, sh, d)}
+        "bits": lambda f, k, sh, d: f(k, sh, device=d),
+        "uniform": lambda f, k, sh, d: f(k, sh, 0.3, 0.7, device=d),
+        "randint": lambda f, k, sh, d: f(k, sh, 0, 2048, device=d),
+        "bernoulli": lambda f, k, sh, d: f(k, 0.8, sh, device=d),
+        "normal": lambda f, k, sh, d: f(k, sh, device=d),
+        "normal_erf_inv": lambda f, k, sh, d: f(k, sh, device=d),
+        "truncated_normal": lambda f, k, sh, d: f(k, -2.0, 2.0, sh,
+                                                  device=d)}
 
     def ulps(a, b):
         return int((a.view(torch.int32).long()
-                    - b.view(torch.int32).long()).abs().max())
+                    - b.view(torch.int32).long()).abs().max()) if a.numel() else 0
 
-    def agree(name, got, want, what):
-        if name in ("normal", "truncated_normal"):
-            worst = ulps(got, want) if got.numel() else 0
-            check(worst <= PRNG_NORMAL_ULP,
-                  f"[prng] {what}: {worst} ulp from the CPU's draw")
-        else:
-            check(torch.equal(got, want), f"[prng] {what}: differs from "
-                                          f"the CPU's draw")
+    def agree(got, plain, want, what):
+        check(got.dtype == plain.dtype == want.dtype
+              and got.shape == plain.shape == want.shape,
+              f"[prng] {what}: {got.dtype} {tuple(got.shape)}, plain "
+              f"{plain.dtype} {tuple(plain.shape)}, CPU {want.dtype}")
+        if got.is_floating_point():
+            worst = max(ulps(got, plain), ulps(got.cpu(), want))
+            check(worst <= PRNG_NORMAL_ULP, f"[prng] {what}: {worst} ulp from "
+                                            f"the plain version")
+        check(torch.equal(got, plain) and torch.equal(got.cpu(), want),
+              f"[prng] {what}: K5 differs from the plain version")
 
-    def timed(fn):
-        ms = []
-        for _ in range(3):
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0.record()
-            fn()
-            t1.record()
-            torch.cuda.synchronize()
-            ms.append(t0.elapsed_time(t1))
-        return float(np.median(ms))
-
-    t0 = time.perf_counter()
-    prng.normal(prng.PRNGKey(0), (prng._TABLE_MIN,), dev)
-    prng.truncated_normal(prng.PRNGKey(0), -2.0, 2.0, (prng._TABLE_MIN,), dev)
-    torch.cuda.synchronize()
-    table_s = time.perf_counter() - t0
-    n_draws = 0
+    reset_counts()
+    n_draws = launched = 0
     for seed in p.seeds:
         key = prng.PRNGKey(seed)
         for shape in p.shapes:
             for name, draw in samplers.items():
-                agree(name, draw(key, shape, dev).cpu(),
-                      draw(key, shape, cpu), f"{name} seed {seed} {shape}")
+                agree(draw(getattr(prng, name), key, shape, dev),
+                      draw(prng.PLAIN[name], key, shape, dev),
+                      draw(getattr(prng, name), key, shape, cpu),
+                      f"{name} seed {seed} {shape}")
                 n_draws += 1
-    agree("permutation", prng.permutation(prng.PRNGKey(6), p.perm, dev).cpu(),
-          prng.permutation(prng.PRNGKey(6), p.perm, cpu),
-          f"permutation of {p.perm}")
-    # every entry of both tables, then the gate's noise through them: the
-    # card's words at sampled counters (the first and last 4096 and one in
-    # 9973) against the CPU's hash of those counters, and its values
-    # against the CPU's table at those words
+                launched += 1 if math.prod(shape) else 0
+    key6 = prng.PRNGKey(6)
+    agree(prng.permutation(key6, p.perm, dev),
+          prng.permutation_plain(key6, p.perm, dev),
+          prng.permutation(key6, p.perm, cpu), f"permutation of {p.perm}")
+    launched += 2                                # its two sort rounds
+    got = read_counts()["prng"]
+    check(got == launched, f"[prng] {got} K5 launches for {launched} draws")
+
+    # every mantissa through both normal samplers: K5 on words, the plain
+    # version on the card and the CPU's table
+    words = torch.arange(prng._MANTISSAS, dtype=torch.int32, device=dev) << 9
     for bounds in ((None, None), (-2.0, 2.0)):
-        agree("normal", prng._normal_table(*bounds, dev).cpu(),
-              prng._normal_table(*bounds, cpu),
-              f"the table of the 2^23 values at bounds {bounds}")
+        plain = prng._normal_values(words, *bounds)
+        table = prng._normal_table(*bounds, cpu)
+        if bounds[0] is None:
+            plain, table = plain * prng.SQRT2, table * prng.SQRT2
+        agree(prng.normal_from_words(words, *bounds), plain, table,
+              f"the 2^23 mantissas at bounds {bounds}")
+    del words, plain
+
+    # the gate's noise: all its threefry words, then its normals
     key = prng.split(prng.PRNGKey(p.seeds[0]), 9)[5]   # the gate's ks[5]
-    noise = prng.normal(key, p.noise, dev).reshape(-1)
-    n = noise.numel()
-    at = torch.cat([torch.arange(4096), torch.arange(4096, n - 4096, 9973),
-                    torch.arange(n - 4096, n)])
-    w0, w1 = prng._threefry2x32(*key, torch.zeros_like(at, dtype=torch.int32),
-                                at.to(torch.int32))
-    words = w0 ^ w1
-    agree("bits", prng._bits32(key, p.noise, dev).reshape(-1)[at.to(dev)]
-          .cpu(), words, f"the gate's noise words at {at.numel()} counters")
-    table = prng._normal_table(None, None, cpu)
-    agree("normal", noise[at.to(dev)].cpu(),
-          table[((words >> 9) & (prng._MANTISSAS - 1)).long()] * prng.SQRT2,
-          f"the gate's noise {p.noise} at {at.numel()} counters")
+    n = math.prod(p.noise)
+    check(torch.equal(prng.bits(key, p.noise, dev),
+                      prng.bits_plain(key, p.noise, dev)),
+          f"[prng] the gate's noise: K5's {n} words differ from the plain "
+          f"version's")
+    noise = prng.normal(key, p.noise, dev)
+    plain = prng.normal_plain(key, p.noise, dev)
+    check(torch.equal(noise, plain), "[prng] the gate's noise: K5's normals "
+                                     "differ from the plain version's")
+    err = float((noise - plain).abs().max())
     check(bool(torch.isfinite(noise).all()), "[prng] non-finite noise")
-    del noise
-    big = (3, 3, 512, 512)
-    ms = {"normal_noise": timed(lambda: prng.normal(key, p.noise, dev)),
-          "uniform_noise": timed(lambda: prng.uniform(key, p.noise, 0.0, 1.0,
-                                                      dev)),
-          "bits_noise": timed(lambda: prng.bits(key, p.noise, dev)),
-          "truncated_normal_vgg_kernel": timed(
-              lambda: prng.truncated_normal(key, -2.0, 2.0, big, dev)),
-          "randint_batch": timed(lambda: prng.randint(key, (64,), 0, 2048,
-                                                      dev)),
-          "permutation": timed(lambda: prng.permutation(key, p.perm, dev))}
+    del noise, plain
     torch.cuda.empty_cache()
-    print(f"[prng] {n_draws + 1} draws on the card equal to the CPU's "
-          f"(normals within {PRNG_NORMAL_ULP} ulp): {len(samplers)} samplers "
-          f"x seeds {list(p.seeds)} x shapes {[list(s) for s in p.shapes]}, "
-          f"permutation({p.perm}); both tables of the 2^23 normal values "
-          f"equal to the CPU's in every entry; the gate's noise "
-          f"{list(p.noise)} at {at.numel()} counters equal to the CPU's "
-          f"words and table")
-    print(f"[prng] {card}: tables of the 2^23 normal and truncated-normal "
-          f"values built in {table_s:.2f} s (host clock); ms on the card "
-          f"(CUDA events, median of 3): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
-    return {"ms": ms, "table_s": table_s}
+
+    draws = {
+        "gate_noise_normal": (
+            lambda: prng.normal(key, p.noise, dev),
+            lambda: prng.normal_plain(key, p.noise, dev),
+            lambda: torch.randn(p.noise, device=dev)),
+        "vgg_kernel_truncated_normal": (
+            lambda: prng.truncated_normal(key, -2.0, 2.0, p.kernel, dev),
+            lambda: prng.truncated_normal_plain(key, -2.0, 2.0, p.kernel, dev),
+            lambda: torch.randn(p.kernel, device=dev)),
+        "batch_randint": (
+            lambda: prng.randint(key, (p.batch,), 0, p.pool, dev),
+            lambda: prng.randint_plain(key, (p.batch,), 0, p.pool, dev),
+            lambda: torch.randint(0, p.pool, (p.batch,), device=dev))}
+    ms = {name: {"ms": time_ms(k5), "plain_ms": time_ms(plain, max_iters=5),
+                 "randn_ms": time_ms(yard)}
+          for name, (k5, plain, yard) in draws.items()}
+    torch.cuda.empty_cache()
+
+    sass = {name: k5_loop_instructions(prng._KINDS[name][0])
+            for name in ("bits32", "normal")}
+    # the least time of the gate's noise: the loop of the normal sampler
+    # that is timed (threefry, then erf_inv over log1p), by the ALU pipe,
+    # the FMA pipes and the issue of 4 warp instructions a clock an SM;
+    # threefry's loop alone (``bits32``) is printed beside it
+    def loop_ms(c):
+        return max(c["alu"] / PEAK_OPS_PER_S["int32"],
+                   c["fma"] / (2 * PEAK_OPS_PER_S["int32"]),
+                   c["all"] / (2 * PEAK_OPS_PER_S["int32"])) * n * 1e3
+    bits, normal = sass["bits32"], sass["normal"]
+    t_ops, t_hash = loop_ms(normal), loop_ms(bits)
+    t_bytes = 4.0 * n / HBM_BYTES_PER_S * 1e3
+    print(f"[prng] {n_draws + 1} draws by K5 on the card (7 samplers x seeds "
+          f"{list(p.seeds)} x shapes {[list(s) for s in p.shapes]}, "
+          f"permutation({p.perm})) equal to the plain version on the card and "
+          f"to the CPU's draw, bit for bit, in {launched} launches; both "
+          f"normal samplers equal over all 2^23 mantissas (K5 on words, the "
+          f"plain version on the card, the CPU's tables); the gate's noise "
+          f"{list(p.noise)}: all {n} threefry words and normals equal "
+          f"(max |err| {err})")
+    print(f"[prng] {card}: ms on the card (CUDA events): "
+          + "; ".join(f"{k} K5 {v['ms']:.4f}, plain {v['plain_ms']:.3f} "
+                      f"(torch.randn/randint at the shape, another function: "
+                      f"{v['randn_ms']:.4f})" for k, v in ms.items()))
+    print(f"[prng] K5's loop in SASS, instructions a value by pipe: bits "
+          f"{bits}, normal {normal}; the gate's noise ({n} values): the "
+          f"normal loop {t_ops:.4f} ms ({normal['all']} instructions a value "
+          f"issued at {2 * PEAK_OPS_PER_S['int32'] / 1e12:.2f} T/s, "
+          f"{normal['alu']} on the ALU pipe at "
+          f"{PEAK_OPS_PER_S['int32'] / 1e12:.2f} T/s), threefry alone "
+          f"{t_hash:.4f} ms, against {t_bytes:.4f} ms for its "
+          f"{4 * n / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    g = ms["gate_noise_normal"]
+    return {"err": err, "ms": g["ms"], "plain_ms": g["plain_ms"],
+            "randn_ms": g["randn_ms"], "bound_ms": max(t_ops, t_bytes),
+            "t_ops": t_ops, "t_bytes": t_bytes, "threefry_ms": t_hash,
+            "by_draw": ms, "sass": sass,
+            "phase_launches": launched}
 
 
 def _int8_operands(shape, g, dev):
@@ -2249,24 +2351,30 @@ def k2_f32_bound(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 PLAIN_TWINS = (("conv3x3", "conv3x3_bias_act_plain"),        # K2
                ("conv3x3", "conv3x3_int8_requant_plain"),    # K1
                ("conv3x3", "conv3x3_int8_dequant_plain"),    # the dequant conv
-               ("block1", "block1_plain"))                   # K3
+               ("block1", "block1_plain"),                   # K3
+               ("prng", "_bits32"))      # K5: the words of every plain draw
 
 
 class count_plain_calls:
-    """Count the calls on the card (with a CUDA tensor argument) of the
-    kernels' plain twins, made through their wrappers' modules while the
-    context is open (``n``, by twin in ``by_twin``)."""
+    """Count the calls on the card (with a CUDA tensor argument, or for the
+    draws' words a CUDA device) of the kernels' plain twins, made through
+    their wrappers' modules while the context is open (``n``, by twin in
+    ``by_twin``)."""
 
     def __enter__(self):
-        from tpusr_torch.core import conv3x3
+        from tpusr_torch.core import conv3x3, prng
         from tpusr_torch.models import block1
-        mods = {"conv3x3": conv3x3, "block1": block1}
+        mods = {"conv3x3": conv3x3, "block1": block1, "prng": prng}
         self.by_twin, self._saved = {}, []
+
+        def on_card(v):
+            return ((isinstance(v, torch.Tensor) and v.is_cuda)
+                    or (isinstance(v, torch.device) and v.type == "cuda")
+                    or (isinstance(v, str) and v.startswith("cuda")))
 
         def counted(name, orig):
             def call(*a, **kw):
-                if any(isinstance(t, torch.Tensor) and t.is_cuda
-                       for t in (*a, *kw.values())):
+                if any(on_card(v) for v in (*a, *kw.values())):
                     self.by_twin[name] = self.by_twin.get(name, 0) + 1
                 return orig(*a, **kw)
             return call
@@ -2548,6 +2656,8 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "conv3x3" in low:
         return "K2"
+    if "prng_kernel" in low:
+        return "K5"
     if any(w in low for w in ("cudnn", "xmma", "cutlass", "gemm", "conv",
                               "wgrad", "dgrad", "fprop")):
         return "cuDNN/cuBLAS"
@@ -2714,8 +2824,10 @@ def phase_train(t: TrainSlice, dev, seed: int, sync, card: str) -> dict:
             return m["loss"], m["accuracy"]
         vgg_out, vgg_ms = timed_steps(vgg_step, t.vgg_steps)
         vgg_peak = torch.cuda.max_memory_allocated(dev)
-        check(read_counts() == launches_want(),
+        # each step draws its two dropout masks on K5
+        check(read_counts() == launches_want(prng=2 * t.vgg_steps),
               f"VGG16 steps launched {read_counts()}")
+        K5_BY_PATH["train"] = k5_launches()
         vgg_losses = [float(l) for l, _ in vgg_out]
         check(all(math.isfinite(v) for v in vgg_losses), f"VGG losses {vgg_losses}")
         vgg_med = float(np.median(vgg_ms))
@@ -3322,7 +3434,10 @@ def gate_launches(g: GateSlice, cfg: Slice) -> dict:
     and bf16 on K2, int8 on the dequant conv with the bf16 band, each int8
     variant calibrated by one f32 forward of the EDSR body), the per-patch
     int8 rows by 8 images (K3 + blocks 2-5 on K1) and the int8 trunk rows by
-    16 (13 K1)."""
+    16 (13 K1); K5's draws: each of the two surface sets 7 uniforms and
+    the noise (the shuffle is drawn on the CPU), 3 randints for each of
+    the three crop pools, a VGG16 step's batch and two dropout masks and an
+    EDSR step's batch."""
     n_fwd = len(edsr_train_layers(TrainSlice()))
     sr_chunks = math.ceil(g.images / 16)
     pp_chunks = math.ceil(g.images / 8)
@@ -3337,7 +3452,8 @@ def gate_launches(g: GateSlice, cfg: Slice) -> dict:
         conv3x3_int8_dequant=2 * sr_chunks * body,
         conv3x3_int8_requant=3 * pp_chunks * per_patch_k1
         + 4 * sr_chunks * trunk_k1,
-        block1_int8=3 * pp_chunks)
+        block1_int8=3 * pp_chunks,
+        prng=2 * 8 + 3 * 3 + 3 * g.clf_steps + g.edsr_steps)
 
 
 class patched:
@@ -3453,6 +3569,68 @@ def jax_gate_row(g: GateSlice, seed: int) -> str:
     return f"{m['vote_agreement']:.4f} ({m['flips']} flips)"
 
 
+# seed 6's gate loop on the card against JAX's on the CPU (the committed
+# fixture): |loss difference| at steps 0, 1 and 2 measured on an NVIDIA
+# H100 80GB HBM3 at 700 W as 6.0e-8, 2.3e-6 and 1.25e-5 (cuDNN's float32
+# sums in another order than XLA's, growing through Adam's first steps);
+# the bound is step 2's in tests/test_torch_gate_trajectory.py
+TRAJ_SEED, TRAJ_STEPS, TRAJ_ATOL = 6, 300, 1e-4
+GATE_FIXTURE = os.path.join(REPO, "tests", "data", "gate_trajectory",
+                            "jax_cpu.json")
+
+
+def jax_fixture(seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """JAX's (loss, train-batch accuracy) per step of seed ``seed``'s gate
+    classifier loop on the CPU, as float32 arrays (``GATE_FIXTURE``, written
+    by ``make_fixture.py`` beside it)."""
+    import struct
+    with open(GATE_FIXTURE) as f:
+        run = json.load(f)["seeds"][str(seed)]
+
+    def f32(hexes):
+        return np.array([struct.unpack(">f", bytes.fromhex(h))[0]
+                         for h in hexes], dtype=np.float32)
+    return f32(run["loss"]), f32(run["accuracy"])
+
+
+def gate_trajectory(dev, card: str) -> dict:
+    """Seed ``TRAJ_SEED``'s gate classifier loop on the card for
+    ``TRAJ_STEPS`` steps (``tools/gate_trajectory.Loop``, cuDNN
+    deterministic as the gate trains): its losses at steps 0-2 within
+    ``TRAJ_ATOL`` of JAX's on the CPU, and the first step whose loss falls
+    under 0.5 beside JAX's, with its K5 launches."""
+    from tpusr_torch.tools import gate_trajectory as gt
+
+    reset_counts()
+    t0 = time.perf_counter()
+    loop = gt.Loop(TRAJ_SEED, dev)
+    with deterministic_cudnn():
+        run = loop.run(TRAJ_STEPS)
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    want = launches_want(prng=8 + 3 + 3 * TRAJ_STEPS)
+    check(got == want, f"[gate-trajectory] launches {got} != {want}")
+    K5_BY_PATH["gate_trajectory"] = got["prng"]
+    jax_loss, _ = jax_fixture(TRAJ_SEED)
+    loss = np.array(run["loss"], np.float32)
+    d = np.abs(loss[:3] - jax_loss[:3])
+    esc, jax_esc = gt.first_escape(loss), gt.first_escape(jax_loss)
+    print(f"[gate-trajectory] {card}: seed {TRAJ_SEED}'s VGG16 loop, "
+          f"{TRAJ_STEPS} steps on the card in {wall:.1f} s; |loss - JAX's on "
+          f"the CPU| at steps 0-2 {[float(v) for v in d]} (max "
+          f"{float(d.max()):.3g}, bound {TRAJ_ATOL}); loss at steps 3-6 "
+          f"{[round(float(v), 6) for v in loss[3:7]]} (JAX "
+          f"{[round(float(v), 6) for v in jax_loss[3:7]]}); first step under "
+          f"{gt.ESCAPE_LOSS}: the card {esc}, JAX on the CPU {jax_esc}; "
+          f"K5 launches {got['prng']}")
+    check(float(d.max()) <= TRAJ_ATOL, f"[gate-trajectory] steps 0-2 are "
+                                       f"{d.max()} from JAX's")
+    check(all(math.isfinite(v) for v in run["loss"]),
+          "[gate-trajectory] a non-finite loss")
+    return {"max_abs_d_steps_0_2": float(d.max()), "escape": esc,
+            "jax_escape": jax_esc, "s": wall}
+
+
 def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
                card: str) -> dict:
     """The serving gate on the card at its full protocol, through
@@ -3519,6 +3697,7 @@ def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
           f"plain twins on the card {plain.by_twin}")
     check(launches == want, f"gate launch counts {launches} != {want}")
     check(plain.n == 0, f"plain twins called on the card: {plain.by_twin}")
+    K5_BY_PATH["gate"] = launches["prng"]
 
     clf_ms, clf_losses = steps.read("ClassifierTrainer")
     edsr_ms, edsr_losses = steps.read("SupervisedSRTrainer")
@@ -3669,6 +3848,9 @@ def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
               f"{v['confusion_matrix'].tolist()}")
     print(f"[gate-compare] {card}: per-patch int8 classifier (13 K1 a call), "
           f"{n} eval images; launches {compared}")
+    del methods, f32_fn, bf16_fn, int8_fn
+    torch.cuda.empty_cache()
+    gate_trajectory(dev, card)
     return launches, {"edsr": edsr, "clf": clf, "lr_eval": lr_eval,
                       "ref_cls": ref_cls}
 
@@ -3767,10 +3949,15 @@ def phase_serve(g: GateSlice, cfg: Slice, dev, seed: int, sync, card: str,
             paths.append(f.save(work, "gate"))
         # ---- 16 calibration LR images, drawn as the gate draws its eval set
         task = sg.TASKS[g.task]
+        k5_before = k5_launches()
         hr_cal, _ = sg.make_surface_images(
             seed + SERVE_CALIB_SEED, 16, g.size, amp_range=task["amp_range"],
             noise=task["noise"], coverage_range=task["coverage_range"],
             device=dev)
+        K5_BY_PATH["serve_calibration"] = k5_launches() - k5_before
+        check(K5_BY_PATH["serve_calibration"] == 8, "the calibration "
+              f"surfaces: {K5_BY_PATH['serve_calibration']} K5 launches, not "
+              f"8 (7 uniforms and the noise)")
         calib_dir = os.path.join(work, "calib")
         os.makedirs(calib_dir)
         for i, im in enumerate(resize(hr_cal, (cfg.lr, cfg.lr), "area")
@@ -4069,6 +4256,7 @@ def write_reference_dataset(root: str, c: CommandsSlice, seed: int, dev,
     from tpusr_torch.tools import serving_gate as sg
 
     task = sg.TASKS[c.task]
+    k5_before = k5_launches()
     hr, labels = sg.make_surface_images(
         seed, c.images, c.size, amp_range=task["amp_range"],
         noise=task["noise"], coverage_range=task["coverage_range"], device=dev)
@@ -4087,6 +4275,12 @@ def write_reference_dataset(root: str, c: CommandsSlice, seed: int, dev,
                 f.write(encode_png_u8(u8))
         interp_map[name] = interp
         class_map[name] = int(labels[i])
+    # the surfaces' 7 uniforms and noise, each image's degradation noise
+    k5 = k5_launches() - k5_before
+    check(k5 == 8 + c.images, f"the reference dataset: {k5} K5 launches, not "
+                              f"{8 + c.images}")
+    K5_BY_PATH["reference_datasets"] = K5_BY_PATH.get(
+        "reference_datasets", 0) + k5
     with open(os.path.join(root, "class_map.pkl"), "wb") as f:
         pickle.dump(class_map, f)
     if maps:
@@ -4534,7 +4728,7 @@ def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
                                 f"{plain.by_twin}")
             launches[name] = {"conv3x3_bias_act": got["conv3x3_bias_act"],
                               "nlm_denoise": k4}
-            want_k2, want_k4, extra = 0, 0, ""
+            want_k2, want_k4, want_k5, extra = 0, 0, 0, ""
             if name.startswith("train"):
                 path = ret
                 ckpt[name] = path
@@ -4560,6 +4754,8 @@ def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
                 if name in per_step:
                     want_k2 = k2_command_launches(sizes, bs, epochs,
                                                   *per_step[name], gan)
+                if name == "train-vgg16":     # two dropout masks a step
+                    want_k5 = 2 * steps
                 ev = meta["eval"]
                 score = (f"accuracy {ev['accuracy']:.4f}" if "accuracy" in ev
                          else f"PSNR {ev.get('psnr', ev.get('avg_psnr')):.2f} "
@@ -4602,9 +4798,13 @@ def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
                                    f"{r['psnr_mean']:.2f} {r['time_sec']:.3f} s"
                                    for m, r in res.items())
                          + f"; files {sorted(os.listdir(os.path.join(work, name)))}")
-            check(got == launches_want(conv3x3_bias_act=want_k2),
-                  f"{name}: launches {got}, expected {want_k2} K2 and no other")
+            check(got == launches_want(conv3x3_bias_act=want_k2,
+                                       prng=want_k5),
+                  f"{name}: launches {got}, expected {want_k2} K2, {want_k5} "
+                  f"K5 and no other")
             check(k4 == want_k4, f"{name}: K4 launches {k4} != {want_k4}")
+            if want_k5:
+                K5_BY_PATH[f"commands_{name.replace('-', '_')}"] = want_k5
             print(f"[commands] {card}: {name} in {wall:.1f} s: {extra}; K2 "
                   f"{got['conv3x3_bias_act']} launches, K2-bf16 "
                   f"{got['conv3x3_bias_act_bf16']}, K4 {k4}; peak "
@@ -5051,8 +5251,13 @@ def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
                     for i in range(d.vgg_steps)]
         # cuDNN's default backward convs may sum in another order on each
         # run, which three Adam steps carry past the tolerance
+        k5_before = k5_launches()
         with deterministic_cudnn():
             vl_dp, vl_1 = vgg_losses(mesh), vgg_losses(None)
+        K5_BY_PATH["dist_vgg16"] = k5_launches() - k5_before
+        check(K5_BY_PATH["dist_vgg16"] == 2 * 2 * d.vgg_steps,
+              f"DP and unsharded VGG16: {K5_BY_PATH['dist_vgg16']} K5 "
+              f"launches, not two dropout masks a step")
         check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(vl_dp, vl_1)),
               f"DP VGG16 losses {vl_dp} vs {vl_1}")
         print(f"[dist] {card}: DP VGG16 {d.vgg_steps} steps at batch "
@@ -6870,7 +7075,8 @@ def preprocess_held_clip(p: PreprocessSlice, path: str, kept: dict,
                          avi_wall: float) -> dict:
     """``python -m tpusr_torch.cli preprocess --hr-size`` in process on a
     print clip whose frames ``kept`` (index -> BGR) were held to cv2's by
-    sha256, with its stages timed: no kernel launched, one pair a second,
+    sha256, with its stages timed: K5's launches alone (one a pair, its
+    degradation's noise), one pair a second,
     every frame decoded and only the sampled ones converted, each HR PNG
     equal to the host's ``smart_square_crop`` + ``resize_u8`` of its
     frame. Returns the wall time and the decode and conversion ms."""
@@ -6892,8 +7098,10 @@ def preprocess_held_clip(p: PreprocessSlice, path: str, kept: dict,
         sync()
         wall = time.perf_counter() - t0
         got = read_counts()
-    check(got == launches_want(),
+    # one K5 launch a pair: its degradation's noise
+    check(got == launches_want(prng=len(kept)),
           f"preprocess on {name}: launched kernels {got}")
+    K5_BY_PATH["preprocess"] = K5_BY_PATH.get("preprocess", 0) + got["prng"]
     names = sorted(os.listdir(os.path.join(root, "HR")))
     check(names == [f"sample_{i:05d}.png" for i in range(len(kept))]
           and len(st.ms["decode"]) == len(samples)
@@ -6988,8 +7196,11 @@ def phase_preprocess(p: PreprocessSlice, dev, seed: int, sync,
                 sync()
                 wall = time.perf_counter() - t0
                 got = read_counts()
-            check(got == launches_want(),
+            # one K5 launch for each of the 4 pairs: its degradation's noise
+            check(got == launches_want(prng=4),
                   f"preprocess {tag}: launched kernels {got}")
+            K5_BY_PATH["preprocess"] = (K5_BY_PATH.get("preprocess", 0)
+                                        + got["prng"])
             names = sorted(os.listdir(os.path.join(root, "HR")))
             check(names == [f"sample_{i:05d}.png" for i in range(4)]
                   and sorted(os.listdir(os.path.join(root, "LR"))) == names,
@@ -7399,7 +7610,7 @@ def main() -> int:
     try:
         card = phase_environment()
         phase_build()
-        phase_prng(PrngSlice(), dev, card)
+        k5 = phase_prng(PrngSlice(), dev, card)
         k1 = phase_k1(cfg, dev)
         k3 = phase_k3(cfg, dev)
         k2 = phase_k2(cfg, dev, torch.float32)
@@ -7472,6 +7683,13 @@ def main() -> int:
         kernel_record("conv3x3_int8_dequant", "conv3x3.cu",
                       "tpusr/models/edsr_quant.py:117", dequant_launches, dq,
                       None),
+        # K5: no Pallas kernel; XLA's threefry2x32 and jax.random samplers,
+        # at the JAX gate's noise draw. Its times are that draw's (100.7 M
+        # normals); ``launches`` is the gate's run
+        {**kernel_record("prng", "prng.cu", "tpusr/tools/serving_gate.py:97",
+                         gate["prng"], k5, None),
+         "randn_ms": k5["randn_ms"], "by_draw": k5["by_draw"],
+         "sass_per_value": k5["sass"], "threefry_bound_ms": k5["threefry_ms"]},
     ]
     k2_rec["dist"] = {          # phase_dist: K2 at the new shapes
         "dp_step_ms": dist_res["dp_step_ms"],
@@ -7490,6 +7708,10 @@ def main() -> int:
         for path, n in inference["launches"].items() if n}
     for rec in records:     # the serving gate's launches (phase_gate)
         rec["gate_launches"] = gate.get(rec["name"], 0)
+        if rec["name"] == "prng":
+            rec["launches_by_path"] = {"prng_phase": k5["phase_launches"],
+                                       **K5_BY_PATH}
+            continue
         # every path that launched the kernel: its name -> its launches
         rec["launches_by_path"] = {
             "slice": rec["launches"], "gate": rec["gate_launches"],

@@ -17,7 +17,10 @@ blocks' Cin 64 + i * growth, Cout = growth, Cin 72 and 88 off the narrow
 kernel), a narrow ESRGAN generator and patch SR on K2 against the twin; the
 HTTP tier answering each kind of request on the card; the bf16 K2 training
 Function against its twin, one G step of the GAN trainer on K2 against the
-twin, and the profiling helpers on the card.
+twin, and the profiling helpers on the card; K5 (csrc/prng.cu, JAX's
+random streams) for every sampler at sizes 0, 1, 2^14 + 3 and one off the
+block and past the grid's stride, against the plain version on the card
+and on the CPU, bit for bit, and its entry on words.
 
 These tests need an NVIDIA card with sm_90a and ``nvcc``; without a card
 they skip. ``tests/conftest.py`` imports JAX and hides CUDA devices, so on
@@ -34,6 +37,7 @@ import torch
 
 from tpusr_torch.core import conv3x3 as k
 from tpusr_torch.core import nlm
+from tpusr_torch.core import prng
 from tpusr_torch.device import fp32_math
 from tpusr_torch.models import block1
 
@@ -947,3 +951,56 @@ def test_trace_keeps_every_kernel_record_across_sessions(cuda, tmp_path):
     assert [r["k2"] for r in rows] == [TRACE_LAUNCHES] * TRACE_SESSIONS
     assert all(r["lead"] >= profiling.TRACE_LEAD_KERNELS for r in rows)
     assert 2 * max(r["lead_lost"] for r in rows) <= profiling.TRACE_LEAD_KERNELS
+
+
+# ---------------------------------------------------------------------- K5
+K5_SIZES = [0, 1, 2 ** 14 + 3, 1_000_003]     # the last is 1954 blocks of 256
+K5_SAMPLERS = {
+    "bits": lambda f, k, n, d: f(k, (n,), device=d),
+    "uniform": lambda f, k, n, d: f(k, (n,), 0.3, 0.7, device=d),
+    "uniform01": lambda f, k, n, d: f(k, (n,), device=d),
+    "bernoulli": lambda f, k, n, d: f(k, 0.8, (n,), device=d),
+    "normal": lambda f, k, n, d: f(k, (n,), device=d),
+    "normal_erf_inv": lambda f, k, n, d: f(k, (n,), device=d),
+    "truncated_normal": lambda f, k, n, d: f(k, -2.0, 2.0, (n,), device=d),
+    "randint": lambda f, k, n, d: f(k, (n,), -5, 2048, device=d),
+    "permutation": lambda f, k, n, d: f(k, n, device=d),
+}
+
+
+@pytest.mark.parametrize("n", K5_SIZES)
+@pytest.mark.parametrize("sampler", sorted(K5_SAMPLERS))
+def test_k5_equals_the_plain_version_on_the_card_and_the_cpu(cuda, sampler,
+                                                              n):
+    name = sampler.rstrip("01")
+    draw = K5_SAMPLERS[sampler]
+    key = prng.PRNGKey(n + 7)
+    before = prng.LAUNCHES["prng"]
+    got = draw(getattr(prng, name), key, n, cuda)
+    torch.cuda.synchronize()
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(prng.M32)))
+    launched = (rounds if name == "permutation" else 1) if n else 0
+    assert prng.LAUNCHES["prng"] == before + launched
+    plain = draw(prng.PLAIN[name], key, n, cuda)
+    assert prng.LAUNCHES["prng"] == before + launched
+    cpu = draw(getattr(prng, name), key, n, "cpu")
+    assert got.dtype == plain.dtype == cpu.dtype
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("bounds", [(None, None), (-2.0, 2.0), (0.5, 3.0)])
+def test_k5_on_words_equals_the_plain_version(cuda, bounds):
+    g = torch.Generator().manual_seed(5)
+    words = torch.randint(-2 ** 31, 2 ** 31, (2 ** 14 + 3,), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    got = prng.normal_from_words(words.to(cuda), *bounds)
+    assert torch.equal(got.cpu(), prng.normal_from_words(words, *bounds))
+
+
+def test_k5_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        prng.uniform(prng.PRNGKey(0), (2 ** 16, 2 ** 15), device=cuda)
+    with pytest.raises(ValueError):
+        prng.normal_from_words(torch.zeros(8, dtype=torch.int64,
+                                           device=cuda))

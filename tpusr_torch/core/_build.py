@@ -29,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # C signatures of the entry points, per source file
 SIGNATURES = {
     "block1": {
@@ -50,6 +50,10 @@ SIGNATURES = {
     },
     "nlm": {
         "nlm_denoise_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "prng": {
+        "prng_launch": [_P, _P, _I, _I, _U, _U, _U, _U, _U, _U, _I, _U, _U,
+                        _U, _U, _U, _U, _P],
     },
 }
 

@@ -5,10 +5,18 @@ equal to JAX's on the CPU bit for bit.
 A key is a pair of 32-bit words held on the host, ``(k0, k1)`` as Python
 ints (``PRNGKey``, ``split`` and ``fold_in`` return such tuples; ``as_key``
 takes a ``jax.random.PRNGKey`` array too). Draws (``bits``, ``uniform``,
-``normal``, ``truncated_normal``, ``randint``, ``bernoulli``,
-``permutation``) are made by plain tensor ops on the device asked for, in
-``int64`` masked to 32 bits (torch's ``uint32`` lacks most CUDA ops), so
-the same code runs on the CPU and on the card.
+``normal``, ``normal_erf_inv``, ``truncated_normal``, ``randint``,
+``bernoulli``, ``permutation``) are made on the device asked for:
+
+- on a CUDA device, one launch of K5 (``csrc/prng.cu``) per draw
+  (``permutation``: one per sort round): the hash and the sampler in
+  registers, only the result stored. ``LAUNCHES`` counts them. A failed
+  build or launch raises; a draw on the card never takes the tensor ops;
+- on the CPU, the plain version: plain tensor ops in ``int64`` masked to 32
+  bits (torch's ``uint32`` lacks most ops), the normal samplers through a
+  table of their 2^23 values once a process has drawn enough of them. The
+  plain samplers (``PLAIN``) run on any device, so a check can hold K5
+  against them on the card.
 
 The rules follow ``jax/_src/prng.py`` (``threefry_seed``, the threefry
 rounds, ``iota_2x32_shape``, the fold-like split and random bits with
@@ -18,19 +26,24 @@ rounds, ``iota_2x32_shape``, the fold-like split and random bits with
 the CPU: ``f * (max - min) + min`` is one fused multiply-add, ``erf_inv``
 is Giles' polynomial in fused multiply-adds over XLA's inline ``log1p``
 (a Cephes rational for small arguments, else a Cephes ``log``), and
-``erf`` is XLA's rational in fused multiply-adds. A fused multiply-add of
-float32 values is computed exactly here (``fma32``: the product and sum in
-float64, rounded to odd, then to float32), so nothing depends on whether a
-backend contracts ``a * b + c``.
+``erf`` is XLA's rational in fused multiply-adds. In the plain version a
+fused multiply-add of float32 values is computed exactly (``fma32``: the
+product and sum in float64, rounded to odd, then to float32), so nothing
+depends on whether a backend contracts ``a * b + c``; K5 issues the card's
+own fused multiply-add there and rounds every other step on its own.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import struct
+import threading
 
 import numpy as np
 import torch
+
+from tpusr_torch.core import _build
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -117,41 +130,118 @@ def _shape(shape) -> tuple[int, ...]:
 # On the CPU every elementwise pass runs over chunks below torch's parallel
 # grain (32768 elements), so each op runs on the calling thread: the
 # hundreds of small ops of a draw, handed to a thread pool shared with other
-# processes' threads, ran up to 200 times slower. The card takes one pass.
+# processes' threads, ran up to 200 times slower. On the card (the plain
+# version held against K5) a pass takes 2^24 values, so the float64
+# temporaries of a normal draw stay within a few GB.
 _CPU_CHUNK = 1 << 14
+_CUDA_CHUNK = 1 << 24
 
 
 def _in_chunks(n: int, device, dtype, fn) -> torch.Tensor:
-    """(n,) of ``dtype``: ``fn(start, stop)`` over [0, n) in chunks (one
-    on the card)."""
+    """(n,) of ``dtype``: ``fn(start, stop)`` over [0, n) in chunks."""
     out = torch.empty(n, dtype=dtype, device=device)
-    step = max(n, 1) if out.device.type == "cuda" else _CPU_CHUNK
+    step = _CUDA_CHUNK if out.device.type == "cuda" else _CPU_CHUNK
     for s in range(0, n, step):
         out[s:s + step] = fn(s, min(s + step, n))
     return out
 
 
-def _bits32(key, shape, device) -> torch.Tensor:
-    """``jax.random.bits`` as an int32 tensor holding the words: element i
-    (row-major) hashes the 64-bit counter i, and the two output words are
-    xor-ed."""
-    k0, k1 = as_key(key)
-    shape = _shape(shape)
+def _count(shape) -> int:
     n = math.prod(shape)
     if n >= 2 ** 31:
-        raise ValueError(f"bits: {n} words is more than this port draws")
+        raise ValueError(f"a draw of {n} values is more than this port draws")
+    return n
+
+
+def _bits32(key, shape, device) -> torch.Tensor:
+    """``jax.random.bits`` as an int32 tensor holding the words, by plain
+    tensor ops: element i (row-major) hashes the 64-bit counter i, and the
+    two output words are xor-ed."""
+    k0, k1 = as_key(key)
+    shape = _shape(shape)
 
     def words(start, stop):
         lo = torch.arange(start, stop, dtype=torch.int32, device=device)
         o0, o1 = _threefry2x32(k0, k1, torch.zeros_like(lo), lo)
         return o0 ^ o1
-    return _in_chunks(n, device, torch.int32, words).reshape(shape)
+    return _in_chunks(_count(shape), device, torch.int32, words).reshape(shape)
+
+
+def _device(device) -> torch.device:
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"prng: unsupported device {dev}")
+    return dev
+
+
+# ------------------------------------------------------------------- K5
+
+LAUNCHES = {"prng": 0}
+_launch_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    with _launch_lock:
+        LAUNCHES["prng"] = 0
+
+
+# csrc/prng.cu's samplers (its enum Kind) and the dtype each stores
+_KINDS = {"bits32": (0, torch.int32), "bits": (1, torch.int64),
+          "uniform": (2, torch.float32), "bernoulli": (3, torch.bool),
+          "normal": (4, torch.float32), "normal_erf_inv": (5, torch.float32),
+          "truncated_normal": (6, torch.float32),
+          "randint": (7, torch.int64)}
+
+
+def _word(v: float) -> int:
+    """The float32 ``v``'s bits, as an unsigned 32-bit int."""
+    return int(np.float32(v).view(np.uint32))
+
+
+def _k5(kind: str, device: torch.device, shape=None, key=(0, 0),
+        words: torch.Tensor | None = None, *, lo=0.0, span=1.0, p=0.0,
+        clip=(0.0, 0.0), key2=(0, 0), span_u=0, mult=0,
+        minval=0) -> torch.Tensor:
+    """One launch of K5 on the current stream of the CUDA ``device``: the
+    sampler ``kind`` over the counters of ``shape`` under ``key``, or
+    (``normal`` and ``truncated_normal`` only) over the int32 ``words``. The
+    scalars are the sampler's (``csrc/prng.cu``'s
+    ``Params``), floats already rounded to float32."""
+    code, dtype = _KINDS[kind]
+    if words is not None:
+        if words.dtype != torch.int32 or not words.is_contiguous():
+            raise ValueError("prng: words must be a contiguous int32 tensor")
+        shape, device = tuple(words.shape), words.device
+    shape = _shape(shape)
+    n = _count(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if n == 0:
+        return out
+    k0, k1 = as_key(key)
+    k2, k3 = as_key(key2)
+    lib = _build.load("prng")
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    _build.check("prng", lib.prng_launch(
+        out.data_ptr(), None if words is None else words.data_ptr(), n, code,
+        k0, k1, k2, k3, _word(lo), _word(span), int((lo, span) == (0.0, 1.0)),
+        _word(p), _word(clip[0]), _word(clip[1]), span_u & M32, mult & M32,
+        minval & M32, stream))
+    with _launch_lock:
+        LAUNCHES["prng"] += 1
+    return out
+
+
+def bits_plain(key, shape=(), device=None) -> torch.Tensor:
+    return _bits32(key, shape, device).long() & M32
 
 
 def bits(key, shape=(), device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) as an int64 tensor on
     ``device``."""
-    return _bits32(key, shape, device).long() & M32
+    dev = _device(device)
+    if dev.type == "cuda":
+        return _k5("bits", dev, shape, key)
+    return bits_plain(key, shape, dev)
 
 
 # ------------------------------------------------------- float arithmetic
@@ -207,10 +297,16 @@ def _float_from_bits(b: torch.Tensor) -> torch.Tensor:
     return (((b >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
 
 
+def _uniform_range(minval: float, maxval: float) -> tuple[float, float]:
+    """``(lo, span)`` of a uniform on [minval, maxval), rounded as JAX
+    rounds them (float32 bounds, their float32 difference)."""
+    lo = _f32(minval)
+    return lo, _f32(np.float32(maxval) - np.float32(lo))
+
+
 def _uniform_from_bits(b: torch.Tensor, minval: float,
                        maxval: float) -> torch.Tensor:
-    lo = _f32(minval)
-    span = _f32(np.float32(maxval) - np.float32(lo))
+    lo, span = _uniform_range(minval, maxval)
     f = _float_from_bits(b)
     if (lo, span) == (0.0, 1.0):   # f * 1 + 0 is f: no rounding to mirror
         return f
@@ -326,22 +422,42 @@ def _erf_scaled(v: float) -> float:
 
 # --------------------------------------------------------------- samplers
 
-def uniform(key, shape=(), minval: float = 0.0, maxval: float = 1.0,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform`` (float32) on ``device``."""
+def uniform_plain(key, shape=(), minval: float = 0.0, maxval: float = 1.0,
+                  device=None) -> torch.Tensor:
     return _uniform_from_bits(_bits32(key, shape, device), minval, maxval)
 
 
-# The normal samplers are functions of the uniform's 23 mantissa bits. The
-# values are computed for small draws; once a draw reaches _TABLE_MIN values
-# for a (device, bounds), or the draws computed so far 4 * _TABLE_MIN (a
-# table is 2**23 computed values), a table of all 2**23
-# of them is built and kept for the process (they are a pure function of
-# those), and every later draw looks its values up.
+def uniform(key, shape=(), minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform`` (float32) on ``device``."""
+    dev = _device(device)
+    if dev.type == "cuda":
+        lo, span = _uniform_range(minval, maxval)
+        return _k5("uniform", dev, shape, key, lo=lo, span=span)
+    return uniform_plain(key, shape, minval, maxval, dev)
+
+
+# The normal samplers are functions of the uniform's 23 mantissa bits. On
+# the CPU the values are computed for small draws; once a draw reaches
+# _TABLE_MIN values for some bounds, or the draws computed so far 4 *
+# _TABLE_MIN (a table is 2**23 computed values), a table of all 2**23 of
+# them is built and kept for the process (they are a pure function of
+# those), and every later draw looks its values up. The plain version on
+# the card computes every value; K5 needs no table.
 _TABLES: dict = {}
 _COMPUTED: dict = {}
 _MANTISSAS = 1 << 23
 _TABLE_MIN = 1 << 20
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+@functools.lru_cache(maxsize=64)
+def _truncated_range(lower: float, upper: float):
+    """``truncated_normal``'s uniform range (erf of the bounds over sqrt 2,
+    as XLA computes it) and its clip, inside the open bounds."""
+    return ((_erf_scaled(lower), _erf_scaled(upper)),
+            (float(np.nextafter(np.float32(lower), np.float32(np.inf))),
+             float(np.nextafter(np.float32(upper), np.float32(-np.inf)))))
 
 
 def _normal_values(b: torch.Tensor, lower: float | None,
@@ -349,13 +465,10 @@ def _normal_values(b: torch.Tensor, lower: float | None,
     """For the words ``b``: ``erf_inv(u)``, the standard normal before its
     factor sqrt(2) (no bounds), or ``truncated_normal``'s values."""
     if lower is None:
-        lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-        return _erf_inv(_uniform_from_bits(b, lo, 1.0))
-    lo, hi = _erf_scaled(lower), _erf_scaled(upper)
+        return _erf_inv(_uniform_from_bits(b, _NORMAL_LO, 1.0))
+    (lo, hi), clip = _truncated_range(lower, upper)
     v = _erf_inv(_uniform_from_bits(b, lo, hi)) * SQRT2
-    return v.clamp(
-        float(np.nextafter(np.float32(lower), np.float32(np.inf))),
-        float(np.nextafter(np.float32(upper), np.float32(-np.inf))))
+    return v.clamp(*clip)
 
 
 def _normal_table(lower, upper, device: torch.device) -> torch.Tensor:
@@ -369,13 +482,17 @@ def _normal_table(lower, upper, device: torch.device) -> torch.Tensor:
 
 
 def _normal_draw(key, shape, lower, upper, device) -> torch.Tensor:
+    """The plain version of the normal samplers (``normal_erf_inv`` without
+    bounds): computed, or on the CPU looked up in the table."""
     b = _bits32(key, shape, device).reshape(-1)
     dev = b.device
     tag = (str(dev), lower, upper)
     computed = _COMPUTED.get(tag, 0)
-    if (b.numel() < _TABLE_MIN and computed < 4 * _TABLE_MIN
-            and tag not in _TABLES):
-        _COMPUTED[tag] = computed + b.numel()
+    if dev.type != "cpu" or (b.numel() < _TABLE_MIN
+                             and computed < 4 * _TABLE_MIN
+                             and tag not in _TABLES):
+        if dev.type == "cpu":
+            _COMPUTED[tag] = computed + b.numel()
         out = _in_chunks(b.numel(), dev, torch.float32,
                          lambda s, e: _normal_values(b[s:e], lower, upper))
     else:
@@ -384,17 +501,37 @@ def _normal_draw(key, shape, lower, upper, device) -> torch.Tensor:
     return out.reshape(_shape(shape))
 
 
+def normal_erf_inv_plain(key, shape=(), device=None) -> torch.Tensor:
+    return _normal_draw(key, shape, None, None, device)
+
+
 def normal_erf_inv(key, shape=(), device=None) -> torch.Tensor:
     """``erf_inv(u)`` of ``normal``'s draw: ``normal`` is this times
     float32 sqrt(2). XLA folds that factor into a later scalar product, so
     a caller that mirrors such code needs this value."""
-    return _normal_draw(key, shape, None, None, device)
+    dev = _device(device)
+    if dev.type == "cuda":
+        return _k5("normal_erf_inv", dev, shape, key,
+                   **_normal_params(None, None))
+    return normal_erf_inv_plain(key, shape, dev)
+
+
+def normal_plain(key, shape=(), device=None) -> torch.Tensor:
+    return normal_erf_inv_plain(key, shape, device) * SQRT2
 
 
 def normal(key, shape=(), device=None) -> torch.Tensor:
     """``jax.random.normal`` (float32) on ``device``: sqrt(2) erf_inv(u),
     u uniform on (nextafter(-1, 0), 1)."""
-    return normal_erf_inv(key, shape, device) * SQRT2
+    dev = _device(device)
+    if dev.type == "cuda":
+        return _k5("normal", dev, shape, key, **_normal_params(None, None))
+    return normal_plain(key, shape, dev)
+
+
+def truncated_normal_plain(key, lower: float, upper: float, shape=(),
+                           device=None) -> torch.Tensor:
+    return _normal_draw(key, shape, float(lower), float(upper), device)
 
 
 def truncated_normal(key, lower: float, upper: float, shape=(),
@@ -402,12 +539,48 @@ def truncated_normal(key, lower: float, upper: float, shape=(),
     """``jax.random.truncated_normal`` (float32, scalar bounds) on
     ``device``: sqrt(2) erf_inv(u), u uniform on (erf(lower / sqrt(2)),
     erf(upper / sqrt(2))), clipped into (lower, upper)."""
-    return _normal_draw(key, shape, float(lower), float(upper), device)
+    dev = _device(device)
+    if dev.type == "cuda":
+        return _k5("truncated_normal", dev, shape, key,
+                   **_normal_params(float(lower), float(upper)))
+    return truncated_normal_plain(key, lower, upper, shape, dev)
+
+
+def _normal_params(lower: float | None, upper: float | None) -> dict:
+    """K5's scalars for a normal sampler: the uniform's range, the clip."""
+    if lower is None:
+        lo, span = _uniform_range(_NORMAL_LO, 1.0)
+        return {"lo": lo, "span": span}
+    (lo, hi), clip = _truncated_range(lower, upper)
+    lo, span = _uniform_range(lo, hi)
+    return {"lo": lo, "span": span, "clip": clip}
+
+
+def normal_from_words(words: torch.Tensor, lower: float | None = None,
+                      upper: float | None = None) -> torch.Tensor:
+    """``normal``'s values (no bounds) or ``truncated_normal``'s of the
+    random words ``words`` (int32), on their device: one K5 launch on the
+    card, the plain version on the CPU. A check feeds every mantissa
+    through both."""
+    if words.device.type == "cuda":
+        kind = "normal" if lower is None else "truncated_normal"
+        return _k5(kind, words.device, words=words,
+                   **_normal_params(lower, upper))
+    v = _normal_values(words, lower, upper)
+    return v * SQRT2 if lower is None else v
+
+
+def bernoulli_plain(key, p: float = 0.5, shape=(),
+                    device=None) -> torch.Tensor:
+    return uniform_plain(key, shape, device=device) < _f32(p)
 
 
 def bernoulli(key, p: float = 0.5, shape=(), device=None) -> torch.Tensor:
     """``jax.random.bernoulli`` (mode ``low``): uniform < p, as bool."""
-    return uniform(key, shape, device=device) < _f32(p)
+    dev = _device(device)
+    if dev.type == "cuda":
+        return _k5("bernoulli", dev, shape, key, p=_f32(p))
+    return bernoulli_plain(key, p, shape, dev)
 
 
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -422,38 +595,76 @@ def _rem(a, span: int):
     return a % span if span else a
 
 
-def randint(key, shape=(), minval: int = 0, maxval: int = 1,
-            device=None) -> torch.Tensor:
-    """``jax.random.randint`` (int32, scalar bounds) as an int64 tensor on
-    ``device``: two words per value from ``split(key)``, reduced modulo
-    the span as JAX does (in uint32 arithmetic)."""
+def _randint_range(minval: int, maxval: int) -> tuple[int, int, int]:
+    """``(minval, span, mult)`` of ``randint``, in uint32 arithmetic as JAX
+    reduces two words modulo the span (``minval`` clamped to int32)."""
     lo32, hi32 = -2 ** 31, 2 ** 31 - 1
     out_of_range = maxval > hi32
     minval = min(max(int(minval), lo32), hi32)
     maxval = min(max(int(maxval), lo32), hi32)
-    k1, k2 = split(key)
-    higher, lower = bits(k1, shape, device), bits(k2, shape, device)
     span = (maxval - minval) & M32
     if maxval <= minval:
         span = 1
     if out_of_range and maxval > minval:
         span = (span + 1) & M32
-    mult = _rem(_rem(2 ** 16, span) ** 2 & M32, span)
+    return minval, span, _rem(_rem(2 ** 16, span) ** 2 & M32, span)
+
+
+def randint_plain(key, shape=(), minval: int = 0, maxval: int = 1,
+                  device=None) -> torch.Tensor:
+    minval, span, mult = _randint_range(minval, maxval)
+    k1, k2 = split(key)
+    higher, lower = bits_plain(k1, shape, device), bits_plain(k2, shape, device)
     off = (_mul32(_rem(higher, span), mult) + _rem(lower, span)) & M32
     off = _rem(off, span)
     v = (minval + off) & M32
-    return torch.where(v > hi32, v - 2 ** 32, v)
+    return torch.where(v > 2 ** 31 - 1, v - 2 ** 32, v)
 
 
-def permutation(key, n: int, device=None) -> torch.Tensor:
-    """``jax.random.permutation(key, n)``: ``ceil(3 ln n / ln(2**32 - 1))``
-    rounds of a stable sort of the values by fresh 32-bit words."""
+def randint(key, shape=(), minval: int = 0, maxval: int = 1,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint`` (int32, scalar bounds) as an int64 tensor on
+    ``device``: two words per value from ``split(key)``, reduced modulo
+    the span as JAX does (in uint32 arithmetic)."""
+    dev = _device(device)
+    if dev.type == "cuda":
+        lo, span, mult = _randint_range(minval, maxval)
+        k1, k2 = split(key)
+        return _k5("randint", dev, shape, k1, key2=k2, span_u=span,
+                   mult=mult, minval=lo)
+    return randint_plain(key, shape, minval, maxval, dev)
+
+
+def _permutation(key, n: int, device, words) -> torch.Tensor:
     rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
     x = torch.arange(n, dtype=torch.int64, device=device)
     for _ in range(rounds):
         key, sub = split(key)
         # the sign bit flipped, signed order is the words' unsigned order
-        words = _bits32(sub, (n,), device) ^ -2 ** 31
-        order = torch.sort(words, stable=True).indices
+        order = torch.sort(words(sub) ^ -2 ** 31, stable=True).indices
         x = x[order]
     return x
+
+
+def permutation_plain(key, n: int, device=None) -> torch.Tensor:
+    return _permutation(key, n, device,
+                        lambda sub: _bits32(sub, (n,), device))
+
+
+def permutation(key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``ceil(3 ln n / ln(2**32 - 1))``
+    rounds of a stable sort of the values by fresh 32-bit words (on the
+    card, each round's words from one K5 launch)."""
+    dev = _device(device)
+    if dev.type == "cuda":
+        return _permutation(key, n, dev,
+                            lambda sub: _k5("bits32", dev, (n,), sub))
+    return permutation_plain(key, n, dev)
+
+
+# The plain version of each sampler, on any device (K5's twin on the card)
+PLAIN = {"bits": bits_plain, "uniform": uniform_plain,
+         "normal": normal_plain, "normal_erf_inv": normal_erf_inv_plain,
+         "truncated_normal": truncated_normal_plain,
+         "bernoulli": bernoulli_plain, "randint": randint_plain,
+         "permutation": permutation_plain}

@@ -240,27 +240,39 @@ def _with_params(model, state):
     return model
 
 
+def classifier_pool(hr, labels, seed=0):
+    """``train_classifier``'s pool of 2048 96x96 crops from ``hr`` (crop
+    seed ``seed + 100``), half of it through a downscale -> upscale cycle so
+    the trained classifier is robust on SR-reconstructed surfaces (the
+    serving domain): (crops, labels) on the images' device."""
+    pool_x, pool_y, _ = make_crop_pool(seed + 100, hr, labels, 2048, PATCH)
+    half = pool_x.shape[0] // 2
+    cycled = resize(resize(pool_x[:half], (PATCH // 4, PATCH // 4), "area"),
+                    (PATCH, PATCH), "bicubic")
+    return torch.cat([cycled.clamp(0.0, 1.0), pool_x[half:]]), pool_y
+
+
+def classifier_batch(pool_x, pool_y, step: int, batch: int = 64, seed=0):
+    """Step ``step``'s batch of ``train_classifier``: rows
+    ``randint(fold_in(PRNGKey(seed), step))`` of the pool."""
+    idx = prng.randint(prng.fold_in(prng.PRNGKey(seed), step), (batch,), 0,
+                       pool_x.shape[0], pool_x.device)
+    return pool_x[idx], pool_y[idx]
+
+
 @_deterministic_cudnn()
 def train_classifier(hr, labels, steps=500, batch=64, seed=0, verbose=False):
     """Brief training of the full-size VGG16Classifier on 96x96 crops from a
     pool on the images' device. Returns (model, final train-batch accuracy)."""
     dev = hr.device
-    pool_x, pool_y, _ = make_crop_pool(seed + 100, hr, labels, 2048, PATCH)
-    # augment half the pool with a downscale->upscale cycle so the trained
-    # classifier is robust on SR-reconstructed surfaces (the serving domain)
-    half = pool_x.shape[0] // 2
-    cycled = resize(resize(pool_x[:half], (PATCH // 4, PATCH // 4), "area"),
-                    (PATCH, PATCH), "bicubic")
-    pool_x = torch.cat([cycled.clamp(0.0, 1.0), pool_x[half:]])
+    pool_x, pool_y = classifier_pool(hr, labels, seed)
     model = VGG16Classifier(num_classes=2, device=dev, key=INIT_SEED)
     trainer = ClassifierTrainer(model, learning_rate=2e-4, device=dev)
     state = trainer.init_state()
-    key = prng.PRNGKey(seed)
     acc = None
     for step in range(steps):
-        idx = prng.randint(prng.fold_in(key, step), (batch,), 0,
-                           pool_x.shape[0], dev)
-        state, m = trainer.train_step(state, pool_x[idx], pool_y[idx], step)
+        state, m = trainer.train_step(
+            state, *classifier_batch(pool_x, pool_y, step, batch, seed), step)
         if verbose and (step + 1) % 100 == 0:
             print(f"  clf step {step + 1}: loss={float(m['loss']):.4f} "
                   f"acc={float(m['accuracy']):.3f}", flush=True)
