@@ -257,7 +257,21 @@ its own lines:
    kernel's truncated normal and a batch's ``randint`` beside the plain
    version's and ``torch.randn``'s (another function, a yardstick only),
    and its bound from the instructions of the normal sampler's loop in
-   SASS, by pipe and by issue.
+   SASS, by pipe and by issue;
+27. the JAX package's Orbax checkpoints (``OrbaxSlice``, ``train/zstd.py``,
+   ``ocdbt.py``, ``zarr.py``, ``orbax.py``, ``checkpoint.py``,
+   ``bridge.py``): the committed JAX-written fixtures (``tests/data/orbax``:
+   SRCNN, EDSR x2, VGG16 with a frozen base, an ESRGAN ``GANState``, two
+   JAX steps each) restored onto the card, each network's output on the
+   fixture's input within ``SR_ATOL`` (VGG16 ``TRUNK_F32_ATOL``) of JAX's
+   stored one; EDSR x4 and VGG16 after training steps (every moment not
+   zero), ESRGAN g32x23 with its discriminator and SRCNN saved by the port's
+   writer and restored, every tensor torch.equal; the shipped mode served
+   on the restored EDSR and VGG16 (K1, K2, K3 held to their twins);
+   ``python -m tpusr_torch.cli pipeline --edsr-ckpt <dir> --vgg16-ckpt
+   <dir>`` and ``train-edsr --resume <dir> --epochs 1`` (Adam's count goes
+   on); each save and restore time and the zstd decode rate on the card and
+   on the host's CPU.
 
 Every path that draws on the card counts K5's launches (``prng`` in the
 launch counts): the gate's surfaces, crop pools, batches and dropout masks,
@@ -278,10 +292,11 @@ dense one), then ``tpusr_torch.entry.dryrun_multichip(N)``.
 
 Phase 8 also prints which stage of the fused f32 SR first differs between
 an image alone (N = 1) and the same image in the batch of 16, each stage
-run on shared inputs (``sr_stage_diffs``). Each path (8-25) is driven with
+run on shared inputs (``sr_stage_diffs``). Each path (8-25, 27) is driven with
 the launch counts set to 0 just before it and read just after (23: each
 of its main-path runs, summed; 24: each ``preprocess`` run (K5 alone)
-and the training run; 25: its three ``classic`` runs, summed). Before the last line it prints one JSON object with a
+and the training run; 25: its three ``classic`` runs, summed; 27: the
+fixtures' forwards and the served batch, summed). Before the last line it prints one JSON object with a
 record per kernel (times: K1, K2 and K3 for one served batch of 16 on the
 path without the guard fallback, K2-bf16 the same on the bf16 path, the
 dequant conv for one int8-SR batch, K4 one launch at 128^2, as a call
@@ -295,7 +310,7 @@ every path's launches by name; K2's record carries an ``inference`` object,
 its ms, bound and ``F.conv2d`` ms summed over each SR path's launches, and
 a ``poly`` object, phase 21's launches, forward ms beside the fused path's
 and K2's sums at its shapes; ``launches_by_path`` also has ``eda``,
-``poly``, ``h5``, ``preprocess`` and ``formats``) and the
+``poly``, ``h5``, ``orbax``, ``preprocess`` and ``formats``) and the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
@@ -4741,8 +4756,7 @@ def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
                 check({"eval", "history", "epoch_time_sec", "memory",
                        "timestamp"} <= set(meta), f"{name}: meta {sorted(meta)}")
                 (sizes,) = sp.sizes
-                leaves = torch.load(path, map_location="cpu",
-                                    weights_only=True)
+                leaves = checkpoint_leaves(path)
                 assert_all_finite(leaves, name)
                 hist = meta["history"]
                 epochs = len(hist.get("loss") or hist["g_loss"])
@@ -6200,13 +6214,21 @@ def backbone_arrays(backbone) -> dict:
     return out
 
 
+def checkpoint_leaves(path: str) -> dict:
+    """An Orbax checkpoint's leaves (``train/orbax.py``) by key path, its
+    zstd decoded on the card."""
+    from tpusr_torch.train import orbax
+    return {tuple(k for k, _t in keys): v
+            for keys, v in orbax._flatten(orbax.read(path, device="cuda"))}
+
+
 def checkpoint_leaves_equal(a: str, b: str) -> tuple[bool, int]:
-    """(every leaf of two checkpoints equal, the leaves compared)."""
-    la = torch.load(a, map_location="cpu", weights_only=True)
-    lb = torch.load(b, map_location="cpu", weights_only=True)
+    """(every leaf of two checkpoints equal, dtypes too; the leaves
+    compared)."""
+    la, lb = checkpoint_leaves(a), checkpoint_leaves(b)
     same = la.keys() == lb.keys() and all(
-        torch.equal(la[k], lb[k]) if isinstance(la[k], torch.Tensor)
-        else la[k] == lb[k] for k in la)
+        la[k].dtype == lb[k].dtype and np.array_equal(la[k], lb[k])
+        for k in la)
     return same, len(la)
 
 
@@ -6595,6 +6617,424 @@ def phase_h5(s: H5Slice, cfg: Slice, dev, seed: int, sync, card: str) -> dict:
     check(all(total[k] > 0 for k in ("conv3x3_int8_requant",
                                      "conv3x3_bias_act", "block1_int8")),
           f"phase_h5: K1, K2 and K3 must each launch: {total}")
+    return {"launches": total, "ms": ms}
+
+
+# -------------------------------------------------------------------- orbax
+
+ORBAX_FIXTURES = os.path.join(REPO, "tests", "data", "orbax")
+FIXTURE_NAMES = ("srcnn", "edsr_x2", "vgg16", "esrgan_x2")
+
+
+@dataclass(frozen=True)
+class OrbaxSlice:
+    """``phase_orbax``'s sizes: the committed JAX-written fixtures
+    (``tests/data/orbax``) restored on the card; every facade at full width
+    (EDSR x4 16x64 and VGG16 with its 256-unit head, each after
+    ``steps`` training steps with all its layers training, so that Adam's
+    moments are not zero; ESRGAN g32x23 x4 with the discriminator at 96^2;
+    SRCNN 96/32) through the port's Orbax writer and reader."""
+    steps: int = 3
+    batch: int = 8
+    patch: int = 96              # VGG16's input, SRCNN's
+    edsr_lr: int = 48            # EDSR x4 training patches: LR 48^2
+    growth: int = 32
+    rrdb: int = 23
+    disc_hw: int = 96
+
+
+def fixture_state(name: str, arch: dict, dev):
+    """(the port's initial state for a fixture's architecture, forward of
+    a state on x) on ``dev``, as ``tests/test_torch_orbax.py`` builds
+    them."""
+    from torch.func import functional_call
+
+    from tpusr_torch.models import EDSR, SRCNN, VGG16Classifier
+    from tpusr_torch.models.esrgan import ESRGANDiscriminator, ESRGANGenerator
+    from tpusr_torch.models.vgg import VGG19Features
+    from tpusr_torch.train import (ClassifierTrainer, ESRGANTrainer,
+                                   SupervisedSRTrainer)
+
+    if name == "esrgan_x2":
+        g = ESRGANGenerator(scale_factor=arch["scale_factor"],
+                            growth_channels=arch["growth_channels"],
+                            num_rrdb_blocks=arch["num_rrdb_blocks"],
+                            base_filters=arch["base_filters"], device=dev)
+        d = ESRGANDiscriminator(device=dev)
+        tr = ESRGANTrainer(g, d, VGG19Features(
+            widths=tuple(arch["vgg19_widths"]), device=dev), device=dev)
+        return tr.init_state(), lambda st, x: functional_call(
+            g, st.g_params, (x,))
+    if name == "srcnn":
+        m = SRCNN(f1=arch["f1"], f2=arch["f2"], device=dev)
+        tr = SupervisedSRTrainer(m, 1e-3, device=dev)
+    elif name == "edsr_x2":
+        m = EDSR(scale_factor=arch["scale_factor"], channels=arch["channels"],
+                 num_res_blocks=arch["num_res_blocks"],
+                 num_filters=arch["num_filters"],
+                 res_scaling=arch["res_scaling"], device=dev)
+        tr = SupervisedSRTrainer(m, 1e-3, clipnorm=1.0, device=dev)
+    else:
+        m = VGG16Classifier(num_classes=arch["num_classes"],
+                            dense_units=arch["dense_units"],
+                            widths=tuple(arch["widths"]),
+                            dropout_rate=arch["dropout_rate"], device=dev)
+        tr = ClassifierTrainer(m, 1e-3, device=dev,
+                               trainable_predicate=lambda p: p[0] != "vgg16")
+    return tr.init_state(), lambda st, x: functional_call(m, st.params, (x,))
+
+
+def state_tensors(state) -> dict:
+    """Every leaf of a trainer state by path (``checkpoint._flatten``)."""
+    from tpusr_torch.train.checkpoint import _flatten
+    return _flatten(state)
+
+
+def states_equal(a, b) -> tuple[bool, int]:
+    """(every leaf of two trainer states equal: tensors torch.equal on
+    the same device and dtype, numbers ==; the leaves compared)."""
+    la, lb = state_tensors(a), state_tensors(b)
+    same = la.keys() == lb.keys()
+    for k in la if same else ():
+        x, y = la[k], lb[k]
+        if isinstance(x, torch.Tensor):
+            same &= (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                     and x.device == y.device and torch.equal(x, y))
+        else:
+            same &= x == y
+    return bool(same), len(la)
+
+
+def rle_raw_frame_bytes(data: bytes) -> int:
+    """The size of a zstd frame of ``data`` in RLE and raw blocks alone
+    (``train/zstd.py``'s frame header; each 128 KiB block a 3-byte header
+    and one byte if it is one value, else the block)."""
+    n = len(data)
+    size = 5 + (1 if n < 256 else 2 if n < 65792 else 4 if n < 1 << 32 else 8)
+    for i in range(0, max(n, 1), 1 << 17):
+        b = np.frombuffer(data[i:i + (1 << 17)], np.uint8)
+        size += 3 + (1 if len(b) and (b == b[0]).all() else len(b))
+    return size
+
+
+def phase_orbax(s: OrbaxSlice, cfg: Slice, dev, seed: int, sync,
+                card: str) -> dict:
+    """The JAX package's Orbax checkpoints in the port (``train/zstd.py``,
+    ``ocdbt.py``, ``zarr.py``, ``orbax.py``, ``checkpoint.py``, ``bridge``):
+    (a) the committed JAX-written fixtures restored onto the card, each
+    network's output on the fixture's input against JAX's stored one; (b)
+    each facade's state at full width saved by the port's writer and
+    restored, every tensor torch.equal (the VGG16 and EDSR states after
+    training steps, their moments not zero); (c) the shipped mode served
+    on the restored EDSR and VGG16 against the source's (K1, K2, K3 each
+    held to its twin); (d) ``python -m tpusr_torch.cli pipeline`` and
+    ``train-edsr --resume`` on the written directories; (e) every save and
+    restore time and the zstd decode rate. Each main-path run is driven
+    with the launch counts set to 0 just before it and read just after,
+    summed under ``orbax``. Returns those launches."""
+    import shutil
+    import tempfile
+
+    from tpusr_torch.core.patches import patchify
+    from tpusr_torch.models.api import (EDSR as EDSRFacade, ESRGAN,
+                                        FineTunedVGG16, SRCNNModel)
+    from tpusr_torch.models.edsr_fast import make_fused_sr_apply
+    from tpusr_torch.models.layers import pixel_shuffle
+    from tpusr_torch.pipeline import make_serving_pipeline
+    from tpusr_torch.train import ocdbt, restore_checkpoint, zstd
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in read_counts()}
+
+    def main_path(fn):
+        reset_counts()
+        out = fn()
+        sync()
+        for k, v in read_counts().items():
+            total[k] += v
+        return out
+
+    def host(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def dir_bytes(path: str) -> int:
+        return sum(os.path.getsize(os.path.join(r, f))
+                   for r, _d, fs in os.walk(path) for f in fs)
+
+    # ---- (a) the committed fixtures, written by JAX ----
+    io = np.load(os.path.join(ORBAX_FIXTURES, "outputs.npz"))
+    lines = []
+    for name in FIXTURE_NAMES:
+        with open(os.path.join(ORBAX_FIXTURES, f"{name}.meta.json")) as f:
+            arch = json.load(f)["arch"]
+        template, fwd = fixture_state(name, arch, dev)
+        st, r_ms = host(lambda: restore_checkpoint(ORBAX_FIXTURES, name,
+                                                   template))
+        check(all(v.device.type == "cuda" for v in state_tensors(st).values()
+                  if isinstance(v, torch.Tensor)),
+              f"orbax {name}: a restored tensor is not on the card")
+        x = torch.as_tensor(io[f"{name}_x"], device=dev)
+        with torch.inference_mode():
+            y = main_path(lambda: fwd(st, x))
+        err = float((y.cpu() - torch.as_tensor(io[f"{name}_y"])).abs().max())
+        tol = TRUNK_F32_ATOL if name == "vgg16" else SR_ATOL
+        check(err <= tol, f"orbax {name}: the restored network's output is "
+                          f"{err} from JAX's (tolerance {tol})")
+        lines.append(f"{name} {tuple(y.shape)} max|err| {err:.3g} (restore "
+                     f"{r_ms:.1f} ms)")
+    print(f"[orbax] the committed JAX-written checkpoints (tests/data/orbax, "
+          f"two JAX steps each, Adam's moments not zero) restored onto the "
+          f"card, each network on the fixture's input against JAX's stored "
+          f"output (SR_ATOL {SR_ATOL}, VGG16 TRUNK_F32_ATOL "
+          f"{TRUNK_F32_ATOL}): " + "; ".join(lines))
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_orbax_")
+    rng = np.random.default_rng(seed + 24)
+    times = []                  # (tag, MB on disk, save ms, restore ms)
+    try:
+        # ---- (b) full width: train a few steps, save, restore ----
+        def round_trip(tag, facade, name, template, state):
+            path, w_ms = host(lambda: facade.save(work, name))
+            back, r_ms = host(lambda: restore_checkpoint(
+                work, os.path.basename(path), template))
+            same, n = states_equal(back, state)
+            check(same, f"orbax {tag}: the restored state differs from the "
+                        f"saved one")
+            times.append((tag, dir_bytes(path) / 1e6, w_ms, r_ms))
+            return path, back, n
+
+        src = EDSRFacade(device=dev)
+        src.setup_model(scale_factor=cfg.scale, num_res_blocks=cfg.blocks,
+                        num_filters=cfg.filters)
+        for _ in range(s.steps):
+            x = torch.as_tensor(rng.random((s.batch, s.edsr_lr, s.edsr_lr, 3),
+                                           dtype=np.float32), device=dev)
+            y = torch.as_tensor(rng.random(
+                (s.batch, s.edsr_lr * cfg.scale, s.edsr_lr * cfg.scale, 3),
+                dtype=np.float32), device=dev)
+            src.state, _ = src.trainer.train_step(src.state, x, y)
+        src.trained = True
+        check(all(bool(v.any()) for v in src.state.opt_state["mu"].values()),
+              "orbax EDSR: a moment is zero after training")
+        edsr_path, edsr_back, n_edsr = round_trip(
+            f"EDSR x{cfg.scale} {cfg.blocks}x{cfg.filters} TrainState",
+            src, "edsr", src.trainer.init_state(), src.state)
+
+        vsrc = FineTunedVGG16(device=dev)
+        vsrc.setup_model(input_shape=(s.patch, s.patch, 3),
+                         base_trainable=True, train_last_n_layers=0)
+        for step in range(s.steps):
+            x = torch.as_tensor(rng.random((s.batch, s.patch, s.patch, 3),
+                                           dtype=np.float32), device=dev)
+            y = torch.as_tensor(rng.integers(0, 2, s.batch, dtype=np.int32),
+                                device=dev)
+            vsrc.state, _ = vsrc.trainer.train_step(vsrc.state, x, y, step)
+        vsrc.trained = True
+        check(len(vsrc.state.opt_state["mu"]) == len(vsrc.state.params)
+              and all(bool(v.any()) for v in vsrc.state.opt_state["nu"]
+                      .values()),
+              "orbax VGG16: not every parameter has moments that are not "
+              "zero")
+        vgg_path, vgg_back, n_vgg = round_trip(
+            "VGG16 TrainState (every layer training)", vsrc, "vgg16",
+            vsrc.trainer.init_state(), vsrc.state)
+
+        gsrc = ESRGAN(device=dev)
+        gkw = dict(scale_factor=4, growth_channels=s.growth,
+                   num_rrdb_blocks=s.rrdb,
+                   input_shape=(s.disc_hw // 4, s.disc_hw // 4, 3),
+                   output_shape=(s.disc_hw, s.disc_hw, 3))
+        gsrc.setup_model(**gkw)
+        gsrc.trained = True
+        _, _, n_gan = round_trip(
+            f"ESRGAN g{s.growth}x{s.rrdb} x4 GANState", gsrc, "esrgan",
+            gsrc.trainer.init_state(), gsrc.state)
+        del gsrc
+        ssrc = SRCNNModel(device=dev)
+        ssrc.setup_model()
+        ssrc._trained = True
+        _, _, n_srcnn = round_trip("SRCNN 96/32 TrainState", ssrc, "srcnn",
+                                   ssrc.trainer.init_state(), ssrc.state)
+        print(f"[orbax] at full width, saved by the port's writer and "
+              f"restored: EDSR x{cfg.scale} after {s.steps} steps ({n_edsr} "
+              f"leaves), VGG16 after {s.steps} steps with every layer "
+              f"training ({n_vgg}), ESRGAN g{s.growth}x{s.rrdb} with its "
+              f"discriminator ({n_gan}), SRCNN ({n_srcnn}): every tensor "
+              f"torch.equal on the card, counts and rates equal")
+
+        # ---- the zstd decode rate: every chunk of the VGG16 directory ----
+        items = ocdbt.read(vgg_path)
+        frames = [v for k, v in items.items()
+                  if not k.endswith(".zarray") and len(v) > 4
+                  and v[:4] == b"\x28\xb5\x2f\xfd"]
+        chunks = []
+
+        def decode_all():
+            chunks[:] = [zstd.decompress(f, device=dev) for f in frames]
+        _, d_ms = host(decode_all)
+        in_mb = sum(len(f) for f in frames) / 1e6
+        out_bytes = sum(map(len, chunks))
+        # the encoder's Huffman literals against RLE and raw blocks alone,
+        # on the VGG16 chunks' first 32 MB
+        enc = []
+        for c_ in chunks:
+            if sum(map(len, enc)) < 32e6:
+                enc.append(c_)
+        huf, e_ms = host(lambda: sum(len(zstd.compress(c_)) for c_ in enc))
+        plain = sum(rle_raw_frame_bytes(c_) for c_ in enc)
+        enc_mb = sum(map(len, enc)) / 1e6
+        e_frames = []            # the host's CPU: the EDSR's first 4 MB
+        for k, v in sorted(ocdbt.read(edsr_path).items()):
+            if not k.endswith(".zarray") and sum(map(len, e_frames)) < 4e6:
+                e_frames.append(v)
+        _, c_ms = host(lambda: [zstd.decompress(f, device="cpu")
+                                for f in e_frames])
+        c_mb = sum(len(f) for f in e_frames) / 1e6
+
+        # ---- (c) the shipped mode on the restored EDSR and VGG16 ----
+        from tpusr_torch.models.api import module_with_params
+        edsr_src = src.network()
+        edsr_dst = module_with_params(src.module, edsr_back.params)
+        vgg_src = vsrc.network()
+        vgg_dst = module_with_params(vsrc.module, vgg_back.params)
+        gain = rng.uniform(0.05, 1.0, (cfg.batch + 4, 1, 1, 1)).astype(
+            np.float32)
+        imgs = torch.as_tensor(rng.random((cfg.batch + 4, cfg.lr, cfg.lr, 3),
+                                          dtype=np.float32) * gain, device=dev)
+        batch, calib_lr = imgs[:cfg.batch], imgs[cfg.batch:]
+        fn, r = make_fused_sr_apply(edsr_src)
+        with torch.inference_mode():
+            calib = patchify(pixel_shuffle(fn(calib_lr), r), cfg.patch,
+                             cfg.stride)
+            calib = calib.reshape((-1,) + calib.shape[2:])[:64]
+
+        def build(edsr, vgg):
+            return make_serving_pipeline(
+                edsr, vgg, (cfg.lr, cfg.lr), cfg.scale, patch=cfg.patch,
+                stride=cfg.stride, sr_mode="f32", clf_mode="cascade_int8",
+                calib_patches=calib, cascade_escalate_frac=cfg.frac,
+                cascade_escalate_score="vote_frac",
+                cascade_guard_threshold=cfg.guard, device=dev)
+
+        p_src, p_dst = build(edsr_src, vgg_src), build(edsr_dst, vgg_dst)
+        with torch.inference_mode():
+            sr_a, cls_a, conf_a = p_src(batch, n_valid=cfg.batch)
+            before = dict(total)
+            sr_b, cls_b, conf_b = main_path(lambda: p_dst(batch,
+                                                          n_valid=cfg.batch))
+            served = {k: total[k] - before[k] for k in total}
+            with k2_against_twin() as k2c:
+                edsr_dst(batch[:2])
+            sr_err = float((sr_b[:2] - plain_edsr(edsr_dst, batch[:2]))
+                           .abs().max())
+            srq = p_dst.pre_quant(sr_b)
+            with on_plain_twins():
+                cls_p, conf_p = p_dst.cascade_votes(srq, cfg.batch)
+        check(torch.equal(sr_a, sr_b) and torch.equal(cls_a, cls_b)
+              and torch.equal(conf_a, conf_b),
+              "orbax: the shipped mode on the restored weights differs from "
+              "the source's")
+        check(len(k2c.rows) == 2 * cfg.blocks + 5 and all(r[4] for r in
+                                                          k2c.rows),
+              f"orbax EDSR: K2 beyond its bound against the twin at "
+              f"{[r[0] for r in k2c.rows if not r[4]]}")
+        check(sr_err <= SR_ATOL, f"orbax: shipped mode SR vs plain chained "
+                                 f"EDSR: {sr_err}")
+        check(torch.equal(cls_p, cls_b) and torch.equal(conf_p, conf_b),
+              "orbax: the restored cascade on K1's and K3's twins differs")
+        check(all(served[k] > 0 for k in ("conv3x3_int8_requant",
+                                           "conv3x3_bias_act", "block1_int8")),
+              f"orbax: the shipped mode launched {served}")
+        print(f"[orbax] the shipped mode (f32 SR -> cascade_int8 vote_frac "
+              f"{cfg.frac}, guard {cfg.guard}) on the restored EDSR and "
+              f"VGG16, one batch of {cfg.batch}: classes {cls_b.tolist()} and "
+              f"confidences torch.equal to the source weights'; launches "
+              f"{served}; the restored EDSR's {len(k2c.rows)} K2 launches "
+              f"within their bound of the twin; SR vs plain chained EDSR "
+              f"max|err| {sr_err:.3g}; the cascade on K1's and K3's twins "
+              f"equal")
+        # ---- (d) the commands on the written directories ----
+        # pipeline's facade trains VGG16's head alone: the restored weights
+        # in such a state, whose frozen moments are zero
+        frozen = FineTunedVGG16(device=dev)
+        frozen.setup_model(input_shape=(s.patch, s.patch, 3))
+        with torch.no_grad():
+            for k, v in frozen.state.params.items():
+                v.copy_(vgg_back.params[k])
+        frozen.trained = True
+        v_path = frozen.save(work, "vgg16_frozen")
+        del p_src, p_dst, srq, edsr_src, vgg_src, vgg_dst, edsr_back
+        del vgg_back, vsrc, frozen
+        torch.cuda.empty_cache()
+        c = CommandsSlice()
+        data = os.path.join(work, "data")
+        write_reference_dataset(data, c, seed + c.train_seed, dev, maps=True)
+        cmds = {
+            "pipeline": ["pipeline", "--lr-dir", os.path.join(data, "LR"),
+                         "--hr-dir", os.path.join(data, "HR"), "--class-map",
+                         os.path.join(data, "class_map.pkl"), "--out",
+                         os.path.join(work, "pipe"), "--batch-size", "4",
+                         "--classic-methods", "bicubic", "--edsr-ckpt",
+                         edsr_path, "--vgg16-ckpt", v_path],
+            "train-edsr": ["train-edsr", "--hr-dir", os.path.join(data, "HR"),
+                           "--lr-dir", os.path.join(data, "LR"), "--scale",
+                           str(cfg.scale), "--epochs", "1", "--out",
+                           os.path.join(work, "resumed"), "--resume",
+                           edsr_path]}
+        run_lines = []
+        for cmd, argv in cmds.items():
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "tpusr_torch.cli",
+                                  *argv], cwd=REPO, capture_output=True,
+                                 text=True, timeout=600)
+            run_s = time.perf_counter() - t0
+            check(out.returncode == 0, f"`python -m tpusr_torch.cli {cmd}` "
+                                       f"on the Orbax directories: "
+                                       f"{out.stderr[-600:]}")
+            run_lines.append(f"{cmd} {run_s:.1f} s")
+        with open(os.path.join(work, "pipe", "pipeline_results.json")) as f:
+            res = json.load(f)
+        check(list(res) == ["bicubic", "edsr"] and all(
+            0 <= r["accuracy"] <= 1 and math.isfinite(r["psnr_mean"])
+            for r in res.values()), f"orbax pipeline: {res}")
+        (resumed,) = [d for d in os.listdir(os.path.join(work, "resumed"))
+                      if d.startswith("EDSR_") and "." not in d]
+        count = int(checkpoint_leaves(os.path.join(
+            work, "resumed", resumed))[("opt_state", "count")])
+        check(count > s.steps, f"train-edsr --resume: Adam's count {count} "
+                               f"did not go on from {s.steps}")
+        print(f"[orbax] `python -m tpusr_torch.cli pipeline --edsr-ckpt "
+              f"<dir> --vgg16-ckpt <dir>` on {c.images} pairs of {c.size}^2: "
+              f"edsr psnr {res['edsr']['psnr_mean']:.2f} dB, accuracy "
+              f"{res['edsr']['accuracy']:.3f}; `train-edsr --resume <dir> "
+              f"--epochs 1`: Adam's count {s.steps} -> {count}; "
+              + ", ".join(run_lines) + " (subprocesses, host clock)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for tag, mb, w_ms, r_ms in times:
+        print(f"[orbax] {card}: {tag}: {mb:.2f} MB on disk, save "
+              f"{w_ms:.0f} ms, restore {r_ms:.0f} ms (host clock, "
+              f"synchronised; the restore's zstd on the card)")
+    print(f"[orbax] {card}: zstd decode of the VGG16 directory's "
+          f"{len(frames)} frames: {in_mb:.1f} MB -> {out_bytes / 1e6:.1f} MB "
+          f"in {d_ms:.0f} ms on the card ({out_bytes / 1e3 / d_ms:.0f} MB/s "
+          f"decoded); the EDSR directory's {c_mb:.1f} MB on the host's CPU "
+          f"in {c_ms:.0f} ms ({c_mb * 1e3 / c_ms:.1f} MB/s compressed)")
+    print(f"[orbax] {card}: zstd encode of {len(enc)} VGG16 chunks, "
+          f"{enc_mb:.1f} MB: {huf / 1e6:.2f} MB with Huffman literals in "
+          f"{e_ms:.0f} ms on the host ({enc_mb * 1e3 / e_ms:.1f} MB/s); RLE "
+          f"and raw blocks alone {plain / 1e6:.2f} MB "
+          f"({100 * (plain - huf) / plain:.1f}% more)")
+    ms = (time.perf_counter() - t_phase) * 1e3
+    print(f"[orbax] {card}: phase_orbax {ms:.0f} ms; launches under orbax "
+          f"{total}")
+    check(all(total[k] > 0 for k in ("conv3x3_int8_requant",
+                                     "conv3x3_bias_act", "block1_int8")),
+          f"phase_orbax: K1, K2 and K3 must each launch: {total}")
     return {"launches": total, "ms": ms}
 
 
@@ -7649,6 +8089,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         h5 = phase_h5(H5Slice(), cfg, dev, args.seed, sync, card)
         torch.cuda.empty_cache()
+        orbax_res = phase_orbax(OrbaxSlice(), cfg, dev, args.seed, sync, card)
+        torch.cuda.empty_cache()
         pre = phase_preprocess(PreprocessSlice(), dev, args.seed, sync, card)
         torch.cuda.empty_cache()
         fmts = phase_formats(FormatsSlice(), dev, args.seed, sync, card)
@@ -7733,6 +8175,7 @@ def main() -> int:
             "eda": eda["launches"].get(rec["name"], 0),
             "poly": poly["launches"].get(rec["name"], 0),
             "h5": h5["launches"].get(rec["name"], 0),
+            "orbax": orbax_res["launches"].get(rec["name"], 0),
             "preprocess": pre["launches"].get(rec["name"], 0),
             "formats": fmts["launches"].get(rec["name"], 0)}
     print(json.dumps({"kernels": records}))

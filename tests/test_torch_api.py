@@ -3,8 +3,8 @@
 super_resolve / classify -> save -> restore through the ``arch`` sidecar into
 a facade set up with other defaults; each inference method equal to the
 function it wraps called directly; Keras ``.h5`` export and import against
-the JAX package's importers; an Orbax directory refused, naming the JAX
-``convert`` route."""
+the JAX package's importers; a directory that is not an Orbax checkpoint
+refused by name (Orbax checkpoints themselves: ``tests/test_torch_orbax.py``)."""
 
 import numpy as np
 import pytest
@@ -133,8 +133,10 @@ def test_vgg16_facade_lifecycle_and_arch_restore(tmp_path):
 def test_paths_not_ported_yet_raise_naming_their_item(tmp_path):
     """Each facade's ``save_h5`` writes what JAX's importer reads back as
     the facade's weights, and ``from_pretrained`` on that ``.h5`` restores
-    them; an Orbax directory is refused naming the JAX ``convert`` route;
-    a Keras notop ``.h5`` of ImageNet weights loads as JAX's loader does."""
+    them; a directory that is not an Orbax checkpoint is refused by name
+    (the facades' Orbax round trips: ``tests/test_torch_orbax.py``); a
+    Keras notop
+    ``.h5`` of ImageNet weights loads as JAX's loader does."""
     cases = ((SRCNNModel, {}, lambda t, p: jki.import_srcnn(t, p)),
              (EDSR, {"num_res_blocks": 1, "num_filters": 8},
               lambda t, p: jki.import_edsr(t, p, num_res_blocks=1)),
@@ -156,9 +158,9 @@ def test_paths_not_ported_yet_raise_naming_their_item(tmp_path):
         m2 = facade(device="cpu")
         m2.setup_model(from_pretrained=True, pretrained_path=h5, **kw)
         assert _params_equal(m2.state.params, m.state.params)
-        with pytest.raises(NotImplementedError, match="tpusr.cli convert"):
+        with pytest.raises(ValueError, match="not an Orbax checkpoint"):
             m.setup_model(from_pretrained=True, pretrained_path=str(tmp_path),
-                          **kw)       # a directory: an Orbax checkpoint
+                          **kw)       # a directory without _METADATA
     layers = vgg_layers("vgg16", seed=1)
     notop = write_notop_h5(tmp_path / "vgg16_notop.h5", layers)
     m = FineTunedVGG16(device="cpu")

@@ -7,9 +7,9 @@ package's (``tpusr/cli/__main__.py``) on the CPU (``--device cpu``).
   quality metrics at rtol 1e-4, their variances over the pairs within what
   moving each value by that much can change (time and memory are
   measurements of each run, not compared);
-- ``pipeline`` on the same weights (JAX facades' checkpoints carried to the
-  port by ``tpusr_torch/bridge.py``): the same keys and predictions,
-  confidences and PSNR/SSIM within 1e-4;
+- ``pipeline`` on the same weights (the JAX facades' Orbax checkpoints,
+  read by both commands): the same keys and predictions, confidences and
+  PSNR/SSIM within 1e-4;
 - the port's own chain ``train-*`` -> ``pipeline`` on the trained
   checkpoints, ``--resume`` continuing Adam's step count, and the commands
   that exit with a message (no card, ``--vgg19-weights``, ``convert``), and
@@ -36,6 +36,7 @@ import torch
 
 import tpusr.cli.__main__ as jcli
 import tpusr_torch.cli.__main__ as tcli
+from tpusr_torch.train import orbax
 from test_torch_data import RESIZE_ATOL, _write_pairs
 from test_torch_fixtures import NARROW_WIDTHS
 
@@ -322,19 +323,15 @@ def test_classic_summary_equals_jax(data, tmp_path, monkeypatch, capsys):
 # ------------------------------------------------------------- pipeline
 
 @pytest.fixture(scope="module")
-def jax_and_port_checkpoints(tmp_path_factory, data):
+def jax_checkpoints(tmp_path_factory, data):
     """VGG16 (its class-1 bias centred on the bicubic SR so the votes split),
     EDSR x2, SRCNN and ESRGAN x2 (growth 4, 1 RRDB) drawn by the JAX facades
-    and saved by them; the same weights carried to the port by ``bridge``
-    and saved by the port's facades (ESRGAN's generator; its discriminator,
-    which ``pipeline`` does not run, is the port facade's own draw)."""
+    and saved by them, as Orbax directories: the checkpoints both commands
+    read."""
     import tpusr.models.api as japi
-    import tpusr_torch.models.api as tapi
     from test_torch_fixtures import center_classifier_bias
     from tpusr.core.resize import resize as jresize
     from tpusr.models.vgg import VGG16Classifier as JVGG16
-    from tpusr_torch.bridge import (edsr_from_flax, esrgan_generator_from_flax,
-                                    srcnn_from_flax, vgg16_from_flax)
     from tpusr_torch.data.loading import add_padding, load_predictions_dataset
 
     d = tmp_path_factory.mktemp("pipe_ck")
@@ -363,43 +360,21 @@ def jax_and_port_checkpoints(tmp_path_factory, data):
                      "edsr": je.save(str(d / "jax"), "t"),
                      "srcnn": js.save(str(d / "jax"), "t"),
                      "esrgan": jg.save(str(d / "jax"), "t")}
-
-        def port_save(facade, module, **kw):
-            f = facade(device="cpu")
-            f.setup_model(**kw)
-            w = dict(module.named_parameters())
-            with torch.no_grad():
-                for name, p in getattr(f.state, "g_params",
-                                       getattr(f.state, "params", None)).items():
-                    p.copy_(w[name])
-            f.trained = f._trained = True
-            return f.save(str(d / "torch"), "t")
-
-        port_paths = {
-            "vgg16": port_save(tapi.FineTunedVGG16,
-                               vgg16_from_flax(params, device="cpu"),
-                               input_shape=(96, 96, 3), num_classes=2),
-            "edsr": port_save(tapi.EDSR, edsr_from_flax(
-                jax.device_get(je.state.params), 2, device="cpu"),
-                scale_factor=2, num_res_blocks=1, num_filters=8),
-            "srcnn": port_save(tapi.SRCNNModel, srcnn_from_flax(
-                jax.device_get(js.state.params), device="cpu")),
-            "esrgan": port_save(tapi.ESRGAN, esrgan_generator_from_flax(
-                jax.device_get(jg.state.g_params), device="cpu"),
-                scale_factor=2, growth_channels=4, num_rrdb_blocks=1)}
     finally:
         mp.undo()
-    return jax_paths, port_paths
+    return jax_paths
 
 
 def test_pipeline_equals_jax_on_the_same_weights(data, tmp_path, monkeypatch,
                                                  capsys,
-                                                 jax_and_port_checkpoints):
+                                                 jax_checkpoints):
+    """Both commands on the JAX facades' own checkpoints (Orbax
+    directories, the VGG16's frozen moments among them)."""
     import tpusr.pipeline as jpipe
 
     narrow_models(monkeypatch)
     port_figs, jax_figs = record_figures(monkeypatch)
-    jax_paths, port_paths = jax_and_port_checkpoints
+    jax_paths = jax_checkpoints
     jax_results = {}
     jax_run = jpipe.run_defect_detection_comparison
 
@@ -421,7 +396,7 @@ def test_pipeline_equals_jax_on_the_same_weights(data, tmp_path, monkeypatch,
                 paths["esrgan"], "--esrgan-disc-ckpt", paths["esrgan"]]
 
     jcli.main(base + ckpts(jax_paths) + ["--out", str(tmp_path / "j")])
-    port = tcli.main(base + ckpts(port_paths)
+    port = tcli.main(base + ckpts(jax_paths)
                      + ["--out", str(tmp_path / "t"), "--device", "cpu"])
     out = capsys.readouterr().out
     assert "edsr: inference_time_sec" in out
@@ -522,14 +497,13 @@ def test_resume_continues_the_optimizer_step_count(data, tmp_path,
     argv = train_argv("train-edsr", data, tmp_path / "a") + [
         "--device", "cpu", "--checkpoint-every", "1"]
     first = tcli.main(argv)
-    leaves = torch.load(first, weights_only=True)
-    steps = leaves["opt_state/count/"]
+    steps = int(orbax.read(first)["opt_state"]["count"])
     assert steps > 0
     assert os.path.exists(tmp_path / "a" / "epoch_0001")
     second = tcli.main(train_argv("train-edsr", data, tmp_path / "a") + [
         "--device", "cpu", "--checkpoint-every", "1", "--resume",
         str(tmp_path / "a" / "epoch_0001")])
-    assert torch.load(second, weights_only=True)["opt_state/count/"] == 2 * steps
+    assert int(orbax.read(second)["opt_state"]["count"]) == 2 * steps
     # periodic numbering continues from the resumed point's epoch
     assert os.path.exists(tmp_path / "a" / "epoch_0002")
 

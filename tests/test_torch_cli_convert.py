@@ -5,7 +5,9 @@ fixtures where the facade's architecture is theirs (EDSR, the
 discriminator, VGG16) and the port's exports of seeded weights otherwise
 (SRCNN at 96/32, the generator at 64 filters); the last file, read by
 JAX's importers, holds the source's weights bit for bit. ``--disc`` is
-refused on a checkpoint source; ``--model`` and ``--src`` are required."""
+refused on a checkpoint source; ``--model`` and ``--src`` are required. A
+JAX facade's Orbax checkpoint converts to the ``.h5`` that JAX's
+``convert`` writes from it."""
 
 import os
 
@@ -100,3 +102,37 @@ def test_convert_requires_model_and_src(capsys):
         main(["convert", "--model", "srcnn"])  # --src missing
     with pytest.raises(SystemExit):
         main(["convert", "--src", "x.h5"])  # --model missing
+
+
+def _h5_datasets(path) -> dict:
+    import h5py
+    out = {}
+    with h5py.File(path, "r") as f:
+        f.visititems(lambda name, obj: out.__setitem__(name, obj[()])
+                     if isinstance(obj, h5py.Dataset) else None)
+    return out
+
+
+def test_convert_takes_a_jax_orbax_checkpoint(tmp_path):
+    """``convert --src`` a JAX facade's Orbax checkpoint (EDSR x2, its Adam
+    moments not zero) writes the ``.h5`` that JAX's ``convert`` writes from
+    it: every dataset equal."""
+    import tpusr.cli.__main__ as jcli
+    import tpusr.models.api as japi
+
+    je = japi.EDSR()
+    je.setup_model(scale_factor=2, num_res_blocks=1, num_filters=8)
+    x = np.random.default_rng(4).random((2, 8, 8, 3), dtype=np.float32)
+    je.state, _ = je.trainer.train_step(je.state, x, np.repeat(
+        np.repeat(x, 2, axis=1), 2, axis=2))
+    je.trained = True
+    src = je.save(str(tmp_path / "jax"), "t0")
+    argv = ["convert", "--model", "edsr", "--src", src, "--timestamp", "t1"]
+    jcli.main(argv + ["--out", str(tmp_path / "j")])
+    got = main(argv + ["--out", str(tmp_path / "t"), "--device", "cpu"])
+    assert os.path.basename(got) == "EDSR_x2_t1.h5"
+    want = _h5_datasets(tmp_path / "j" / "EDSR_x2_t1.h5")
+    have = _h5_datasets(got)
+    assert sorted(have) == sorted(want) and want
+    for k, w in want.items():
+        assert np.array_equal(have[k], w), k

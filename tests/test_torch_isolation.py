@@ -1,5 +1,7 @@
 """The port stands alone: tpusr_torch and chip_smoke.py import no JAX, no
-flax and nothing of the JAX package, at import time or lazily; nor OpenCV,
+flax and nothing of the JAX package, at import time or lazily; nor Orbax's
+zstandard or tensorstore (the port reads and writes Orbax checkpoints with
+its own codecs); nor OpenCV,
 PIL, matplotlib, pandas or scikit-learn (the port draws its figures with
 its own writer, ``tpusr_torch/viz``), nor h5py, TensorFlow or Keras (the
 port reads and writes Keras files with its own codec), nor PyAV or
@@ -14,7 +16,8 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tpusr"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tpusr",
+             "zstandard", "tensorstore"}  # the port's own zstd and OCDBT
 IMAGE_LIBS = {"cv2", "PIL", "matplotlib", "sklearn",   # absent on the card's
               "pandas", "mpl_toolkits", "av", "imageio"}  # machine
 HDF5_LIBS = {"h5py", "tensorflow", "keras"}            # absent there too
@@ -69,7 +72,9 @@ def test_every_port_module_imports_without_jax():
             "tpusr_torch.data._cv_ops", "tpusr_torch.tools.imagenet_weights",
             "tpusr_torch.models.edsr_fast", "tpusr_torch.core.winograd",
             "tpusr_torch.train.hdf5", "tpusr_torch.train.keras_import",
-            "tpusr_torch.train.keras_export", "tpusr_torch.viz",
+            "tpusr_torch.train.keras_export", "tpusr_torch.train.zstd",
+            "tpusr_torch.train.ocdbt", "tpusr_torch.train.zarr",
+            "tpusr_torch.train.orbax", "tpusr_torch.viz",
             "tpusr_torch.viz.figure", "tpusr_torch.viz.render",
             "tpusr_torch.viz.colormaps", "tpusr_torch.viz.font",
             "tpusr_torch.viz.classic_viz", "tpusr_torch.viz.dl_viz"} <= mods

@@ -208,7 +208,7 @@ def test_async_save_restore_roundtrip(tmp_path):
             "b": torch.ones(4, dtype=torch.int32), "c": [0.5, 3]}
     h = save_checkpoint_async(str(tmp_path), "ck", tree, metadata={"k": 1})
     path = h.wait(60)
-    assert h.done() and path.endswith("ck") and os.path.isfile(path)
+    assert h.done() and path.endswith("ck") and os.path.isdir(path)
     got = restore_checkpoint(str(tmp_path), "ck", tree)
     assert torch.equal(got["a"], tree["a"]) and torch.equal(got["b"], tree["b"])
     assert got["b"].dtype == torch.int32 and got["c"] == [0.5, 3]

@@ -13,6 +13,8 @@ layers (OIHW ``nn.Conv2d``, (out, in) ``nn.Linear``).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -301,3 +303,164 @@ def esrgan_generator_to_flax(params: dict) -> dict:
                 if sub["kernel"].ndim == 2:
                     sub["kernel"] = sub["kernel"][None, None]
     return tree
+
+
+# ------------------------------------- trainer states <-> the JAX package's
+# The trees a JAX ``TrainState``/``GANState`` saves (``train/orbax.py``):
+# TrainState: params, opt_state.{count, mu, nu} (``scale_by_adam``'s
+# moments of every parameter, frozen ones too) and lr; GANState: g_params,
+# d_params, d_spectral, {g,d}_opt as optax.adam's (ScaleByAdamState,
+# ScaleByScheduleState), i.e. [{count, mu, nu}, {count}], and step.
+# ``count``/``step`` are int32 scalars and ``lr`` a float32 one.
+def _fields(tree) -> set:
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return {f.name for f in dataclasses.fields(tree)}
+    return set()
+
+
+def is_train_state(tree) -> bool:
+    return _fields(tree) == {"params", "opt_state", "lr"}
+
+
+def is_gan_state(tree) -> bool:
+    return _fields(tree) == {"g_params", "d_params", "d_spectral", "g_opt",
+                             "d_opt", "step"}
+
+
+def _leaf(tree: dict, path: tuple, what: str):
+    node = tree
+    for k in path:
+        if not isinstance(node, dict) or k not in node:
+            raise KeyError(f"checkpoint has no leaf {what}/{'/'.join(path)}")
+        node = node[k]
+    return node
+
+
+def _paths(tree: dict, prefix=()) -> set:
+    out = set()
+    for k, v in tree.items():
+        out |= _paths(v, prefix + (k,)) if isinstance(v, dict) \
+            else {prefix + (k,)}
+    return out
+
+
+def _port_leaf(name: str, a, like: torch.Tensor, what: str) -> torch.Tensor:
+    """A flax leaf in the layout of the port's ``like`` (its name's): a
+    conv's HWIO ``kernel`` -> OIHW ``weight``, a Dense (in, out) ->
+    ``nn.Linear``'s (out, in), a 1x1 conv kernel -> a (Cin, Cout) matrix."""
+    t = torch.from_numpy(np.array(a, copy=True))
+    if name.endswith(".weight"):
+        t = hwio_to_oihw(t) if t.dim() == 4 else dense_to_linear(t)
+    elif t.dim() == 4 and like.dim() == 2 and tuple(t.shape[:2]) == (1, 1):
+        t = t[0, 0]
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"checkpoint leaf {what}/{name} has shape "
+                         f"{tuple(t.shape)} in the port's layout, the target "
+                         f"{tuple(like.shape)}")
+    return t.to(device=like.device, dtype=like.dtype).contiguous() \
+        .requires_grad_(like.requires_grad)
+
+
+def _params_from_jax(tree: dict, like: dict, what: str) -> dict:
+    """A flax tree -> tensors under ``like``'s names, each on its leaf's
+    device and dtype; the tree must hold those leaves and no other."""
+    extra = _paths(tree) - {flax_path(n) for n in like}
+    if extra:
+        raise KeyError(f"checkpoint leaves not in the target: {what}/"
+                       f"{sorted('/'.join(p) for p in extra)}")
+    return {n: _port_leaf(n, _leaf(tree, flax_path(n), what), t, what)
+            for n, t in like.items()}
+
+
+def _scalar(a, dtype, what: str):
+    a = np.asarray(a)
+    if a.shape != ():
+        raise ValueError(f"checkpoint leaf {what} has shape {a.shape}, a "
+                         f"scalar expected")
+    return dtype(a)
+
+
+def train_state_to_jax(state) -> dict:
+    """A port ``TrainState`` -> the JAX ``TrainState``'s tree (numpy, flax
+    layouts); a frozen parameter's moments, which the port does not keep,
+    as the zeros the JAX trainer holds."""
+    opt = state.opt_state
+    moments = {}
+    for m in ("mu", "nu"):
+        full = {n: opt[m][n] if n in opt[m] else torch.zeros_like(p)
+                for n, p in state.params.items()}
+        moments[m] = to_flax_tree(full)
+    return {"params": to_flax_tree(state.params),
+            "opt_state": {"count": np.int32(opt["count"]), **moments},
+            "lr": np.float32(state.lr)}
+
+
+def train_state_from_jax(tree: dict, like):
+    """The JAX ``TrainState`` tree -> a port ``TrainState`` shaped like
+    ``like`` (a trainer's ``init_state``). A frozen parameter's moments
+    are checked to be zero and dropped."""
+    if set(tree) != {"params", "opt_state", "lr"} or set(
+            tree["opt_state"]) != {"count", "mu", "nu"}:
+        raise KeyError(f"checkpoint is not a TrainState: {sorted(tree)}")
+    params = _params_from_jax(tree["params"], like.params, "params")
+    opt = {"count": _scalar(tree["opt_state"]["count"], int,
+                            "opt_state/count")}
+    for m in ("mu", "nu"):
+        full = tree["opt_state"][m]
+        kept = like.opt_state[m]
+        opt[m] = _params_from_jax(full, {n: kept.get(n, p) for n, p in
+                                         like.params.items()},
+                                  f"opt_state/{m}")
+        for n in list(opt[m]):
+            if n not in kept:
+                if bool(opt[m][n].any()):
+                    raise ValueError(
+                        f"checkpoint leaf opt_state/{m}/"
+                        f"{'/'.join(flax_path(n))} of a frozen parameter "
+                        f"is not zero")
+                del opt[m][n]
+    return dataclasses.replace(like, params=params, opt_state=opt,
+                               lr=_scalar(tree["lr"], np.float32,
+                                          "lr").item())
+
+
+def gan_state_to_jax(state) -> dict:
+    """A port ``GANState`` -> the JAX ``GANState``'s tree."""
+    def opt(o, to):
+        n = np.int32(o["count"])
+        return [{"count": n, "mu": to(o["mu"]), "nu": to(o["nu"])},
+                {"count": n}]
+    g = esrgan_generator_to_flax
+    return {"g_params": g(state.g_params),
+            "d_params": to_flax_tree(state.d_params),
+            "d_spectral": to_flax_tree(state.d_spectral),
+            "g_opt": opt(state.g_opt, g), "d_opt": opt(state.d_opt,
+                                                       to_flax_tree),
+            "step": np.int32(state.step)}
+
+
+def gan_state_from_jax(tree: dict, like):
+    """The JAX ``GANState`` tree -> a port ``GANState`` shaped like
+    ``like``; Adam's count and the schedule's must agree."""
+    want = {"g_params", "d_params", "d_spectral", "g_opt", "d_opt", "step"}
+    if set(tree) != want:
+        raise KeyError(f"checkpoint is not a GANState: {sorted(tree)}")
+    out = {k: _params_from_jax(tree[k], getattr(like, k), k)
+           for k in ("g_params", "d_params", "d_spectral")}
+    for k in ("g_opt", "d_opt"):
+        o = tree[k]
+        if (not isinstance(o, list) or len(o) != 2
+                or set(o[0]) != {"count", "mu", "nu"}
+                or set(o[1]) != {"count"}):
+            raise KeyError(f"checkpoint {k} is not optax.adam's state")
+        count = _scalar(o[0]["count"], int, f"{k}/0/count")
+        if count != _scalar(o[1]["count"], int, f"{k}/1/count"):
+            raise ValueError(f"checkpoint {k}: Adam's count {count} and the "
+                             f"schedule's {int(o[1]['count'])} differ")
+        like_opt = getattr(like, k)
+        out[k] = {"count": count,
+                  **{m: _params_from_jax(o[0][m], like_opt[m],
+                                         f"{k}/0/{m}")
+                     for m in ("mu", "nu")}}
+    out["step"] = _scalar(tree["step"], int, "step")
+    return dataclasses.replace(like, **out)

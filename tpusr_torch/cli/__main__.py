@@ -16,8 +16,10 @@ Every command takes the JAX command's flags and defaults, plus ``--device``
 with a message; it never falls back to the CPU. The flows are the JAX
 package's (load -> split(seed 42) -> train -> evaluate -> checkpoint +
 metrics JSON), on the port's loaders (``data/loading.py``: PNG, JPEG, BMP
-and TIFF, decoded as cv2 decodes them), its trainers and facades; checkpoints are the port's own
-(``train/checkpoint.py``). ``classic`` and ``pipeline`` write the JSON the
+and TIFF, decoded as cv2 decodes them), its trainers and facades; checkpoints are Orbax
+directories as the JAX package writes them (``train/checkpoint.py``), and
+``--resume``, ``pipeline``, ``serve`` and ``convert`` take the JAX
+package's as well as the port's. ``classic`` and ``pipeline`` write the JSON the
 JAX commands write and their figures, under the same names, through the
 port's figure writer (``tpusr_torch/viz``).
 
@@ -29,7 +31,7 @@ and its logs.
 
 ``eda`` runs the dataset EDA (``data/eda.py``) on the card and writes its
 CSVs and the JAX command's figures. ``convert`` moves a model between
-the port's checkpoint and the reference's Keras ``.h5`` (the port's own
+an Orbax checkpoint and the reference's Keras ``.h5`` (the port's own
 HDF5 codec, ``train/hdf5.py``), both ways. ``preprocess`` turns a video
 (``.mp4``/``.mov`` with MPEG-4 Part 2, ``.avi`` with MPEG-4 Part 2 or
 MJPEG) into the HR/LR PNG pairs and maps the other commands read
@@ -612,13 +614,13 @@ def cmd_pipeline(args):
 
 
 def cmd_convert(args):
-    """Move a model between the port's checkpoint and the reference's Keras
+    """Move a model between an Orbax checkpoint and the reference's Keras
     ``.h5`` (SRCNN_model.py:249-259, EDSR_model.py:317-330,
     ESRGAN_model.py:981-996, VGG16_model.py:272-281), as the JAX command.
 
     The direction is set by ``--src``: a ``.h5``/``.hdf5`` file is imported
-    and written as the port's checkpoint; anything else is read as the
-    port's checkpoint and exported to ``.h5`` (loadable with
+    and written as a checkpoint; anything else is read as a checkpoint (the
+    port's or the JAX package's) and exported to ``.h5`` (loadable with
     ``keras.models.load_model``). Returns the written path(s)."""
     from tpusr_torch.models.api import (EDSR, ESRGAN, FineTunedVGG16,
                                         SRCNNModel)
@@ -968,8 +970,8 @@ def build_parser():
     sp.add_argument("--model", required=True,
                     choices=("srcnn", "edsr", "esrgan", "vgg16"))
     sp.add_argument("--src", required=True,
-                    help="a Keras .h5 (imports to the port's checkpoint) or "
-                         "the port's checkpoint path (exports to .h5)")
+                    help="a Keras .h5 (imports to a checkpoint) or a "
+                         "checkpoint directory (exports to .h5)")
     sp.add_argument("--disc", default=None,
                     help="discriminator .h5 (required for --model esrgan "
                          "when --src is a generator .h5)")

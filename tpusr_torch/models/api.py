@@ -14,18 +14,18 @@ caller passes ``device="cpu"``).
 Each facade keeps a module as a template and a trainer state whose
 parameters (by the module's parameter names) it trains, restores and saves;
 ``torch.func.functional_call`` runs the template on them (the ``ESRGAN``
-facade's state is the GAN trainer's whole ``GANState``). Checkpoints are the
-port's own (``train/checkpoint.py``), with the JAX facades' ``arch``
-metadata, so ``from_pretrained``/``from_trained`` rebuilds the saved
-architecture whatever the setup arguments. ``from_pretrained`` also takes
-a reference Keras ``.h5`` (imported weight for weight by
-``train/keras_import.py``), and ``save_h5`` exports one
-(``train/keras_export.py``), both through the port's own HDF5 codec.
-ImageNet weights (``imagenet_weights_path`` of ``FineTunedVGG16``,
-``vgg19_weights_path`` of ``ESRGAN``) load from the Keras ``.h5`` release or
-a converted ``.npz`` (``tools/imagenet_weights.py``), as in JAX. An Orbax
-directory (the JAX package's checkpoint) is refused: the JAX package's
-``convert`` writes it as a ``.h5``, which the port reads.
+facade's state is the GAN trainer's whole ``GANState``). Checkpoints are
+Orbax directories named as the JAX facades name them, with their ``arch``
+metadata (``train/checkpoint.py``): ``save`` writes what the JAX facades'
+``from_pretrained`` reads, and ``from_pretrained``/``from_trained`` reads a
+checkpoint of either package, rebuilding the saved architecture whatever
+the setup arguments. ``from_pretrained`` also takes a reference Keras
+``.h5`` (imported weight for weight by ``train/keras_import.py``), and
+``save_h5`` exports one (``train/keras_export.py``), both through the
+port's own HDF5 codec. ImageNet weights (``imagenet_weights_path`` of
+``FineTunedVGG16``, ``vgg19_weights_path`` of ``ESRGAN``) load from the
+Keras ``.h5`` release or a converted ``.npz``
+(``tools/imagenet_weights.py``), as in JAX.
 
 ``mesh`` (a ``DeviceMesh``, ``tpusr_torch.dist``) goes to the trainers and
 to full-image SR, as in JAX; under it a restored checkpoint is broadcast
@@ -76,18 +76,12 @@ def _saved_arch(pretrained_path):
 
 
 def _restore(state, pretrained_path, mesh=None):
-    """``state`` restored from the port's checkpoint at ``pretrained_path``;
-    under a ``mesh`` every rank then holds rank 0's copy (broadcast)."""
+    """``state`` restored from the Orbax checkpoint at ``pretrained_path``,
+    the port's or the JAX package's (``train/checkpoint.py``); under a
+    ``mesh`` every rank then holds rank 0's copy (broadcast)."""
     if pretrained_path is None or not os.path.exists(pretrained_path):
         raise FileNotFoundError(
             f"Pretrained model file not found at {pretrained_path}")
-    if os.path.isdir(pretrained_path):
-        raise NotImplementedError(
-            f"{pretrained_path}: a directory is an Orbax checkpoint of the JAX "
-            f"package, which the port does not read; write it as a Keras .h5 "
-            f"with the JAX package's `python -m tpusr.cli convert --model "
-            f"<model> --src {pretrained_path}` and pass the .h5 (the port's "
-            f"own checkpoints are files)")
     state = restore_checkpoint(os.path.dirname(pretrained_path) or ".",
                                os.path.basename(pretrained_path), state)
     if mesh is not None:
@@ -405,7 +399,7 @@ class ESRGAN(_Facade):
                 st.d_params = _take(st.d_params, dict(d.named_parameters()))
                 st.d_spectral = _take(st.d_spectral, dict(d.named_buffers()))
             else:
-                # the port's checkpoint holds the whole GANState
+                # a checkpoint holds the whole GANState
                 self.state = _restore(self.state, generator_pretrained_path,
                                       self.mesh)
             self.trained = True

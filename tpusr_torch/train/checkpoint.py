@@ -1,14 +1,20 @@
 """Checkpointing (port of ``tpusr/train/checkpoint.py``): a tree of tensors
-(a ``TrainState`` included: parameters, optimiser state and LR) saved with
-``torch.save``, plus a JSON sidecar of metadata.
+(a ``TrainState`` or ``GANState`` included: parameters, optimiser state and
+LR) saved as the JAX package saves it, an Orbax directory, plus a JSON
+sidecar of metadata.
 
-The files are the port's own format: ``directory/name`` holds the tree's
-leaves by path, on the host; ``directory/name.meta.json`` the metadata.
-Keras ``.h5`` interop lives in ``keras_import``/``keras_export`` (the
-port's own HDF5 codec, ``hdf5.py``). Orbax directories are the JAX
-package's format; the route from one into the port is the ``.h5`` that the
-JAX package's ``convert`` writes. In a process group only rank 0 writes
-(``dist.is_writer``); the other ranks return the same path.
+``directory/name`` is an Orbax checkpoint (``orbax.py``: OCDBT, zarr and
+zstd of the port's own) that the JAX package's ``restore_checkpoint``
+reads, and the port reads every one the JAX package's ``save_checkpoint``
+writes: a trainer state goes through ``bridge`` into the JAX state's tree
+and layouts (flax paths, HWIO kernels, (in, out) Dense kernels, optax's
+moments of frozen parameters as zeros, int32 counts, a float32 LR) and
+back; any other tree is written as it is. ``directory/name.meta.json``
+holds the metadata. A file at ``directory/name`` is the ``torch.save``
+tree that earlier versions of the port wrote; it is still read. Keras
+``.h5`` interop lives in ``keras_import``/``keras_export``. In a process
+group only rank 0 writes (``dist.is_writer``); the other ranks return the
+same path.
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from tpusr_torch import bridge
 from tpusr_torch.dist.mesh import is_writer
+from tpusr_torch.train import orbax
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -44,7 +52,8 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 def _unflatten_like(target, leaves: dict, prefix: str = ""):
     """``target``'s structure with each leaf taken from ``leaves`` by path;
-    a tensor leaf lands on the target leaf's device and dtype."""
+    a tensor leaf lands on the target leaf's device and dtype, a Python
+    number as the target's type."""
     if dataclasses.is_dataclass(target) and not isinstance(target, type):
         return dataclasses.replace(target, **{
             f.name: _unflatten_like(getattr(target, f.name), leaves,
@@ -60,25 +69,42 @@ def _unflatten_like(target, leaves: dict, prefix: str = ""):
         raise KeyError(f"checkpoint has no leaf {prefix!r}")
     got = leaves[prefix]
     if isinstance(target, torch.Tensor):
+        got = torch.as_tensor(got)
         if tuple(got.shape) != tuple(target.shape):
             raise ValueError(f"checkpoint leaf {prefix!r} has shape "
                              f"{tuple(got.shape)}, the target "
                              f"{tuple(target.shape)}")
         return got.to(device=target.device, dtype=target.dtype).requires_grad_(
             target.requires_grad)
+    if isinstance(target, (bool, int, float)) and np.ndim(got) == 0:
+        return type(target)(np.asarray(got).item())
     return got
 
 
-def _host_snapshot(tree) -> dict:
-    """The tree's leaves by path, every tensor copied to the host."""
-    return {k: v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor)
-            else v for k, v in _flatten(tree).items()}
+def _host_tree(tree) -> Any:
+    """What ``orbax.write`` takes: a trainer state as the JAX package's
+    tree, any other tree with its tensors as numpy arrays; every tensor
+    copied to the host."""
+    if bridge.is_train_state(tree):
+        return bridge.train_state_to_jax(tree)
+    if bridge.is_gan_state(tree):
+        return bridge.gan_state_to_jax(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        tree = {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
+    if isinstance(tree, dict):
+        return {str(k): _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_tree(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True).numpy()
+    if isinstance(tree, float):         # JAX's default precision
+        return np.float32(tree)
+    return np.asarray(tree)
 
 
-def _write(path: str, leaves: dict, metadata: dict | None) -> str:
-    # the directory is made as Orbax makes it in the JAX package
+def _write(path: str, tree, metadata: dict | None) -> str:
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save(leaves, path)
+    orbax.write(path, tree)
     if metadata is not None:
         with open(path + ".meta.json", "w") as f:
             json.dump(_jsonable(metadata), f, indent=2)
@@ -91,7 +117,7 @@ def save_checkpoint(directory: str, name: str, tree: Any,
     path = os.path.abspath(os.path.join(directory, name))
     if not is_writer():
         return path
-    return _write(path, _host_snapshot(tree), metadata)
+    return _write(path, _host_tree(tree), metadata)
 
 
 class AsyncSaveHandle:
@@ -122,9 +148,10 @@ def save_checkpoint_async(directory: str, name: str, tree: Any,
     The tensors are copied to the host (``detach().to("cpu", copy=True)``)
     before the writer thread starts: the trainers update their state in
     place, so the next step would race a write from the live tensors. The
-    ``torch.save`` and the metadata write run on a daemon thread.
+    encoding, the Orbax write and the metadata run on a daemon thread.
 
-    Call ``handle.wait()`` before relying on the file (e.g. at fit end).
+    Call ``handle.wait()`` before relying on the directory (e.g. at fit
+    end).
     """
     path = os.path.abspath(os.path.join(directory, name))
     handle = AsyncSaveHandle()
@@ -132,11 +159,11 @@ def save_checkpoint_async(directory: str, name: str, tree: Any,
         handle._path = path
         handle._done.set()
         return handle
-    leaves = _host_snapshot(tree)
+    host = _host_tree(tree)
 
     def work():
         try:
-            handle._path = _write(path, leaves, metadata)
+            handle._path = _write(path, host, metadata)
         except BaseException as e:  # surfaced at handle.wait()
             handle._exc = e
         finally:
@@ -146,12 +173,28 @@ def save_checkpoint_async(directory: str, name: str, tree: Any,
     return handle
 
 
+def _device_of(tree) -> str:
+    for v in _flatten(tree).values():
+        if isinstance(v, torch.Tensor):
+            return v.device.type
+    return "cpu"
+
+
 def restore_checkpoint(directory: str, name: str, target: Any) -> Any:
     """Restore into the structure of ``target`` (a tree like the saved one,
     e.g. a trainer's ``init_state``): each tensor on the target leaf's device
-    and dtype."""
+    and dtype. A trainer state restores from either package's checkpoint;
+    the checkpoint's zstd decodes on the target's device."""
     path = os.path.abspath(os.path.join(directory, name))
-    leaves = torch.load(path, map_location="cpu", weights_only=True)
+    if os.path.isfile(path):                # the port's earlier format
+        leaves = torch.load(path, map_location="cpu", weights_only=True)
+    else:
+        tree = orbax.read(path, device=_device_of(target))
+        if bridge.is_train_state(target):
+            return bridge.train_state_from_jax(tree, target)
+        if bridge.is_gan_state(target):
+            return bridge.gan_state_from_jax(tree, target)
+        leaves = _flatten(tree)
     extra = set(leaves) - set(_flatten(target))
     if extra:
         raise KeyError(f"checkpoint leaves not in the target: {sorted(extra)}")
