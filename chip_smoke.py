@@ -271,7 +271,18 @@ its own lines:
    ``python -m tpusr_torch.cli pipeline --edsr-ckpt <dir> --vgg16-ckpt
    <dir>`` and ``train-edsr --resume <dir> --epochs 1`` (Adam's count goes
    on); each save and restore time and the zstd decode rate on the card and
-   on the host's CPU.
+   on the host's CPU;
+28. the models' initial weights on the card (``InitSlice``,
+   ``models/init.py``, run right after phase 26): EDSR x4, SRCNN, VGG16
+   (2 classes, 256 units), VGG19 to ``block5_conv4``, the ESRGAN generator
+   at g32x23 and at ``ESRGANConfig`` and the discriminator, each built at
+   full width on the card (one K5 launch a drawn leaf, no other kernel)
+   and drawn on the CPU then moved, host ms of each (synchronised, best of
+   3), every leaf torch.equal between the two; then a fresh process of
+   this script (``--init-probe card``) that builds all seven on the card
+   and must build no CPU normal table, make no plain draw and leave torch's
+   CPU generator where it was, and one (``--init-probe cpu``) that builds
+   the gate's two models the parent's way, timed beside it.
 
 Every path that draws on the card counts K5's launches (``prng`` in the
 launch counts): the gate's surfaces, crop pools, batches and dropout masks,
@@ -281,7 +292,12 @@ loop, steps 0-2 within ``TRAJ_ATOL`` of JAX's on the CPU from
 the ln 2 plateau beside JAX's), phase 14's VGG16 dropout, the calibration
 and reference-dataset surfaces, ``train-vgg16``, DP VGG16 and
 ``preprocess``'s degradations; every other path counts 0, and no plain
-draw runs on the card (``count_plain_calls``).
+draw runs on the card (``count_plain_calls``). From phase 28 on, every
+model built on the card launches K5 once a drawn leaf
+(``watch_model_builds`` holds each build to its ``drawn_leaves``); a path
+that builds a model inside its counted window expects those launches, and
+each phase's appear in K5's ``launches_by_path`` as ``init_<phase>``
+beside phase 28's ``init``.
 
 ``python3 chip_smoke.py --dist-cards N`` (N cards) runs only the
 parallelism layer over N NCCL ranks, one card each: DP EDSR x4 at a global
@@ -487,6 +503,66 @@ def k5_launches() -> int:
 
 # K5's launches by path: each phase that draws on the card adds its own
 K5_BY_PATH: dict = {}
+
+# the port's models, each built from a key by flax's draws (models/init.py)
+MODEL_CLASSES = ("EDSR", "SRCNN", "VGG16Classifier", "VGG19Features",
+                 "ESRGANGenerator", "ESRGANDiscriminator")
+# K5's launches of every model built since ``watch_model_builds``
+INIT_K5 = {"n": 0}
+
+
+def watch_model_builds() -> None:
+    """From here on, each build of a port model counts its K5 launches in
+    ``INIT_K5`` and is held to the leaves it drew: on the card one launch a
+    drawn leaf (``drawn_leaves``), on the CPU or with ``key=NO_DRAW`` none.
+    A phase that builds a model inside a counted window expects these
+    launches beside its own (``init_since``)."""
+    import tpusr_torch.models as models
+    from tpusr_torch.models.init import NO_DRAW, drawn_leaves
+
+    for name in MODEL_CLASSES:
+        cls = getattr(models, name)
+        if getattr(cls.__init__, "watched", False):
+            continue
+
+        def init(self, *args, _orig=cls.__init__, _name=name, **kw):
+            n0 = k5_launches()
+            _orig(self, *args, **kw)
+            got = k5_launches() - n0
+            key = kw.get("key")
+            drew = not (isinstance(key, str) and key == NO_DRAW)
+            on_card = any(t.is_cuda for t in self.parameters())
+            want = drawn_leaves(self) if drew and on_card else 0
+            check(got == want, f"building {_name}: {got} K5 launches, not "
+                               f"{want} (one a drawn leaf on the card)")
+            INIT_K5["n"] += got
+        init.watched = True
+        cls.__init__ = init
+
+
+def leaves_of(name: str, **kw) -> int:
+    """The leaves a build of the port model ``name`` with ``kw`` draws,
+    counted on a copy of zeros on the meta device (nothing drawn)."""
+    import tpusr_torch.models as models
+    from tpusr_torch.models.init import NO_DRAW, drawn_leaves
+    return drawn_leaves(getattr(models, name)(**kw, device="meta",
+                                              key=NO_DRAW))
+
+
+def init_since(n0: int) -> int:
+    """K5's launches of the model builds since ``INIT_K5["n"]`` was
+    ``n0``."""
+    return INIT_K5["n"] - n0
+
+
+def in_path(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, the K5 launches of its model builds put in K5's
+    ``launches_by_path`` as ``init_<name>``."""
+    n0 = INIT_K5["n"]
+    out = fn(*args, **kw)
+    if init_since(n0):
+        K5_BY_PATH[f"init_{name}"] = init_since(n0)
+    return out
 
 
 def launches_want(**counts) -> dict:
@@ -844,6 +920,184 @@ def phase_prng(p: PrngSlice, dev, card: str) -> dict:
             "t_ops": t_ops, "t_bytes": t_bytes, "threefry_ms": t_hash,
             "by_draw": ms, "sass": sass,
             "phase_launches": launched}
+
+
+@dataclass(frozen=True)
+class InitSlice:
+    """The port's models built at full width on the card, each leaf drawn
+    by K5 (``models/init.py``), against the parent's way: drawn on the CPU,
+    then moved."""
+    repeats: int = 3             # builds a way and a model; the best is kept
+
+
+# the serving gate's two models, built first in a fresh process
+GATE_MODELS = ("VGG16", "EDSR x4")
+
+
+def init_models(seed: int) -> dict:
+    """name -> build(device) of the seven full-width models of
+    ``phase_init``, from keys of ``seed``; the gate's two first."""
+    from tpusr_torch.config import ESRGANConfig
+    from tpusr_torch.models import (EDSR, SRCNN, ESRGANDiscriminator,
+                                    ESRGANGenerator)
+    from tpusr_torch.models.vgg import VGG16Classifier, VGG19Features
+
+    c8 = ESRGANConfig()
+
+    def key(k):
+        return seed * 100 + 90 + k
+    return {
+        "VGG16": lambda d: VGG16Classifier(num_classes=2, dense_units=256,
+                                           device=d, key=key(1)),
+        "EDSR x4": lambda d: EDSR(scale_factor=4, device=d, key=key(2)),
+        "SRCNN": lambda d: SRCNN(device=d, key=key(3)),
+        "VGG19 to block5_conv4": lambda d: VGG19Features(device=d,
+                                                         key=key(4)),
+        "ESRGAN g32x23": lambda d: ESRGANGenerator(device=d, key=key(5)),
+        f"ESRGAN g{c8.growth_channels}x{c8.num_rrdb_blocks}": lambda d:
+            ESRGANGenerator(c8.scale_factor, c8.growth_channels,
+                            c8.num_rrdb_blocks, device=d, key=key(6)),
+        "discriminator": lambda d: ESRGANDiscriminator(device=d, key=key(7)),
+    }
+
+
+def model_leaves(m) -> dict:
+    return {**dict(m.named_parameters()), **dict(m.named_buffers())}
+
+
+def init_probe(mode: str, seed: int, dev) -> dict:
+    """In a fresh process: build the gate's two models (``mode`` "card")
+    or the seven on the card, or the gate's two the parent's way (``mode``
+    "cpu": drawn on the CPU, then moved), timed on the host clock, and
+    record what the host drew: the CPU's normal tables, the plain draws'
+    words on the CPU (``prng._bits32``), torch's CPU generator."""
+    from tpusr_torch.core import prng
+    from tpusr_torch.models.init import drawn_leaves
+
+    words = []
+    plain = prng._bits32
+
+    def recorded(key, shape, device):
+        words.append(str(torch.device(device or "cpu")))
+        return plain(key, shape, device)
+    prng._bits32 = recorded
+    rng_state = torch.random.get_rng_state()
+    models = init_models(seed)
+    out = {"mode": mode}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if mode == "cpu":
+        built = {n: models[n]("cpu").to(dev) for n in GATE_MODELS}
+    else:
+        reset_counts()
+        built = {n: models[n](dev) for n in GATE_MODELS}
+    torch.cuda.synchronize()
+    out["gate_ms"] = (time.perf_counter() - t0) * 1e3
+    if mode == "card":
+        built.update({n: b(dev) for n, b in models.items()
+                      if n not in GATE_MODELS})
+        torch.cuda.synchronize()
+        out["all_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = read_counts()
+        out["drawn"] = sum(drawn_leaves(m) for m in built.values())
+        out["on_card"] = all(t.is_cuda for m in built.values()
+                             for t in model_leaves(m).values())
+    out["cpu_tables"] = [list(k) for k in prng._TABLES if k[0] == "cpu"]
+    out["cpu_draws"] = sum(w == "cpu" for w in words)
+    out["card_plain_draws"] = sum(w != "cpu" for w in words)
+    out["cpu_generator_moved"] = not torch.equal(rng_state,
+                                                 torch.random.get_rng_state())
+    return out
+
+
+def run_init_probe(mode: str, seed: int) -> dict:
+    """``init_probe(mode)`` in a fresh process of this script."""
+    done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--init-probe", mode, "--seed", str(seed)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    check(done.returncode == 0, f"[init] the {mode} probe exited "
+          f"{done.returncode}: {done.stderr[-2000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def phase_init(s: InitSlice, dev, seed: int, card: str) -> dict:
+    """Each of the seven models built on the card (its leaves by K5, one
+    launch a drawn leaf and no other kernel) and the parent's way, drawn on
+    the CPU and moved: host ms of each, best of ``s.repeats``; every leaf
+    torch.equal between the two. Then a fresh process that builds all seven
+    on the card, which must build no CPU table and draw nothing on the
+    host, and one that builds the gate's two the parent's way."""
+    from tpusr_torch.models.init import drawn_leaves
+
+    sync = torch.cuda.synchronize
+    rows, launched = {}, 0
+    for name, build in init_models(seed).items():
+        card_ms, host_ms_ = [], []
+        for _ in range(s.repeats):
+            sync()
+            reset_counts()
+            t0 = time.perf_counter()
+            m = build(dev)
+            sync()
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+            got, drawn = read_counts(), drawn_leaves(m)
+            check(got == launches_want(prng=drawn), f"[init] {name} on the "
+                  f"card launched {got}, not {drawn} K5 launches (its drawn "
+                  f"leaves) and no other kernel")
+            launched += got["prng"]
+            check(all(t.device == dev for t in model_leaves(m).values()),
+                  f"[init] {name}: a leaf is not on {dev}")
+        for _ in range(s.repeats):
+            sync()
+            t0 = time.perf_counter()
+            h = build("cpu").to(dev)
+            sync()
+            host_ms_.append((time.perf_counter() - t0) * 1e3)
+        a, b = model_leaves(m), model_leaves(h)
+        check(list(a) == list(b), f"[init] {name}: leaves {list(a)} != "
+                                  f"{list(b)}")
+        apart = sum(int((a[k] != b[k]).sum()) for k in a)
+        check(apart == 0 and all(torch.equal(a[k], b[k]) for k in a),
+              f"[init] {name}: {apart} values differ between the card's "
+              f"build and the CPU's")
+        n_values = sum(t.numel() for t in a.values())
+        rows[name] = {"card_ms": min(card_ms), "card_first_ms": card_ms[0],
+                      "cpu_ms": min(host_ms_), "cpu_first_ms": host_ms_[0],
+                      "launches": drawn, "leaves": len(a),
+                      "values": n_values}
+        print(f"[init] {card}: {name}: {len(a)} leaves, {n_values} values, "
+              f"{drawn} drawn: built on the card in {min(card_ms):.2f} ms "
+              f"(host clock, synchronised, best of {s.repeats}; first "
+              f"{card_ms[0]:.2f}) with {drawn} K5 launches, against "
+              f"{min(host_ms_):.2f} ms drawn on the CPU and moved (first "
+              f"{host_ms_[0]:.2f}); every leaf torch.equal, 0 values apart")
+        del m, h, a, b
+    K5_BY_PATH["init"] = launched
+    torch.cuda.empty_cache()
+
+    probe = run_init_probe("card", seed)
+    want = launches_want(prng=probe["drawn"])
+    check(probe["launches"] == want and probe["on_card"],
+          f"[init] the fresh process launched {probe['launches']}, not "
+          f"{want}, or left a leaf off the card")
+    check(not probe["cpu_tables"] and probe["cpu_draws"] == 0
+          and probe["card_plain_draws"] == 0
+          and not probe["cpu_generator_moved"],
+          f"[init] the fresh process drew on the host: CPU tables "
+          f"{probe['cpu_tables']}, {probe['cpu_draws']} plain CPU draws, "
+          f"{probe['card_plain_draws']} plain draws on the card, torch's "
+          f"CPU generator moved {probe['cpu_generator_moved']}")
+    parent = run_init_probe("cpu", seed)
+    print(f"[init] {card}: a fresh process builds the seven on the card in "
+          f"{probe['all_ms']:.1f} ms ({probe['drawn']} K5 launches), the "
+          f"gate's two ({', '.join(GATE_MODELS)}) in "
+          f"{probe['gate_ms']:.1f} ms, with no CPU table, no plain draw and "
+          f"torch's CPU generator unmoved; the gate's two the parent's way "
+          f"(drawn on the CPU, moved) {parent['gate_ms']:.1f} ms, building "
+          f"CPU tables {parent['cpu_tables']} and {parent['cpu_draws']} "
+          f"plain CPU draws")
+    return {"rows": rows, "probe": probe, "parent_probe": parent}
 
 
 def _int8_operands(shape, g, dev):
@@ -2690,12 +2944,16 @@ def step_profile(step, n: int = 3) -> dict:
     ops that take most time, as (name, ms, count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from tpusr_torch.train.profiling import TRACE_MARGIN_S
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the margins of profiling.trace: no kernel record falls outside
+        time.sleep(TRACE_MARGIN_S)
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
@@ -3068,6 +3326,7 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
     import shutil
     import tempfile
 
+    from tpusr_torch.models.init import drawn_leaves
     from tpusr_torch.models import (ESRGANDiscriminator, ESRGANGenerator,
                                     VGG19Features)
     from tpusr_torch.models.api import ESRGAN
@@ -3213,6 +3472,9 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
             check(2 * kept["lead_lost"] <= TRACE_LEAD_KERNELS,
                   f"profiling.trace's lead lost {kept['lead_lost']} of "
                   f"{kept['lead']} kernel records: the lead is too short")
+            check(kept["block_lost"] == 0,
+                  f"profiling.trace lost {kept['block_lost']} of the step's "
+                  f"{kept['block']} kernel records")
             del state
             torch.cuda.empty_cache()
 
@@ -3254,14 +3516,17 @@ def phase_gan(s: GanSlice, dev, seed: int, sync, card: str) -> dict:
                   "the restored generator's SR differs from the saved one's")
             del m, m2
 
-            # the trainer's fit with a checkpoint each epoch, restored
+            # the trainer's fit with a checkpoint each epoch, restored; with
+            # no state it draws a generator and a discriminator anew
             reset_counts()
             ckpt = os.path.join(work, "ckpt")
             res = trainer.fit(fit_lr, fit_hr, val_lr, val_hr,
                               epochs=s.fit_epochs, batch_size=s.batch,
                               verbose=False, checkpoint_dir=ckpt,
                               checkpoint_every=1)
-            check(read_counts() == want, f"fit launched {read_counts()}")
+            want = {**want, "prng": drawn_leaves(gen8) + drawn_leaves(disc)}
+            check(read_counts() == want, f"fit launched {read_counts()}, "
+                                         f"expected {want}")
             counted["fit"] = read_counts()["conv3x3_bias_act"]
             saved = sorted(f for f in os.listdir(ckpt)
                            if not f.endswith(".json"))
@@ -3443,7 +3708,7 @@ class GateSlice:
     shipped_row: str = "cascade_int8[vote_frac+guard]@frac=0.25"
 
 
-def gate_launches(g: GateSlice, cfg: Slice) -> dict:
+def gate_launches(g: GateSlice, cfg: Slice, init: int | None = None) -> dict:
     """Kernel launches of one ``run_gate`` call with every mode: EDSR's
     training steps (K2 forward and dX), the SR variants chunked by 16 (f32
     and bf16 on K2, int8 on the dequant conv with the bf16 band, each int8
@@ -3452,7 +3717,11 @@ def gate_launches(g: GateSlice, cfg: Slice) -> dict:
     16 (13 K1); K5's draws: each of the two surface sets 7 uniforms and
     the noise (the shuffle is drawn on the CPU), 3 randints for each of
     the three crop pools, a VGG16 step's batch and two dropout masks and an
-    EDSR step's batch."""
+    EDSR step's batch, and the ``init`` launches of its two models' builds
+    (by default the full-width VGG16's and EDSR x4's drawn leaves)."""
+    if init is None:
+        init = (leaves_of("VGG16Classifier", num_classes=2)
+                + leaves_of("EDSR", scale_factor=4))
     n_fwd = len(edsr_train_layers(TrainSlice()))
     sr_chunks = math.ceil(g.images / 16)
     pp_chunks = math.ceil(g.images / 8)
@@ -3468,7 +3737,7 @@ def gate_launches(g: GateSlice, cfg: Slice) -> dict:
         conv3x3_int8_requant=3 * pp_chunks * per_patch_k1
         + 4 * sr_chunks * trunk_k1,
         block1_int8=3 * pp_chunks,
-        prng=2 * 8 + 3 * 3 + 3 * g.clf_steps + g.edsr_steps)
+        prng=2 * 8 + 3 * 3 + 3 * g.clf_steps + g.edsr_steps + init)
 
 
 class patched:
@@ -3623,7 +3892,9 @@ def gate_trajectory(dev, card: str) -> dict:
         run = loop.run(TRAJ_STEPS)
     wall = time.perf_counter() - t0
     got = read_counts()
-    want = launches_want(prng=8 + 3 + 3 * TRAJ_STEPS)
+    # the surfaces, the crop pool, the batches and masks, the VGG16 built
+    want = launches_want(prng=8 + 3 + 3 * TRAJ_STEPS
+                         + leaves_of("VGG16Classifier", num_classes=2))
     check(got == want, f"[gate-trajectory] launches {got} != {want}")
     K5_BY_PATH["gate_trajectory"] = got["prng"]
     jax_loss, _ = jax_fixture(TRAJ_SEED)
@@ -3694,6 +3965,7 @@ def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
 
     # ---- the main path: run_gate at the full protocol ----
     reset_counts()
+    n0 = INIT_K5["n"]
     t0 = time.perf_counter()
     with count_plain_calls() as plain, trainer_steps() as steps, \
             patched(sg, train_classifier=keep("clf"), train_edsr=keep("edsr"),
@@ -3706,6 +3978,8 @@ def phase_gate(g: GateSlice, cfg: Slice, dev, seed: int, sync,
     gate_s = time.perf_counter() - t0
     launches = read_counts()
     want = gate_launches(g, cfg)
+    check(init_since(n0) == want["prng"] - gate_launches(g, cfg, 0)["prng"],
+          f"[gate] its model builds launched K5 {init_since(n0)} times")
     print(f"[gate] run_gate task {g.task} seed {seed}: {g.images} eval images "
           f"of {g.size}^2, {rep['protocol']['patches_per_image']} patches "
           f"each; {gate_s:.1f} s; launches {launches} (expected {want}); "
@@ -4732,6 +5006,7 @@ def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
                           run_defect_detection_comparison=keep)):
                 reset_counts()
                 nlm.reset_launch_counts()
+                n0 = INIT_K5["n"]
                 t0 = time.perf_counter()
                 ret = cli_main(argv)
                 sync()
@@ -4812,10 +5087,12 @@ def phase_commands(c: CommandsSlice, dev, seed: int, sync, card: str) -> dict:
                                    f"{r['psnr_mean']:.2f} {r['time_sec']:.3f} s"
                                    for m, r in res.items())
                          + f"; files {sorted(os.listdir(os.path.join(work, name)))}")
+            # and the command's model builds, each held to its drawn leaves
+            built = init_since(n0)
             check(got == launches_want(conv3x3_bias_act=want_k2,
-                                       prng=want_k5),
+                                       prng=want_k5 + built),
                   f"{name}: launches {got}, expected {want_k2} K2, {want_k5} "
-                  f"K5 and no other")
+                  f"+ {built} (its model builds) K5 and no other")
             check(k4 == want_k4, f"{name}: K4 launches {k4} != {want_k4}")
             if want_k5:
                 K5_BY_PATH[f"commands_{name.replace('-', '_')}"] = want_k5
@@ -5020,13 +5297,18 @@ def dist_gloo_rank(rank: int, world: int, init_file: str, out_dir: str,
             out["plain"][name] = plain.n
             return res
 
-        # DP EDSR x4: the loss and every gradient leaf
-        def grads(m):
+        # DP EDSR x4: the loss and every gradient leaf (the model built
+        # before the counted step)
+        def grads(m, count=False):
             tr = SupervisedSRTrainer(edsr(), learning_rate=1e-4, mesh=m,
                                      device=dev)
-            loss, _, gr = tr.value_and_grad(tr.init_state(), lr, hr)
+            st = tr.init_state()
+
+            def run():
+                return tr.value_and_grad(st, lr, hr)
+            loss, _, gr = counted("dp_step", run) if count else run()
             return float(loss), gr
-        loss_dp, g_dp = counted("dp_step", lambda: grads(mesh))
+        loss_dp, g_dp = grads(mesh, count=True)
         loss_1, g_1 = grads(None)
         out["dp"] = {"loss": loss_dp, "loss_single": loss_1,
                      "grad_share": max(
@@ -5265,13 +5547,16 @@ def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
                     for i in range(d.vgg_steps)]
         # cuDNN's default backward convs may sum in another order on each
         # run, which three Adam steps carry past the tolerance
-        k5_before = k5_launches()
+        k5_before, n0 = k5_launches(), INIT_K5["n"]
         with deterministic_cudnn():
             vl_dp, vl_1 = vgg_losses(mesh), vgg_losses(None)
-        K5_BY_PATH["dist_vgg16"] = k5_launches() - k5_before
-        check(K5_BY_PATH["dist_vgg16"] == 2 * 2 * d.vgg_steps,
+        K5_BY_PATH["dist_vgg16"] = k5_launches() - k5_before - init_since(n0)
+        check(K5_BY_PATH["dist_vgg16"] == 2 * 2 * d.vgg_steps
+              and init_since(n0) == 2 * leaves_of("VGG16Classifier",
+                                                  num_classes=2),
               f"DP and unsharded VGG16: {K5_BY_PATH['dist_vgg16']} K5 "
-              f"launches, not two dropout masks a step")
+              f"launches, not two dropout masks a step, and "
+              f"{init_since(n0)} for the two builds")
         check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(vl_dp, vl_1)),
               f"DP VGG16 losses {vl_dp} vs {vl_1}")
         print(f"[dist] {card}: DP VGG16 {d.vgg_steps} steps at batch "
@@ -5301,8 +5586,14 @@ def phase_dist(d: DistSlice, cfg: Slice, dev, seed: int, sync, card: str,
             launches["dist_gan"] = read_counts()
             gan_1 = gan(None)
         per_gan = 2 * esrgan_launches(gs.rrdb, gs.scale) - 1
+        # and the three models it builds
+        built = (leaves_of("ESRGANGenerator", scale_factor=gs.scale,
+                           growth_channels=gs.growth,
+                           num_rrdb_blocks=gs.rrdb)
+                 + leaves_of("ESRGANDiscriminator")
+                 + leaves_of("VGG19Features"))
         check(launches["dist_gan"] == launches_want(
-            conv3x3_bias_act=d.gan_steps * per_gan),
+            conv3x3_bias_act=d.gan_steps * per_gan, prng=built),
               f"DP GAN launches {launches['dist_gan']}")
         for a, b in zip(gan_dp, gan_1):
             check(all(abs(a[k] - b[k]) <= 1e-5 * abs(b[k]) for k in b),
@@ -6541,8 +6832,10 @@ def phase_h5(s: H5Slice, cfg: Slice, dev, seed: int, sync, card: str) -> dict:
                   count_plain_calls() as plain,
                   patched(gan_mod.ESRGANTrainer, train_step=keep)):
                 if weights == v19_h5:
+                    n0 = INIT_K5["n"]
                     _, run_s = host(lambda: main_path(lambda: cli_main(argv)))
                     got = read_counts()
+                    built = init_since(n0)
                 else:
                     cli_main(argv)
             check(plain.n == 0, f"train-esrgan: plain twins on the card "
@@ -6553,9 +6846,12 @@ def phase_h5(s: H5Slice, cfg: Slice, dev, seed: int, sync, card: str) -> dict:
                 want_k2 = k2_command_launches(
                     sizes, 16, 1, 2 * esrgan_launches(es.num_rrdb_blocks, 4) - 1,
                     esrgan_launches(es.num_rrdb_blocks, 4), True)
-                check(got == launches_want(conv3x3_bias_act=want_k2),
+                # the models it builds: G, D and VGG19, then G and D drawn
+                # anew by the fit
+                check(got == launches_want(conv3x3_bias_act=want_k2,
+                                           prng=built),
                       f"train-esrgan --vgg19-weights: launches {got}, "
-                      f"expected {want_k2} K2")
+                      f"expected {want_k2} K2 and {built} K5")
                 tr, w, xb, yb = first.got
                 check(equal_params(tr.vgg_params, dict(
                     vgg19.named_parameters())),
@@ -7722,9 +8018,12 @@ def phase_preprocess(p: PreprocessSlice, dev, seed: int, sync,
                     2 * ed.num_res_blocks + 4)
         want_k2 = k2_command_launches(sizes, 16, p.edsr_epochs, *per_step,
                                       False)
-        check(got == launches_want(conv3x3_bias_act=want_k2),
+        built = leaves_of("EDSR", scale_factor=2,
+                          num_res_blocks=ed.num_res_blocks,
+                          num_filters=ed.num_filters)    # its model, drawn
+        check(got == launches_want(conv3x3_bias_act=want_k2, prng=built),
               f"train-edsr on the preprocess pairs: launches {got}, expected "
-              f"{want_k2} K2 and no other")
+              f"{want_k2} K2, {built} K5 (its model's build) and no other")
         meta = json.load(open(path + ".meta.json"))
         ev = meta["eval"]
         check(math.isfinite(ev["loss"]) and math.isfinite(ev["psnr"]),
@@ -8018,6 +8317,8 @@ def main() -> int:
     ap.add_argument("--dist-cards", type=int, default=0,
                     help="run only the parallelism layer over N cards, one "
                          "NCCL rank each (phase_dist_cards)")
+    ap.add_argument("--init-probe", choices=("card", "cpu"),
+                    help=argparse.SUPPRESS)    # phase_init's fresh process
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -8034,6 +8335,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     cfg = Slice()
+    if args.init_probe:
+        print(json.dumps(init_probe(args.init_probe, args.seed, dev)))
+        return 0
     if args.dist_cards:
         try:
             card = phase_environment()
@@ -8051,47 +8355,58 @@ def main() -> int:
         card = phase_environment()
         phase_build()
         k5 = phase_prng(PrngSlice(), dev, card)
+        watch_model_builds()
+        init = phase_init(InitSlice(), dev, args.seed, card)
         k1 = phase_k1(cfg, dev)
         k3 = phase_k3(cfg, dev)
         k2 = phase_k2(cfg, dev, torch.float32)
         k2b = phase_k2(cfg, dev, torch.bfloat16)
         k4 = phase_k4(dev)
         sync = torch.cuda.synchronize
-        launches, state = phase_slice(cfg, dev, args.seed, sync, card)
+        launches, state = in_path("slice", phase_slice, cfg, dev, args.seed,
+                                  sync, card)
         bf16_launches = phase_bf16(cfg, dev, state, sync, card)
         dequant_launches, dq = phase_int8_sr(cfg, dev, state, sync, card)
-        phase_f32_modes(cfg, dev, state, sync, card)
+        in_path("f32_modes", phase_f32_modes, cfg, dev, state, sync, card)
         del state
         torch.cuda.empty_cache()
         k4_launches = phase_classic(dev, args.seed, sync, card)
         torch.cuda.empty_cache()
-        inference = phase_inference(InferenceSlice(), dev, args.seed, sync,
-                                    card)
+        inference = in_path("inference", phase_inference, InferenceSlice(),
+                            dev, args.seed, sync, card)
         torch.cuda.empty_cache()
-        train = phase_train(TrainSlice(), dev, args.seed, sync, card)
+        train = in_path("train", phase_train, TrainSlice(), dev, args.seed,
+                        sync, card)
         torch.cuda.empty_cache()
-        gan = phase_gan(GanSlice(), dev, args.seed, sync, card)
+        gan = in_path("gan", phase_gan, GanSlice(), dev, args.seed, sync,
+                      card)
         torch.cuda.empty_cache()
-        gate, trained = phase_gate(GateSlice(), cfg, dev, args.seed, sync,
-                                   card)
-        serve = phase_serve(GateSlice(), cfg, dev, args.seed, sync, card,
-                            trained)
+        gate, trained = in_path("gate", phase_gate, GateSlice(), cfg, dev,
+                                args.seed, sync, card)
+        serve = in_path("serve", phase_serve, GateSlice(), cfg, dev,
+                        args.seed, sync, card, trained)
         torch.cuda.empty_cache()
-        dist_res = phase_dist(DistSlice(), cfg, dev, args.seed, sync, card,
-                              trained, train["edsr_step_ms"])
+        dist_res = in_path("dist", phase_dist, DistSlice(), cfg, dev,
+                           args.seed, sync, card, trained,
+                           train["edsr_step_ms"])
         del trained
         torch.cuda.empty_cache()
-        commands = phase_commands(CommandsSlice(), dev, args.seed, sync, card)
+        commands = in_path("commands", phase_commands, CommandsSlice(), dev,
+                           args.seed, sync, card)
         torch.cuda.empty_cache()
         eda = phase_eda(EdaSlice(), dev, args.seed, sync, card)
-        poly = phase_poly(PolySlice(), dev, args.seed, sync, card)
+        poly = in_path("poly", phase_poly, PolySlice(), dev, args.seed, sync,
+                       card)
         phase_winograd(WinogradSlice(), dev, args.seed, card)
         torch.cuda.empty_cache()
-        h5 = phase_h5(H5Slice(), cfg, dev, args.seed, sync, card)
+        h5 = in_path("h5", phase_h5, H5Slice(), cfg, dev, args.seed, sync,
+                     card)
         torch.cuda.empty_cache()
-        orbax_res = phase_orbax(OrbaxSlice(), cfg, dev, args.seed, sync, card)
+        orbax_res = in_path("orbax", phase_orbax, OrbaxSlice(), cfg, dev,
+                            args.seed, sync, card)
         torch.cuda.empty_cache()
-        pre = phase_preprocess(PreprocessSlice(), dev, args.seed, sync, card)
+        pre = in_path("preprocess", phase_preprocess, PreprocessSlice(), dev,
+                      args.seed, sync, card)
         torch.cuda.empty_cache()
         fmts = phase_formats(FormatsSlice(), dev, args.seed, sync, card)
     except CheckFailed as e:
@@ -8131,7 +8446,13 @@ def main() -> int:
         {**kernel_record("prng", "prng.cu", "tpusr/tools/serving_gate.py:97",
                          gate["prng"], k5, None),
          "randn_ms": k5["randn_ms"], "by_draw": k5["by_draw"],
-         "sass_per_value": k5["sass"], "threefry_bound_ms": k5["threefry_ms"]},
+         "sass_per_value": k5["sass"], "threefry_bound_ms": k5["threefry_ms"],
+         # phase_init: each full-width model built on the card against the
+         # CPU's draw, and the fresh processes' builds
+         "init": {"models": init["rows"],
+                  "fresh_card_ms": init["probe"]["all_ms"],
+                  "fresh_card_gate_ms": init["probe"]["gate_ms"],
+                  "fresh_cpu_gate_ms": init["parent_probe"]["gate_ms"]}},
     ]
     k2_rec["dist"] = {          # phase_dist: K2 at the new shapes
         "dp_step_ms": dist_res["dp_step_ms"],

@@ -922,7 +922,7 @@ def test_trace_keeps_every_kernel_record_across_sessions(cuda, tmp_path):
     """torch.profiler on the card has lost the kernel records of the first
     launches of a session (their launch records stay) late in a long
     process. In each of ``TRACE_SESSIONS`` ``profiling.trace`` sessions of
-    one process, every K2 launch of the block has its kernel record, and
+    one process, every launch of the block has its kernel record, and
     the lead is at least twice the records it lost
     (``chip_smoke.trace_records``). Run with ``-s`` to print the losses."""
     import json
@@ -951,6 +951,7 @@ def test_trace_keeps_every_kernel_record_across_sessions(cuda, tmp_path):
     assert [r["k2"] for r in rows] == [TRACE_LAUNCHES] * TRACE_SESSIONS
     assert all(r["lead"] >= profiling.TRACE_LEAD_KERNELS for r in rows)
     assert 2 * max(r["lead_lost"] for r in rows) <= profiling.TRACE_LEAD_KERNELS
+    assert max(r["block_lost"] for r in rows) == 0
 
 
 # ---------------------------------------------------------------------- K5

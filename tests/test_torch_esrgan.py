@@ -25,6 +25,7 @@ from tpusr_torch.bridge import (esrgan_discriminator_from_flax,
                                 esrgan_generator_from_flax)
 from tpusr_torch.core import conv3x3
 from tpusr_torch.models.esrgan import ESRGANDiscriminator, ESRGANGenerator
+from tpusr_torch.models.init import ParamRng
 from tpusr_torch.models.layers import Conv1x1, SelfAttention
 from tpusr_torch.pipeline import inference
 
@@ -34,7 +35,7 @@ GEN_ATOL = 1e-5
 
 def _attention_from_flax(params, channels, block_size=None):
     layer = SelfAttention(channels, block_size=block_size,
-                          rng=0)
+                          rng=ParamRng(0, device="cpu"))
     sd = {f"{name}.{leaf}": torch.from_numpy(
               np.array(v)[0, 0] if leaf == "kernel" else np.array(v))
           for name, p in params.items() for leaf, v in p.items()}
@@ -104,7 +105,7 @@ def test_conv1x1_is_flax_1x1_conv():
         jnp.asarray(x), jnp.asarray(k), (1, 1), "SAME",
         dimension_numbers=("NHWC", "HWIO", "NHWC"),
         precision=jax.lax.Precision.HIGHEST) + b
-    conv = Conv1x1(8, 4, 0)
+    conv = Conv1x1(8, 4, ParamRng(0, device="cpu"))
     conv.load_state_dict({"kernel": torch.from_numpy(k[0, 0]),
                           "bias": torch.from_numpy(b)})
     np.testing.assert_allclose(conv(torch.from_numpy(x)).numpy(),

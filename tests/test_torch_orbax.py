@@ -10,8 +10,8 @@ the states through ``bridge``) against the JAX package's, on the CPU.
   ``TrainState``: ``tests/test_torch_orbax_full.py``);
 - the committed fixtures restore into the port, whose networks give JAX's
   stored outputs;
-- a frozen parameter's moment that is not zero, and a GAN's two counts that
-  differ, raise naming the leaf;
+- a frozen parameter's moment that is not zero is kept, as JAX keeps it;
+  a GAN's two counts that differ raise naming the leaf;
 - the facades and ``--resume`` take JAX's checkpoints; the port's
   ``torch.save`` files of earlier versions are still read.
 """
@@ -195,6 +195,9 @@ def test_committed_fixture_gives_jax_outputs(name, jax_states):
 
 def test_a_frozen_moment_that_is_not_zero_raises_naming_it(jax_states,
                                                            tmp_path):
+    """A frozen parameter's moment that is not zero no longer raises: the
+    port keeps it, as the JAX trainer does, under its name
+    (``tests/test_torch_orbax_frozen.py`` steps and saves such states)."""
     _tr, st_j, _fwd, _x = jax_states["vgg16"]
     mu = jax.tree.map(np.asarray, st_j.opt_state.mu)
     mu["vgg16"]["block2_conv1"]["kernel"] = np.ones_like(
@@ -202,9 +205,11 @@ def test_a_frozen_moment_that_is_not_zero_raises_naming_it(jax_states,
     st_j = st_j.replace(opt_state=st_j.opt_state._replace(mu=mu))
     jax_save(str(tmp_path), "v", st_j)
     _pt, template, _f = port_state("vgg16", mf.ARCH["vgg16"])
-    with pytest.raises(ValueError,
-                       match="opt_state/mu/vgg16/block2_conv1/kernel"):
-        restore_checkpoint(str(tmp_path), "v", template)
+    got = restore_checkpoint(str(tmp_path), "v", template)
+    kept = got.opt_state["mu"]["vgg16.block2_conv1.weight"]
+    assert bool((kept == 1).all())
+    assert "vgg16.block2_conv1.weight" not in got.opt_state["nu"]
+    assert_same_leaves(port_leaves(got), jax_leaves(st_j))
 
 
 def test_gan_counts_that_differ_raise(jax_states, tmp_path):

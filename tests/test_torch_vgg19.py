@@ -15,6 +15,7 @@ from tpusr.models.vgg import VGG19Features as JaxVGG19
 from tpusr.models.vgg import _VGG19_CFG, _VGGBackbone
 from tpusr.models.vgg import preprocess_caffe as jax_preprocess_caffe
 from tpusr_torch.bridge import vgg19_features_from_flax
+from tpusr_torch.models.init import ParamRng
 from tpusr_torch.models.vgg import (IMAGENET_BGR_MEAN, VGG19_CFG,
                                     VGG16Classifier, VGG19Features,
                                     _VGGBackbone as PortBackbone,
@@ -76,7 +77,7 @@ def test_bridge_and_parameter_count(vgg19):
 @pytest.mark.parametrize("until", ["block1_conv1", "block3_conv2"])
 def test_backbone_stops_after_the_named_layer_as_jax(until):
     cfg = tuple((b, n, 4) for b, n, _f in VGG19_CFG)
-    port = PortBackbone(cfg, 6, until=until)
+    port = PortBackbone(cfg, ParamRng(6, device="cpu"), until=until)
     rng = np.random.default_rng(7)
     x = rng.standard_normal((1, 12, 12, 3)).astype(np.float32)
     net = _VGGBackbone(cfg, until=until)
@@ -113,9 +114,9 @@ def test_vgg16_classifier_keeps_its_parameter_names_and_draws():
     assert names[-4:] == ["fc1.weight", "fc1.bias", "predictions.weight",
                           "predictions.bias"]
     assert len(names) == 2 * 13 + 4
-    from tpusr_torch.models.init import ParamRng, variance_scaling
+    from tpusr_torch.models.init import variance_scaling
     rng = ParamRng(8).child("vgg16").child("block1_conv1")
-    first = variance_scaling(rng.next(), (3, 3, 3, 4), 1.0)
+    first = variance_scaling(rng.next(), (3, 3, 3, 4), 1.0, "cpu")
     assert torch.equal(m.vgg16["block1_conv1"].weight,
                        first.permute(3, 2, 0, 1))
 

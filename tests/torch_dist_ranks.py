@@ -319,12 +319,13 @@ def sp_suite(rank, world, sp):
     from tpusr_torch.bridge import esrgan_generator_from_flax
     from tpusr_torch.dist import (full_image_esrgan_sr, make_mesh,
                                   make_ring_attention)
+    from tpusr_torch.models.init import ParamRng
     from tpusr_torch.models.layers import SelfAttention
     from tpusr_torch.pipeline.inference import super_resolve_full_image
 
     mesh = make_mesh(device="cpu")
     out = {}
-    attn = SelfAttention(16)
+    attn = SelfAttention(16, rng=ParamRng(device="cpu"))
     attn.load_state_dict({k: torch.from_numpy(v)
                           for k, v in sp["attn"].items()})
     x = torch.from_numpy(sp["attn_x"])

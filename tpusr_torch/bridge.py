@@ -126,13 +126,14 @@ def vgg19_features_from_flax(params: dict, device=None):
     bb = params["vgg19"]
     widths = tuple(np.shape(bb[f"block{b}_conv1"]["kernel"])[-1]
                    for b, _n, _f in VGG19_CFG)
-    model = VGG19Features(widths=widths, device="cpu", key=NO_DRAW)
+    model = VGG19Features(widths=widths, device=resolve_device(device),
+                          key=NO_DRAW)
     sd = {}
     for name, p in bb.items():
         sd[f"vgg19.{name}.weight"] = hwio_to_oihw(_tensor(p["kernel"]))
         sd[f"vgg19.{name}.bias"] = _tensor(p["bias"])
     model.load_state_dict(sd, strict=True)
-    return model.to(resolve_device(device))
+    return model
 
 
 def qtree_from_flax(q: dict, device=None) -> dict:
@@ -202,11 +203,12 @@ def esrgan_generator_from_flax(params: dict, device=None,
         num_rrdb_blocks=sum(1 for k in params if k.startswith("rrdb_")),
         channels=np.shape(params["final_conv2"]["kernel"])[-1],
         base_filters=np.shape(params["initial_conv"]["kernel"])[-1],
-        attention_block_size=attention_block_size, device="cpu", key=NO_DRAW)
+        attention_block_size=attention_block_size,
+        device=resolve_device(device), key=NO_DRAW)
     sd = {k: _with_1x1_as_matrix(k, _tensor(v))
           for k, v in _flatten(params).items()}
     model.load_state_dict(sd, strict=True)
-    return model.to(resolve_device(device))
+    return model
 
 
 def esrgan_discriminator_from_flax(params: dict, spectral: dict, device=None):
@@ -217,12 +219,12 @@ def esrgan_discriminator_from_flax(params: dict, spectral: dict, device=None):
     from tpusr_torch.models.init import NO_DRAW
 
     model = ESRGANDiscriminator(
-        channels=np.shape(params["conv1"]["kernel"])[2], device="cpu",
-        key=NO_DRAW)
+        channels=np.shape(params["conv1"]["kernel"])[2],
+        device=resolve_device(device), key=NO_DRAW)
     sd = {k: _tensor(v) for k, v in _flatten(params).items()}
     sd.update({k: _tensor(v) for k, v in _flatten(spectral).items()})
     model.load_state_dict(sd, strict=True)
-    return model.to(resolve_device(device))
+    return model
 
 
 def lpips_alex_from_arrays(flat: dict, device=None):
@@ -382,8 +384,8 @@ def _scalar(a, dtype, what: str):
 
 def train_state_to_jax(state) -> dict:
     """A port ``TrainState`` -> the JAX ``TrainState``'s tree (numpy, flax
-    layouts); a frozen parameter's moments, which the port does not keep,
-    as the zeros the JAX trainer holds."""
+    layouts); a frozen parameter's moments that the port does not keep
+    (its own are zero) as the zeros the JAX trainer holds."""
     opt = state.opt_state
     moments = {}
     for m in ("mu", "nu"):
@@ -397,8 +399,11 @@ def train_state_to_jax(state) -> dict:
 
 def train_state_from_jax(tree: dict, like):
     """The JAX ``TrainState`` tree -> a port ``TrainState`` shaped like
-    ``like`` (a trainer's ``init_state``). A frozen parameter's moments
-    are checked to be zero and dropped."""
+    ``like`` (a trainer's ``init_state``). A frozen parameter's moment is
+    dropped where it is zero and kept where it is not (a state trained with
+    that parameter, restored into a frozen one): the JAX trainer holds it
+    and decays it by its beta each step, unused, as ``adam_update``
+    does."""
     if set(tree) != {"params", "opt_state", "lr"} or set(
             tree["opt_state"]) != {"count", "mu", "nu"}:
         raise KeyError(f"checkpoint is not a TrainState: {sorted(tree)}")
@@ -412,12 +417,7 @@ def train_state_from_jax(tree: dict, like):
                                          like.params.items()},
                                   f"opt_state/{m}")
         for n in list(opt[m]):
-            if n not in kept:
-                if bool(opt[m][n].any()):
-                    raise ValueError(
-                        f"checkpoint leaf opt_state/{m}/"
-                        f"{'/'.join(flax_path(n))} of a frozen parameter "
-                        f"is not zero")
+            if n not in kept and not bool(opt[m][n].any()):
                 del opt[m][n]
     return dataclasses.replace(like, params=params, opt_state=opt,
                                lr=_scalar(tree["lr"], np.float32,

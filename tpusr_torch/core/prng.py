@@ -202,11 +202,11 @@ def _k5(kind: str, device: torch.device, shape=None, key=(0, 0),
         words: torch.Tensor | None = None, *, lo=0.0, span=1.0, p=0.0,
         clip=(0.0, 0.0), key2=(0, 0), span_u=0, mult=0,
         minval=0) -> torch.Tensor:
-    """One launch of K5 on the current stream of the CUDA ``device``: the
-    sampler ``kind`` over the counters of ``shape`` under ``key``, or
-    (``normal`` and ``truncated_normal`` only) over the int32 ``words``. The
-    scalars are the sampler's (``csrc/prng.cu``'s
-    ``Params``), floats already rounded to float32."""
+    """One launch of K5 on the current stream of the CUDA ``device``, under
+    that card's device guard: the sampler ``kind`` over the counters of
+    ``shape`` under ``key``, or (``normal`` and ``truncated_normal`` only)
+    over the int32 ``words``. The scalars are the sampler's
+    (``csrc/prng.cu``'s ``Params``), floats already rounded to float32."""
     code, dtype = _KINDS[kind]
     if words is not None:
         if words.dtype != torch.int32 or not words.is_contiguous():
@@ -220,12 +220,14 @@ def _k5(kind: str, device: torch.device, shape=None, key=(0, 0),
     k0, k1 = as_key(key)
     k2, k3 = as_key(key2)
     lib = _build.load("prng")
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    _build.check("prng", lib.prng_launch(
-        out.data_ptr(), None if words is None else words.data_ptr(), n, code,
-        k0, k1, k2, k3, _word(lo), _word(span), int((lo, span) == (0.0, 1.0)),
-        _word(p), _word(clip[0]), _word(clip[1]), span_u & M32, mult & M32,
-        minval & M32, stream))
+    # the launch goes to the card that owns ``out``, whichever is current
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        _build.check("prng", lib.prng_launch(
+            out.data_ptr(), None if words is None else words.data_ptr(), n,
+            code, k0, k1, k2, k3, _word(lo), _word(span),
+            int((lo, span) == (0.0, 1.0)), _word(p), _word(clip[0]),
+            _word(clip[1]), span_u & M32, mult & M32, minval & M32, stream))
     with _launch_lock:
         LAUNCHES["prng"] += 1
     return out

@@ -18,7 +18,6 @@ from torch import nn
 
 from tpusr_torch.core.conv3x3 import (conv3x3_bias_act,
                                       conv3x3_bias_act_train)
-from tpusr_torch.device import resolve_device
 from tpusr_torch.models.init import ParamRng, dense_params, param_rng
 from tpusr_torch.models.layers import pixel_shuffle
 
@@ -38,14 +37,15 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 class Conv3x3(nn.Module):
     """3x3 SAME conv with an HWIO ``kernel`` and a ``bias``, run by K2,
-    drawn as the flax conv of scope ``rng`` draws them. ``init_scale`` 2.0
-    is flax's he_normal (EDSR), 1.0 its lecun_normal (the ``nn.Conv``
-    default)."""
+    drawn as the flax conv of scope ``rng`` draws them, on the device
+    ``rng`` carries. ``init_scale`` 2.0 is flax's he_normal (EDSR), 1.0 its
+    lecun_normal (the ``nn.Conv`` default)."""
 
     def __init__(self, cin: int, cout: int, rng: ParamRng,
                  init_scale: float = 2.0):
         super().__init__()
-        kernel, bias = dense_params(param_rng(rng), (3, 3, cin, cout),
+        rng = param_rng(rng)
+        kernel, bias = dense_params(rng, (3, 3, cin, cout), rng.device,
                                     init_scale)
         self.kernel = nn.Parameter(kernel, requires_grad=False)
         self.bias = nn.Parameter(bias, requires_grad=False)
@@ -63,7 +63,8 @@ class ResBlock(nn.Module):
 
 class EDSR(nn.Module):
     """EDSR x2/x3/x4. Runs on ``device`` (CUDA unless the caller passes
-    ``device="cpu"``); weights are flax's ``init`` from ``key`` (a PRNG key,
+    ``device="cpu"``), where its weights are made; they are flax's
+    ``init`` from ``key`` (a PRNG key,
     or an int seed for ``PRNGKey(seed)``; by default ``PRNGKey(42)``, the
     JAX trainer's) or are loaded with
     ``tpusr_torch.bridge.edsr_from_flax``, without gradients until
@@ -75,8 +76,7 @@ class EDSR(nn.Module):
         super().__init__()
         if scale_factor not in (2, 3, 4):
             raise ValueError(f"scale factor {scale_factor} not supported")
-        dev = resolve_device(device)
-        r = param_rng(key)
+        r = param_rng(key, device)
         f = num_filters
         self.init_args = dict(scale_factor=scale_factor, channels=channels,
                               num_res_blocks=num_res_blocks,
@@ -94,7 +94,6 @@ class EDSR(nn.Module):
             self.up0 = Conv3x3(f, f * 4, r.child("up0"))
             self.up1 = Conv3x3(f, f * 4, r.child("up1"))
         self.tail = Conv3x3(f, channels, r.child("tail"))
-        self.to(dev)
 
     def trainable(self, on: bool = True) -> "EDSR":
         """Turn the weights' gradients on (or off); returns the model."""

@@ -30,7 +30,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpusr_torch.core import prng
-from tpusr_torch.device import resolve_device
 from tpusr_torch.models.edsr import Conv3x3
 from tpusr_torch.models.init import DEFAULT_KEY, ParamRng, param_rng
 from tpusr_torch.models.layers import (SelfAttention, SNConv, SNDense,
@@ -79,7 +78,8 @@ class RRDB(nn.Module):
 
 class ESRGANGenerator(nn.Module):
     """The RRDB generator, x``scale_factor`` (a power of 2), on ``device``
-    (CUDA unless the caller passes ``device="cpu"``); weights are flax's
+    (CUDA unless the caller passes ``device="cpu"``, its weights made
+    there); weights are flax's
     ``init`` from ``key`` (a PRNG key, or an int seed; by default the
     first of ``split(PRNGKey(42))``, the JAX GAN trainer's) or loaded with
     ``tpusr_torch.bridge.esrgan_generator_from_flax``, without gradients
@@ -106,8 +106,8 @@ class ESRGANGenerator(nn.Module):
                 f"ESRGANGenerator scale_factor must be a power of 2 "
                 f"(log2(scale) upsample blocks, ESRGAN_model.py:327-339); "
                 f"got {scale_factor}")
-        dev = resolve_device(device)
-        r = param_rng(prng.split(DEFAULT_KEY)[0] if key is None else key)
+        r = param_rng(prng.split(DEFAULT_KEY)[0] if key is None else key,
+                      device)
         f = base_filters
         self.init_args = dict(scale_factor=scale_factor,
                               growth_channels=growth_channels,
@@ -133,7 +133,6 @@ class ESRGANGenerator(nn.Module):
                     f, rng=r.child("self_attention_upsample_0"))
         self.final_conv1 = _conv(f, f, r.child("final_conv1"))
         self.final_conv2 = _conv(f, channels, r.child("final_conv2"))
-        self.to(dev)
 
     def trainable(self, on: bool = True) -> "ESRGANGenerator":
         """Turn the weights' gradients on (or off); returns the model."""
@@ -178,10 +177,10 @@ class ESRGANDiscriminator(nn.Module):
     def __init__(self, channels: int = 3, device=None, key=None):
         """Weights and ``u`` are flax's ``init`` from ``key`` (a PRNG key,
         or an int seed; by default the second of ``split(PRNGKey(42))``,
-        the JAX GAN trainer's)."""
+        the JAX GAN trainer's), made on ``device``."""
         super().__init__()
-        dev = resolve_device(device)
-        r = param_rng(prng.split(DEFAULT_KEY)[1] if key is None else key)
+        r = param_rng(prng.split(DEFAULT_KEY)[1] if key is None else key,
+                      device)
         self.init_args = dict(channels=channels)
         self.conv1 = SNConv(channels, 64, rng=r.child("conv1"))
         cin = 64
@@ -191,7 +190,6 @@ class ESRGANDiscriminator(nn.Module):
             cin = f
         self.dense1 = SNDense(cin, 256, rng=r.child("dense1"))
         self.output = SNDense(256, 1, rng=r.child("output"))
-        self.to(dev)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False
                 ) -> torch.Tensor:

@@ -26,8 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpusr_torch.core import prng
-from tpusr_torch.models.init import (ParamRng, dense_params, glorot_uniform,
-                                    param_rng)
+from tpusr_torch.models.init import (ParamRng, dense_params, draw_device,
+                                    glorot_uniform, param_rng)
 
 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -69,25 +69,27 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 
 
 class _SpectralParams(nn.Module):
-    def _init_params(self, shape, rng: ParamRng | None) -> None:
-        """flax's draws in the layer's scope: the glorot-uniform kernel,
-        the zero bias, then the spectral ``u`` ~ N(0, 1) (1, features)
-        (``tpusr/models/layers.py:48-52``)."""
-        rng = param_rng(rng)
-        draw = rng.draw
+    def _init_params(self, shape, rng: ParamRng) -> None:
+        """flax's draws in the layer's scope, on its device: the
+        glorot-uniform kernel, the zero bias, then the spectral ``u`` ~ N(0,
+        1) (1, features) (``tpusr/models/layers.py:48-52``)."""
+        dev = draw_device(rng.device)
         self.kernel = nn.Parameter(
-            glorot_uniform(rng.next(), shape) if draw else torch.zeros(shape),
-            requires_grad=False)
+            glorot_uniform(rng.next(), shape, dev) if rng.draw
+            else torch.zeros(shape, device=dev), requires_grad=False)
         rng.next()
-        self.bias = nn.Parameter(torch.zeros(shape[-1]), requires_grad=False)
-        self.register_buffer("u", prng.normal(rng.next(), (1, shape[-1]))
-                             if draw else torch.zeros((1, shape[-1])))
+        self.bias = nn.Parameter(torch.zeros(shape[-1], device=dev),
+                                 requires_grad=False)
+        self.register_buffer("u", prng.normal(rng.next(), (1, shape[-1]), dev)
+                             if rng.draw else torch.zeros((1, shape[-1]),
+                                                          device=dev))
 
 
 class SNConv(_SpectralParams):
     """Spectrally-normalized Conv2D (keras SpectralNormalization parity):
     HWIO ``kernel``, ``bias`` and the buffer ``u`` (1, features); NHWC in
-    and out, XLA's SAME padding at any stride."""
+    and out, XLA's SAME padding at any stride. Drawn on the device ``rng``
+    carries."""
 
     def __init__(self, cin: int, features: int, kernel_size=(3, 3),
                  strides=(1, 1), padding: str = "SAME",
@@ -97,7 +99,7 @@ class SNConv(_SpectralParams):
             raise ValueError(f"SNConv: padding {padding!r} (SAME only)")
         kh, kw = kernel_size
         self.strides = tuple(strides)
-        self._init_params((kh, kw, cin, features), rng)
+        self._init_params((kh, kw, cin, features), param_rng(rng))
 
     def forward(self, x: torch.Tensor, update_stats: bool = False
                 ) -> torch.Tensor:
@@ -114,11 +116,11 @@ class SNConv(_SpectralParams):
 
 class SNDense(_SpectralParams):
     """Spectrally-normalized Dense: ``kernel`` (in, features), ``bias`` and
-    the buffer ``u`` (1, features)."""
+    the buffer ``u`` (1, features), drawn as ``SNConv``'s."""
 
     def __init__(self, cin: int, features: int, rng: ParamRng | None = None):
         super().__init__()
-        self._init_params((cin, features), rng)
+        self._init_params((cin, features), param_rng(rng))
 
     def forward(self, x: torch.Tensor, update_stats: bool = False
                 ) -> torch.Tensor:
@@ -132,11 +134,12 @@ class Conv1x1(nn.Module):
     """flax ``nn.Conv(features, (1, 1))`` on NHWC as a matrix product over
     the channel axis: ``kernel`` (Cin, Cout) (flax's (1, 1, Cin, Cout)
     without its unit axes), ``bias``; flax's lecun_normal init in the
-    scope ``rng``."""
+    scope ``rng``, on its device."""
 
     def __init__(self, cin: int, cout: int, rng: ParamRng):
         super().__init__()
-        kernel, bias = dense_params(param_rng(rng), (cin, cout))
+        rng = param_rng(rng)
+        kernel, bias = dense_params(rng, (cin, cout), rng.device)
         self.kernel = nn.Parameter(kernel, requires_grad=False)
         self.bias = nn.Parameter(bias, requires_grad=False)
 
@@ -175,6 +178,7 @@ class SelfAttention(nn.Module):
     online-softmax loop in blocks of ``block_size`` tokens, which must divide
     HW. ``attention_fn(gg, ff, hf) -> o`` on (B, HW, d) token tensors
     (queries = g, keys = f, values = h) overrides both and takes precedence.
+    Its weights are drawn on the device ``rng`` carries.
     """
 
     def __init__(self, channels: int, block_size: int | None = None,

@@ -15,8 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpusr_torch.bridge import hwio_to_oihw
-from tpusr_torch.device import resolve_device
-from tpusr_torch.models.init import dense_params, param_rng
+from tpusr_torch.models.init import DrawnConv2d, dense_params, param_rng
 
 
 class SRCNN(nn.Module):
@@ -24,22 +23,23 @@ class SRCNN(nn.Module):
                  device=None, key=None):
         """Weights are flax's ``init`` from ``key`` (a PRNG key, or an int
         seed for ``PRNGKey(seed)``; by default ``PRNGKey(42)``, the JAX
-        trainer's)."""
+        trainer's), made on ``device`` (CUDA unless ``device="cpu"``); no
+        torch initialiser runs."""
         super().__init__()
-        dev = resolve_device(device)
-        r = param_rng(key)
+        r = param_rng(key, device)
         self.init_args = dict(channels=channels, f1=f1, f2=f2)
         for name, cin, cout, k in (("conv1", channels, f1, 9),
                                    ("conv2", f1, f2, 1),
                                    ("conv3", f2, channels, 5)):
-            conv = nn.Conv2d(cin, cout, k, padding=k // 2)
+            conv = DrawnConv2d(cin, cout, k, padding=k // 2,
+                               device=r.device)
             # flax nn.Conv's default lecun_normal: variance 1 / fan_in
-            kernel, bias = dense_params(r.child(name), (k, k, cin, cout))
+            kernel, bias = dense_params(r.child(name), (k, k, cin, cout),
+                                        r.device)
             conv.weight.data = hwio_to_oihw(kernel).contiguous()
             conv.bias.data = bias
             self.add_module(name, conv)
         self.requires_grad_(False)
-        self.to(dev)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, C) -> (N, H, W, C)."""

@@ -26,10 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpusr_torch.bridge import dense_to_linear, hwio_to_oihw
-from tpusr_torch.device import resolve_device
 from tpusr_torch.core import prng
-from tpusr_torch.models.init import (ParamRng, dense_params, dropout_key,
-                                    param_rng)
+from tpusr_torch.models.init import (DrawnConv2d, DrawnLinear, ParamRng,
+                                    dense_params, dropout_key, param_rng)
 
 # (block, convs-in-block, filters)
 VGG16_CFG = ((1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512))
@@ -53,27 +52,28 @@ def preprocess_caffe(x_rgb_255: torch.Tensor) -> torch.Tensor:
 class _VGGBackbone(nn.ModuleDict):
     """The VGG conv base: ``cfg`` (block, convs, width) rows, each conv 3x3
     SAME + ReLU (flax lecun_normal kernels, zero biases, drawn in the
-    scope ``rng``), a 2x2 max pool after each block. With
+    scope ``rng`` on its device; no torch initialiser runs), a 2x2 max
+    pool after each block. With
     ``until`` (a layer name) it holds the layers up to that conv and returns
     right after its ReLU; a name that matches no layer raises, so a typo
     cannot return the post-pool features. Takes and returns NCHW."""
 
     def __init__(self, cfg, rng: ParamRng, until: str | None = None):
         super().__init__()
-        rng = param_rng(rng)
         names = [f"block{b}_conv{c}" for b, n, _w in cfg for c in range(1, n + 1)]
         if until is not None and until not in names:
             raise ValueError(
                 f"until={until!r} matched no layer of this backbone")
+        rng = param_rng(rng)
         self.until = until
         self.blocks = tuple(cfg)
         cin = 3
         for b, n, wd in self.blocks:
             for c in range(1, n + 1):
-                conv = nn.Conv2d(cin, wd, 3, padding=1)
+                conv = DrawnConv2d(cin, wd, 3, padding=1, device=rng.device)
                 # flax lecun_normal: variance 1 / fan_in, stored HWIO there
                 kernel, bias = dense_params(rng.child(f"block{b}_conv{c}"),
-                                            (3, 3, cin, wd))
+                                            (3, 3, cin, wd), rng.device)
                 conv.weight.data = hwio_to_oihw(kernel).contiguous()
                 conv.bias.data = bias
                 self[f"block{b}_conv{c}"] = conv
@@ -100,26 +100,27 @@ class VGG16Classifier(nn.Module):
                  widths: tuple[int, ...] | None = None, device=None,
                  key=None, dropout_rate: float = 0.2):
         """Weights are flax's ``init`` from ``key`` (a PRNG key, or an int
-        seed; by default ``PRNGKey(42)``, ``models.init.DEFAULT_KEY``)."""
+        seed; by default ``PRNGKey(42)``, ``models.init.DEFAULT_KEY``), made
+        on ``device`` (CUDA unless ``device="cpu"``)."""
         super().__init__()
-        dev = resolve_device(device)
-        r = param_rng(key)
+        r = param_rng(key, device)
         widths = tuple(widths or (f for _b, _n, f in VGG16_CFG))
         self.dropout_rate = dropout_rate
         self.init_args = dict(num_classes=num_classes, dense_units=dense_units,
                               widths=widths, dropout_rate=dropout_rate)
         self.blocks = tuple((b, n, wd) for (b, n, _f), wd in zip(VGG16_CFG, widths))
         self.vgg16 = _VGGBackbone(self.blocks, r.child("vgg16"))
-        self.fc1 = nn.Linear(widths[-1], dense_units)
-        self.predictions = nn.Linear(dense_units, num_classes)
+        self.fc1 = DrawnLinear(widths[-1], dense_units, device=r.device)
+        self.predictions = DrawnLinear(dense_units, num_classes,
+                                       device=r.device)
         for name in ("fc1", "predictions"):
             lin = getattr(self, name)
             kernel, bias = dense_params(r.child(name), (lin.in_features,
-                                                        lin.out_features))
+                                                        lin.out_features),
+                                        r.device)
             lin.weight.data = dense_to_linear(kernel).contiguous()
             lin.bias.data = bias
         self.requires_grad_(False)
-        self.to(dev)
 
     def _dropout(self, x: torch.Tensor, train: bool, dropout_rng, index: int,
                  rows: tuple[int, int] | None = None) -> torch.Tensor:
@@ -165,16 +166,15 @@ class VGG19Features(nn.Module):
     def __init__(self, widths: tuple[int, ...] | None = None, device=None,
                  key=None):
         """Weights are flax's ``init`` from ``key`` (a PRNG key, or an int
-        seed; by default ``PRNGKey(42)``, ``models.init.DEFAULT_KEY``)."""
+        seed; by default ``PRNGKey(42)``, ``models.init.DEFAULT_KEY``), made
+        on ``device``."""
         super().__init__()
-        dev = resolve_device(device)
         widths = tuple(widths or (f for _b, _n, f in VGG19_CFG))
         self.init_args = dict(widths=widths)
         cfg = tuple((b, n, wd) for (b, n, _f), wd in zip(VGG19_CFG, widths))
-        self.vgg19 = _VGGBackbone(cfg, param_rng(key).child("vgg19"),
+        self.vgg19 = _VGGBackbone(cfg, param_rng(key, device).child("vgg19"),
                                   until="block5_conv4")
         self.requires_grad_(False)
-        self.to(dev)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.vgg19(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

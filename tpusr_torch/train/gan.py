@@ -167,15 +167,15 @@ class ESRGANTrainer:
         needed, the port's modules know theirs; modules built from the two
         keys of ``split(PRNGKey(42))`` hold what the JAX trainer's default
         draws), or, with ``rng`` a PRNG key (or an int seed), a generator
-        and a discriminator drawn anew from ``split(rng)``'s two keys, as
-        flax's ``init`` draws them."""
+        and a discriminator drawn anew on the trainer's device from
+        ``split(rng)``'s two keys, as flax's ``init`` draws them."""
         gen, disc = self.generator, self.discriminator
         if rng is not None:
             rg, rd = prng.split(rng)
             gen = type(gen)(**gen.init_args,
                             attention_block_size=gen.attention_block_size,
-                            device="cpu", key=rg)
-            disc = type(disc)(**disc.init_args, device="cpu", key=rd)
+                            device=self.device, key=rg)
+            disc = type(disc)(**disc.init_args, device=self.device, key=rd)
 
         def leaves(named):
             return {k: v.detach().to(self.device, torch.float32, copy=True)

@@ -26,6 +26,9 @@ import torch
 # ``TRACE_LEAD_NAME`` span of the trace (see there)
 TRACE_LEAD_KERNELS = 256
 TRACE_LEAD_NAME = "trace_lead"
+# seconds ``trace`` waits on the host, the card idle, after the profiler's
+# window opens and before it closes (see there)
+TRACE_MARGIN_S = 0.05
 
 
 @contextlib.contextmanager
@@ -35,10 +38,15 @@ def trace(log_dir: str):
 
     On the H100 the profiler has lost the kernel records of the first
     launches of a session (their launch records stay) late in a long
-    process. So on a card the trace opens with ``TRACE_LEAD_KERNELS``
-    one-element adds in a span named ``TRACE_LEAD_NAME``, which take that
-    loss, and the block's own kernels are all in the trace; the lead's
-    missing records measure the loss."""
+    process: it keeps a kernel only if the kernel's time, converted from
+    the card's clock, falls inside its window, and that time has read up to
+    5.5 ms before the kernel's own launch. So on a card the trace waits
+    ``TRACE_MARGIN_S``
+    with the card idle after the window opens and again before it closes,
+    and opens with ``TRACE_LEAD_KERNELS`` one-element adds in a span named
+    ``TRACE_LEAD_NAME``; the lead's missing records measure what the
+    margin did not absorb, and the block's own kernels are all in the
+    trace."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
@@ -48,6 +56,8 @@ def trace(log_dir: str):
     prof = profile(activities=activities)
     prof.start()
     if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
         with record_function(TRACE_LEAD_NAME):
             lead = torch.zeros(1, device="cuda")
             for _ in range(TRACE_LEAD_KERNELS):
@@ -58,6 +68,7 @@ def trace(log_dir: str):
     finally:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

@@ -79,7 +79,9 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 class TrainState:
     """Parameters by the model's parameter names; ``opt_state`` holds Adam's
     step ``count`` and the moments ``mu``/``nu`` of the trainable
-    parameters; ``lr`` is mutable so ``ReduceLROnPlateau`` can change it."""
+    parameters (and any moment of a frozen one restored from a state that
+    trained it, ``bridge.train_state_from_jax``); ``lr`` is mutable so
+    ``ReduceLROnPlateau`` can change it."""
     params: dict
     opt_state: dict
     lr: float
@@ -164,7 +166,10 @@ def adam_update(opt: dict, params: dict, names: list, grads: list,
     on ``params[k]`` for k in ``names`` with the moments and step count of
     ``opt`` (``{"count", "mu", "nu"}``): mu = (1 - b1) g + b1 mu, nu =
     (1 - b2) g^2 + b2 nu, both bias-corrected by 1 - b^count (float32),
-    u = mu_hat / (sqrt(nu_hat) + eps), p += -lr u."""
+    u = mu_hat / (sqrt(nu_hat) + eps), p += -lr u. A moment ``opt`` holds
+    for a parameter not in ``names`` (a frozen one) takes the step of a
+    zero gradient, as the JAX trainer's masked step gives it: mu = b1 mu,
+    nu = b2 nu, and its parameter does not move."""
     opt["count"] += 1
     t = np.float32(opt["count"])
     bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** t)
@@ -186,6 +191,11 @@ def adam_update(opt: dict, params: dict, names: list, grads: list,
         torch._foreach_div_(upd, den)
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(params, upd)
+        held = set(names)
+        for m, beta in (("mu", ADAM_B1), ("nu", ADAM_B2)):
+            frozen = [v for k, v in opt[m].items() if k not in held]
+            if frozen:
+                torch._foreach_mul_(frozen, beta)
 
 
 class SupervisedSRTrainer:
@@ -220,11 +230,12 @@ class SupervisedSRTrainer:
         the port's models know their shapes; a model built from
         ``PRNGKey(42)`` holds what the JAX trainer's default ``init_state``
         draws), or, with ``rng`` a PRNG key (or an int seed), flax's
-        ``init`` from it, drawn anew. Frozen parameters
+        ``init`` from it, drawn anew on the trainer's device. Frozen parameters
         (``trainable_predicate``) need no gradient and have no moments."""
         model = self.model
         if rng is not None:
-            model = type(model)(**model.init_args, device="cpu", key=rng)
+            model = type(model)(**model.init_args, device=self.device,
+                                key=rng)
         params = {k: v.detach().to(self.device, torch.float32, copy=True)
                   .requires_grad_(self._trainable(k))
                   for k, v in model.named_parameters()}
